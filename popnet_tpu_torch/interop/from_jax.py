@@ -1,0 +1,63 @@
+"""Flax variables -> torch state dict, numpy only.
+
+The JAX package saves a model's variables as one .npz whose keys are
+'/'-joined Flax paths (`params/stem/Conv_0/kernel`,
+`batch_stats/stem/BatchNorm_0/mean`, ...) with float16 values. The port's
+modules carry the Flax auto-names as attribute names, so the mapping is by
+name: conv `kernel` HWIO -> `weight` OIHW, BatchNorm scale/bias/mean/var ->
+weight/bias/running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_LEAF = {
+    ("params", "kernel"): "weight",
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def load_npz(path) -> dict[str, np.ndarray]:
+    """Read a variables .npz into {flax path: float32 array}."""
+    with np.load(path) as data:
+        return {k: np.asarray(data[k], np.float32) for k in data.files}
+
+
+def state_dict_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Map '/'-joined Flax paths onto state-dict keys of the port's modules.
+
+    Raises ValueError on any key it cannot map."""
+    out: dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        leaf = _LEAF.get((parts[0], parts[-1]))
+        if leaf is None or len(parts) < 3:
+            raise ValueError(f"unmapped Flax variable {key!r}")
+        arr = np.asarray(value, np.float32)
+        if parts[-1] == "kernel":
+            if arr.ndim != 4:
+                raise ValueError(f"{key!r}: expected an HWIO kernel, got {arr.shape}")
+            arr = arr.transpose(3, 2, 0, 1)
+        name = ".".join(parts[1:-1] + [leaf])
+        if name in out:
+            raise ValueError(f"two Flax variables map onto {name!r}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def load_into(module: torch.nn.Module, flat: dict[str, np.ndarray]) -> torch.nn.Module:
+    """Load Flax variables into `module`; raises on a key left unmapped on
+    either side (BatchNorm's `num_batches_tracked` counters excepted)."""
+    sd = state_dict_from_jax(flat)
+    want = {k for k in module.state_dict() if not k.endswith("num_batches_tracked")}
+    missing, extra = sorted(want - sd.keys()), sorted(sd.keys() - want)
+    if missing or extra:
+        raise ValueError(f"weights do not fit the module: missing {missing[:5]}, "
+                         f"unexpected {extra[:5]}")
+    module.load_state_dict(sd, strict=False)
+    return module

@@ -1,0 +1,137 @@
+"""The port's decode kernels: plain PyTorch versions against the JAX
+package's Pallas kernels (interpret mode on the CPU) and XLA paths. The
+CUDA kernels against their plain versions: tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from popnet_tpu.decode.device import find_peaks_batched as jax_find_peaks
+from popnet_tpu.decode.device import score_limb_pairs_batched as jax_score_pairs
+from popnet_tpu.decode.openpose_infer import window_readout_heat_weighted as jax_window
+from popnet_tpu.ops.pallas_kernels import (
+    find_peaks_pallas,
+    find_peaks_pallas_bt,
+    paf_sample_pallas,
+    point_readout_pallas,
+)
+from popnet_tpu_torch.core.skeleton import LIMBS
+from popnet_tpu_torch.decode.device import find_peaks_batched, score_limb_pairs_batched
+from popnet_tpu_torch.ops import kernels
+
+
+def peak_heat(seed, B, K=15):
+    """(B, K, 28, 28) uniform heat with an exact tie, border peaks and a
+    plane with no peak above the threshold (not a flat one: on a flat plane
+    the refine argmax of the invalid slots is decided by rounding)."""
+    heat = np.random.default_rng(seed).uniform(0, 1, (B, K, 28, 28)).astype(np.float32)
+    heat[0, 0, 5, 5] = heat[0, 0, 5, 9] = 0.9      # exact tie: pick order must match
+    heat[0, 1, 0, 3] = heat[0, 2, 27, 27] = 5.0    # border peaks
+    heat[B - 1, 3, 5, 0] = 5.0
+    heat[B - 1, 4] *= 0.09                         # below threshold everywhere
+    return heat
+
+
+@pytest.fixture(scope="module")
+def heat3():
+    return peak_heat(11, 3)
+
+
+@pytest.mark.parametrize("which", ["bt", "row"])
+def test_find_peaks_plain_matches_pallas(heat3, which):
+    """px, py, loc and valid exact (invalid slots included), score 1e-5."""
+    if which == "bt":
+        ref = find_peaks_pallas_bt(jnp.asarray(heat3), bt=2, interpret=True)
+    else:
+        ref = find_peaks_pallas(jnp.asarray(heat3), interpret=True)
+    got = kernels.find_peaks_plain(torch.from_numpy(heat3))
+    for i in (0, 1, 2, 4):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(ref[i]))
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]), atol=1e-5)
+    assert not got[4][2, 4].any() and got[4][0].sum() > 0
+
+
+def test_find_peaks_batched_matches_xla(heat3):
+    heat = np.concatenate([heat3, np.zeros_like(heat3[:, :1])], 1).transpose(0, 2, 3, 1)
+    pk_x, v_x = jax_find_peaks(jnp.asarray(heat), refine="xla")
+    pk, v = find_peaks_batched(torch.from_numpy(np.ascontiguousarray(heat)))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_x))
+    np.testing.assert_allclose(pk.numpy(), np.asarray(pk_x), atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def pair_case():
+    rng = np.random.default_rng(7)
+    heat = rng.uniform(0, 1, (2, 28, 28, 16)).astype(np.float32)
+    paf = rng.uniform(-1, 1, (2, 28, 28, 28)).astype(np.float32)
+    peaks, valid = jax_find_peaks(jnp.asarray(heat))
+    return paf, np.asarray(peaks), np.asarray(valid)
+
+
+def test_paf_line_sums_plain_matches_pallas(pair_case):
+    """Sums within 1e-4, counts exact, against paf_sample_pallas on the same
+    pair geometry and the same edge-padded planes."""
+    paf, peaks, valid = pair_case
+    B, H, W, C = paf.shape
+    L, M = C // 2, peaks.shape[2]
+    sx, sy, dx, dy, _, ux, uy = kernels._pair_geometry(torch.from_numpy(peaks), LIMBS)
+    geo = [a.reshape(B, L, M * M) for a in (sx, sy, dx, dy, ux, uy)]
+    pafp = np.pad(paf.transpose(0, 3, 1, 2).reshape(B, L, 2, H, W),
+                  ((0, 0), (0, 0), (0, 0), (2, 2), (2, 2)), mode="edge")
+    ref_sum, ref_cnt = paf_sample_pallas(
+        jnp.asarray(pafp.transpose(0, 1, 2, 4, 3)), *[jnp.asarray(g.numpy()) for g in geo],
+        interpret=True)
+    got_sum, got_cnt = kernels.paf_line_sums_plain(torch.from_numpy(paf), *geo)
+    np.testing.assert_array_equal(got_cnt.numpy(), np.asarray(ref_cnt))
+    np.testing.assert_allclose(got_sum.numpy(), np.asarray(ref_sum), atol=1e-4)
+
+
+@pytest.mark.parametrize("method", ["pallas", "onehot"])
+def test_paf_score_plain_matches_jax(pair_case, method):
+    paf, peaks, valid = pair_case
+    ref_s, ref_ok = jax_score_pairs(jnp.asarray(paf), jnp.asarray(peaks), jnp.asarray(valid),
+                                    method=method)
+    got_s, got_ok = score_limb_pairs_batched(torch.from_numpy(paf), torch.from_numpy(peaks),
+                                             torch.from_numpy(valid))
+    np.testing.assert_array_equal(got_ok.numpy(), np.asarray(ref_ok))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), atol=1e-5)
+    assert got_ok.any()
+
+
+def test_paf_taps_beyond_the_pad_read_zero():
+    """A line point far off the map: its taps fall outside the 2-wide edge
+    pad and contribute 0 instead of the clamped edge value."""
+    paf = torch.ones((1, 28, 28, 2))
+    geo = [torch.tensor([[[v]]], dtype=torch.float32) for v in (-60.0, 100.0, 0.0, 0.0, 1.0, 0.0)]
+    s, c = kernels.paf_line_sums_plain(paf, *geo)
+    assert float(s) == 0.0 and float(c) == 0.0
+    geo[0] = torch.tensor([[[-17.0]]])        # lx = -2.5: taps at padded -2..1, two inside
+    s, _ = kernels.paf_line_sums_plain(paf, *geo)
+    assert 0.0 < float(s) < 10.0
+
+
+def test_window_readout_plain_matches_pallas():
+    """1e-5 including border-shrunken and collapsed (off-map centre) windows."""
+    rng = np.random.default_rng(3)
+    B, H, W, K, P = 2, 28, 28, 15, 6
+    z = rng.uniform(0.5, 6.0, (B, H, W, K)).astype(np.float32)
+    heat = rng.uniform(-0.2, 1.0, (B, H, W, K)).astype(np.float32)
+    cx = rng.integers(-3, W + 3, (B, P, K)).astype(np.int32)
+    cy = rng.integers(-3, H + 3, (B, P, K)).astype(np.int32)
+    ref = jax_window(jnp.asarray(z), jnp.asarray(heat), jnp.asarray(cx), jnp.asarray(cy),
+                     use_pallas=True)
+    got = kernels.window_readout_plain(*(torch.from_numpy(a) for a in (z, heat, cx, cy)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_point_readout_plain_matches_pallas():
+    rng = np.random.default_rng(5)
+    B, H, W, P = 3, 64, 48, 17
+    img = rng.uniform(0.5, 6.0, (B, H, W)).astype(np.float32)
+    cx = rng.integers(0, W, (B, P)).astype(np.int32)
+    cy = rng.integers(0, H, (B, P)).astype(np.int32)
+    ref = point_readout_pallas(jnp.asarray(img), jnp.asarray(cx), jnp.asarray(cy), interpret=True)
+    got = kernels.point_readout_plain(*(torch.from_numpy(a) for a in (img, cx, cy)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

@@ -1,0 +1,157 @@
+"""The PyTorch/CUDA port as a package: import rule, weight loader, entry
+points and kernel wrappers (popnet_tpu_torch)."""
+
+import ast
+import inspect
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import popnet_tpu_torch
+from popnet_tpu_torch import build_openpose_pipeline, load_npz, state_dict_from_jax
+from popnet_tpu_torch.interop.from_jax import load_into
+from popnet_tpu_torch.models import RTPoseLight3D
+from popnet_tpu_torch.ops import _build, kernels
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "popnet_tpu_torch")
+WEIGHTS = os.path.join(ROOT, "examples", "results", "bench_weights_openpose.npz")
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(mods)
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    """Every module of the port (and chip_smoke.py) imports while jax, flax
+    and popnet_tpu are unimportable; popnet_tpu_torch itself must pass the
+    blocker (a bare prefix match would block it too)."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "flax") or name == "popnet_tpu" \\
+                        or name.startswith("popnet_tpu."):
+                    raise ImportError("blocked: " + name)
+                return None
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {ROOT!r})
+        for m in {_port_modules()!r} + ["chip_smoke"]:
+            importlib.import_module(m)
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "popnet_tpu")]
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_no_source_names_the_reference_package():
+    """Static check: no import statement of the port or chip_smoke.py names
+    jax, flax or popnet_tpu."""
+    files = [os.path.join(ROOT, m.replace(".", os.sep) + ".py") for m in _port_modules()]
+    files = [f if os.path.exists(f) else f[:-3] + os.sep + "__init__.py" for f in files]
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    for f in files:
+        tree = ast.parse(open(f).read())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for n in names:
+                top = n.split(".")[0]
+                assert top not in ("jax", "flax", "popnet_tpu"), (f, n)
+
+
+def test_load_npz_maps_every_committed_key():
+    flat = load_npz(WEIGHTS)
+    assert len(flat) == 201
+    assert all(v.dtype == np.float32 for v in flat.values())
+    sd = state_dict_from_jax(flat)
+    assert len(sd) == 201
+    k = flat["params/stage1_heat/ConvBN_0/Conv_0/kernel"]
+    w = sd["stage1_heat.ConvBN_0.Conv_0.weight"]
+    assert tuple(w.shape) == (k.shape[3], k.shape[2], k.shape[0], k.shape[1])
+    np.testing.assert_array_equal(w.numpy(), k.transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["stem.BatchNorm_0.running_var"].numpy(),
+                                  flat["batch_stats/stem/BatchNorm_0/var"])
+    np.testing.assert_array_equal(sd["stem.BatchNorm_0.weight"].numpy(),
+                                  flat["params/stem/BatchNorm_0/scale"])
+    model = load_into(RTPoseLight3D(), flat)
+    np.testing.assert_array_equal(model.stem.BasicBlock_2.Conv_2.weight.detach().numpy(),
+                                  flat["params/stem/BasicBlock_2/Conv_2/kernel"].transpose(3, 2, 0, 1))
+
+
+def test_loader_raises_on_unmapped_keys():
+    flat = load_npz(WEIGHTS)
+    with pytest.raises(ValueError, match="unmapped"):
+        state_dict_from_jax({**flat, "params/stem/Conv_0/extra": np.zeros(3, np.float32)})
+    with pytest.raises(ValueError, match="unexpected"):
+        load_into(RTPoseLight3D(), {**flat, "params/stem/Conv_9/kernel": np.zeros((1, 1, 1, 1), np.float32)})
+    missing = dict(flat)
+    del missing["batch_stats/stem/BatchNorm_1/mean"]
+    with pytest.raises(ValueError, match="missing"):
+        load_into(RTPoseLight3D(), missing)
+
+
+def test_entry_point_defaults_to_cuda_and_never_runs_on_cpu_unasked():
+    assert inspect.signature(build_openpose_pipeline).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_openpose_pipeline(load_npz(WEIGHTS))
+    assert set(popnet_tpu_torch.__all__) >= {"build_openpose_pipeline", "serve_stream", "load_npz"}
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
+    kernels.reset_launches()
+    rng = np.random.default_rng(0)
+    h = torch.as_tensor(rng.uniform(0, 1, (2, 15, 28, 28)).astype(np.float32))
+    got = kernels.find_peaks(h)
+    ref = kernels.find_peaks_plain(h)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    img = torch.as_tensor(rng.uniform(0, 1, (2, 9, 7)).astype(np.float32))
+    cx = torch.tensor([[0, 6, 7, -1]], dtype=torch.int32).repeat(2, 1)
+    cy = torch.tensor([[0, 8, 1, 1]], dtype=torch.int32).repeat(2, 1)
+    out = kernels.point_readout(img, cx, cy)
+    np.testing.assert_array_equal(out[:, 2:].numpy(), 0.0)     # off the image reads 0
+    np.testing.assert_array_equal(out[:, 0].numpy(), img[:, 0, 0].numpy())
+    assert kernels.launch_counts() == {k.__name__: 0 for k in kernels.KERNELS}
+
+
+def test_wrappers_refuse_tensors_off_cpu_and_cuda():
+    with pytest.raises(ValueError, match="one CPU or CUDA device"):
+        kernels.find_peaks(torch.empty((1, 15, 28, 28), device="meta"))
+    with pytest.raises(ValueError, match="one CPU or CUDA device"):
+        kernels.point_readout(torch.zeros((1, 4, 4)), torch.zeros((1, 2), dtype=torch.int32,
+                                                                  device="meta"),
+                              torch.zeros((1, 2), dtype=torch.int32))
+
+
+def test_build_targets_are_content_hashed_in_an_ignored_directory():
+    assert set(_build.SOURCES) == {"find_peaks", "paf_score", "readout"}
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").exists()
+        t = _build._target(name)
+        assert t.parent == _build.BUILD_DIR and t.name.startswith(f"lib{name}-")
+    assert os.path.relpath(_build.BUILD_DIR, ROOT).split(os.sep)[0] == "build"
+    assert "build/" in open(os.path.join(ROOT, ".gitignore")).read().split()
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
