@@ -18,8 +18,11 @@ lines each:
    kernels and through the plain versions (on the host) must agree, and
    people must be found on most frames;
 5. timing: the default bf16 pipeline with the q16 wire through
-   serve_stream(queue_depth=3): frames/s, and CUDA-event times per batch of
-   the CNN, each kernel, its plain version, its bound and assembly.
+   serve_stream(queue_depth=3): its output against the float32 slice's on
+   the same frames, frames/s, CUDA-event times per batch of the CNN and
+   assembly, and each kernel's, its plain version's and the library call's
+   device time (calls captured in a CUDA graph, so host dispatch is not
+   counted) beside the kernel's bound.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -62,7 +65,8 @@ def require(cond: bool, what: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warm: int = 2) -> float:
-    """Mean CUDA-event time of fn() over `reps` back-to-back calls."""
+    """Mean CUDA-event time of fn() over `reps` back-to-back eager calls:
+    the card's time, or the host's where issuing the calls takes longer."""
     import torch
 
     for _ in range(warm):
@@ -75,6 +79,36 @@ def time_ms(fn, reps: int = 20, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
+    """Device time of one fn() call: `reps` calls captured in one CUDA
+    graph, whose replays are timed with CUDA events, so the host's dispatch
+    of the calls is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up off the default stream, as capture asks
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def person_frames(rng: np.random.Generator, B: int, device, H: int = 512, W: int = 480):
@@ -229,7 +263,8 @@ def phase_kernels(rng: np.random.Generator, dev, B: int) -> dict[str, float]:
 
 
 def phase_slice(rng, dev, B, weights):
-    """The float32 slice on B frames; returns (frames, maps) for timing."""
+    """The float32 slice on B frames; returns the frames, the main path's
+    launch counts and its unpacked output."""
     import torch
 
     from popnet_tpu_torch import build_openpose_pipeline
@@ -277,21 +312,34 @@ def phase_slice(rng, dev, B, weights):
     say("slice", f"kernel decode vs plain decode (host) on the same maps: counts and "
         f"visibility exact, joints2d max|err| {e2:.3g} px, joints3d {e3:.3g} m (bar 1e-4)")
     require(e2 <= 1e-4 and e3 <= 1e-4, "kernel and plain decode joints differ")
-    return frames, launches
+    return frames, launches, out
 
 
 def _bounds(name: str, inputs: dict) -> tuple[float, float, float]:
     """(bytes, ops, bound_ms) of one call at this run's inputs: each input
     byte read once, each output byte written once; ops at the float32 rate."""
+    import torch
+    import torch.nn.functional as F
+
     if name == "find_peaks":
-        h, px, py = inputs["heat"], inputs["px"], inputs["py"]
+        h, px, py, thresh = inputs["heat"], inputs["px"], inputs["py"], inputs["thresh"]
         B, K, H, W = h.shape
         M = px.shape[-1]
+        size, factor = 5, 8
         nbytes = h.numel() * 4 + B * K * M * (4 * 4 + 1)
-        # refine: upA (S x size x size) and the in-window (S x S) x size products
-        win_w = ((px.clamp(max=2) + (W - 1 - px).clamp(max=2) + 1) * 8).double()
-        win_h = ((py.clamp(max=2) + (H - 1 - py).clamp(max=2) + 1) * 8).double()
-        ops = float((2 * 40 * 25 + 2 * 5 * win_w * win_h).sum()) + 6.0 * h.numel() * (1 + M)
+        # NMS once: 4 neighbour maxima, 2 compares and a select per cell; the
+        # top-M pick: a compare and a select per NMS survivor
+        pad = F.pad(h, (1, 1, 1, 1), value=-1e30)
+        nbr = torch.maximum(torch.maximum(pad[..., :-2, 1:-1], pad[..., 2:, 1:-1]),
+                            torch.maximum(pad[..., 1:-1, :-2], pad[..., 1:-1, 2:]))
+        survivors = float(((h >= nbr) & (h > thresh)).sum())
+        # refine of every slot over its window of win_h x win_w upsampled
+        # cells: U.patch for the window's rows (win_h x size x size), then
+        # their products with U^T in the window (win_h x win_w x size)
+        win_w = ((px.clamp(max=2) + (W - 1 - px).clamp(max=2) + 1) * factor).double()
+        win_h = ((py.clamp(max=2) + (H - 1 - py).clamp(max=2) + 1) * factor).double()
+        refine = float((2 * size * win_h * (size + win_w)).sum())
+        ops = 6.0 * h.numel() + 2.0 * survivors + refine
     elif name == "paf_score":
         paf, peaks, score = inputs["paf"], inputs["peaks"], inputs["score"]
         nbytes = paf.numel() * 4 + peaks.numel() * 4 + peaks.numel() // 3 + score.numel() * 5
@@ -311,22 +359,25 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float]:
     return nbytes, ops, bound_ms
 
 
-def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches):
+def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_out):
     import torch
 
     from popnet_tpu_torch import build_openpose_pipeline, serve_stream
-    from popnet_tpu_torch.decode.assemble_device import assemble_batched
-    from popnet_tpu_torch.decode.device import find_peaks_batched, score_limb_pairs_batched
+    from popnet_tpu_torch.core.config import DecodeConfig
     from popnet_tpu_torch.core.skeleton import LIMBS
+    from popnet_tpu_torch.decode.assemble_device import assemble_batched
+    from popnet_tpu_torch.decode.device import (find_peaks_batched, peak_planes,
+                                                score_limb_pairs_batched)
+    from popnet_tpu_torch.decode.openpose_infer import readout_inputs
     from popnet_tpu_torch.interop.from_jax import load_into
     from popnet_tpu_torch.models import RTPoseLight3D
     from popnet_tpu_torch.models.layers import keep_batchnorm_float32
     from popnet_tpu_torch.ops import kernels
-    from popnet_tpu_torch.serving import preproc_depth
+    from popnet_tpu_torch.serving import preproc_depth, unpack_outputs_q16
 
     pipe = build_openpose_pipeline(weights, pack="q16")     # bf16 CNN, the default
-    for _ in serve_stream(pipe, (frames for _ in range(3)), queue_depth=3):
-        pass
+    warm = list(serve_stream(pipe, (frames for _ in range(3)), queue_depth=3))
+    check_bf16(unpack_outputs_q16(warm[0], 16, 15), f32_out)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -340,6 +391,7 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches):
         f"{wall:.3f} s = {fps:.1f} frames/s ({wall / iters * 1e3:.2f} ms/batch); "
         f"max_memory_allocated {peak_mem / 2**20:.1f} MiB")
 
+    # each kernel's inputs as the bf16 main path makes them, from its helpers
     model = keep_batchnorm_float32(load_into(RTPoseLight3D(), weights).eval().to(dev, torch.bfloat16))
     with torch.inference_mode():
         x = preproc_depth(frames)
@@ -347,21 +399,17 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches):
         cnn_ms = time_ms(lambda: model(xb), reps=10)
         (paf, heat, z), _ = model(xb)
         heat_n, paf_n, z_n = (t.float().permute(0, 2, 3, 1) for t in (heat, paf, z))
-        h = heat_n[..., :15].permute(0, 3, 1, 2)
+        h = peak_planes(heat_n)
         px, py, _, _, _ = kernels.find_peaks(h)
         peaks, pvalid = find_peaks_batched(heat_n)
         scores, ok = score_limb_pairs_batched(paf_n, peaks, pvalid)
         joints, counts = assemble_batched(peaks, pvalid, scores, ok)
-        gx = (joints[..., 0] / 8).to(torch.int32).contiguous()
-        gy = (joints[..., 1] / 8).to(torch.int32).contiguous()
-        zmap = z_n * 2.0 + 3.0
-        raw = x[..., 0] * 2.0 + 3.0
-        rx = joints[..., 0].clamp(0, 223).to(torch.int32).reshape(B, -1).contiguous()
-        ry = joints[..., 1].clamp(0, 223).to(torch.int32).reshape(B, -1).contiguous()
-        hk = heat_n[..., :15]
+        (zmap, hk, gx, gy), (raw, rx, ry) = readout_inputs(joints, heat_n, z_n, x)
+        bi, ryl, rxl = torch.arange(B, device=dev)[:, None], ry.long(), rx.long()
         calls = {
             "find_peaks": (lambda: kernels.find_peaks(h), lambda: kernels.find_peaks_plain(h),
-                           None, {"heat": h, "px": px, "py": py}),
+                           None, {"heat": h, "px": px, "py": py,
+                                  "thresh": DecodeConfig().thresh_heatmap}),
             "paf_score": (lambda: kernels.paf_score(paf_n, peaks, pvalid, LIMBS),
                           lambda: kernels.paf_score_plain(paf_n, peaks, pvalid, LIMBS),
                           None, {"paf": paf_n, "peaks": peaks, "score": scores}),
@@ -370,17 +418,18 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches):
                                None, {"cx": gx, "cy": gy, "H": 28, "W": 28}),
             "point_readout": (lambda: kernels.point_readout(raw, rx, ry),
                               lambda: kernels.point_readout_plain(raw, rx, ry),
-                              lambda: raw[torch.arange(B, device=dev)[:, None], ry.long(), rx.long()],
-                              {"cx": rx}),
+                              lambda: raw[bi, ryl, rxl], {"cx": rx}),
         }
         rows = []
         for name, (kern, plain, lib, inputs) in calls.items():
-            ms = time_ms(kern)
-            plain_ms = time_ms(plain, reps=5)
-            lib_ms = time_ms(lib) if lib is not None else None
+            ms = graph_ms(kern)
+            eager_ms = time_ms(kern)
+            plain_ms = graph_ms(plain, reps=5)
+            lib_ms = graph_ms(lib) if lib is not None else None
             nbytes, ops, bound_ms = _bounds(name, inputs)
             bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
-            say("timing", f"{name}: {ms:.4f} ms/batch, plain {plain_ms:.4f} ms, bound "
+            say("timing", f"{name}: {ms:.4f} ms/batch on the card (CUDA graph; "
+                f"{eager_ms:.4f} ms per eager call), plain {plain_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)"
                 + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
             src, rep = KERNEL_META[name]
@@ -389,10 +438,28 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches):
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": lib_ms})
         asm_ms = time_ms(lambda: assemble_batched(peaks, pvalid, scores, ok), reps=3, warm=1)
-    say("timing", f"CNN bf16 {cnn_ms:.3f} ms/batch; assembly (plain torch, "
+    say("timing", f"CNN bf16 {cnn_ms:.3f} ms/batch; assembly (plain torch, eager, "
         f"{len(LIMBS) * 16} merge steps) {asm_ms:.3f} ms/batch; people in the timed "
         f"batch {int(counts.sum())}")
     return rows
+
+
+def check_bf16(q16: dict, f32: dict) -> None:
+    """The timed configuration (bf16 CNN, q16 wire) against the float32
+    slice on the same frames: person counts equal on at least 80% of the
+    frames, and people and visible joints in all within 10% (bars wide of
+    bf16's rounding, tight enough to catch a broken bf16 path)."""
+    cq, cf = q16["counts"][:, 0].astype(int), f32["counts"][:, 0].astype(int)
+    vq = int((q16["joints2d"][..., 0] >= 0).sum())
+    vf = int((f32["joints2d"][..., 0] >= 0).sum())
+    same = float((cq == cf).mean())
+    say("timing", f"bf16+q16 vs f32 on the same {len(cf)} frames: counts equal on "
+        f"{same:.1%} (bar 80%), people {cq.sum()} vs {cf.sum()}, visible joints {vq} vs "
+        f"{vf} (bar 10%)")
+    require(bool(np.isfinite(q16["joints3d"]).all()), "non-finite values in the q16 output")
+    require(same >= 0.80, "bf16 and f32 person counts differ on more than 20% of frames")
+    require(abs(int(cq.sum()) - int(cf.sum())) <= 0.10 * cf.sum(), "bf16 people differ by over 10%")
+    require(abs(vq - vf) <= 0.10 * vf, "bf16 visible joints differ by over 10%")
 
 
 def main(argv=None) -> int:
@@ -414,8 +481,8 @@ def main(argv=None) -> int:
     phase_build()
     errs = phase_kernels(rng, dev, BATCH)
     weights = load_npz(WEIGHTS)
-    frames, launches = phase_slice(rng, dev, BATCH, weights)
-    rows = phase_timing(frames, weights, dev, BATCH, TIMED_BATCHES, errs, launches)
+    frames, launches, f32_out = phase_slice(rng, dev, BATCH, weights)
+    rows = phase_timing(frames, weights, dev, BATCH, TIMED_BATCHES, errs, launches, f32_out)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

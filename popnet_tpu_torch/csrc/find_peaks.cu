@@ -5,12 +5,16 @@
 // _find_peaks_bt_kernel), the default peak refine of the TPU decode, and its
 // per-row twin find_peaks_pallas.
 //
-// Bound on the H100: bytes. The kernel reads each (H, W) heat plane once
-// (B*K*H*W*4 bytes, 12 MB at B=256, K=15, 28x28) and writes five (B, K, M)
-// arrays; its arithmetic (about 16 * (40*5*5 + 40*40*5) multiply-adds per
-// plane) is far below the card's float32 rate. The work per plane is a chain
-// of dependent block-wide reductions, so the real limit at this size is
-// latency: 16 argmax rounds, each a shared-memory scan plus two barriers.
+// Bound on the H100: operations. The kernel reads each (H, W) heat plane
+// once (B*K*H*W*4 bytes, 12 MB at B=256, K=15, 28x28: about 4 us at the
+// memory rate) and writes five (B, K, M) arrays. The refine of each of the M
+// slots takes up to 40*5*5 + 40*40*5 multiply-adds over its 5x5 window
+// (fewer at the borders, where empty slots refine at the corner), about
+// twice the bytes' time at the float32 rate; the NMS pass and the top-M
+// pick over its survivors add little (chip_smoke.py _bounds counts both).
+// The work per plane is a chain of dependent block-wide reductions, so the
+// real limit at this size is latency: 16 argmax rounds, each a
+// shared-memory scan plus two barriers.
 //
 // Design: one block of 256 threads per (frame, joint) plane, 3840 blocks at
 // the main-path shape, so every SM holds several planes at once and their

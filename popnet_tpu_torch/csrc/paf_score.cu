@@ -6,11 +6,13 @@
 // The kernel computes d, |d| and u from the peaks itself, so the six
 // (B, L, M*M) geometry arrays of the TPU path never exist.
 //
-// Bound on the H100: bytes. Inputs are the PAF maps (B*H*W*2L*4 bytes,
+// Bound on the H100: operations. Inputs are the PAF maps (B*H*W*2L*4 bytes,
 // 22.5 MB at B=256, 28x28, L=14), the peaks and their validity; outputs are
-// the (B, L, M, M) scores and ok flags (4.6 MB). The arithmetic is
-// B*L*M*M*T*(16 taps * 2 channels) multiply-adds, about 0.6 GFLOP, far below
-// the float32 rate.
+// the (B, L, M, M) scores and ok flags (4.6 MB): about 8 us at the memory
+// rate. Each of the B*L*M*M*T line points takes 16 taps * 2 channels
+// multiply-adds, 8 cubic weights and its coordinates and projection, about
+// 170 operations, 1.5 GFLOP at the main-path shape: about 23 us at the
+// float32 rate (chip_smoke.py _bounds).
 //
 // Design: one block per (frame, limb), one thread per src-major pair (M*M =
 // 256 threads). The block first builds the limb's two planes edge-padded by

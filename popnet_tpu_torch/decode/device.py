@@ -4,38 +4,22 @@ Maps keep the JAX layout at these public functions: (B, H, W, C) in,
 peaks (B, K, M, 3) of (x, y, score) in upsampled-image coordinates out.
 The work runs in the kernels of `ops/kernels.py` (`find_peaks`,
 `paf_score`) on a CUDA tensor, and in their plain versions on a CPU one.
+The refine's bicubic upsample matrix (`_cubic_kernel`, `_upsample_matrix`)
+lives with the kernels.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from popnet_tpu_torch.core.skeleton import LIMBS
 from popnet_tpu_torch.ops import kernels
 
 
-def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
-    """Keys cubic convolution weights (cv2 INTER_CUBIC uses a=-0.75)."""
-    t = np.abs(t)
-    return np.where(
-        t <= 1,
-        (a + 2) * t**3 - (a + 3) * t**2 + 1,
-        np.where(t < 2, a * t**3 - 5 * a * t**2 + 8 * a * t - 4 * a, 0.0),
-    )
-
-
-def _upsample_matrix(size: int, factor: int) -> np.ndarray:
-    """(size*factor, size) matrix U with cv2.resize INTER_CUBIC semantics:
-    out[j] = sum_i U[j, i] * in[i], border-replicated."""
-    out = np.zeros((size * factor, size))
-    for j in range(size * factor):
-        src = (j + 0.5) / factor - 0.5
-        i0 = int(np.floor(src))
-        for k in range(-1, 3):
-            idx = i0 + k
-            out[j, int(np.clip(idx, 0, size - 1))] += _cubic_kernel(src - idx)
-    return out
+def peak_planes(heat: torch.Tensor, num_joints: int = 15) -> torch.Tensor:
+    """(B, H, W, C >= num_joints) maps -> the (B, K, H, W) float32 view of
+    the joint heat planes that the find_peaks kernel reads (no copy)."""
+    return heat[..., :num_joints].float().permute(0, 3, 1, 2)
 
 
 def find_peaks_batched(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
@@ -44,9 +28,9 @@ def find_peaks_batched(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 
 
     heat: (B, H, W, C >= num_joints). Returns peaks (B, K, M, 3) of
     (x, y, score) and valid (B, K, M)."""
-    h = heat[..., :num_joints].float().permute(0, 3, 1, 2)     # (B, K, H, W) view
     px, py, loc, peak_score, valid = kernels.find_peaks(
-        h, max_peaks=max_peaks, thresh=thresh, factor=factor, win_size=win_size)
+        peak_planes(heat, num_joints), max_peaks=max_peaks, thresh=thresh, factor=factor,
+        win_size=win_size)
     S = (2 * win_size + 1) * factor
     center = (win_size + 0.5) * factor - 0.5
     out_x = (px + 0.5) * factor - 0.5 + ((loc % S).float() - center)

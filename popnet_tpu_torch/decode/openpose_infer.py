@@ -34,6 +34,29 @@ def window_readout_heat_weighted(depthmaps: torch.Tensor, heatmaps: torch.Tensor
                                   cy.to(torch.int32).contiguous(), radius)
 
 
+def readout_inputs(joints: torch.Tensor, heat: torch.Tensor, zmap: torch.Tensor,
+                   image: torch.Tensor, downsample: int = 8,
+                   depth: DepthStats = KDH3D_DEPTH):
+    """What the two depth readouts receive for decoded joints (B, P, K, 3)
+    in input-image coords; maps as in `openpose_decode`.
+
+    Returns ((zmap_m, heat_k, gx, gy), (raw_m, rx, ry)): K4's z map in
+    metres (B, H, W, K), the joints' heat channels and the window centres
+    (B, P, K) int32 at truncated low-res coords (int() semantics); K5's raw
+    depth in metres (B, Hi, Wi) and its points (B, P*K) int32, clamped to
+    the image and truncated."""
+    x_up, y_up = joints[..., 0], joints[..., 1]
+    B, P, K = x_up.shape
+    zmap = zmap.float() * depth.std + depth.mean
+    raw = image[..., 0].float() * depth.std + depth.mean
+    gx = (x_up / downsample).to(torch.int32)
+    gy = (y_up / downsample).to(torch.int32)
+    Hi, Wi = raw.shape[1], raw.shape[2]
+    rx = x_up.clamp(0, Wi - 1).to(torch.int32).reshape(B, P * K)
+    ry = y_up.clamp(0, Hi - 1).to(torch.int32).reshape(B, P * K)
+    return (zmap, heat[..., :K].float(), gx, gy), (raw, rx, ry)
+
+
 def openpose_decode(heat: torch.Tensor, paf: torch.Tensor, zmap: torch.Tensor,
                     image: torch.Tensor, ecfg: EncoderConfig = EncoderConfig(),
                     dcfg: DecodeConfig = DecodeConfig(),
@@ -49,8 +72,6 @@ def openpose_decode(heat: torch.Tensor, paf: torch.Tensor, zmap: torch.Tensor,
     raw-depth readouts (z = -1 at holes); conf (B, P, K); visibility
     (B, P, K) int32; counts (B,). Row p is a person iff p < counts[b]."""
     heat = heat.float()
-    zmap = zmap.float() * depth.std + depth.mean
-    raw = image[..., 0].float() * depth.std + depth.mean
     K = ecfg.num_joints
 
     peaks, pvalid = find_peaks_batched(
@@ -66,17 +87,10 @@ def openpose_decode(heat: torch.Tensor, paf: torch.Tensor, zmap: torch.Tensor,
     x_up, y_up, conf = joints[..., 0], joints[..., 1], joints[..., 2]
     vis = x_up >= 0  # border-clamped refinement keeps real joints at x, y >= 0
 
-    # pose-depth readout at truncated low-res coords (int() semantics)
-    gx = (x_up / dcfg.downsample).to(torch.int32)
-    gy = (y_up / dcfg.downsample).to(torch.int32)
-    z_pose = window_readout_heat_weighted(zmap, heat[..., :K], gx, gy)
-
-    # raw-depth readout: img[int(clip(y)), int(clip(x))]
-    Hi, Wi = raw.shape[1], raw.shape[2]
-    B, P = x_up.shape[0], x_up.shape[1]
-    rx = x_up.clamp(0, Wi - 1).to(torch.int32).reshape(B, P * K)
-    ry = y_up.clamp(0, Hi - 1).to(torch.int32).reshape(B, P * K)
-    z_raw = kernels.point_readout(raw, rx, ry).reshape(B, P, K)
+    # pose-depth readout over heat-weighted windows, raw-depth readout at points
+    window_in, point_in = readout_inputs(joints, heat, zmap, image, dcfg.downsample, depth)
+    z_pose = window_readout_heat_weighted(*window_in)
+    z_raw = kernels.point_readout(*point_in).reshape(vis.shape)
 
     z_pose = torch.where(vis, z_pose, -1.0)
     z_raw = torch.where(vis, z_raw, -1.0)

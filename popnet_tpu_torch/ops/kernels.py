@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -91,9 +92,36 @@ def _const(key, make, device):
     return _consts[k]
 
 
-def _upsample(size: int, factor: int, device) -> torch.Tensor:
-    from popnet_tpu_torch.decode.device import _upsample_matrix
+def _limbs(limbs: tuple, device) -> torch.Tensor:
+    """(L, 2) int64 limb table on `device` (kept, so no copy runs per call)."""
+    return _const(("limbs_i64", tuple(limbs)), lambda: torch.tensor(limbs, dtype=torch.long),
+                  device)
 
+
+def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """Keys cubic convolution weights (cv2 INTER_CUBIC uses a=-0.75)."""
+    t = np.abs(t)
+    return np.where(
+        t <= 1,
+        (a + 2) * t**3 - (a + 3) * t**2 + 1,
+        np.where(t < 2, a * t**3 - 5 * a * t**2 + 8 * a * t - 4 * a, 0.0),
+    )
+
+
+def _upsample_matrix(size: int, factor: int) -> np.ndarray:
+    """(size*factor, size) matrix U with cv2.resize INTER_CUBIC semantics:
+    out[j] = sum_i U[j, i] * in[i], border-replicated."""
+    out = np.zeros((size * factor, size))
+    for j in range(size * factor):
+        src = (j + 0.5) / factor - 0.5
+        i0 = int(np.floor(src))
+        for k in range(-1, 3):
+            idx = i0 + k
+            out[j, int(np.clip(idx, 0, size - 1))] += _cubic_kernel(src - idx)
+    return out
+
+
+def _upsample(size: int, factor: int, device) -> torch.Tensor:
     return _const(("U", size, factor),
                   lambda: torch.from_numpy(_upsample_matrix(size, factor)).float(), device)
 
@@ -243,7 +271,7 @@ def paf_line_sums_plain(paf: torch.Tensor, srcx, srcy, dx, dy, ux, uy,
 def _pair_geometry(peaks: torch.Tensor, limbs: tuple):
     """Per limb and src-major pair: src coords, d = dst - src, |d| + 1e-8
     and u = d / (|d| + 1e-8), each (B, L, M, M)."""
-    la = torch.as_tensor(limbs, dtype=torch.long, device=peaks.device)
+    la = _limbs(limbs, peaks.device)
     src = peaks[:, la[:, 0]]                                     # (B, L, M, 3)
     dst = peaks[:, la[:, 1]]
     M = peaks.shape[2]
@@ -274,7 +302,7 @@ def paf_score_plain(paf: torch.Tensor, peaks: torch.Tensor, peak_valid: torch.Te
     mean = psum.reshape(B, L, M, M) / torch.full_like(dist, float(num_pts))
     penalty = (torch.full_like(dist, 0.5 * H * factor) / dist - 1.0).clamp(max=0.0)
     score = mean + penalty
-    la = torch.as_tensor(limbs, dtype=torch.long, device=peaks.device)
+    la = _limbs(limbs, peaks.device)
     ok = ((pcnt.reshape(B, L, M, M) > 0.8 * num_pts) & (score > 0)
           & peak_valid[:, la[:, 0], :, None] & peak_valid[:, la[:, 1], None, :])
     return score, ok
