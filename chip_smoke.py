@@ -1,28 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (popnet_tpu_torch) on one NVIDIA card.
 
-Drives Open-Pose+ depth serving, the port's main path, at the model's full
-width (RTPoseLight3D, 28 PAF / 16 heat / 15 z channels on a 28x28 grid)
-with the committed trained weights, batch 256 of (512, 480) depth frames
-made from --seed with a few person-like blobs each. Phases, one or more
-lines each:
+Drives the port's two serving paths at the models' full width with the
+committed trained weights, batch 256 of (512, 480) depth frames made from
+--seed with two or three person-like figures each:
+
+- Open-Pose+ (RTPoseLight3D, 28 PAF / 16 heat / 15 z channels on a 28x28
+  grid), frames on a zero background;
+- PoP-Net (PopNet: heat 16 / z 15 / align 30 channels on 28x28 and a prior
+  subnet of 2 anchors x 50 channels on 14x14), the same figures over the
+  smooth 2.5-5.5 m background its weights were trained on.
+
+Phases, one or more lines each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc compiles the kernels of csrc/ in parallel; ptxas's register
    and shared-memory lines are printed;
-3. kernels: each kernel against its plain PyTorch version, on the card, at
-   the main-path shapes plus the edge cases of the tests (exact ties,
-   border peaks, window centres off the map);
-4. slice: the float32 pipeline on 256 frames with launch counts reset just
-   before and read just after; the same CNN maps decoded through the
-   kernels and through the plain versions (on the host) must agree, and
-   people must be found on most frames;
-5. timing: the default bf16 pipeline with the q16 wire through
+3. kernels: each of the seven kernels against its plain PyTorch version,
+   on the card, at the main-path shapes plus edge cases (exact ties, border
+   peaks, plateaus, a plane with no peak, window centres off the map,
+   assembly from no candidate to every pair a candidate), and the two peak
+   kernels against each other;
+4. slices, float32, 256 frames each, launch counts reset just before a path
+   is driven and read just after: Open-Pose+ (then the assembly kernel
+   against its plain version on that batch's candidates, and the same maps
+   decoded once more through the per-frame peak kernel), and PoP-Net. The
+   same CNN maps decoded through the kernels and through the plain versions
+   (on the host) must agree, and people must be found on most frames;
+5. timing: each path's default bf16 pipeline with the q16 wire through
    serve_stream(queue_depth=3): its output against the float32 slice's on
-   the same frames, frames/s, CUDA-event times per batch of the CNN and
-   assembly, and each kernel's, its plain version's and the library call's
+   the same frames, frames/s, CUDA-event times per batch of the CNN and the
+   decode, and each kernel's, its plain version's and the library call's
    device time (calls captured in a CUDA graph, so host dispatch is not
-   counted) beside the kernel's bound.
+   counted) beside the kernel's bound; the plain assembler eager and as a
+   CUDA graph beside the assembly kernel.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -42,17 +53,27 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "examples", "results", "bench_weights_openpose.npz")
+WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet.npz")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores (data sheet)
+SMEM_ROUND_TRIP_CYCLES = 30  # one dependent shared-memory load, about, on sm_90
 BATCH = 256                 # the serving batch of bench.py's Open-Pose+ row
-TIMED_BATCHES = 10          # batches in the timed serve_stream window
+TIMED_BATCHES = 10          # batches in each timed serve_stream window
 
+# name: (source, the TPU kernel it replaces)
 KERNEL_META = {
     "find_peaks": ("popnet_tpu_torch/csrc/find_peaks.cu", "popnet_tpu/ops/pallas_kernels.py:457"),
+    "find_peaks_row": ("popnet_tpu_torch/csrc/find_peaks.cu",
+                       "popnet_tpu/ops/pallas_kernels.py:278"),
     "paf_score": ("popnet_tpu_torch/csrc/paf_score.cu", "popnet_tpu/ops/pallas_kernels.py:132"),
     "window_readout": ("popnet_tpu_torch/csrc/readout.cu", "popnet_tpu/ops/pallas_kernels.py:546"),
     "point_readout": ("popnet_tpu_torch/csrc/readout.cu", "popnet_tpu/ops/pallas_kernels.py:598"),
+    "assemble_ids": ("popnet_tpu_torch/csrc/assemble.cu",
+                     "popnet_tpu/decode/assemble_pallas.py:200"),
+    "peak_local_max": ("popnet_tpu_torch/csrc/peak_mask.cu",
+                       "popnet_tpu/ops/pallas_kernels.py:49"),
 }
+OPENPOSE_PATH = ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout")
 
 
 def say(phase: str, msg: str) -> None:
@@ -111,10 +132,12 @@ def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
     return ms
 
 
-def person_frames(rng: np.random.Generator, B: int, device, H: int = 512, W: int = 480):
+def person_frames(rng: np.random.Generator, B: int, device, H: int = 512, W: int = 480,
+                  background: bool = False):
     """(B, H, W) depth frames in metres: 2-3 people per frame, each a
     kinematic 15-joint template (the layout of tests/synthetic_data.py
-    person_scene) drawn as 36-px depth blocks, on a zero background."""
+    person_scene) drawn as 36-px depth blocks, on a zero background or, with
+    `background`, on that module's smooth 2.5-5.5 m one (a phase per frame)."""
     import torch
 
     n_people = 3
@@ -159,19 +182,29 @@ def person_frames(rng: np.random.Generator, B: int, device, H: int = 512, W: int
                 & ((ys - pts_t[:, p, k, 1, None, None]).abs() < 18) \
                 & pres_t[:, p, None, None]
             depth = torch.where(m, z_t[:, p, k, None, None], depth)
+    if background:
+        phase = torch.as_tensor(rng.uniform(0, 2 * np.pi, (B, 1, 1)), dtype=torch.float32,
+                                device=device)
+        bg = 4.0 + 1.5 * torch.sin(xs / 60.0 + phase) * torch.cos(ys / 80.0)
+        depth = torch.where(depth > 0, depth, bg)
     return depth
 
 
-def phase_device():
+def phase_device() -> float:
+    """Print the card's name and power limit; return its top SM clock in MHz."""
     import torch
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip()
-    print(smi, flush=True)
+    def smi(fields: str) -> str:
+        return subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=60,
+                              check=True).stdout.strip()
+
+    print(smi("name,power.limit"), flush=True)
+    clock = float(smi("clocks.max.sm").splitlines()[0].split()[0])
     say("device", f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    return smi
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}, "
+        f"top SM clock {clock:.0f} MHz")
+    return clock
 
 
 def phase_build():
@@ -200,20 +233,49 @@ def _maxerr(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def phase_kernels(rng: np.random.Generator, dev, B: int) -> dict[str, float]:
-    """Each kernel against its plain version on the card; returns max |err|."""
+def dense_candidates(rng: np.random.Generator, B: int, K: int = 15, M: int = 16):
+    """Assembly inputs (peak_score (B, K, M), s_masked (B, L, M, M)) whose
+    candidate density steps through 0, 0.08, 0.3, 0.7 and 1 from frame to
+    frame: from no candidate at all to every pair a candidate, which forces
+    long merge chains and slots created well past max_people. Some pair
+    scores tie exactly."""
+    from popnet_tpu_torch.core.skeleton import LIMBS
+
+    L = len(LIMBS)
+    density = np.asarray((0.0, 0.08, 0.3, 0.7, 1.0))[np.arange(B) % 5]
+    n_valid = rng.integers(0, M + 1, size=(B, K))
+    valid = np.arange(M)[None, None, :] < n_valid[:, :, None]
+    peak_score = np.where(valid, rng.uniform(0.1, 1.0, size=(B, K, M)), 0.0).astype(np.float32)
+    scores = rng.uniform(0.01, 2.0, size=(B, L, M, M)).astype(np.float32)
+    scores[:, 3, 2, 5] = scores[:, 3, 7, 1] = scores[:, 3, 7, 9] = 1.75
+    ok = rng.uniform(size=(B, L, M, M)) < density[:, None, None, None]
+    limbs = np.asarray(LIMBS)
+    ok &= valid[:, limbs[:, 0]][:, :, :, None] & valid[:, limbs[:, 1]][:, :, None, :]
+    return peak_score, np.where(ok, scores, -np.inf).astype(np.float32)
+
+
+def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator, dev,
+                  B: int) -> dict[str, float]:
+    """Each kernel against its plain version on the card; returns max |err|.
+    `rng` feeds the four kernels of the first slice as it always did,
+    `rng_new` the later ones."""
     import torch
 
     from popnet_tpu_torch.core.skeleton import LIMBS
     from popnet_tpu_torch.ops import kernels
 
+    def maps(a):
+        """(B, C, H, W) values as the serving path's CNN leaves them: in
+        channels-last memory."""
+        return torch.as_tensor(a, device=dev).contiguous(memory_format=torch.channels_last)
+
     errs = {}
-    # K1 at the main-path layout: the first 15 of 16 heat channels of NCHW maps
+    # K1 at the main-path layout: the first 15 of 16 heat channels of the maps
     heat16 = rng.uniform(0, 1, (B, 16, 28, 28)).astype(np.float32)
     heat16[0, 0, 5, 5] = heat16[0, 0, 5, 9] = 1.5      # exact tie
     heat16[0, 1, 0, 3] = heat16[0, 2, 27, 27] = heat16[1, 3, 5, 0] = 5.0  # border peaks
     heat16[2, 4] *= 0.09                                # no peak above threshold
-    h = torch.as_tensor(heat16, device=dev)[:, :15]
+    h = maps(heat16)[:, :15]
     got = kernels.find_peaks(h)
     ref = kernels.find_peaks_plain(h)
     for i, n in ((0, "px"), (1, "py"), (2, "loc"), (4, "valid")):
@@ -223,9 +285,26 @@ def phase_kernels(rng: np.random.Generator, dev, B: int) -> dict[str, float]:
     say("kernels", f"find_peaks (B,K,H,W)={tuple(h.shape)}: px/py/loc/valid exact, "
         f"score max|err| {errs['find_peaks']:.3g} (bar 1e-5)")
 
-    # K3 on the peaks of that heat and a PAF map in the CNN's NCHW memory
-    paf = torch.as_tensor(rng.uniform(-1, 1, (B, 28, 28, 28)).astype(np.float32),
-                          device=dev).permute(0, 2, 3, 1)
+    # K2 on the same planes: the plain version and K1, all five outputs bit for bit
+    row = kernels.find_peaks_row(h)
+    for i, n in enumerate(("px", "py", "loc", "score", "valid")):
+        _exact(f"find_peaks_row {n}", row[i], ref[i])
+        _exact(f"find_peaks_row {n} against find_peaks", row[i], got[i])
+    errs["find_peaks_row"] = _maxerr(row[3], ref[3])
+    small = np.round(rng_new.uniform(0, 1, (8, 15, 12, 10)) * 16).astype(np.float32) / 16
+    small[0, 0] *= 0.09                                 # plateaus everywhere, one empty plane
+    hs = torch.as_tensor(small, device=dev)
+    for a, b, c in zip(kernels.find_peaks_row(hs, max_peaks=32),
+                       kernels.find_peaks_plain(hs, max_peaks=32),
+                       kernels.find_peaks(hs, max_peaks=32)):
+        _exact("find_peaks_row on a 12x10 grid, 32 peaks", a, b)
+        _exact("find_peaks_row against find_peaks on a 12x10 grid", a, c)
+    say("kernels", f"find_peaks_row (B,K,H,W)={tuple(h.shape)}: px/py/loc/score/valid exact "
+        f"against the plain version and against find_peaks; so on a 12x10 grid of "
+        f"plateaus with 32 peaks")
+
+    # K3 on the peaks of that heat and a PAF map
+    paf = maps(rng.uniform(-1, 1, (B, 28, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
     from popnet_tpu_torch.decode.device import find_peaks_batched
 
     peaks, valid = find_peaks_batched(h.permute(0, 2, 3, 1))
@@ -238,10 +317,8 @@ def phase_kernels(rng: np.random.Generator, dev, B: int) -> dict[str, float]:
         f"({int(ok_k.sum())} pairs ok), score max|err| {errs['paf_score']:.3g} (bar 1e-5)")
 
     # K4 with centres off the map
-    z = torch.as_tensor(rng.uniform(0.5, 6, (B, 15, 28, 28)).astype(np.float32),
-                        device=dev).permute(0, 2, 3, 1)
-    hz = torch.as_tensor(rng.uniform(-0.2, 1, (B, 15, 28, 28)).astype(np.float32),
-                         device=dev).permute(0, 2, 3, 1)
+    z = maps(rng.uniform(0.5, 6, (B, 15, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
+    hz = maps(rng.uniform(-0.2, 1, (B, 15, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
     cx = torch.as_tensor(rng.integers(-3, 31, (B, 16, 15)), dtype=torch.int32, device=dev)
     cy = torch.as_tensor(rng.integers(-3, 31, (B, 16, 15)), dtype=torch.int32, device=dev)
     errs["window_readout"] = _maxerr(kernels.window_readout(z, hz, cx, cy),
@@ -258,16 +335,64 @@ def phase_kernels(rng: np.random.Generator, dev, B: int) -> dict[str, float]:
     _exact("point_readout", a, b)
     errs["point_readout"] = _maxerr(a, b)
     say("kernels", f"point_readout img={tuple(img.shape)} p={tuple(px.shape)}: exact")
+
+    # K7 on quantized heat (equal neighbours are common) with plateaus inside
+    # and on the borders, corner maxima and a constant plane, in the main
+    # path's channels-last memory and in NCHW memory, through a channel slice
+    q = np.round(rng_new.uniform(0, 1, (B, 16, 28, 28)) * 8) / 8
+    q[0, 0, 4:7, 4:8] = q[0, 0, 0:2, 25:] = 2.0
+    q[1, 1, 0, 0] = q[1, 1, 27, 27] = q[1, 1, 27, 5] = q[1, 1, 9, 0] = 3.0
+    q[2, 2] = 0.5
+    hq = maps(q.astype(np.float32))
+    marked = 0
+    nchw_memory = hq.contiguous()[:, :15]
+    for thresh in (float("-inf"), 0.5):
+        ref = kernels.peak_local_max_plain(hq[:, :15], thresh)
+        m_k = kernels.peak_local_max(hq[:, :15], thresh)
+        _exact(f"peak_local_max thresh={thresh}", m_k, ref)
+        _exact(f"peak_local_max thresh={thresh}, NCHW memory (walked x fastest)",
+               kernels.peak_local_max(nchw_memory, thresh), ref)
+        errs["peak_local_max"] = max(errs.get("peak_local_max", 0.0), _maxerr(m_k, ref))
+        marked = int(m_k.sum())
+    nhwc = hq.permute(0, 2, 3, 1)[..., :15]
+    m_k = kernels.peak_mask(nhwc, 0.5)
+    _exact("peak_mask", m_k, kernels.peak_local_max_plain(hq[:, :15], 0.5).permute(0, 2, 3, 1))
+    require(bool(m_k[0, 4:7, 4:8, 0].all()) and int(m_k[2, :, :, 2].sum()) == 0,
+            "peak_mask: a plateau marks every cell; 0.5 is not above 0.5")
+    say("kernels", f"peak_local_max (B,K,H,W)={tuple(hq[:, :15].shape)}: exact with and "
+        f"without the threshold, plateaus and borders included, in channels-last and in NCHW memory "
+        f"({marked} cells marked at 0.5)")
+
+    # K6 from no candidate to every pair a candidate
+    ps, sm = (torch.as_tensor(a, device=dev) for a in dense_candidates(rng_new, B))
+    ids_k, cnt_k = kernels.assemble_ids(ps, sm, LIMBS)
+    ids_p, cnt_p = kernels.assemble_ids_plain(ps, sm, LIMBS)
+    _exact("assemble_ids ids", ids_k, ids_p)
+    _exact("assemble_ids counts", cnt_k, cnt_p)
+    require(bool((cnt_k[0::5] == 0).all()) and bool((cnt_k[4::5] > 0).all()),
+            "assemble_ids: the empty frames hold nobody, the densest ones somebody")
+    for a, b in zip(kernels.assemble_ids(ps, sm, LIMBS, max_people=3, min_parts=2, min_score=0.5),
+                    kernels.assemble_ids_plain(ps, sm, LIMBS, max_people=3, min_parts=2,
+                                               min_score=0.5)):
+        _exact("assemble_ids with max_people=3", a, b)
+    errs["assemble_ids"] = _maxerr(ids_k, ids_p)
+    say("kernels", f"assemble_ids peak_score={tuple(ps.shape)} s_masked={tuple(sm.shape)}: ids "
+        f"and counts exact at candidate densities 0, 0.08, 0.3, 0.7, 1 ({int(cnt_k.sum())} "
+        f"people kept)")
     torch.cuda.synchronize()
     return errs
 
 
 def phase_slice(rng, dev, B, weights):
-    """The float32 slice on B frames; returns the frames, the main path's
-    launch counts and its unpacked output."""
+    """The float32 Open-Pose+ slice on B frames; returns the frames, the
+    launch counts of its path (and of the per-frame peak kernel's decode)
+    and its unpacked output."""
     import torch
 
     from popnet_tpu_torch import build_openpose_pipeline
+    from popnet_tpu_torch.core.skeleton import LIMBS
+    from popnet_tpu_torch.decode.assemble_device import assemble_batched, assemble_inputs
+    from popnet_tpu_torch.decode.device import find_peaks_batched, score_limb_pairs_batched
     from popnet_tpu_torch.decode.openpose_infer import openpose_decode
     from popnet_tpu_torch.interop.from_jax import load_into
     from popnet_tpu_torch.models import RTPoseLight3D
@@ -283,16 +408,16 @@ def phase_slice(rng, dev, B, weights):
     buf = pipe(frames)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    say("slice", f"main-path launches per kernel: {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    say("openpose", f"main-path launches per kernel: {launches}")
+    for name in OPENPOSE_PATH:
+        require(launches[name] == 1, f"kernel {name}: {launches[name]} launches for one batch")
     out = unpack_outputs(buf.cpu().numpy(), 16, 15)
     require(buf.shape == (B, 16 * 15 * 6 + 1), f"packed buffer shape {tuple(buf.shape)}")
     require(bool(np.isfinite(out["joints2d"]).all() and np.isfinite(out["joints3d"]).all()),
             "non-finite values in the packed output")
     counts = out["counts"][:, 0].astype(int)
     found = float((counts > 0).mean())
-    say("slice", f"B={B}: people found on {found:.1%} of frames, counts histogram "
+    say("openpose", f"B={B}: people found on {found:.1%} of frames, counts histogram "
         f"{np.bincount(counts, minlength=4).tolist()}")
     require(found >= 0.5, "people found on fewer than half of the frames")
 
@@ -300,17 +425,90 @@ def phase_slice(rng, dev, B, weights):
     with torch.inference_mode():
         x = preproc_depth(frames)
         (paf, heat, z), _ = model(x.permute(0, 3, 1, 2))
-        nhwc = [t.permute(0, 2, 3, 1) for t in (heat, paf, z)]
-        dk = openpose_decode(*nhwc, x)
-        dp = openpose_decode(*[t.cpu() for t in nhwc], x.cpu())
-    require(np.array_equal(dk["counts"].cpu().numpy(), dp["counts"].numpy()),
-            "kernel and plain decode disagree on counts")
-    require(np.array_equal(dk["counts"].cpu().numpy(), counts), "pipeline counts differ")
-    require(torch.equal(dk["visibility"].cpu(), dp["visibility"]), "visibility differs")
+        heat_n, paf_n, z_n = (t.permute(0, 2, 3, 1) for t in (heat, paf, z))
+        dk = openpose_decode(heat_n, paf_n, z_n, x)
+        dp = openpose_decode(heat_n.cpu(), paf_n.cpu(), z_n.cpu(), x.cpu())
+        require(np.array_equal(dk["counts"].cpu().numpy(), dp["counts"].numpy()),
+                "kernel and plain decode disagree on counts")
+        require(np.array_equal(dk["counts"].cpu().numpy(), counts), "pipeline counts differ")
+        require(torch.equal(dk["visibility"].cpu(), dp["visibility"]), "visibility differs")
+        e2 = _maxerr(dk["joints2d"].cpu(), dp["joints2d"])
+        e3 = _maxerr(dk["joints3d"].cpu(), dp["joints3d"])
+        say("openpose", f"kernel decode vs plain decode (host) on the same maps: counts and "
+            f"visibility exact, joints2d max|err| {e2:.3g} px, joints3d {e3:.3g} m (bar 1e-4)")
+        require(e2 <= 1e-4 and e3 <= 1e-4, "kernel and plain decode joints differ")
+
+        # the assembly kernel on this batch's candidates (decoded synthetic scenes)
+        pk1, v1 = find_peaks_batched(heat_n)
+        s1, ok1 = score_limb_pairs_batched(paf_n, pk1, v1)
+        j1, c1 = assemble_batched(pk1, v1, s1, ok1)
+        ps, sm = assemble_inputs(pk1, s1, ok1)
+        for a, b in zip(kernels.assemble_ids(ps, sm, LIMBS), kernels.assemble_ids_plain(ps, sm, LIMBS)):
+            _exact("assemble_ids on the slice's candidates", a, b)
+        require(np.array_equal(c1.cpu().numpy(), counts), "assembly counts differ")
+
+        # the same maps through the per-frame peak kernel
+        kernels.reset_launches()
+        pk2, v2 = find_peaks_batched(heat_n, refine="kernel_row")
+        s2, ok2 = score_limb_pairs_batched(paf_n, pk2, v2)
+        j2, c2 = assemble_batched(pk2, v2, s2, ok2)
+        torch.cuda.synchronize()
+        row = kernels.launch_counts()
+    require(row["find_peaks_row"] == 1 and row["find_peaks"] == 0,
+            f"refine='kernel_row' launched {row}")
+    for name, a, b in (("peaks", pk2, pk1), ("valid", v2, v1), ("pair scores", s2, s1),
+                       ("pair ok", ok2, ok1), ("joints", j2, j1), ("counts", c2, c1)):
+        _exact(f"refine='kernel_row' {name}", a, b)
+    say("openpose", f"assemble_ids equals its plain version on the batch's candidates "
+        f"({int(ok1.sum())} candidate pairs); the decode with refine='kernel_row' launched "
+        f"{row} and equals the find_peaks decode exactly (peaks, pair scores, joints, counts)")
+    launches["find_peaks_row"] = row["find_peaks_row"]
+    return frames, launches, out
+
+
+def phase_popnet_slice(rng, dev, B, weights):
+    """The float32 PoP-Net slice on B frames; returns the frames, the main
+    path's launch counts and its unpacked output."""
+    import torch
+
+    from popnet_tpu_torch import build_popnet_pipeline
+    from popnet_tpu_torch.decode.popnet_infer import popnet_decode
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import PopNet
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.serving import preproc_depth, unpack_outputs
+
+    frames = person_frames(rng, B, dev, background=True)
+    pipe = build_popnet_pipeline(weights, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    buf = pipe(frames)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say("popnet", f"main-path launches per kernel: {launches}")
+    require(launches["peak_local_max"] >= 1, "peak_local_max was not launched on the PoP-Net path")
+    require(buf.shape == (B, 16 * 15 * 6 + 16), f"packed buffer shape {tuple(buf.shape)}")
+    out = unpack_outputs(buf.cpu().numpy(), 16, 15)
+    require(bool(np.isfinite(buf.cpu().numpy()).all()), "non-finite values in the packed output")
+    people = (out["counts"] > 0).sum(axis=1)
+    found = float((people > 0).mean())
+    say("popnet", f"B={B}: people valid on {found:.1%} of frames, people-per-frame histogram "
+        f"{np.bincount(people, minlength=4).tolist()}")
+    require(found >= 0.5, "people valid on fewer than half of the frames")
+
+    model = load_into(PopNet(), weights).eval().to(dev)
+    with torch.inference_mode():
+        x = preproc_depth(frames)
+        maps, _ = model(x.permute(0, 3, 1, 2))
+        nhwc = [t.permute(0, 2, 3, 1) for t in maps]
+        dk = popnet_decode(*nhwc)
+        dp = popnet_decode(*[t.cpu() for t in nhwc])
+    require(torch.equal(dk["valid"].cpu(), dp["valid"]), "kernel and plain decode disagree on valid")
+    require(np.array_equal(dk["valid"].cpu().numpy(), out["counts"] > 0), "pipeline valid differs")
     e2 = _maxerr(dk["joints2d"].cpu(), dp["joints2d"])
     e3 = _maxerr(dk["joints3d"].cpu(), dp["joints3d"])
-    say("slice", f"kernel decode vs plain decode (host) on the same maps: counts and "
-        f"visibility exact, joints2d max|err| {e2:.3g} px, joints3d {e3:.3g} m (bar 1e-4)")
+    say("popnet", f"kernel decode vs plain decode (host) on the same maps: valid exact, "
+        f"joints2d max|err| {e2:.3g} px, joints3d {e3:.3g} m (bar 1e-4)")
     require(e2 <= 1e-4 and e3 <= 1e-4, "kernel and plain decode joints differ")
     return frames, launches, out
 
@@ -321,7 +519,7 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float]:
     import torch
     import torch.nn.functional as F
 
-    if name == "find_peaks":
+    if name in ("find_peaks", "find_peaks_row"):      # two designs of one function
         h, px, py, thresh = inputs["heat"], inputs["px"], inputs["py"], inputs["thresh"]
         B, K, H, W = h.shape
         M = px.shape[-1]
@@ -352,32 +550,74 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float]:
                  * ((cy + 1).clamp(0, H - 1) - (cy - 1).clamp(0, H - 1) + 1)).double()
         nbytes = float(cells.sum()) * 8 + cx.numel() * 12
         ops = float(cells.sum()) * 6 + cx.numel() * 6.0
-    else:  # point_readout: index pair, the value read, the value written
+    elif name == "point_readout":  # index pair, the value read, the value written
         nbytes = inputs["cx"].numel() * 16
         ops = 0.0
+    elif name == "assemble_ids":
+        ps, sm, ids = inputs["peak_score"], inputs["s_masked"], inputs["ids"]
+        nbytes = (ps.numel() + sm.numel() + ids.numel() + ids.shape[0]) * 4
+        # a compare and a select per pair score, a row of K ids per connection
+        ops = 2.0 * sm.numel() + float(inputs["connections"].sum()) * ps.shape[1]
+    else:  # peak_local_max: a float read and a flag written per cell, 5 compares
+        nbytes = inputs["heat"].numel() * 5
+        ops = 5.0 * inputs["heat"].numel()
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
     return nbytes, ops, bound_ms
 
 
-def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_out):
+def greedy_connections(s_masked):
+    """(B,) connections that the assembly's stage 1 accepts on these pair
+    scores (B, L, M, M): per limb, rounds of argmax that kill the picked row
+    and column until no candidate is left. They are the steps of the
+    dependent merge chain that a frame needs."""
     import torch
 
-    from popnet_tpu_torch import build_openpose_pipeline, serve_stream
-    from popnet_tpu_torch.core.config import DecodeConfig
-    from popnet_tpu_torch.core.skeleton import LIMBS
-    from popnet_tpu_torch.decode.assemble_device import assemble_batched
-    from popnet_tpu_torch.decode.device import (find_peaks_batched, peak_planes,
-                                                score_limb_pairs_batched)
-    from popnet_tpu_torch.decode.openpose_infer import readout_inputs
-    from popnet_tpu_torch.interop.from_jax import load_into
-    from popnet_tpu_torch.models import RTPoseLight3D
-    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
-    from popnet_tpu_torch.ops import kernels
-    from popnet_tpu_torch.serving import preproc_depth, unpack_outputs_q16
+    B, L, M, _ = s_masked.shape
+    s = s_masked.reshape(B, L, M * M).clone()
+    ar = torch.arange(M, device=s.device)
+    n = torch.zeros((B,), dtype=torch.long, device=s.device)
+    for _ in range(M):
+        val, idx = s.max(dim=-1)
+        n += torch.isfinite(val).sum(dim=1)
+        kill = ((idx // M)[..., None, None] == ar[:, None]) | ((idx % M)[..., None, None] == ar)
+        s = s.masked_fill(kill.reshape(B, L, M * M), float("-inf"))
+    return n
 
-    pipe = build_openpose_pipeline(weights, pack="q16")     # bf16 CNN, the default
+
+def time_kernels(calls: dict, launches: dict, errs: dict) -> list[dict]:
+    """Time each kernel, its plain version and its library call (device
+    time, CUDA-graph replays) and set them beside the bound; `calls` maps a
+    kernel's name to (kernel, plain, library or None, inputs for _bounds)."""
+    rows = []
+    for name, (kern, plain, lib, inputs) in calls.items():
+        ms = graph_ms(kern)
+        eager_ms = time_ms(kern)
+        # the plain assembler is about 10,000 small kernels a call: one call a graph
+        plain_ms = graph_ms(plain, reps=1 if name == "assemble_ids" else 5)
+        lib_ms = graph_ms(lib) if lib is not None else None
+        nbytes, ops, bound_ms = _bounds(name, inputs)
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+        say("timing", f"{name}: {ms:.4f} ms/batch on the card (CUDA graph; "
+            f"{eager_ms:.4f} ms per eager call), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)"
+            + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        src, rep = KERNEL_META[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": launches[name], "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
+    return rows
+
+
+def time_stream(tag: str, pipe, frames, iters: int, check) -> None:
+    """frames/s of `pipe` through serve_stream(queue_depth=3), after a warm
+    window whose first batch goes to `check`."""
+    import torch
+
+    from popnet_tpu_torch import serve_stream
+
     warm = list(serve_stream(pipe, (frames for _ in range(3)), queue_depth=3))
-    check_bf16(unpack_outputs_q16(warm[0], 16, 15), f32_out)
+    check(warm[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -385,11 +625,34 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
     for buf in serve_stream(pipe, (frames for _ in range(iters)), queue_depth=3):
         n += buf.shape[0]
     wall = time.perf_counter() - t0
-    fps = n / wall
-    peak_mem = torch.cuda.max_memory_allocated()
-    say("timing", f"serve_stream bf16 q16 queue_depth=3: {iters} batches of {B} in "
-        f"{wall:.3f} s = {fps:.1f} frames/s ({wall / iters * 1e3:.2f} ms/batch); "
-        f"max_memory_allocated {peak_mem / 2**20:.1f} MiB")
+    say("timing", f"{tag} serve_stream bf16 q16 queue_depth=3: {iters} batches of "
+        f"{frames.shape[0]} in {wall:.3f} s = {n / wall:.1f} frames/s "
+        f"({wall / iters * 1e3:.2f} ms/batch); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+
+def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_out,
+                 sm_clock_mhz: float):
+    """Open-Pose+: the timed bf16+q16 stream and the six kernels of its two
+    decodes, at the inputs the bf16 main path makes."""
+    import torch
+
+    from popnet_tpu_torch import build_openpose_pipeline
+    from popnet_tpu_torch.core.config import DecodeConfig
+    from popnet_tpu_torch.core.skeleton import LIMBS
+    from popnet_tpu_torch.decode.assemble_device import assemble_batched, assemble_inputs
+    from popnet_tpu_torch.decode.device import (find_peaks_batched, peak_planes,
+                                                score_limb_pairs_batched)
+    from popnet_tpu_torch.decode.openpose_infer import openpose_decode, readout_inputs
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import RTPoseLight3D
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.serving import preproc_depth, unpack_outputs_q16
+
+    pipe = build_openpose_pipeline(weights, pack="q16")     # bf16 CNN, the default
+    time_stream("Open-Pose+", pipe, frames, iters,
+                lambda buf: check_bf16("Open-Pose+", unpack_outputs_q16(buf, 16, 15), f32_out))
 
     # each kernel's inputs as the bf16 main path makes them, from its helpers
     model = keep_batchnorm_float32(load_into(RTPoseLight3D(), weights).eval().to(dev, torch.bfloat16))
@@ -399,17 +662,25 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         cnn_ms = time_ms(lambda: model(xb), reps=10)
         (paf, heat, z), _ = model(xb)
         heat_n, paf_n, z_n = (t.float().permute(0, 2, 3, 1) for t in (heat, paf, z))
+        decode_ms = time_ms(lambda: openpose_decode(heat_n, paf_n, z_n, x), reps=10)
         h = peak_planes(heat_n)
+        say("timing", f"Open-Pose+ heat planes as the kernels get them: shape "
+            f"{tuple(h.shape)}, strides {tuple(h.stride())}")
         px, py, _, _, _ = kernels.find_peaks(h)
         peaks, pvalid = find_peaks_batched(heat_n)
         scores, ok = score_limb_pairs_batched(paf_n, peaks, pvalid)
+        ps, sm = assemble_inputs(peaks, scores, ok)
+        ids, _ = kernels.assemble_ids(ps, sm, LIMBS)
         joints, counts = assemble_batched(peaks, pvalid, scores, ok)
         (zmap, hk, gx, gy), (raw, rx, ry) = readout_inputs(joints, heat_n, z_n, x)
         bi, ryl, rxl = torch.arange(B, device=dev)[:, None], ry.long(), rx.long()
+        conn = greedy_connections(sm)
+        peak_in = {"heat": h, "px": px, "py": py, "thresh": DecodeConfig().thresh_heatmap}
         calls = {
             "find_peaks": (lambda: kernels.find_peaks(h), lambda: kernels.find_peaks_plain(h),
-                           None, {"heat": h, "px": px, "py": py,
-                                  "thresh": DecodeConfig().thresh_heatmap}),
+                           None, peak_in),
+            "find_peaks_row": (lambda: kernels.find_peaks_row(h),
+                               lambda: kernels.find_peaks_plain(h), None, peak_in),
             "paf_score": (lambda: kernels.paf_score(paf_n, peaks, pvalid, LIMBS),
                           lambda: kernels.paf_score_plain(paf_n, peaks, pvalid, LIMBS),
                           None, {"paf": paf_n, "peaks": peaks, "score": scores}),
@@ -419,43 +690,82 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
             "point_readout": (lambda: kernels.point_readout(raw, rx, ry),
                               lambda: kernels.point_readout_plain(raw, rx, ry),
                               lambda: raw[bi, ryl, rxl], {"cx": rx}),
+            "assemble_ids": (lambda: kernels.assemble_ids(ps, sm, LIMBS),
+                             lambda: kernels.assemble_ids_plain(ps, sm, LIMBS), None,
+                             {"peak_score": ps, "s_masked": sm, "ids": ids,
+                              "connections": conn}),
         }
-        rows = []
-        for name, (kern, plain, lib, inputs) in calls.items():
-            ms = graph_ms(kern)
-            eager_ms = time_ms(kern)
-            plain_ms = graph_ms(plain, reps=5)
-            lib_ms = graph_ms(lib) if lib is not None else None
-            nbytes, ops, bound_ms = _bounds(name, inputs)
-            bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
-            say("timing", f"{name}: {ms:.4f} ms/batch on the card (CUDA graph; "
-                f"{eager_ms:.4f} ms per eager call), plain {plain_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)"
-                + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
-            src, rep = KERNEL_META[name]
-            rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                         "launches": launches[name], "max_abs_err": errs[name],
-                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": lib_ms})
-        asm_ms = time_ms(lambda: assemble_batched(peaks, pvalid, scores, ok), reps=3, warm=1)
-    say("timing", f"CNN bf16 {cnn_ms:.3f} ms/batch; assembly (plain torch, eager, "
-        f"{len(LIMBS) * 16} merge steps) {asm_ms:.3f} ms/batch; people in the timed "
-        f"batch {int(counts.sum())}")
+        rows = time_kernels(calls, launches, errs)
+        scan_ms = time_ms(lambda: kernels.assemble_ids_plain(ps, sm, LIMBS), reps=3, warm=1)
+    asm = next(r for r in rows if r["name"] == "assemble_ids")
+    chain = int(conn.max())
+    floor_ms = chain * SMEM_ROUND_TRIP_CYCLES / (sm_clock_mhz * 1e3)
+    say("timing", f"Open-Pose+ CNN bf16 {cnn_ms:.3f} ms/batch; decode (eager, through the "
+        f"kernels) {decode_ms:.3f} ms/batch; people in the timed batch {int(counts.sum())}")
+    say("timing", f"assembly of one batch: kernel {asm['ms']:.4f} ms; plain scan "
+        f"({len(LIMBS) * 16} merge steps) eager {scan_ms:.3f} ms, as a CUDA graph "
+        f"{asm['plain_ms']:.3f} ms. Its bound_ms is the bytes'; the latency floor beside it: "
+        f"the longest frame's chain of {chain} connections (mean {float(conn.float().mean()):.1f}) "
+        f"x one shared-memory round trip of {SMEM_ROUND_TRIP_CYCLES} cycles at "
+        f"{sm_clock_mhz:.0f} MHz = {floor_ms:.5f} ms")
     return rows
 
 
-def check_bf16(q16: dict, f32: dict) -> None:
+def phase_popnet_timing(frames, weights, dev, iters: int, errs, launches, f32_out):
+    """PoP-Net: the timed bf16+q16 stream, CNN and decode times, and K7 at
+    the planes the bf16 main path gives it."""
+    import torch
+
+    from popnet_tpu_torch import build_popnet_pipeline
+    from popnet_tpu_torch.decode.device import peak_planes
+    from popnet_tpu_torch.decode.popnet_infer import popnet_decode
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import PopNet
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.serving import preproc_depth, unpack_outputs_q16
+
+    pipe = build_popnet_pipeline(weights, pack="q16")       # bf16 CNN, the default
+    time_stream("PoP-Net", pipe, frames, iters,
+                lambda buf: check_bf16("PoP-Net", unpack_outputs_q16(buf, 16, 15), f32_out))
+    model = keep_batchnorm_float32(load_into(PopNet(), weights).eval().to(dev, torch.bfloat16))
+    with torch.inference_mode():
+        xb = preproc_depth(frames).permute(0, 3, 1, 2).to(torch.bfloat16)
+        cnn_ms = time_ms(lambda: model(xb), reps=10)
+        maps, _ = model(xb)
+        heat_n, z_n, align_n, prior_n = (t.float().permute(0, 2, 3, 1) for t in maps)
+        decode_ms = time_ms(lambda: popnet_decode(heat_n, z_n, align_n, prior_n), reps=10)
+        h = peak_planes(heat_n)                 # what peak_mask hands the kernel
+        say("timing", f"PoP-Net heat planes as the kernel gets them: shape {tuple(h.shape)}, "
+            f"strides {tuple(h.stride())}")
+        rows = time_kernels({"peak_local_max": (
+            lambda: kernels.peak_local_max(h, 0.5), lambda: kernels.peak_local_max_plain(h, 0.5),
+            None, {"heat": h})}, launches, errs)
+    say("timing", f"PoP-Net CNN bf16 {cnn_ms:.3f} ms/batch; decode (eager, through the "
+        f"kernel) {decode_ms:.3f} ms/batch")
+    return rows
+
+
+def check_bf16(tag: str, q16: dict, f32: dict) -> None:
     """The timed configuration (bf16 CNN, q16 wire) against the float32
-    slice on the same frames: person counts equal on at least 80% of the
+    slice on the same frames: people per frame equal on at least 80% of the
     frames, and people and visible joints in all within 10% (bars wide of
-    bf16's rounding, tight enough to catch a broken bf16 path)."""
-    cq, cf = q16["counts"][:, 0].astype(int), f32["counts"][:, 0].astype(int)
-    vq = int((q16["joints2d"][..., 0] >= 0).sum())
-    vf = int((f32["joints2d"][..., 0] >= 0).sum())
+    bf16's rounding, tight enough to catch a broken bf16 path). Open-Pose+
+    packs one count per frame and marks holes with -1; PoP-Net packs a flag
+    per row, and its visible joints are those of flagged rows that lie
+    inside the (480, 512) frame."""
+    def visible(out):
+        x, y = out["joints2d"][..., 0], out["joints2d"][..., 1]
+        if out["counts"].shape[1] == 1:
+            return x >= 0
+        return (out["counts"] > 0)[..., None] & (x >= 0) & (x <= 479) & (y >= 0) & (y <= 511)
+
+    cq, cf = (o["counts"].astype(int).sum(axis=1) for o in (q16, f32))
+    vq, vf = int(visible(q16).sum()), int(visible(f32).sum())
     same = float((cq == cf).mean())
-    say("timing", f"bf16+q16 vs f32 on the same {len(cf)} frames: counts equal on "
-        f"{same:.1%} (bar 80%), people {cq.sum()} vs {cf.sum()}, visible joints {vq} vs "
-        f"{vf} (bar 10%)")
+    say("timing", f"{tag} bf16+q16 vs f32 on the same {len(cf)} frames: people per frame "
+        f"equal on {same:.1%} (bar 80%), people {cq.sum()} vs {cf.sum()}, visible joints "
+        f"{vq} vs {vf} (bar 10%)")
     require(bool(np.isfinite(q16["joints3d"]).all()), "non-finite values in the q16 output")
     require(same >= 0.80, "bf16 and f32 person counts differ on more than 20% of frames")
     require(abs(int(cq.sum()) - int(cf.sum())) <= 0.10 * cf.sum(), "bf16 people differ by over 10%")
@@ -476,13 +786,20 @@ def main(argv=None) -> int:
     from popnet_tpu_torch import load_npz
 
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(args.seed)
-    phase_device()
+    rng = np.random.default_rng(args.seed)           # the first slice's inputs, as ever
+    rng_new = np.random.default_rng([args.seed, 2])  # the later kernels' and PoP-Net's
+    sm_clock_mhz = phase_device()
     phase_build()
-    errs = phase_kernels(rng, dev, BATCH)
-    weights = load_npz(WEIGHTS)
+    errs = phase_kernels(rng, rng_new, dev, BATCH)
+    weights, weights_pn = load_npz(WEIGHTS), load_npz(WEIGHTS_POPNET)
     frames, launches, f32_out = phase_slice(rng, dev, BATCH, weights)
-    rows = phase_timing(frames, weights, dev, BATCH, TIMED_BATCHES, errs, launches, f32_out)
+    frames_pn, launches_pn, f32_out_pn = phase_popnet_slice(rng_new, dev, BATCH, weights_pn)
+    rows = phase_timing(frames, weights, dev, BATCH, TIMED_BATCHES, errs, launches, f32_out,
+                        sm_clock_mhz)
+    rows += phase_popnet_timing(frames_pn, weights_pn, dev, TIMED_BATCHES, errs, launches_pn,
+                                f32_out_pn)
+    require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")
+    require(all(r["launches"] >= 1 for r in rows), "a kernel was launched on no path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

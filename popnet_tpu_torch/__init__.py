@@ -1,7 +1,8 @@
 """popnet_tpu_torch: the PyTorch/CUDA port of popnet_tpu.
 
-Open-Pose+ depth serving on an NVIDIA Hopper card: the RTPoseLight3D CNN
-through cuDNN, and the decode through hand-written CUDA kernels
+Open-Pose+ and PoP-Net depth serving on an NVIDIA Hopper card: the CNNs
+(RTPoseLight3D, PopNet) through cuDNN, and the decodes through hand-written
+CUDA kernels
 (`ops/kernels.py`, sources in `csrc/`). The JAX package `popnet_tpu` is
 the reference the port is held against; this package imports nothing of it.
 
@@ -9,9 +10,17 @@ the reference the port is held against; this package imports nothing of it.
     pipe = build_openpose_pipeline(load_npz("examples/results/bench_weights_openpose.npz"))
     for buf in serve_stream(pipe, batches):   # batches of (B, 512, 480) depth, metres
         ...
+
+`build_popnet_pipeline(load_npz(".../bench_weights_popnet.npz"))` serves
+PoP-Net the same way.
 """
 
 from popnet_tpu_torch.interop.from_jax import load_npz, state_dict_from_jax
-from popnet_tpu_torch.serving import build_openpose_pipeline, serve_stream
+from popnet_tpu_torch.serving import (
+    build_openpose_pipeline,
+    build_popnet_pipeline,
+    serve_stream,
+)
 
-__all__ = ["build_openpose_pipeline", "load_npz", "serve_stream", "state_dict_from_jax"]
+__all__ = ["build_openpose_pipeline", "build_popnet_pipeline", "load_npz", "serve_stream",
+           "state_dict_from_jax"]

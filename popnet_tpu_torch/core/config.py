@@ -21,17 +21,38 @@ KDH3D_DEPTH = DepthStats(mean=3.0, std=2.0, max=6.0)
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
-    """Network input size and joint count (the fields of the JAX
-    EncoderConfig that this slice reads, same defaults)."""
+    """Network input size, grid strides, anchors and joint count (the
+    fields of the JAX EncoderConfig that the serving paths read, same
+    defaults)."""
 
     input_x: int = 224          # network input width
     input_y: int = 224          # network input height
+    stride_align: int = 8       # align-map grid stride
+    stride_prior: int = 16      # prior (anchor) grid stride
+    align_radius: int = 2       # align-map box radius (grid cells)
     num_joints: int = NUM_JOINTS
+    anchors: tuple[tuple[float, float], ...] = ((6.0, 3.0), (12.0, 6.0))
+
+    @property
+    def agrid_w(self) -> int:
+        return self.input_x // self.stride_align
+
+    @property
+    def agrid_h(self) -> int:
+        return self.input_y // self.stride_align
+
+    @property
+    def prior_w(self) -> int:
+        return self.input_x // self.stride_prior
+
+    @property
+    def prior_h(self) -> int:
+        return self.input_y // self.stride_prior
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodeConfig:
-    """Open-Pose+ post-processing thresholds (the JAX defaults)."""
+    """Post-processing thresholds (the JAX defaults)."""
 
     downsample: int = 8             # heatmap->image upsample factor
     thresh_heatmap: float = 0.1     # peak detection threshold
@@ -42,3 +63,5 @@ class DecodeConfig:
     max_people: int = 16            # static cap on decoded people
     min_parts: int = 3              # drop people with fewer joints
     min_score: float = 0.2          # drop people with lower mean score
+    conf_threshold: float = 0.5     # prior (anchor) decode: confidence
+    nms_threshold: float = 0.5      # prior (anchor) decode: IoU of the NMS

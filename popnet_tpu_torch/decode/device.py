@@ -2,8 +2,9 @@
 
 Maps keep the JAX layout at these public functions: (B, H, W, C) in,
 peaks (B, K, M, 3) of (x, y, score) in upsampled-image coordinates out.
-The work runs in the kernels of `ops/kernels.py` (`find_peaks`,
-`paf_score`) on a CUDA tensor, and in their plain versions on a CPU one.
+The work runs in the kernels of `ops/kernels.py` (`find_peaks` or
+`find_peaks_row`, `paf_score`) on a CUDA tensor, and in their plain
+versions on a CPU one.
 The refine's bicubic upsample matrix (`_cubic_kernel`, `_upsample_matrix`)
 lives with the kernels.
 """
@@ -23,12 +24,20 @@ def peak_planes(heat: torch.Tensor, num_joints: int = 15) -> torch.Tensor:
 
 
 def find_peaks_batched(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
-                       factor: int = 8, win_size: int = 2, num_joints: int = 15):
+                       factor: int = 8, win_size: int = 2, num_joints: int = 15,
+                       refine: str | None = None):
     """Top-M peaks per joint with windowed bicubic subpixel refinement.
 
     heat: (B, H, W, C >= num_joints). Returns peaks (B, K, M, 3) of
-    (x, y, score) and valid (B, K, M)."""
-    px, py, loc, peak_score, valid = kernels.find_peaks(
+    (x, y, score) and valid (B, K, M).
+
+    refine: "kernel" (None takes it) is `find_peaks`, one block per plane;
+    "kernel_row" is `find_peaks_row`, one block per frame. Both give the
+    same result bit for bit."""
+    if refine not in (None, "kernel", "kernel_row"):
+        raise ValueError(f"unknown refine {refine!r}")
+    fn = kernels.find_peaks_row if refine == "kernel_row" else kernels.find_peaks
+    px, py, loc, peak_score, valid = fn(
         peak_planes(heat, num_joints), max_peaks=max_peaks, thresh=thresh, factor=factor,
         win_size=win_size)
     S = (2 * win_size + 1) * factor

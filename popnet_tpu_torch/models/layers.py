@@ -20,25 +20,34 @@ def _same_pad(kernel: int) -> int:
 
 
 class ConvBN(nn.Module):
-    """conv -> BatchNorm -> LeakyReLU(0.1), the Open-Pose+ CPM layer."""
+    """conv -> [BatchNorm] -> LeakyReLU(0.1), the CPM layer. Open-Pose+
+    normalizes every layer; PoP-Net's heat branches (and RTPoseAlign3D's
+    PAF branches) pass `norm=False` and carry no BatchNorm_0."""
 
-    def __init__(self, in_ch: int, features: int, kernel: int = 3):
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, norm: bool = True,
+                 use_bias: bool = True):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, features, kernel, padding=_same_pad(kernel))
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
+        self.Conv_0 = nn.Conv2d(in_ch, features, kernel, padding=_same_pad(kernel),
+                                bias=use_bias)
+        self.norm = norm
+        if norm:
+            self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
 
     def forward(self, x):
-        return F.leaky_relu(self.BatchNorm_0(self.Conv_0(x)), 0.1)
+        x = self.Conv_0(x)
+        if self.norm:
+            x = self.BatchNorm_0(x)
+        return F.leaky_relu(x, 0.1)
 
 
 class CPMBranch(nn.Module):
     """N x ConvBN, then a bare conv with `out_features` channels."""
 
     def __init__(self, in_ch: int, spec: Sequence[tuple[int, int]],
-                 out_features: int, out_kernel: int = 1):
+                 out_features: int, out_kernel: int = 1, norm: bool = True):
         super().__init__()
         for n, (feats, k) in enumerate(spec):
-            self.add_module(f"ConvBN_{n}", ConvBN(in_ch, feats, k))
+            self.add_module(f"ConvBN_{n}", ConvBN(in_ch, feats, k, norm=norm))
             in_ch = feats
         self.n_hidden = len(spec)
         self.Conv_0 = nn.Conv2d(in_ch, out_features, out_kernel,
@@ -75,6 +84,11 @@ class BasicBlock(nn.Module):
 def avg_pool_3x3_s2(x):
     """3x3 stride-2 average pool, pad 1, zero padding counted."""
     return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+
+
+def max_pool_2x2(x):
+    """2x2 stride-2 max pool, no padding."""
+    return F.max_pool2d(x, 2, stride=2)
 
 
 class ResPreprocessStem(nn.Module):

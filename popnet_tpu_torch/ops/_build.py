@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "popnet_tpu_torch"
-SOURCES = ("find_peaks", "paf_score", "readout")
+SOURCES = ("find_peaks", "paf_score", "readout", "assemble", "peak_mask")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,12 +1,18 @@
-"""The decode kernels of the Open-Pose+ path: one wrapper per CUDA kernel,
-with its plain PyTorch version beside it.
+"""The decode kernels of the Open-Pose+ and PoP-Net paths: one wrapper per
+CUDA kernel, with its plain PyTorch version beside it.
 
 | wrapper          | CUDA source            | TPU kernel it replaces                   |
 | ---------------- | ---------------------- | ---------------------------------------- |
 | `find_peaks`     | csrc/find_peaks.cu     | pallas_kernels.py find_peaks_pallas_bt   |
+| `find_peaks_row` | csrc/find_peaks.cu     | pallas_kernels.py find_peaks_pallas      |
 | `paf_score`      | csrc/paf_score.cu      | pallas_kernels.py paf_sample_pallas      |
 | `window_readout` | csrc/readout.cu        | pallas_kernels.py window_readout_pallas  |
 | `point_readout`  | csrc/readout.cu        | pallas_kernels.py point_readout_pallas   |
+| `assemble_ids`   | csrc/assemble.cu       | assemble_pallas.py assemble_ids_pallas   |
+| `peak_local_max` | csrc/peak_mask.cu      | pallas_kernels.py peak_local_max_pallas  |
+
+`find_peaks` and `find_peaks_row` are two designs of one function and share
+one plain version, `find_peaks_plain`.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel on the current stream or raises. Nothing falls back.
@@ -36,15 +42,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_FIND_PEAKS_ARGS = [_P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
+                    _P, _P, _P]
 _SIGNATURES = {
-    "popnet_find_peaks": ("find_peaks", [_P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I,
-                                         _F, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+    "popnet_find_peaks": ("find_peaks", _FIND_PEAKS_ARGS),
+    "popnet_find_peaks_row": ("find_peaks", _FIND_PEAKS_ARGS),
     "popnet_paf_score": ("paf_score", [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _F, _F, _F, _P, _P, _P]),
     "popnet_window_readout": ("readout", [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL,
                                           _LL, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
     "popnet_point_readout": ("readout", [_P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I,
                                          _P, _P]),
+    "popnet_assemble": ("assemble", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P]),
+    "popnet_peak_mask": ("peak_mask", [_P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _F, _P, _LL,
+                                       _LL, _LL, _LL, _P]),
 }
 _consts: dict = {}
 
@@ -96,6 +107,12 @@ def _limbs(limbs: tuple, device) -> torch.Tensor:
     """(L, 2) int64 limb table on `device` (kept, so no copy runs per call)."""
     return _const(("limbs_i64", tuple(limbs)), lambda: torch.tensor(limbs, dtype=torch.long),
                   device)
+
+
+def _limbs_i32(limbs: tuple, device) -> torch.Tensor:
+    """Flat (2L,) int32 limb table on `device`, as the kernels read it."""
+    return _const(("limbs", tuple(limbs)),
+                  lambda: torch.tensor(limbs, dtype=torch.int32).reshape(-1), device)
 
 
 def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -184,12 +201,7 @@ def find_peaks_plain(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.
     return px, py, loc[..., 0].to(torch.int32), peak_score, valid
 
 
-def find_peaks(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
-               factor: int = 8, win_size: int = 2):
-    """Peak NMS + top-M + windowed bicubic refine over (B, K, H, W) float32
-    heat planes (any strides). Same contract as `find_peaks_plain`."""
-    if not _on_cuda(heat):
-        return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
+def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
     B, K, H, W = heat.shape
     _check(heat, "heat", torch.float32)
     dev = heat.device
@@ -198,11 +210,38 @@ def find_peaks(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
                    for _ in range(3))
     score = torch.empty((B, K, max_peaks), dtype=torch.float32, device=dev)
     valid = torch.empty((B, K, max_peaks), dtype=torch.bool, device=dev)
-    _launch("popnet_find_peaks", dev, heat.data_ptr(), *heat.stride(), B, K, H, W,
+    _launch(symbol, dev, heat.data_ptr(), *heat.stride(), B, K, H, W,
             max_peaks, thresh, win_size, factor, U.data_ptr(), px.data_ptr(),
             py.data_ptr(), loc.data_ptr(), score.data_ptr(), valid.data_ptr())
-    find_peaks.launches += 1
     return px, py, loc, score, valid
+
+
+def find_peaks(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
+               factor: int = 8, win_size: int = 2):
+    """Peak NMS + top-M + windowed bicubic refine over (B, K, H, W) float32
+    heat planes (any strides), one block per plane. Same contract as
+    `find_peaks_plain`."""
+    if not _on_cuda(heat):
+        return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
+    out = _find_peaks_launch("popnet_find_peaks", heat, max_peaks, thresh, factor, win_size)
+    find_peaks.launches += 1
+    return out
+
+
+# ---- K2: the same function, one block per frame and one warp per plane -----
+
+
+def find_peaks_row(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
+                   factor: int = 8, win_size: int = 2):
+    """`find_peaks` by its second kernel (a per-warp top-M over the NMS
+    survivors). Same contract and the same plain version,
+    `find_peaks_plain`; the two kernels agree bit for bit."""
+    if not _on_cuda(heat):
+        return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
+    out = _find_peaks_launch("popnet_find_peaks_row", heat, max_peaks, thresh, factor,
+                             win_size)
+    find_peaks_row.launches += 1
+    return out
 
 
 # ---- K3: PAF line integral over every peak pair of every limb -------------
@@ -324,8 +363,7 @@ def paf_score(paf: torch.Tensor, peaks: torch.Tensor, peak_valid: torch.Tensor,
     if M * M > 1024:
         raise ValueError(f"paf_score takes at most 32 peaks per joint, got {M}")
     dev = paf.device
-    lt = _const(("limbs", tuple(limbs)),
-                lambda: torch.tensor(limbs, dtype=torch.int32).reshape(-1), dev)
+    lt = _limbs_i32(limbs, dev)
     score = torch.empty((B, L, M, M), dtype=torch.float32, device=dev)
     ok = torch.empty((B, L, M, M), dtype=torch.bool, device=dev)
     sb, sy, sx, sc = paf.stride()
@@ -419,7 +457,185 @@ def point_readout(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torc
     return out
 
 
-KERNELS = (find_peaks, paf_score, window_readout, point_readout)
+# ---- K6: greedy person assembly to packed peak-id tables ----------------------
+
+
+def assemble_ids_plain(peak_score: torch.Tensor, s_masked: torch.Tensor, limbs: tuple,
+                       max_people: int = 16, min_parts: int = 3, min_score: float = 0.2):
+    """Plain version of `assemble_ids`: Python loops over batch-vectorized
+    tensor ops.
+
+    peak_score (B, K, M) float32; s_masked (B, L, M, M) float32 pair scores
+    with -inf at non-candidates. Returns (ids (B, max_people, K) int32 peak
+    indices with -1 holes, counts (B,) int32).
+
+    1. per limb, M rounds of masked argmax over the (M, M) scores, each
+       killing the picked row and column: a stable sort by descending score
+       with the first-flat-index tie rule;
+    2. a sequential union-merge over the L*M connections (limb-major) into a
+       (L*M, K) slot table, in creation order;
+    3. keep slots that are alive with count >= min_parts and a float32 mean
+       score >= min_score, packed in creation order."""
+    B, K, M = peak_score.shape
+    L = len(limbs)
+    P = L * M
+    dev = peak_score.device
+    peak_score = peak_score.float()
+    ninf = torch.full((), float("-inf"), device=dev)
+
+    # ---- stage 1: per-limb greedy 1-1 matching, descending score ----------
+    s = s_masked.float().reshape(B, L, M * M)
+    ar = torch.arange(M, device=dev)
+    ci, cj, cv = [], [], []
+    for _ in range(M):
+        idx = s.argmax(dim=-1)                                   # (B, L), first max
+        val = s.gather(-1, idx[..., None])[..., 0]
+        i, j = idx // M, idx % M
+        kill = (i[..., None, None] == ar[:, None]) | (j[..., None, None] == ar[None, :])
+        s = torch.where(kill.reshape(B, L, M * M), ninf, s)
+        ci.append(i)
+        cj.append(j)
+        cv.append(val)
+    ci = torch.stack(ci, -1).reshape(B, P)          # limb-major, pick order within
+    cj = torch.stack(cj, -1).reshape(B, P)
+    cv = torch.stack(cv, -1).reshape(B, P)
+    cgood = torch.isfinite(cv)
+    cv = torch.where(cgood, cv, 0.0)
+
+    # ---- stage 2: sequential union-merge over connections -----------------
+    bar = torch.arange(B, device=dev)
+    slot = torch.arange(P, device=dev)
+    ids = torch.full((B, P, K), -1, dtype=torch.int32, device=dev)
+    score = torch.zeros((B, P), dtype=torch.float32, device=dev)
+    count = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    alive = torch.zeros((B, P), dtype=torch.bool, device=dev)
+    ncre = torch.zeros((B,), dtype=torch.int64, device=dev)
+    for n in range(P):
+        src_t, dst_t = limbs[n // M]
+        i = ci[:, n].to(torch.int32)
+        j = cj[:, n].to(torch.int32)
+        cs, good = cv[:, n], cgood[:, n]
+
+        match = alive & ((ids[:, :, src_t] == i[:, None]) | (ids[:, :, dst_t] == j[:, None]))
+        a0 = match.to(torch.int8).argmax(dim=1)                  # first match, or 0
+        oh0 = slot == a0[:, None]
+        has0 = match.any(dim=1)
+        m2 = match & ~oh0
+        a1 = m2.to(torch.int8).argmax(dim=1)
+        oh1 = slot == a1[:, None]
+        has1 = m2.any(dim=1)
+
+        src_sc = peak_score[bar, src_t, i.long()]
+        dst_sc = peak_score[bar, dst_t, j.long()]
+        row0 = ids[bar, a0]                                      # (B, K)
+        row1 = ids[bar, a1]
+        sc0, sc1 = score[bar, a0], score[bar, a1]
+        ct0, ct1 = count[bar, a0], count[bar, a1]
+
+        already = row0[:, dst_t] == j
+        overlap = ((row0 >= 0) & (row1 >= 0)).any(dim=1)
+        case_new = good & ~has0
+        case_two = good & has1
+        case_setdst = (good & has0 & ~has1 & ~already) | (case_two & overlap)
+        case_merge = case_two & ~overlap
+        do_write = case_new | case_setdst | case_merge
+
+        row_setdst = row0.clone()
+        row_setdst[:, dst_t] = j
+        row_new = torch.full_like(row0, -1)
+        row_new[:, src_t] = i
+        row_new[:, dst_t] = j
+        new_row = torch.where(case_new[:, None], row_new,
+                              torch.where(case_merge[:, None], row0 + row1 + 1, row_setdst))
+        new_sc = torch.where(case_new, src_sc + dst_sc + cs,
+                             torch.where(case_merge, sc0 + sc1 + cs, sc0 + dst_sc + cs))
+        new_ct = torch.where(case_new, 2, torch.where(case_merge, ct0 + ct1, ct0 + 1))
+
+        p_tgt = torch.where(case_new, ncre, a0)
+        wmask = (slot == p_tgt[:, None]) & do_write[:, None]     # (B, P)
+        ids = torch.where(wmask[:, :, None], new_row[:, None, :], ids)
+        score = torch.where(wmask, new_sc[:, None], score)
+        count = torch.where(wmask, new_ct.to(torch.int32)[:, None], count)
+        alive = (alive | wmask) & ~(oh1 & case_merge[:, None])
+        ncre = ncre + case_new.long()
+
+    # ---- stage 3: filter + pack in creation order ---------------------------
+    # f32 division, as the native assembler's `score / count < min_score`
+    mean_sc = score / count.clamp(min=1).float()
+    survive = alive & (count >= min_parts) & (mean_sc >= min_score)
+    rank = survive.long().cumsum(dim=1) - 1
+    keep = survive & (rank < max_people)
+    counts = survive.sum(dim=1).clamp(max=max_people).to(torch.int32)
+    out_slot = torch.where(keep, rank, max_people)               # dump slot
+    out_ids = torch.full((B, max_people + 1, K), -1, dtype=torch.int32, device=dev)
+    out_ids.scatter_(1, out_slot[:, :, None].expand(B, P, K),
+                     torch.where(keep[:, :, None], ids, -1))
+    return out_ids[:, :max_people], counts
+
+
+def assemble_ids(peak_score: torch.Tensor, s_masked: torch.Tensor, limbs: tuple,
+                 max_people: int = 16, min_parts: int = 3, min_score: float = 0.2):
+    """Greedy assembly of one batch in one launch, one block per frame.
+    peak_score (B, K, M) and s_masked (B, L, M, M) are contiguous float32,
+    K and M at most 32. Same contract as `assemble_ids_plain`."""
+    if not _on_cuda(peak_score, s_masked):
+        return assemble_ids_plain(peak_score, s_masked, limbs, max_people, min_parts,
+                                  min_score)
+    B, K, M = peak_score.shape
+    L = len(limbs)
+    _check(peak_score, "peak_score", torch.float32, contiguous=True)
+    _check(s_masked, "s_masked", torch.float32, (B, L, M, M), contiguous=True)
+    if K > 32 or M > 32:
+        raise ValueError(f"assemble_ids takes at most 32 joints and 32 peaks, got {K}, {M}")
+    dev = peak_score.device
+    ids = torch.empty((B, max_people, K), dtype=torch.int32, device=dev)
+    counts = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch("popnet_assemble", dev, peak_score.data_ptr(), s_masked.data_ptr(),
+            _limbs_i32(limbs, dev).data_ptr(), B, K, L, M, max_people, min_parts,
+            min_score, ids.data_ptr(), counts.data_ptr())
+    assemble_ids.launches += 1
+    return ids, counts
+
+
+# ---- K7: cross-footprint local-maximum mask -------------------------------------
+
+
+def peak_local_max_plain(heat: torch.Tensor, thresh: float = float("-inf")) -> torch.Tensor:
+    """Plain version of `peak_local_max`. heat (B, K, H, W) float32 -> bool
+    (B, K, H, W): h >= each of its four cross neighbours (-inf off the
+    plane), and h > thresh unless thresh is -inf. A plateau marks every
+    cell of it."""
+    h = heat.float()
+    pad = F.pad(h, (1, 1, 1, 1), value=float("-inf"))
+    mx = torch.maximum(torch.maximum(pad[..., :-2, 1:-1], pad[..., 2:, 1:-1]),
+                       torch.maximum(pad[..., 1:-1, :-2], pad[..., 1:-1, 2:]))
+    mask = h >= mx
+    return mask & (h > thresh) if thresh > float("-inf") else mask
+
+
+def peak_local_max(heat: torch.Tensor, thresh: float = float("-inf")) -> torch.Tensor:
+    """Local-maximum mask of (B, K, H, W) float32 planes (any strides), one
+    thread per column; the mask comes back in the memory order of the planes.
+    Same contract as `peak_local_max_plain`."""
+    if not _on_cuda(heat):
+        return peak_local_max_plain(heat, thresh)
+    B, K, H, W = heat.shape
+    _check(heat, "heat", torch.float32)
+    out = torch.empty_like(heat, dtype=torch.bool)
+    _launch("popnet_peak_mask", heat.device, heat.data_ptr(), *heat.stride(), B, K, H, W,
+            thresh, out.data_ptr(), *out.stride())
+    peak_local_max.launches += 1
+    return out
+
+
+def peak_mask(heat: torch.Tensor, thresh: float) -> torch.Tensor:
+    """(B, H, W, C) heat -> bool (B, H, W, C) peak mask: local maximum of
+    the cross footprint and above `thresh`."""
+    return peak_local_max(heat.float().permute(0, 3, 1, 2), thresh).permute(0, 2, 3, 1)
+
+
+KERNELS = (find_peaks, find_peaks_row, paf_score, window_readout, point_readout,
+           assemble_ids, peak_local_max)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -1,10 +1,11 @@
-"""Open-Pose+ serving: raw depth frames -> packed 3D human tensors.
+"""Open-Pose+ and PoP-Net serving: raw depth frames -> packed 3D human
+tensors.
 
-`build_openpose_pipeline` returns a callable that takes a (B, H, W) batch
-of raw depth in metres and returns ONE packed buffer per batch on the
-device (f32, or the uint16 fixed-point wire format), so a batch leaves the
-card in one copy. `serve_stream` keeps a few batches in flight; the copy
-to the host is its synchronization point.
+`build_openpose_pipeline` and `build_popnet_pipeline` return a callable
+that takes a (B, H, W) batch of raw depth in metres and returns ONE packed
+buffer per batch on the device (f32, or the uint16 fixed-point wire
+format), so a batch leaves the card in one copy. `serve_stream` keeps a few
+batches in flight; the copy to the host is its synchronization point.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ def pack_outputs(*tensors: torch.Tensor) -> torch.Tensor:
 
 def unpack_outputs(buf: np.ndarray, max_people: int, num_joints: int):
     """Host inverse of pack_outputs for the (joints2d, joints3d, conf,
-    counts) layout. Returns numpy views."""
+    counts) layout. Returns numpy views. Open-Pose+ packs one person count
+    per frame there; PoP-Net packs its (max_people,) validity flags, which
+    come back under the same key, "counts"."""
     buf = np.asarray(buf)
     B = buf.shape[0]
     s1, s2, s3 = max_people * num_joints * 2, max_people * num_joints * 3, max_people * num_joints
@@ -95,6 +98,15 @@ def unpack_outputs_q16(buf: np.ndarray, max_people: int, num_joints: int,
     }
 
 
+def _check_build_args(device, pack: str) -> torch.device:
+    if pack not in ("f32", "q16"):
+        raise ValueError(f"unknown pack {pack!r}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
+
+
 def build_openpose_pipeline(weights: dict[str, np.ndarray],
                             dtype: torch.dtype = torch.bfloat16,
                             device: str | torch.device = "cuda",
@@ -114,11 +126,7 @@ def build_openpose_pipeline(weights: dict[str, np.ndarray],
 
     if stage not in ("full", "cnn"):
         raise ValueError(f"unknown stage {stage!r}")
-    if pack not in ("f32", "q16"):
-        raise ValueError(f"unknown pack {pack!r}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    device = _check_build_args(device, pack)
     model = load_into(RTPoseLight3D(), weights).eval().to(device=device, dtype=dtype)
     keep_batchnorm_float32(model)
 
@@ -135,6 +143,43 @@ def build_openpose_pipeline(weights: dict[str, np.ndarray],
             return pack_outputs_q16(out["joints2d"], out["joints3d"][..., 2],
                                     out["conf"], out["counts"])
         return pack_outputs(out["joints2d"], out["joints3d"], out["conf"], out["counts"])
+
+    return pipeline
+
+
+def build_popnet_pipeline(weights: dict[str, np.ndarray],
+                          dtype: torch.dtype = torch.bfloat16,
+                          device: str | torch.device = "cuda",
+                          readout: str = "universe", pack: str = "f32"):
+    """PoP-Net serving fn: (B, H, W) raw depth -> (B, L) packed buffer of
+    (joints2d, joints3d, conf, valid), or the q16 wire of (joints2d, z,
+    conf, valid); `unpack_outputs` / `unpack_outputs_q16` read both.
+
+    weights: the model's Flax variables as {'/'-joined path: array}
+    (`interop.load_npz`). The CNN runs in `dtype` with float32 BatchNorm;
+    the decode runs in float32. readout: see `popnet_decode`."""
+    from popnet_tpu_torch.decode.popnet_infer import popnet_decode
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import PopNet
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+
+    if readout not in ("universe", "gated"):
+        raise ValueError(f"unknown readout {readout!r}")
+    device = _check_build_args(device, pack)
+    model = load_into(PopNet(), weights).eval().to(device=device, dtype=dtype)
+    keep_batchnorm_float32(model)
+
+    @torch.inference_mode()
+    def pipeline(raw_depth) -> torch.Tensor:
+        raw_depth = torch.as_tensor(raw_depth, device=device)
+        x = preproc_depth(raw_depth)                                      # (B, 224, 224, 1)
+        maps, _ = model(x.permute(0, 3, 1, 2).to(dtype))
+        heat, z, align, prior = (t.float().permute(0, 2, 3, 1) for t in maps)
+        out = popnet_decode(heat, z, align, prior, readout=readout)
+        if pack == "q16":
+            return pack_outputs_q16(out["joints2d"], out["joints3d"][..., 2],
+                                    out["conf"], out["valid"])
+        return pack_outputs(out["joints2d"], out["joints3d"], out["conf"], out["valid"])
 
     return pipeline
 

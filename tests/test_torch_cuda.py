@@ -12,13 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from popnet_tpu_torch import build_openpose_pipeline, load_npz
+from popnet_tpu_torch import build_openpose_pipeline, build_popnet_pipeline, load_npz
 from popnet_tpu_torch.core.skeleton import LIMBS
 from popnet_tpu_torch.ops import kernels
 from popnet_tpu_torch.serving import unpack_outputs, unpack_outputs_q16
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "examples", "results", "bench_weights_openpose.npz")
+WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet.npz")
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +49,85 @@ def test_find_peaks_kernel_matches_plain(cuda):
     assert kernels.find_peaks.launches == 1
     for a, b in zip(got, kernels.find_peaks_plain(h)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("grid,max_peaks", [((28, 28), 16), ((12, 10), 32), ((9, 40), 5)])
+def test_find_peaks_row_kernel_matches_plain_and_find_peaks(cuda, grid, max_peaks):
+    """The per-frame kernel: exact against the plain version and bit-equal
+    to the per-plane kernel, on other grids and peak counts too."""
+    H, W = grid
+    heat = np.random.default_rng(5).uniform(0, 1, (4, 16, H, W)).astype(np.float32)
+    heat[0, 0, 3, 3] = heat[0, 0, 3, 7] = 0.95                 # exact tie
+    heat[0, 1, 0, 2] = heat[1, 2, H - 1, W - 1] = heat[3, 3, 4, 0] = 5.0
+    heat[2, 4] *= 0.09                                         # no peak over the threshold
+    heat[2, 5] = np.round(heat[2, 5] * 4) / 4                  # plateaus: many equal survivors
+    h = torch.as_tensor(heat, device=cuda)[:, :15]
+    kernels.reset_launches()
+    row = kernels.find_peaks_row(h, max_peaks=max_peaks)
+    torch.cuda.synchronize()
+    assert kernels.find_peaks_row.launches == 1 and kernels.find_peaks.launches == 0
+    for a, b, c in zip(row, kernels.find_peaks_plain(h, max_peaks=max_peaks),
+                       kernels.find_peaks(h, max_peaks=max_peaks)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert not row[4][2, 4].any() and row[4][0, 0].sum() > 1
+
+
+def test_peak_local_max_kernel_matches_plain(cuda):
+    """Exact, plateaus and borders included, on NCHW memory read as NHWC
+    and on channel, row and column slices, and on NHWC memory (which the
+    kernel walks channel fastest); with and without the threshold."""
+    heat = np.round(np.random.default_rng(0).uniform(0, 1, (3, 16, 28, 28)) * 8) / 8
+    heat[0, 0, 4:7, 4:8] = heat[0, 0, 0:2, 25:] = 2.0
+    heat[1, 1, 0, 0] = heat[1, 1, 27, 27] = heat[1, 1, 27, 5] = heat[1, 1, 9, 0] = 3.0
+    heat[2, 2] = 0.5
+    h = torch.as_tensor(heat.astype(np.float32), device=cuda)
+    nhwc_memory = h.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    kernels.reset_launches()
+    for planes in (h, h[:, :15], h[:, ::2], h[:, 1:, 1:], h[..., 1:25], nhwc_memory,
+                   nhwc_memory[:, :15], nhwc_memory[:, 3:4]):
+        for thresh in (float("-inf"), 0.5):
+            assert torch.equal(kernels.peak_local_max(planes, thresh),
+                               kernels.peak_local_max_plain(planes, thresh))
+    nhwc = h.permute(0, 2, 3, 1)[..., :15]
+    got = kernels.peak_mask(nhwc, 0.5)
+    assert got.shape == nhwc.shape
+    assert torch.equal(got, kernels.peak_mask(nhwc.cpu(), 0.5).to(cuda))
+    assert kernels.peak_local_max.launches == 17
+    assert got[0, 4:7, 4:8, 0].all() and got[2, :, :, 2].sum() == 0   # 0.5 is not > 0.5
+
+
+def dense_candidates(seed, density, B=8, K=15, M=16):
+    """Random candidate tensors: dense ok matrices force long merge chains
+    and person creation well past max_people."""
+    rng = np.random.default_rng(seed)
+    L = len(LIMBS)
+    n_valid = rng.integers(0, M + 1, size=(B, K))
+    valid = np.arange(M)[None, None, :] < n_valid[:, :, None]
+    peak_score = np.where(valid, rng.uniform(0.1, 1.0, size=(B, K, M)), 0.0).astype(np.float32)
+    scores = rng.uniform(0.01, 2.0, size=(B, L, M, M)).astype(np.float32)
+    scores[0, 3, 2, 5] = scores[0, 3, 7, 1] = scores[0, 3, 7, 9] = 1.75   # tied pair scores
+    ok = rng.uniform(size=(B, L, M, M)) < density
+    limbs = np.asarray(LIMBS)
+    ok &= valid[:, limbs[:, 0]][:, :, :, None] & valid[:, limbs[:, 1]][:, :, None, :]
+    return peak_score, np.where(ok, scores, -np.inf).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed,density", [(0, 0.0), (0, 0.08), (1, 0.3), (2, 0.7), (3, 1.0)])
+def test_assemble_kernel_matches_plain(cuda, seed, density):
+    """ids and counts exact, from no candidate at all to every pair a
+    candidate (224 merge steps, slots created far past max_people)."""
+    ps, sm = (torch.as_tensor(a, device=cuda) for a in dense_candidates(seed, density))
+    kernels.reset_launches()
+    ids, counts = kernels.assemble_ids(ps, sm, LIMBS)
+    torch.cuda.synchronize()
+    assert kernels.assemble_ids.launches == 1
+    ref_ids, ref_counts = kernels.assemble_ids_plain(ps.cpu(), sm.cpu(), LIMBS)
+    assert torch.equal(counts.cpu(), ref_counts) and torch.equal(ids.cpu(), ref_ids)
+    assert (counts.sum() > 0) == (density > 0)
+    small = kernels.assemble_ids(ps, sm, LIMBS, max_people=3, min_parts=2, min_score=0.5)
+    ref = kernels.assemble_ids_plain(ps.cpu(), sm.cpu(), LIMBS, max_people=3, min_parts=2,
+                                     min_score=0.5)
+    assert torch.equal(small[0].cpu(), ref[0]) and torch.equal(small[1].cpu(), ref[1])
 
 
 def test_paf_score_kernel_matches_plain(cuda):
@@ -81,8 +161,8 @@ def test_readout_kernels_match_plain(cuda):
 
 
 def test_slice_on_the_card_matches_the_cpu(cuda):
-    """float32 pipeline on the card (cuDNN without TF32, the four kernels)
-    against the same pipeline on the CPU (plain versions)."""
+    """float32 pipeline on the card (cuDNN without TF32, the five kernels
+    of its path) against the same pipeline on the CPU (plain versions)."""
     rng = np.random.default_rng(0)
     frames = np.zeros((4, 512, 480), np.float32)
     for b in range(4):
@@ -97,7 +177,9 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
         kernels.reset_launches()
         gpu = build_openpose_pipeline(weights, dtype=torch.float32)(frames)
         torch.cuda.synchronize()
-        assert all(n == 1 for n in kernels.launch_counts().values()), kernels.launch_counts()
+        on_path = {"find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout"}
+        assert kernels.launch_counts() == {k.__name__: int(k.__name__ in on_path)
+                                           for k in kernels.KERNELS}
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     cpu = build_openpose_pipeline(weights, dtype=torch.float32, device="cpu")(frames)
@@ -116,3 +198,38 @@ def test_q16_pipeline_on_the_card(cuda):
     assert buf.dtype == torch.uint16 and buf.device.type == "cuda"
     out = unpack_outputs_q16(buf.cpu().numpy(), 16, 15)
     assert out["joints2d"].shape == (8, 16, 15, 2) and np.isfinite(out["joints3d"]).all()
+
+
+def test_popnet_slice_on_the_card_matches_the_cpu(cuda):
+    """float32 PoP-Net pipeline on the card (cuDNN without TF32, kernel K7)
+    against the same pipeline on the CPU: valid exact, joints and depth of
+    the valid rows within 1e-2 px and 1e-3 m."""
+    rng = np.random.default_rng(0)
+    ys, xs = np.mgrid[0:512, 0:480]
+    frames = np.repeat((4.0 + 1.5 * np.sin(xs / 60.0) * np.cos(ys / 80.0))[None], 4, 0)
+    frames = frames.astype(np.float32)
+    for b in range(4):
+        for cx in (120, 250, 380)[: 2 + b % 2]:
+            z = rng.uniform(2.5, 4.0)
+            for dx, dy in ((0, -96), (0, -62), (-30, -56), (30, -56), (-32, -14), (32, -14),
+                           (-34, 26), (34, 26), (0, 0), (-20, 46), (20, 46), (-22, 96),
+                           (22, 96), (-22, 144), (22, 144)):
+                x, y = cx + dx, 250 + dy
+                frames[b, y - 18:y + 18, x - 18:x + 18] = z
+    weights = load_npz(WEIGHTS_POPNET)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kernels.reset_launches()
+        gpu = build_popnet_pipeline(weights, dtype=torch.float32)(frames)
+        torch.cuda.synchronize()
+        assert kernels.peak_local_max.launches == 1
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu = build_popnet_pipeline(weights, dtype=torch.float32, device="cpu")(frames)
+    a, b = unpack_outputs(gpu.cpu().numpy(), 16, 15), unpack_outputs(cpu.numpy(), 16, 15)
+    np.testing.assert_array_equal(a["counts"], b["counts"])
+    ok = a["counts"] > 0
+    assert ok.any(axis=1).all()
+    np.testing.assert_allclose(a["joints2d"][ok], b["joints2d"][ok], atol=1e-2)
+    np.testing.assert_allclose(a["joints3d"][ok][..., 2], b["joints3d"][ok][..., 2], atol=1e-3)

@@ -8,6 +8,8 @@ import torch
 
 import jax.numpy as jnp
 
+from popnet_tpu.decode.assemble_device import assemble_batched as jax_assemble
+from popnet_tpu.decode.assemble_pallas import assemble_ids_pallas
 from popnet_tpu.decode.device import find_peaks_batched as jax_find_peaks
 from popnet_tpu.decode.device import score_limb_pairs_batched as jax_score_pairs
 from popnet_tpu.decode.openpose_infer import window_readout_heat_weighted as jax_window
@@ -15,9 +17,12 @@ from popnet_tpu.ops.pallas_kernels import (
     find_peaks_pallas,
     find_peaks_pallas_bt,
     paf_sample_pallas,
+    peak_local_max_pallas,
     point_readout_pallas,
 )
-from popnet_tpu_torch.core.skeleton import LIMBS
+from popnet_tpu.ops.pallas_kernels import peak_mask as jax_peak_mask
+from popnet_tpu_torch.core.skeleton import LIMBS, NUM_JOINTS
+from popnet_tpu_torch.decode.assemble_device import assemble_batched
 from popnet_tpu_torch.decode.device import find_peaks_batched, score_limb_pairs_batched
 from popnet_tpu_torch.ops import kernels
 
@@ -135,3 +140,116 @@ def test_point_readout_plain_matches_pallas():
     ref = point_readout_pallas(jnp.asarray(img), jnp.asarray(cx), jnp.asarray(cy), interpret=True)
     got = kernels.point_readout_plain(*(torch.from_numpy(a) for a in (img, cx, cy)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def plateau_heat(seed, N, H=28, W=28):
+    """(N, H, W) heat quantized to 1/8 so equal neighbours are common, with
+    a flat plateau, a plateau touching two borders, corner and edge maxima,
+    and a constant plane."""
+    heat = np.round(np.random.default_rng(seed).uniform(0, 1, (N, H, W)) * 8) / 8
+    heat[0, 4:7, 4:8] = 2.0                        # interior plateau: every cell is marked
+    heat[0, 0:2, W - 3:] = 2.0                     # plateau on the top and right borders
+    heat[1, 0, 0] = heat[1, H - 1, W - 1] = heat[1, H - 1, 5] = heat[1, 9, 0] = 3.0
+    heat[2] = 0.5                                  # constant plane: all cells marked
+    return heat.astype(np.float32)
+
+
+def test_peak_local_max_plain_matches_pallas():
+    """Exact, ties (plateaus) and borders included."""
+    heat = plateau_heat(0, 4)
+    ref = np.asarray(peak_local_max_pallas(jnp.asarray(heat), interpret=True)) > 0
+    got = kernels.peak_local_max_plain(torch.from_numpy(heat)[None])[0].numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got[0, 4:7, 4:8].all() and got[0, 0:2, 25:].all() and got[2].all()
+    assert got[1, 0, 0] and got[1, 27, 27] and got[1, 27, 5] and got[1, 9, 0]
+    assert 0.05 < got[3].mean() < 0.6
+
+
+@pytest.mark.parametrize("thresh", [0.5, 0.1])
+def test_peak_mask_matches_jax(thresh):
+    """Exact against the JAX package's XLA branch on (B, H, W, C) maps; a
+    strided (channel-sliced) input gives the same mask."""
+    heat = plateau_heat(1, 2 * 16).reshape(2, 16, 28, 28).transpose(0, 2, 3, 1)
+    ref = np.asarray(jax_peak_mask(jnp.asarray(heat[..., :15]), thresh, use_pallas=False))
+    got = kernels.peak_mask(torch.from_numpy(np.ascontiguousarray(heat))[..., :15], thresh)
+    assert got.dtype == torch.bool and got.shape == (2, 28, 28, 15)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert ref.any() and not ref.all()
+
+
+def _assembly_case(family, seed):
+    """(peaks, valid, scores, ok) of the three case families of the JAX
+    package's assembly tests: decoded synthetic scenes, dense random
+    candidates (long merge chains, overflow past max_people), nothing."""
+    B, K, M, L = 3, NUM_JOINTS, 16, len(LIMBS)
+    if family == "synth":
+        from tests.test_decode_device import synth
+
+        heat, paf = synth(seed, 2 + seed % 4, B=B)
+        peaks, valid = jax_find_peaks(jnp.asarray(heat))
+        scores, ok = jax_score_pairs(jnp.asarray(paf), peaks, valid)
+        return tuple(np.asarray(a) for a in (peaks, valid, scores, ok))
+    if family == "empty":
+        return (np.zeros((B, K, M, 3), np.float32), np.zeros((B, K, M), bool),
+                np.zeros((B, L, M, M), np.float32), np.zeros((B, L, M, M), bool))
+    rng = np.random.default_rng(seed)
+    density = (0.08, 0.3, 0.7, 1.0)[seed % 4]
+    n_valid = rng.integers(0, M + 1, size=(B, K))
+    valid = np.arange(M)[None, None, :] < n_valid[:, :, None]
+    peaks = np.zeros((B, K, M, 3), np.float32)
+    peaks[..., :2] = rng.uniform(0, 223, size=(B, K, M, 2))
+    peaks[..., 2] = rng.uniform(0.1, 1.0, size=(B, K, M))
+    peaks[~valid] = 0.0
+    scores = rng.uniform(0.01, 2.0, size=(B, L, M, M)).astype(np.float32)
+    scores[0, 3, 2, 5] = scores[0, 3, 7, 1] = scores[0, 3, 7, 9] = 1.75   # tied pair scores
+    ok = rng.uniform(size=(B, L, M, M)) < density
+    limbs = np.asarray(LIMBS)
+    ok &= valid[:, limbs[:, 0]][:, :, :, None] & valid[:, limbs[:, 1]][:, :, None, :]
+    return peaks, valid, scores, ok
+
+
+@pytest.mark.parametrize("family,seed", [("synth", 0), ("synth", 5), ("dense", 0), ("dense", 1),
+                                         ("dense", 2), ("dense", 3), ("empty", 0)])
+def test_assemble_ids_plain_matches_pallas_and_scan(family, seed):
+    """ids and counts exact against assemble_ids_pallas (interpret mode);
+    the joints that follow exact against the JAX scan."""
+    peaks, valid, scores, ok = _assembly_case(family, seed)
+    s_masked = np.where(ok, scores, -np.inf).astype(np.float32)
+    ref_ids, ref_cnt = assemble_ids_pallas(jnp.asarray(peaks[..., 2]), jnp.asarray(s_masked),
+                                           limbs=LIMBS, interpret=True)
+    got_ids, got_cnt = kernels.assemble_ids_plain(
+        torch.from_numpy(np.ascontiguousarray(peaks[..., 2])), torch.from_numpy(s_masked), LIMBS)
+    assert got_ids.dtype == torch.int32 and got_ids.shape == (3, 16, NUM_JOINTS)
+    np.testing.assert_array_equal(got_cnt.numpy(), np.asarray(ref_cnt))
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(ref_ids))
+    scan_j, scan_c = jax_assemble(*(jnp.asarray(a) for a in (peaks, valid, scores, ok)),
+                                  method="scan")
+    for method in (None, "kernel", "scan"):        # on CPU tensors all three are the plain loops
+        j, c = assemble_batched(*(torch.from_numpy(a) for a in (peaks, valid, scores, ok)),
+                                method=method)
+        np.testing.assert_array_equal(c.numpy(), np.asarray(scan_c))
+        np.testing.assert_array_equal(j.numpy(), np.asarray(scan_j))
+    if family == "empty":
+        assert (got_cnt == 0).all() and (got_ids == -1).all()
+    else:
+        assert got_cnt.sum() > 0
+
+
+@pytest.mark.parametrize("grid,max_peaks", [((28, 28), 16), ((12, 10), 32)])
+def test_find_peaks_row_path_matches_pallas_row(grid, max_peaks):
+    """find_peaks_batched(refine="kernel_row") against the JAX package's
+    per-frame kernel (refine="pallas_row", interpret mode): valid exact,
+    x and y exact up to rounding and score within 1e-5."""
+    H, W = grid
+    heat = np.random.default_rng(13).uniform(0, 1, (2, H, W, 16)).astype(np.float32)
+    heat[0, 3, 3, 0] = heat[0, 3, 7, 0] = 0.95     # exact tie
+    heat[0, 0, 2, 1] = heat[1, H - 1, W - 1, 2] = 5.0
+    heat[1, :, :, 4] *= 0.09
+    ref_pk, ref_v = jax_find_peaks(jnp.asarray(heat), max_peaks=max_peaks, refine="pallas_row")
+    got_pk, got_v = find_peaks_batched(torch.from_numpy(heat), max_peaks=max_peaks,
+                                       refine="kernel_row")
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+    np.testing.assert_allclose(got_pk.numpy(), np.asarray(ref_pk), atol=1e-5)
+    assert not got_v[1, 4].any() and got_v[0, 0].sum() > 1
+    with pytest.raises(ValueError, match="unknown refine"):
+        find_peaks_batched(torch.from_numpy(heat), refine="pallas")

@@ -13,14 +13,20 @@ import pytest
 import torch
 
 import popnet_tpu_torch
-from popnet_tpu_torch import build_openpose_pipeline, load_npz, state_dict_from_jax
+from popnet_tpu_torch import (
+    build_openpose_pipeline,
+    build_popnet_pipeline,
+    load_npz,
+    state_dict_from_jax,
+)
 from popnet_tpu_torch.interop.from_jax import load_into
-from popnet_tpu_torch.models import RTPoseLight3D
+from popnet_tpu_torch.models import PopNet, RTPoseAlign3D, RTPoseLight3D
 from popnet_tpu_torch.ops import _build, kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "popnet_tpu_torch")
 WEIGHTS = os.path.join(ROOT, "examples", "results", "bench_weights_openpose.npz")
+WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet.npz")
 
 
 def _port_modules():
@@ -52,6 +58,9 @@ def test_port_imports_with_jax_and_reference_blocked():
             importlib.import_module(m)
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "popnet_tpu")]
         assert not leaked, leaked
+        for m in ("models.popnet", "models.rtpose_align3d", "models.yolo_posenet", "decode.prior",
+                  "decode.popnet_infer"):
+            assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -98,6 +107,25 @@ def test_load_npz_maps_every_committed_key():
                                   flat["params/stem/BasicBlock_2/Conv_2/kernel"].transpose(3, 2, 0, 1))
 
 
+def test_load_npz_maps_every_committed_popnet_key():
+    """The PoP-Net npz: 204 arrays, heat branches without BatchNorm, a prior
+    head without bias; a module of another model refuses it."""
+    flat = load_npz(WEIGHTS_POPNET)
+    assert len(flat) == 204 and len(state_dict_from_jax(flat)) == 204
+    model = load_into(PopNet(), flat)
+    assert model.prior_out.bias is None and not hasattr(model.stage1_heat.ConvBN_0, "BatchNorm_0")
+    np.testing.assert_array_equal(
+        model.stage2_heat.ConvBN_5.Conv_0.weight.detach().numpy(),
+        flat["params/stage2_heat/ConvBN_5/Conv_0/kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(model.prior_tower2.BatchNorm_0.running_mean.numpy(),
+                                  flat["batch_stats/prior_tower2/BatchNorm_0/mean"])
+    with pytest.raises(ValueError, match="missing"):
+        load_into(RTPoseAlign3D(), flat)
+    extra = {**flat, "params/prior_out/bias": np.zeros(100, np.float32)}
+    with pytest.raises(ValueError, match="unexpected"):
+        load_into(PopNet(), extra)
+
+
 def test_loader_raises_on_unmapped_keys():
     flat = load_npz(WEIGHTS)
     with pytest.raises(ValueError, match="unmapped"):
@@ -119,6 +147,17 @@ def test_entry_point_defaults_to_cuda_and_never_runs_on_cpu_unasked():
     assert set(popnet_tpu_torch.__all__) >= {"build_openpose_pipeline", "serve_stream", "load_npz"}
 
 
+def test_popnet_entry_point_defaults_to_cuda_and_never_runs_on_cpu_unasked():
+    params = inspect.signature(build_popnet_pipeline).parameters
+    assert params["device"].default == "cuda" and params["readout"].default == "universe"
+    assert params["dtype"].default == torch.bfloat16 and params["pack"].default == "f32"
+    assert "build_popnet_pipeline" in popnet_tpu_torch.__all__
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_popnet_pipeline(load_npz(WEIGHTS_POPNET))
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     kernels.reset_launches()
     rng = np.random.default_rng(0)
@@ -133,6 +172,20 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     out = kernels.point_readout(img, cx, cy)
     np.testing.assert_array_equal(out[:, 2:].numpy(), 0.0)     # off the image reads 0
     np.testing.assert_array_equal(out[:, 0].numpy(), img[:, 0, 0].numpy())
+    heat = torch.as_tensor(rng.uniform(0, 1, (2, 6, 5, 3)).astype(np.float32))
+    assert torch.equal(kernels.peak_mask(heat, 0.5),
+                       kernels.peak_local_max_plain(heat.permute(0, 3, 1, 2), 0.5).permute(0, 2, 3, 1))
+    for a, b in zip(kernels.find_peaks_row(h), ref):
+        assert torch.equal(a, b)
+    ps = torch.as_tensor(rng.uniform(0.1, 1, (2, 15, 4)).astype(np.float32))
+    sm = torch.full((2, 14, 4, 4), float("-inf"))
+    sm[:, :, 0, 1] = 1.0
+    limbs = popnet_tpu_torch.core.skeleton.LIMBS
+    for a, b in zip(kernels.assemble_ids(ps, sm, limbs), kernels.assemble_ids_plain(ps, sm, limbs)):
+        assert torch.equal(a, b)
+    assert [k.__name__ for k in kernels.KERNELS] == [
+        "find_peaks", "find_peaks_row", "paf_score", "window_readout", "point_readout",
+        "assemble_ids", "peak_local_max"]
     assert kernels.launch_counts() == {k.__name__: 0 for k in kernels.KERNELS}
 
 
@@ -140,13 +193,21 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="one CPU or CUDA device"):
         kernels.find_peaks(torch.empty((1, 15, 28, 28), device="meta"))
     with pytest.raises(ValueError, match="one CPU or CUDA device"):
+        kernels.peak_local_max(torch.empty((1, 15, 28, 28), device="meta"))
+    with pytest.raises(ValueError, match="one CPU or CUDA device"):
+        kernels.find_peaks_row(torch.empty((1, 15, 28, 28), device="meta"))
+    with pytest.raises(ValueError, match="one CPU or CUDA device"):
+        kernels.assemble_ids(torch.zeros((1, 15, 16)), torch.zeros((1, 14, 16, 16), device="meta"),
+                             popnet_tpu_torch.core.skeleton.LIMBS)
+    with pytest.raises(ValueError, match="one CPU or CUDA device"):
         kernels.point_readout(torch.zeros((1, 4, 4)), torch.zeros((1, 2), dtype=torch.int32,
                                                                   device="meta"),
                               torch.zeros((1, 2), dtype=torch.int32))
 
 
 def test_build_targets_are_content_hashed_in_an_ignored_directory():
-    assert set(_build.SOURCES) == {"find_peaks", "paf_score", "readout"}
+    assert set(_build.SOURCES) == {"find_peaks", "paf_score", "readout", "assemble", "peak_mask"}
+    assert {src for src, _ in kernels._SIGNATURES.values()} == set(_build.SOURCES)
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
         t = _build._target(name)

@@ -1,5 +1,6 @@
-"""The Open-Pose+ slice end to end: the port's pipeline (float32, CPU)
-against the JAX pipeline on frames of people, the q16 wire and serve_stream."""
+"""The Open-Pose+ and PoP-Net slices end to end: the port's pipelines
+(float32, CPU) against the JAX pipelines on frames of people, the q16 wire
+and serve_stream."""
 
 import os
 
@@ -10,16 +11,22 @@ import torch
 import jax.numpy as jnp
 
 from popnet_tpu import serving as jax_serving
-from popnet_tpu_torch import build_openpose_pipeline, load_npz, serve_stream
+from popnet_tpu_torch import (
+    build_openpose_pipeline,
+    build_popnet_pipeline,
+    load_npz,
+    serve_stream,
+)
 from popnet_tpu_torch.serving import (
     pack_outputs_q16,
     unpack_outputs,
     unpack_outputs_q16,
 )
-from tests.test_torch_model import person_frames
+from tests.test_torch_model import person_frames, with_background
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "examples", "results", "bench_weights_openpose.npz")
+WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet.npz")
 P, K = 16, 15
 
 
@@ -113,3 +120,52 @@ def test_serve_stream_keeps_order():
     rest = list(outs)
     assert all(isinstance(o, np.ndarray) for o in [first] + rest)
     np.testing.assert_array_equal(np.stack([first] + rest)[:, 0, 0], 2 * np.arange(7))
+
+
+@pytest.fixture(scope="module")
+def popnet_frames():
+    return with_background(person_frames(6, n_frames=2, people=(3, 2)))
+
+
+@pytest.mark.parametrize("readout", ["universe", "gated"])
+def test_popnet_slice_matches_jax_pipeline(popnet_frames, readout):
+    """The PoP-Net slice with the committed weights, B = 2: the packed f32
+    buffer's valid flags exact, everything else within 1e-3 on the rows that
+    are valid (the others hold whatever the decode computed for a rejected
+    candidate, also within 1e-3)."""
+    jax_pipe = jax_serving.build_popnet_pipeline(jax_serving.variables_from_npz(WEIGHTS_POPNET),
+                                                 dtype=jnp.float32, readout=readout)
+    ref = jax_serving.unpack_outputs(np.asarray(jax_pipe(jnp.asarray(popnet_frames))), P, K)
+    pipe = build_popnet_pipeline(load_npz(WEIGHTS_POPNET), dtype=torch.float32, device="cpu",
+                                 readout=readout)
+    buf = pipe(torch.from_numpy(popnet_frames))
+    assert buf.dtype == torch.float32 and buf.shape == (2, P * K * 6 + P)
+    got = unpack_outputs(buf.numpy(), P, K)
+    np.testing.assert_array_equal(got["counts"], ref["counts"])
+    assert got["counts"].shape == (2, P) and (got["counts"].sum(axis=1) >= 1).all()
+    for k in ("joints2d", "joints3d", "conf"):
+        np.testing.assert_allclose(got[k], ref[k], atol=1e-3, err_msg=k)
+    z = got["joints3d"][got["counts"] > 0][..., 2]
+    assert ((z > 1.0) & (z < 6.0)).mean() > 0.9      # people stand where they were drawn
+
+
+def test_popnet_q16_wire_within_one_step(popnet_frames):
+    """q16 against the f32 buffer of the same pipeline: valid exact, joints
+    within one step of 1/16 px, z of 1/4096 m, conf of 1/512 (half a step of
+    rounding plus float error)."""
+    weights = load_npz(WEIGHTS_POPNET)
+    f32 = build_popnet_pipeline(weights, dtype=torch.float32, device="cpu")
+    q16 = build_popnet_pipeline(weights, dtype=torch.float32, device="cpu", pack="q16")
+    buf = q16(torch.from_numpy(popnet_frames))
+    assert buf.dtype == torch.uint16 and buf.shape == (2, P * K * 4 + P)
+    a = unpack_outputs(f32(torch.from_numpy(popnet_frames)).numpy(), P, K)
+    b = unpack_outputs_q16(buf.numpy(), P, K)
+    np.testing.assert_array_equal(b["counts"], a["counts"].astype(np.int32))
+    ok = a["counts"] > 0                              # rejected rows may lie off the wire's range
+    np.testing.assert_allclose(b["joints2d"][ok], a["joints2d"][ok], atol=1 / 16)
+    np.testing.assert_allclose(b["joints3d"][ok][..., 2], a["joints3d"][ok][..., 2], atol=1 / 4096)
+    np.testing.assert_allclose(b["conf"][ok], a["conf"][ok], atol=1 / 512)
+    with pytest.raises(ValueError, match="unknown pack"):
+        build_popnet_pipeline(weights, device="cpu", pack="f16")
+    with pytest.raises(ValueError, match="unknown readout"):
+        build_popnet_pipeline(weights, device="cpu", readout="nearest")
