@@ -73,7 +73,11 @@ KERNEL_META = {
     "peak_local_max": ("popnet_tpu_torch/csrc/peak_mask.cu",
                        "popnet_tpu/ops/pallas_kernels.py:49"),
 }
+PEAK_OUTPUTS = ("px", "py", "loc", "score", "valid")
 OPENPOSE_PATH = ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout")
+# the stages between a kernel's STAGE_STAMPs, in order (csrc/common.cuh)
+STAGES = {"find_peaks": ("load", "NMS", "top-M", "refine"),
+          "paf_score": ("load", "pair integrals")}
 
 
 def say(phase: str, msg: str) -> None:
@@ -211,10 +215,12 @@ def phase_build():
     from popnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build_all()
+    reports = _build.build_all(stamps=tuple(STAGES))
     say("build", f"nvcc built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(reports.items()):
+        if name.endswith("-stamps"):
+            continue
         fn = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -254,11 +260,63 @@ def dense_candidates(rng: np.random.Generator, B: int, K: int = 15, M: int = 16)
     return peak_score, np.where(ok, scores, -np.inf).astype(np.float32)
 
 
-def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator, dev,
-                  B: int) -> dict[str, float]:
+def sparse_heat(rng: np.random.Generator, B: int, K: int = 16, H: int = 28, W: int = 28):
+    """(B, K, H, W) heat in the main path's regime: noise below the
+    threshold and up to four bumps a plane, anywhere (borders included);
+    about a quarter of the planes have none."""
+    heat = rng.uniform(0, 0.08, (B, K, H, W)).astype(np.float32)
+    ys, xs = np.mgrid[0:H, 0:W]
+    for p in (0.45, 0.3, 0.2, 0.1):
+        amp = np.where(rng.uniform(size=(B, K)) < p, rng.uniform(0.3, 1.0, (B, K)), 0.0)
+        cy, cx = rng.integers(0, H, (B, K)), rng.integers(0, W, (B, K))
+        d2 = (ys - cy[..., None, None]) ** 2 + (xs - cx[..., None, None]) ** 2
+        heat = np.maximum(heat, (amp[..., None, None] * np.exp(-d2 / 2.0)).astype(np.float32))
+    return heat
+
+
+def shared_coordinates(peaks, valid):
+    """Copies of K1's (peaks, valid) edited so that slots share coordinates
+    beyond the empty slots, which share theirs by K1's contract: two valid
+    slots at one point, x or y of +0.0 against -0.0, and a limb's two ends at
+    one point (limb 0 is torso 8 -> right hip 9)."""
+    import torch
+
+    peaks, valid = peaks.clone(), valid.clone()
+    peaks[0, 8, 1, :2] = peaks[0, 8, 0, :2]
+    peaks[0, 9, 0, :2] = torch.tensor([0.0, 5.0])
+    peaks[0, 9, 1, :2] = torch.tensor([-0.0, 5.0])
+    peaks[1, 8, 0, :2] = torch.tensor([7.0, 0.0])
+    peaks[1, 8, 1, :2] = torch.tensor([7.0, -0.0])
+    peaks[1, 9, 0, :2] = peaks[1, 8, 0, :2]
+    valid[0, 8:10, :2] = valid[1, 8:10, :2] = True
+    return peaks, valid
+
+
+def distinct_per_plane(peaks):
+    """(B, K, M, 3) peaks -> (B, K) count of distinct (x, y) bit patterns."""
+    import torch
+
+    bits = peaks[..., :2].contiguous().view(torch.int32).long()
+    key, _ = ((bits[..., 0] << 32) | (bits[..., 1] & 0xFFFFFFFF)).sort(dim=-1)
+    return 1 + (key[..., 1:] != key[..., :-1]).sum(-1)
+
+
+def distinct_pairs(peaks):
+    """(B, L) count of distinct (src, dst) coordinate pairs per limb."""
+    import torch
+
+    from popnet_tpu_torch.core.skeleton import LIMBS
+
+    nd = distinct_per_plane(peaks)
+    la = torch.as_tensor(LIMBS, device=peaks.device)
+    return nd[:, la[:, 0]] * nd[:, la[:, 1]]
+
+
+def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator,
+                  rng3: np.random.Generator, dev, B: int) -> dict[str, float]:
     """Each kernel against its plain version on the card; returns max |err|.
     `rng` feeds the four kernels of the first slice as it always did,
-    `rng_new` the later ones."""
+    `rng_new` the later ones, `rng3` the sparse and shared-coordinate cases."""
     import torch
 
     from popnet_tpu_torch.core.skeleton import LIMBS
@@ -278,19 +336,29 @@ def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator, dev,
     h = maps(heat16)[:, :15]
     got = kernels.find_peaks(h)
     ref = kernels.find_peaks_plain(h)
-    for i, n in ((0, "px"), (1, "py"), (2, "loc"), (4, "valid")):
+    for i, n in enumerate(PEAK_OUTPUTS):
         _exact(f"find_peaks {n}", got[i], ref[i])
     errs["find_peaks"] = _maxerr(got[3], ref[3])
-    require(errs["find_peaks"] <= 1e-5, f"find_peaks score err {errs['find_peaks']}")
-    say("kernels", f"find_peaks (B,K,H,W)={tuple(h.shape)}: px/py/loc/valid exact, "
-        f"score max|err| {errs['find_peaks']:.3g} (bar 1e-5)")
+    # sparse heat, the main path's regime, in channels-last and in NCHW memory
+    sparse = maps(sparse_heat(rng3, B))
+    for tag, hs in (("channels-last", sparse[:, :15]), ("NCHW", sparse.contiguous()[:, :15])):
+        sp, sp_ref = kernels.find_peaks(hs), kernels.find_peaks_plain(hs)
+        for i, n in enumerate(PEAK_OUTPUTS):
+            _exact(f"find_peaks {n} on sparse heat, {tag} memory", sp[i], sp_ref[i])
+    nv = sp[4].sum(-1)
+    say("kernels", f"find_peaks (B,K,H,W)={tuple(h.shape)}: px/py/loc/score/valid exact on "
+        f"uniform heat; so on sparse heat in channels-last and NCHW memory (valid peaks per "
+        f"plane mean {float(nv.float().mean()):.2f}, max {int(nv.max())}, "
+        f"{float((nv == 0).float().mean()):.1%} of planes without one)")
 
     # K2 on the same planes: the plain version and K1, all five outputs bit for bit
     row = kernels.find_peaks_row(h)
-    for i, n in enumerate(("px", "py", "loc", "score", "valid")):
+    for i, n in enumerate(PEAK_OUTPUTS):
         _exact(f"find_peaks_row {n}", row[i], ref[i])
         _exact(f"find_peaks_row {n} against find_peaks", row[i], got[i])
     errs["find_peaks_row"] = _maxerr(row[3], ref[3])
+    for a, b in zip(kernels.find_peaks_row(sparse[:, :15]), sp_ref):
+        _exact("find_peaks_row on sparse heat", a, b)
     small = np.round(rng_new.uniform(0, 1, (8, 15, 12, 10)) * 16).astype(np.float32) / 16
     small[0, 0] *= 0.09                                 # plateaus everywhere, one empty plane
     hs = torch.as_tensor(small, device=dev)
@@ -300,10 +368,10 @@ def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator, dev,
         _exact("find_peaks_row on a 12x10 grid, 32 peaks", a, b)
         _exact("find_peaks_row against find_peaks on a 12x10 grid", a, c)
     say("kernels", f"find_peaks_row (B,K,H,W)={tuple(h.shape)}: px/py/loc/score/valid exact "
-        f"against the plain version and against find_peaks; so on a 12x10 grid of "
-        f"plateaus with 32 peaks")
+        f"against the plain version and against find_peaks, on uniform and sparse heat; so "
+        f"on a 12x10 grid of plateaus with 32 peaks")
 
-    # K3 on the peaks of that heat and a PAF map
+    # K3 on the peaks of that heat and a PAF map, then on peaks that share coordinates
     paf = maps(rng.uniform(-1, 1, (B, 28, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
     from popnet_tpu_torch.decode.device import find_peaks_batched
 
@@ -311,10 +379,17 @@ def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator, dev,
     s_k, ok_k = kernels.paf_score(paf, peaks, valid, LIMBS)
     s_p, ok_p = kernels.paf_score_plain(paf, peaks, valid, LIMBS)
     _exact("paf_score ok", ok_k, ok_p)
+    _exact("paf_score score", s_k, s_p)
     errs["paf_score"] = _maxerr(s_k, s_p)
-    require(errs["paf_score"] <= 1e-5, f"paf_score err {errs['paf_score']}")
-    say("kernels", f"paf_score paf={tuple(paf.shape)} peaks={tuple(peaks.shape)}: ok exact "
-        f"({int(ok_k.sum())} pairs ok), score max|err| {errs['paf_score']:.3g} (bar 1e-5)")
+    pk_sh, v_sh = shared_coordinates(*find_peaks_batched(sparse[:, :15].permute(0, 2, 3, 1)))
+    for a, b, n in zip(kernels.paf_score(paf, pk_sh, v_sh, LIMBS),
+                       kernels.paf_score_plain(paf, pk_sh, v_sh, LIMBS), ("score", "ok")):
+        _exact(f"paf_score {n} with shared coordinates", a, b)
+    pairs = distinct_pairs(pk_sh)
+    say("kernels", f"paf_score paf={tuple(paf.shape)} peaks={tuple(peaks.shape)}: ok and score "
+        f"exact ({int(ok_k.sum())} pairs ok); so on sparse peaks that share coordinates (empty "
+        f"slots, two valid slots at one point, x and y of +0.0 against -0.0; distinct pairs "
+        f"per limb mean {float(pairs.float().mean()):.2f} of 256)")
 
     # K4 with centres off the map
     z = maps(rng.uniform(0.5, 6, (B, 15, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
@@ -513,37 +588,56 @@ def phase_popnet_slice(rng, dev, B, weights):
     return frames, launches, out
 
 
-def _bounds(name: str, inputs: dict) -> tuple[float, float, float]:
-    """(bytes, ops, bound_ms) of one call at this run's inputs: each input
-    byte read once, each output byte written once; ops at the float32 rate."""
+def _refine_ops(px, py, H: int, W: int, size: int = 5, factor: int = 8):
+    """Operations of the windowed refine at each (px, py): U.patch for the
+    window's win_h rows (win_h x size x size multiply-adds), then their
+    products with U^T in the window (win_h x win_w x size)."""
+    win = size // 2
+    win_w = ((px.clamp(max=win) + (W - 1 - px).clamp(max=win) + 1) * factor).double()
+    win_h = ((py.clamp(max=win) + (H - 1 - py).clamp(max=win) + 1) * factor).double()
+    return 2 * size * win_h * (size + win_w)
+
+
+PAIR_OPS = 10 * (2 * 16 * 2 + 8 * 11 + 17)  # a line integral: 10 points x (taps, weights, rest)
+
+
+def _bounds(name: str, inputs: dict) -> tuple[float, float, float, str]:
+    """(bytes, ops, bound_ms, how the count changed) of one call at this
+    run's inputs: each input byte read once, each output byte written once;
+    ops at the float32 rate, counting the work these inputs need."""
     import torch
     import torch.nn.functional as F
 
+    note = ""
     if name in ("find_peaks", "find_peaks_row"):      # two designs of one function
-        h, px, py, thresh = inputs["heat"], inputs["px"], inputs["py"], inputs["thresh"]
+        h, px, py, valid = inputs["heat"], inputs["px"], inputs["py"], inputs["valid"]
         B, K, H, W = h.shape
         M = px.shape[-1]
-        size, factor = 5, 8
         nbytes = h.numel() * 4 + B * K * M * (4 * 4 + 1)
         # NMS once: 4 neighbour maxima, 2 compares and a select per cell; the
         # top-M pick: a compare and a select per NMS survivor
         pad = F.pad(h, (1, 1, 1, 1), value=-1e30)
         nbr = torch.maximum(torch.maximum(pad[..., :-2, 1:-1], pad[..., 2:, 1:-1]),
                             torch.maximum(pad[..., 1:-1, :-2], pad[..., 1:-1, 2:]))
-        survivors = float(((h >= nbr) & (h > thresh)).sum())
-        # refine of every slot over its window of win_h x win_w upsampled
-        # cells: U.patch for the window's rows (win_h x size x size), then
-        # their products with U^T in the window (win_h x win_w x size)
-        win_w = ((px.clamp(max=2) + (W - 1 - px).clamp(max=2) + 1) * factor).double()
-        win_h = ((py.clamp(max=2) + (H - 1 - py).clamp(max=2) + 1) * factor).double()
-        refine = float((2 * size * win_h * (size + win_w)).sum())
+        survivors = float(((h >= nbr) & (h > inputs["thresh"])).sum())
+        # each valid slot's refine, and one refine at the corner (0, 0) for
+        # each plane with an empty slot: every empty slot takes its result
+        per_slot = _refine_ops(px, py, H, W)
+        corner = float(_refine_ops(torch.zeros(()), torch.zeros(()), H, W))
+        refine = float((per_slot * valid).sum()) + corner * float((~valid).any(-1).sum())
         ops = 6.0 * h.numel() + 2.0 * survivors + refine
+        note = (f"; refines {refine / 1e9:.4f} GFLOP, one corner refine per plane with an empty "
+                f"slot (the PR 1 count refined every slot: {float(per_slot.sum()) / 1e9:.4f})")
     elif name == "paf_score":
         paf, peaks, score = inputs["paf"], inputs["peaks"], inputs["score"]
         nbytes = paf.numel() * 4 + peaks.numel() * 4 + peaks.numel() // 3 + score.numel() * 5
-        # per pair and point: 2 channels x 16 taps multiply-add, 8 cubic weights
-        # of 11 ops, coordinates and projection about 17
-        ops = float(score.numel() * 10 * (2 * 16 * 2 + 8 * 11 + 17))
+        # a line integral per distinct (src, dst) coordinate pair of a limb:
+        # 10 points x (2 channels x 16 taps multiply-add, 8 cubic weights of
+        # 11 ops, coordinates and projection about 17)
+        pairs = float(distinct_pairs(peaks).sum())
+        ops = pairs * PAIR_OPS
+        note = (f"; {pairs:.0f} distinct pairs integrated (the PR 1 count integrated every "
+                f"pair: {score.numel()}, {score.numel() * PAIR_OPS / 1e9:.3f} GFLOP)")
     elif name == "window_readout":
         cx, cy, H, W = inputs["cx"], inputs["cy"], inputs["H"], inputs["W"]
         cells = (((cx + 1).clamp(0, W - 1) - (cx - 1).clamp(0, W - 1) + 1)
@@ -562,7 +656,24 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float]:
         nbytes = inputs["heat"].numel() * 5
         ops = 5.0 * inputs["heat"].numel()
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    return nbytes, ops, bound_ms
+    return nbytes, ops, bound_ms, note
+
+
+def stage_breakdown(name: str, call, ms: float) -> None:
+    """Per-block stage clocks of one call of the kernel's stage-clock build:
+    each stage's mean cycles over the blocks, its share of a block's time,
+    and that share of the kernel's device time `ms` (the normal build's)."""
+    from popnet_tpu_torch.ops import kernels
+
+    labels = STAGES[name]
+    st = kernels.stage_clocks(name, call)[:, : len(labels) + 1]
+    st = st[st[:, -1] != 0]
+    cyc = np.diff(st, axis=1).astype(np.float64).mean(axis=0)
+    total = float(cyc.sum())
+    parts = ", ".join(f"{lab} {c:.0f} ({c / total:.1%}, {ms * c / total:.4f} ms)"
+                      for lab, c in zip(labels, cyc))
+    say("timing", f"{name} stages, clock64 cycles per block (mean over {len(st)} blocks of "
+        f"{total:.0f}; share; that share of {ms:.4f} ms): {parts}")
 
 
 def greedy_connections(s_masked):
@@ -595,11 +706,11 @@ def time_kernels(calls: dict, launches: dict, errs: dict) -> list[dict]:
         # the plain assembler is about 10,000 small kernels a call: one call a graph
         plain_ms = graph_ms(plain, reps=1 if name == "assemble_ids" else 5)
         lib_ms = graph_ms(lib) if lib is not None else None
-        nbytes, ops, bound_ms = _bounds(name, inputs)
+        nbytes, ops, bound_ms, note = _bounds(name, inputs)
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
         say("timing", f"{name}: {ms:.4f} ms/batch on the card (CUDA graph; "
             f"{eager_ms:.4f} ms per eager call), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)"
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP{note})"
             + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
         src, rep = KERNEL_META[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -666,7 +777,7 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         h = peak_planes(heat_n)
         say("timing", f"Open-Pose+ heat planes as the kernels get them: shape "
             f"{tuple(h.shape)}, strides {tuple(h.stride())}")
-        px, py, _, _, _ = kernels.find_peaks(h)
+        px, py, _, _, slot_valid = kernels.find_peaks(h)
         peaks, pvalid = find_peaks_batched(heat_n)
         scores, ok = score_limb_pairs_batched(paf_n, peaks, pvalid)
         ps, sm = assemble_inputs(peaks, scores, ok)
@@ -675,7 +786,8 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         (zmap, hk, gx, gy), (raw, rx, ry) = readout_inputs(joints, heat_n, z_n, x)
         bi, ryl, rxl = torch.arange(B, device=dev)[:, None], ry.long(), rx.long()
         conn = greedy_connections(sm)
-        peak_in = {"heat": h, "px": px, "py": py, "thresh": DecodeConfig().thresh_heatmap}
+        peak_in = {"heat": h, "px": px, "py": py, "valid": slot_valid,
+                   "thresh": DecodeConfig().thresh_heatmap}
         calls = {
             "find_peaks": (lambda: kernels.find_peaks(h), lambda: kernels.find_peaks_plain(h),
                            None, peak_in),
@@ -697,6 +809,16 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         }
         rows = time_kernels(calls, launches, errs)
         scan_ms = time_ms(lambda: kernels.assemble_ids_plain(ps, sm, LIMBS), reps=3, warm=1)
+        nv, pairs = pvalid.sum(-1), distinct_pairs(peaks)
+        say("timing", f"Open-Pose+ main path: valid peaks per plane mean "
+            f"{float(nv.float().mean()):.3f}, max {int(nv.max())}; planes with an empty slot "
+            f"{int((~pvalid).any(-1).sum())} of {nv.numel()}; distinct coordinate pairs per limb "
+            f"mean {float(pairs.float().mean()):.3f}, max {int(pairs.max())} of "
+            f"{peaks.shape[2] ** 2}")
+        ms = {r["name"]: r["ms"] for r in rows}
+        stage_breakdown("find_peaks", lambda: kernels.find_peaks(h), ms["find_peaks"])
+        stage_breakdown("paf_score", lambda: kernels.paf_score(paf_n, peaks, pvalid, LIMBS),
+                        ms["paf_score"])
     asm = next(r for r in rows if r["name"] == "assemble_ids")
     chain = int(conn.max())
     floor_ms = chain * SMEM_ROUND_TRIP_CYCLES / (sm_clock_mhz * 1e3)
@@ -790,7 +912,8 @@ def main(argv=None) -> int:
     rng_new = np.random.default_rng([args.seed, 2])  # the later kernels' and PoP-Net's
     sm_clock_mhz = phase_device()
     phase_build()
-    errs = phase_kernels(rng, rng_new, dev, BATCH)
+    rng3 = np.random.default_rng([args.seed, 3])    # the sparse and shared-coordinate cases
+    errs = phase_kernels(rng, rng_new, rng3, dev, BATCH)
     weights, weights_pn = load_npz(WEIGHTS), load_npz(WEIGHTS_POPNET)
     frames, launches, f32_out = phase_slice(rng, dev, BATCH, weights)
     frames_pn, launches_pn, f32_out_pn = phase_popnet_slice(rng_new, dev, BATCH, weights_pn)

@@ -37,6 +37,8 @@
 #include <climits>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -124,6 +126,7 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, long long sk,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int plane = blockIdx.x;
+  STAGE_STAMP(0);
   const int b = plane / K, k = plane % K;
   const float* src = heat + b * sb + k * sk;
   for (int i = tid; i < HW; i += kThreads) {
@@ -132,6 +135,7 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, long long sk,
   }
   for (int i = tid; i < S * size; i += kThreads) Us[i] = U[i];
   __syncthreads();
+  STAGE_STAMP(1);
 
   // cross-footprint local max (off-map neighbours are -1e30) AND h > thresh
   for (int i = tid; i < HW; i += kThreads) {
@@ -145,6 +149,7 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, long long sk,
     sc[i] = (v >= mx && v > thresh) ? v : kSent;
   }
   __syncthreads();
+  STAGE_STAMP(2);
 
   // top-M: M rounds of argmax with the first-flat-index tie rule
   for (int pick = 0; pick < M; ++pick) {
@@ -179,6 +184,7 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, long long sk,
     valid_out[obase + tid] = ok;
   }
   __syncthreads();
+  STAGE_STAMP(3);
 
   // windowed bicubic refine, one warp per peak
   float* patch = patches + warp * size * size;
@@ -192,6 +198,7 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, long long sk,
       score_out[obase + m] = bv;
     }
   }
+  STAGE_STAMP(4);
 }
 
 // find_peaks_row_kernel: the same function by another design.

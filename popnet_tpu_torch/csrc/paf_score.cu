@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 __device__ __forceinline__ float cubic_weight(float frac, int j) {
@@ -56,6 +58,7 @@ __global__ void paf_score_kernel(const float* __restrict__ paf, long long sb,
   extern __shared__ float pl[];  // (2, H + 4, W + 4), edge-padded by 2
   const int Hp = H + 4, Wp = W + 4, HWp = Hp * Wp;
   const int b = blockIdx.x / L, l = blockIdx.x % L;
+  STAGE_STAMP(0);
   const float* src_map = paf + b * sb + (2 * l) * sc;
   for (int i = threadIdx.x; i < 2 * HWp; i += blockDim.x) {
     int c = i / HWp, r = i % HWp;
@@ -64,6 +67,7 @@ __global__ void paf_score_kernel(const float* __restrict__ paf, long long sb,
     pl[i] = src_map[c * sc + y * sy + x * sx];
   }
   __syncthreads();
+  STAGE_STAMP(1);
 
   const int ks = limbs[2 * l], kd = limbs[2 * l + 1];
   for (int p = threadIdx.x; p < M * M; p += blockDim.x) {
@@ -116,6 +120,7 @@ __global__ void paf_score_kernel(const float* __restrict__ paf, long long sb,
     score_out[o] = score;
     ok_out[o] = ok;
   }
+  STAGE_STAMP(2);
 }
 
 }  // namespace

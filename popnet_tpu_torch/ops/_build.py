@@ -2,10 +2,12 @@
 
 Each `csrc/<name>.cu` has a plain `extern "C"` interface and compiles on
 its own into `build/popnet_tpu_torch/lib<name>-<hash>.so` under the
-checkout (git-ignored); the hash of the source names the library, so an
-edited source never loads a stale build. Sources build at first use, never
-at import. `build_all` starts one nvcc per source at once and returns
-ptxas's register and shared-memory report for each.
+checkout (git-ignored); the hash of the source and of the shared headers
+(`csrc/*.cuh`) names the library, so an edited source never loads a stale
+build. Sources build at first use, never at import. `build_all` starts one
+nvcc per source at once and returns ptxas's register and shared-memory
+report for each. A source's `stamps` build (-DPOPNET_STAGE_CLOCKS) records
+per-block stage clocks (csrc/common.cuh); only measurements load it.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ SOURCES = ("find_peaks", "paf_score", "readout", "assemble", "peak_mask")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, bool], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -34,26 +36,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _target(name: str, stamps: bool = False) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}{'-stamps' if stamps else ''}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
-    """Compile every source not yet built, all nvcc processes at once.
+def build_all(names=SOURCES, stamps=()) -> dict[str, str]:
+    """Compile every source not yet built, all nvcc processes at once:
+    `names` as they run, `stamps` with stage clocks.
 
-    Returns {name: ptxas report} for the sources compiled by this call."""
+    Returns {name (or name-stamps): ptxas report} for the builds made by
+    this call."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     try:
-        for name in names:
-            out = _target(name)
+        for name, stamped in [(n, False) for n in names] + [(n, True) for n in stamps]:
+            out = _target(name, stamped)
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True), tmp, out)
+            flags = (*NVCC_FLAGS, "-DPOPNET_STAGE_CLOCKS") if stamped else NVCC_FLAGS
+            cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            key = f"{name}-stamps" if stamped else name
+            procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True), tmp, out)
         reports = {}
         for name, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
@@ -69,11 +77,13 @@ def build_all(names=SOURCES) -> dict[str, str]:
                 proc.wait()
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
-    lib = _loaded.get(name)
+def library(name: str, stamps: bool = False) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` (its stage-clock build with
+    `stamps`), built on first use."""
+    key = (name, stamps)
+    lib = _loaded.get(key)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        _loaded[name] = lib
+        build_all(() if stamps else (name,), (name,) if stamps else ())
+        lib = ctypes.CDLL(str(_target(name, stamps)))
+        _loaded[key] = lib
     return lib

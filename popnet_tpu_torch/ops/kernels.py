@@ -58,18 +58,43 @@ _SIGNATURES = {
                                        _LL, _LL, _LL, _P]),
 }
 _consts: dict = {}
+_stamped: set[str] = set()  # sources launched from their stage-clock build (stage_clocks)
 
 
 def _launch(symbol: str, device: torch.device, *args) -> None:
     """Call a launcher of csrc/ on the current stream; raise on its error."""
     source, argtypes = _SIGNATURES[symbol]
-    fn = getattr(_build.library(source), symbol)
+    fn = getattr(_build.library(source, stamps=source in _stamped), symbol)
     if fn.argtypes is None:
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} failed to launch: CUDA error {err}")
+
+
+STAMP_BLOCKS, STAMPS = 4096, 8  # csrc/common.cuh kStampBlocks, kStamps
+
+
+def stage_clocks(source: str, fn) -> np.ndarray:
+    """Run fn() once with the kernels of csrc/<source>.cu launched from its
+    stage-clock build; return the (STAMP_BLOCKS, STAMPS) int64 clock64()
+    stamps that its blocks recorded at each STAGE_STAMP (csrc/common.cuh;
+    zero for blocks beyond the grid). A measurement tool: the serving paths
+    never call it."""
+    _stamped.add(source)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        _stamped.discard(source)
+    out = np.zeros((STAMP_BLOCKS, STAMPS), np.int64)
+    copy = _build.library(source, stamps=True).popnet_stage_clocks
+    copy.argtypes, copy.restype = [_P, _I], ctypes.c_int
+    err = copy(out.ctypes.data, out.size)
+    if err != 0:
+        raise RuntimeError(f"popnet_stage_clocks of {source} failed: CUDA error {err}")
+    return out
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None,
