@@ -14,13 +14,15 @@ committed trained weights, batch 256 of (512, 480) depth frames made from
 Phases, one or more lines each:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles the kernels of csrc/ in parallel; ptxas's register
-   and shared-memory lines are printed;
+2. build: nvcc compiles the kernels of csrc/ in parallel, and find_peaks and
+   paf_score once more with stage clocks; ptxas's register, shared-memory
+   and spill lines are printed;
 3. kernels: each of the seven kernels against its plain PyTorch version,
    on the card, at the main-path shapes plus edge cases (exact ties, border
-   peaks, plateaus, a plane with no peak, window centres off the map,
-   assembly from no candidate to every pair a candidate), and the two peak
-   kernels against each other;
+   peaks, plateaus, a plane with no peak, sparse heat in two memory orders,
+   peaks that share coordinates, window centres off the map, assembly from
+   no candidate to every pair a candidate), and the two peak kernels against
+   each other;
 4. slices, float32, 256 frames each, launch counts reset just before a path
    is driven and read just after: Open-Pose+ (then the assembly kernel
    against its plain version on that batch's candidates, and the same maps
@@ -32,8 +34,11 @@ Phases, one or more lines each:
    the same frames, frames/s, CUDA-event times per batch of the CNN and the
    decode, and each kernel's, its plain version's and the library call's
    device time (calls captured in a CUDA graph, so host dispatch is not
-   counted) beside the kernel's bound; the plain assembler eager and as a
-   CUDA graph beside the assembly kernel.
+   counted) beside the kernel's bound, counted from the work these inputs
+   need; the plain assembler eager and as a CUDA graph beside the assembly
+   kernel; the main path's valid peaks per plane and distinct coordinate
+   pairs per limb, the blocks an SM holds and the copy width of K1 and K3,
+   and their time by stage from per-block clock64() stamps.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -77,7 +82,7 @@ PEAK_OUTPUTS = ("px", "py", "loc", "score", "valid")
 OPENPOSE_PATH = ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout")
 # the stages between a kernel's STAGE_STAMPs, in order (csrc/common.cuh)
 STAGES = {"find_peaks": ("load", "NMS", "top-M", "refine"),
-          "paf_score": ("load", "pair integrals")}
+          "paf_score": ("copies issued", "peaks", "load wait", "integrals", "fill")}
 
 
 def say(phase: str, msg: str) -> None:
@@ -221,12 +226,14 @@ def phase_build():
     for name, log in sorted(reports.items()):
         if name.endswith("-stamps"):
             continue
-        fn = None
+        fn = spill = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1] if "'" in line else line
+            elif "spill" in line:
+                spill = line.strip()
             elif "Used" in line and "registers" in line:
-                say("build", f"{name}.cu {fn}: {line.split(':', 1)[1].strip()}")
+                say("build", f"{name}.cu {fn}: {line.split(':', 1)[1].strip()}; {spill}")
 
 
 def _exact(name: str, a, b) -> None:
@@ -278,7 +285,8 @@ def shared_coordinates(peaks, valid):
     """Copies of K1's (peaks, valid) edited so that slots share coordinates
     beyond the empty slots, which share theirs by K1's contract: two valid
     slots at one point, x or y of +0.0 against -0.0, and a limb's two ends at
-    one point (limb 0 is torso 8 -> right hip 9)."""
+    one point (limb 0 is torso 8 -> right hip 9); and two peaks so far off the
+    map (x = +-1e8) that their line's taps fall beyond the pad."""
     import torch
 
     peaks, valid = peaks.clone(), valid.clone()
@@ -288,7 +296,9 @@ def shared_coordinates(peaks, valid):
     peaks[1, 8, 0, :2] = torch.tensor([7.0, 0.0])
     peaks[1, 8, 1, :2] = torch.tensor([7.0, -0.0])
     peaks[1, 9, 0, :2] = peaks[1, 8, 0, :2]
-    valid[0, 8:10, :2] = valid[1, 8:10, :2] = True
+    peaks[2, 8, 0, :2] = torch.tensor([1e8, 3.0])
+    peaks[2, 9, 0, :2] = torch.tensor([-1e8, 5.0])
+    valid[0:3, 8:10, :2] = True
     return peaks, valid
 
 
@@ -668,12 +678,14 @@ def stage_breakdown(name: str, call, ms: float) -> None:
     labels = STAGES[name]
     st = kernels.stage_clocks(name, call)[:, : len(labels) + 1]
     st = st[st[:, -1] != 0]
-    cyc = np.diff(st, axis=1).astype(np.float64).mean(axis=0)
+    per_block = np.diff(st, axis=1).astype(np.float64)
+    cyc = per_block.mean(axis=0)
     total = float(cyc.sum())
     parts = ", ".join(f"{lab} {c:.0f} ({c / total:.1%}, {ms * c / total:.4f} ms)"
                       for lab, c in zip(labels, cyc))
     say("timing", f"{name} stages, clock64 cycles per block (mean over {len(st)} blocks of "
-        f"{total:.0f}; share; that share of {ms:.4f} ms): {parts}")
+        f"{total:.0f}, the longest block {per_block.sum(axis=1).max():.0f}; share; that share "
+        f"of {ms:.4f} ms): {parts}")
 
 
 def greedy_connections(s_masked):
@@ -777,6 +789,14 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         h = peak_planes(heat_n)
         say("timing", f"Open-Pose+ heat planes as the kernels get them: shape "
             f"{tuple(h.shape)}, strides {tuple(h.stride())}")
+        K, M, L = h.shape[1], 16, len(LIMBS)
+        per_sm = {"find_peaks": kernels.blocks_per_sm("find_peaks", K, 28, 28, M),
+                  "paf_score": kernels.blocks_per_sm("paf_score", K, L, M, 28, 28)}
+        say("timing", f"blocks (one per frame) that one SM holds at the main-path sizes: {per_sm}; "
+            f"elements per shared-memory copy: find_peaks {kernels.copy_width('find_peaks', h)}, "
+            f"paf_score {kernels.copy_width('paf_score', paf_n)}")
+        require(min(per_sm.values()) >= 2, "a frame's block of find_peaks or paf_score does not "
+                "fit two to an SM")
         px, py, _, _, slot_valid = kernels.find_peaks(h)
         peaks, pvalid = find_peaks_batched(heat_n)
         scores, ok = score_limb_pairs_batched(paf_n, peaks, pvalid)
@@ -814,7 +834,8 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
             f"{float(nv.float().mean()):.3f}, max {int(nv.max())}; planes with an empty slot "
             f"{int((~pvalid).any(-1).sum())} of {nv.numel()}; distinct coordinate pairs per limb "
             f"mean {float(pairs.float().mean()):.3f}, max {int(pairs.max())} of "
-            f"{peaks.shape[2] ** 2}")
+            f"{peaks.shape[2] ** 2}; per frame mean {float(pairs.sum(1).float().mean()):.1f}, "
+            f"max {int(pairs.sum(1).max())}")
         ms = {r["name"]: r["ms"] for r in rows}
         stage_breakdown("find_peaks", lambda: kernels.find_peaks(h), ms["find_peaks"])
         stage_breakdown("paf_score", lambda: kernels.paf_score(paf_n, peaks, pvalid, LIMBS),

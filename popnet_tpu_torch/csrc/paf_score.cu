@@ -6,32 +6,58 @@
 // The kernel computes d, |d| and u from the peaks itself, so the six
 // (B, L, M*M) geometry arrays of the TPU path never exist.
 //
-// Bound on the H100: operations. Inputs are the PAF maps (B*H*W*2L*4 bytes,
+// Bound on the H100: bytes. Inputs are the PAF maps (B*H*W*2L*4 bytes,
 // 22.5 MB at B=256, 28x28, L=14), the peaks and their validity; outputs are
 // the (B, L, M, M) scores and ok flags (4.6 MB): about 8 us at the memory
-// rate. Each of the B*L*M*M*T line points takes 16 taps * 2 channels
-// multiply-adds, 8 cubic weights and its coordinates and projection, about
-// 170 operations, 1.5 GFLOP at the main-path shape: about 23 us at the
-// float32 rate (chip_smoke.py _bounds).
+// rate. A pair's score is a function of its two coordinates alone, and on
+// the main path most slots are empty and share one coordinate (K1's
+// contract), so a limb holds about 8 distinct coordinate pairs of its 256:
+// their line integrals (10 points x 16 taps x 2 channels, 8 cubic weights,
+// about 1700 operations each) take well under the bytes' time
+// (chip_smoke.py _bounds). What the kernel pays above the bound: the copy of
+// the maps into shared memory, the integrals of the frames with the most
+// people (up to 237 distinct pairs a frame against 110 on average), and the
+// fill of the 3584 outputs a frame (chip_smoke.py phase 5, stage clocks).
 //
-// Design: one block per (frame, limb), one thread per src-major pair (M*M =
-// 256 threads). The block first builds the limb's two planes edge-padded by
-// 2 in shared memory (2 x 32 x 32 floats) straight from the (B, H, W, 2L)
-// map through its strides, so the PAF bytes are read once per limb and no
-// padded copy is written to device memory. Each thread then walks its T=10
-// rounded line points with 4x4 Keys-cubic taps (a = -0.75) from shared
-// memory; a tap outside the padded plane contributes 0, it is not clamped.
+// Design: one block of 16 warps per frame (two fit an SM, so 256 frames fill
+// 132 SMs in one wave).
+// - Load: the frame's (H, W, 2L) maps go to shared memory in one pass of
+//   cp.async copies, threads numbered in the order of the memory the strides
+//   show, 16 bytes a copy where the strides allow (one contiguous 87.8 KB
+//   range on the serving path; common.cuh), stored [y][x][c] so that a tap
+//   reads a limb's two channels as one 8-byte word.
+//   The edge pad is not stored: a tap clamps its cell into the map, and
+//   reads 0 beyond the 2-cell pad, as the padded planes of the TPU kernel
+//   give. (Padding all 28 channels to 32x32 would take 114.7 KB, one block
+//   an SM.)
+// - While the copies fly, a warp per joint maps each slot to the first slot
+//   whose (x, y) has the same bit patterns (__match_any_sync on the bits, so
+//   +0.0 and -0.0 or two NaNs of other payloads stay apart) and lists the
+//   distinct coordinates. Equal inputs through the same arithmetic give the
+//   same bits, so integrating each distinct (src, dst) pair once is exact
+//   for any input, not only for K1's output.
+// - Integrals: a warp takes three distinct pairs at a time, a lane per line
+//   point (10 lanes a pair),
+//   and the pair's lanes hand their projections by shuffles to be summed in
+//   point order, acc = acc + proj, as the plain version sums them.
+// - Fill: every (limb, ms, md) takes its distinct pair's score and flag;
+//   ok also needs both of its own slots valid. The writes are coalesced.
 // Rounding is rintf (half to even, as jnp.round). Products and sums use
 // __fmul_rn/__fadd_rn/__fdiv_rn and IEEE sqrtf in the order of the plain
 // PyTorch version (ops/kernels.py paf_score_plain), so the two agree bit for
 // bit. Build without --use_fast_math.
 
 #include <cuda_runtime.h>
+#include <climits>
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
+
+constexpr int kThreads = 512;
+constexpr int kMaxPeaks = 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float cubic_weight(float frac, int j) {
   // Keys cubic, a = -0.75, for the tap at offset j - 1 from floor
@@ -46,84 +72,226 @@ __device__ __forceinline__ float cubic_weight(float frac, int j) {
   return tt <= 1.0f ? near_w : (tt < 2.0f ? far_w : 0.0f);
 }
 
-__global__ void paf_score_kernel(const float* __restrict__ paf, long long sb,
-                                 long long sy, long long sx, long long sc,
-                                 const float* __restrict__ peaks,
-                                 const bool* __restrict__ peak_valid,
-                                 const int* __restrict__ limbs, int K, int L,
-                                 int M, int H, int W, int T, float factor,
-                                 float thresh, float len_ref,
-                                 float* __restrict__ score_out,
-                                 bool* __restrict__ ok_out) {
-  extern __shared__ float pl[];  // (2, H + 4, W + 4), edge-padded by 2
-  const int Hp = H + 4, Wp = W + 4, HWp = Hp * Wp;
-  const int b = blockIdx.x / L, l = blockIdx.x % L;
-  STAGE_STAMP(0);
-  const float* src_map = paf + b * sb + (2 * l) * sc;
-  for (int i = threadIdx.x; i < 2 * HWp; i += blockDim.x) {
-    int c = i / HWp, r = i % HWp;
-    int y = min(max(r / Wp - 2, 0), H - 1);
-    int x = min(max(r % Wp - 2, 0), W - 1);
-    pl[i] = src_map[c * sc + y * sy + x * sx];
+// Projection onto u of the PAF vector (channels ch, ch + 1 of the (H, W, C)
+// maps `pafs`) at line point ts of the segment from (sx, sy) along (dx, dy):
+// 4x4 Keys-cubic taps of the maps edge-padded by 2, a tap beyond the pad
+// reading 0.
+__device__ __forceinline__ float line_point(const float* pafs, int H, int W, int C, int ch,
+                                            float sx, float sy, float dx, float dy,
+                                            float ux, float uy, float ts, float factor) {
+  const float pxi = rintf(__fadd_rn(sx, __fmul_rn(dx, ts)));
+  const float pyi = rintf(__fadd_rn(sy, __fmul_rn(dy, ts)));
+  const float lx = __fsub_rn(__fdiv_rn(__fadd_rn(pxi, 0.5f), factor), 0.5f);
+  const float ly = __fsub_rn(__fdiv_rn(__fadd_rn(pyi, 0.5f), factor), 0.5f);
+  const float x0 = floorf(lx), y0 = floorf(ly);
+  const float fx = __fsub_rn(lx, x0), fy = __fsub_rn(ly, y0);
+  const int x0i = (int)x0, y0i = (int)y0;
+  int xo[4], yo[4];
+  bool xin[4], yin[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {              // padded cell q = x0 + 1 + j is map cell q - 2
+    const int qx = x0i + 1 + j, qy = y0i + 1 + j;
+    xin[j] = qx >= 0 && qx < W + 4;
+    yin[j] = qy >= 0 && qy < H + 4;
+    xo[j] = min(max(qx - 2, 0), W - 1) * C + ch;
+    yo[j] = min(max(qy - 2, 0), H - 1) * W * C;
   }
-  __syncthreads();
+  float wx[4], wy[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wx[j] = cubic_weight(fx, j);
+    wy[j] = cubic_weight(fy, j);
+  }
+  float vx = 0.0f, vy = 0.0f;
+#pragma unroll
+  for (int jx = 0; jx < 4; ++jx) {
+    float colx = 0.0f, coly = 0.0f;
+#pragma unroll
+    for (int jy = 0; jy < 4; ++jy) {
+      const float2 v = xin[jx] && yin[jy]
+                           ? *reinterpret_cast<const float2*>(pafs + yo[jy] + xo[jx])
+                           : make_float2(0.0f, 0.0f);
+      colx = __fadd_rn(colx, __fmul_rn(wy[jy], v.x));
+      coly = __fadd_rn(coly, __fmul_rn(wy[jy], v.y));
+    }
+    vx = __fadd_rn(vx, __fmul_rn(wx[jx], colx));
+    vy = __fadd_rn(vy, __fmul_rn(wx[jx], coly));
+  }
+  return __fadd_rn(__fmul_rn(vx, ux), __fmul_rn(vy, uy));
+}
+
+// Shared memory of one frame, in this order (4-byte items first, so every
+// part stays aligned).
+struct Layout {
+  int paf, res, xd, yd, woff, nd, lim, map, resok, pv, bytes;
+  __host__ __device__ Layout(int K, int L, int M, int H, int W) {
+    int o = 0;
+    paf = o;   o += 4 * H * W * 2 * L;   // (H, W, 2L) maps
+    res = o;   o += 4 * L * M * M;       // score of each distinct (src, dst) pair, (L, M, M)
+    xd = o;    o += 4 * K * M;           // distinct coordinates of each joint, in slot order
+    yd = o;    o += 4 * K * M;
+    woff = o;  o += 4 * (L + 1);         // first distinct pair of each limb
+    nd = o;    o += 4 * K;               // distinct coordinates per joint
+    lim = o;   o += 4 * 2 * L;           // (src, dst) joint of each limb
+    map = o;   o += K * M;               // slot -> its distinct coordinate
+    resok = o; o += L * M * M;           // count > 0.8 T of each distinct pair
+    pv = o;    o += K * M;               // peak_valid
+    bytes = o;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 2)
+paf_score_kernel(const float* __restrict__ paf, long long sb, popnet::Dims3 g,
+                 const float* __restrict__ peaks, const bool* __restrict__ peak_valid,
+                 const int* __restrict__ limbs, int K, int L, int M, int H, int W, int T,
+                 float factor, float thresh, float len_ref,
+                 float* __restrict__ score_out, bool* __restrict__ ok_out) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const Layout ly(K, L, M, H, W);
+  float* pafs = reinterpret_cast<float*>(smem + ly.paf);
+  float* res = reinterpret_cast<float*>(smem + ly.res);
+  float* xd = reinterpret_cast<float*>(smem + ly.xd);
+  float* yd = reinterpret_cast<float*>(smem + ly.yd);
+  int* woff = reinterpret_cast<int*>(smem + ly.woff);
+  int* nd = reinterpret_cast<int*>(smem + ly.nd);
+  int* lim = reinterpret_cast<int*>(smem + ly.lim);
+  unsigned char* map = reinterpret_cast<unsigned char*>(smem + ly.map);
+  unsigned char* resok = reinterpret_cast<unsigned char*>(smem + ly.resok);
+  bool* pv = reinterpret_cast<bool*>(smem + ly.pv);
+
+  const int C = 2 * L, MM = M * M;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int b = blockIdx.x;
+  STAGE_STAMP(0);
+  // the limbs and this warp's first joint's peaks are read before the
+  // copies start, so their loads do not queue behind the maps
+  const int limb_joint = tid < 2 * L ? limbs[tid] : 0;
+  float x0 = 0.0f, y0 = 0.0f;
+  bool v0 = false;
+  if (warp < K && lane < M) {
+    const long long o = ((long long)b * K + warp) * M + lane;
+    x0 = peaks[o * 3];
+    y0 = peaks[o * 3 + 1];
+    v0 = peak_valid[o];
+  }
+  popnet::cp_async_frame(pafs, paf + b * sb, g);
   STAGE_STAMP(1);
 
-  const int ks = limbs[2 * l], kd = limbs[2 * l + 1];
-  for (int p = threadIdx.x; p < M * M; p += blockDim.x) {
-    const int ms = p / M, md = p % M;
-    const float* ps = peaks + ((long long)(b * K + ks) * M + ms) * 3;
-    const float* pd = peaks + ((long long)(b * K + kd) * M + md) * 3;
-    const float sxv = ps[0], syv = ps[1];
-    const float dx = __fsub_rn(pd[0], sxv), dy = __fsub_rn(pd[1], syv);
-    const float dist =
-        __fadd_rn(sqrtf(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy))), 1e-8f);
-    const float ux = __fdiv_rn(dx, dist), uy = __fdiv_rn(dy, dist);
-    float acc = 0.0f, cnt = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      const float ts = (float)((double)t / (double)(T - 1));
-      const float pxi = rintf(__fadd_rn(sxv, __fmul_rn(dx, ts)));
-      const float pyi = rintf(__fadd_rn(syv, __fmul_rn(dy, ts)));
-      const float lx = __fsub_rn(__fdiv_rn(__fadd_rn(pxi, 0.5f), factor), 0.5f);
-      const float ly = __fsub_rn(__fdiv_rn(__fadd_rn(pyi, 0.5f), factor), 0.5f);
-      const float x0 = floorf(lx), y0 = floorf(ly);
-      const float fx = __fsub_rn(lx, x0), fy = __fsub_rn(ly, y0);
-      const int x0i = (int)x0, y0i = (int)y0;
-      float wy[4];
-      for (int j = 0; j < 4; ++j) wy[j] = cubic_weight(fy, j);
-      float vx = 0.0f, vy = 0.0f;
-      for (int jx = 0; jx < 4; ++jx) {
-        const int qx = x0i + 1 + jx;
-        float colx = 0.0f, coly = 0.0f;
-        for (int jy = 0; jy < 4; ++jy) {
-          const int qy = y0i + 1 + jy;
-          const bool in = qx >= 0 && qx < Wp && qy >= 0 && qy < Hp;
-          const float v0 = in ? pl[qy * Wp + qx] : 0.0f;
-          const float v1 = in ? pl[HWp + qy * Wp + qx] : 0.0f;
-          colx = __fadd_rn(colx, __fmul_rn(wy[jy], v0));
-          coly = __fadd_rn(coly, __fmul_rn(wy[jy], v1));
-        }
-        const float wx = cubic_weight(fx, jx);
-        vx = __fadd_rn(vx, __fmul_rn(wx, colx));
-        vy = __fadd_rn(vy, __fmul_rn(wx, coly));
-      }
-      const float proj = __fadd_rn(__fmul_rn(vx, ux), __fmul_rn(vy, uy));
-      acc = __fadd_rn(acc, proj);
-      cnt = __fadd_rn(cnt, proj > thresh ? 1.0f : 0.0f);
+  // while the maps fly: a warp per joint, a lane per slot
+  if (tid < 2 * L) lim[tid] = limb_joint;
+  for (int k = warp; k < K; k += nwarps) {
+    const bool on = lane < M;
+    float x = x0, y = y0;
+    bool v = v0;
+    if (k != warp && on) {
+      const long long o = ((long long)b * K + k) * M + lane;
+      x = peaks[o * 3];
+      y = peaks[o * 3 + 1];
+      v = peak_valid[o];
     }
-    const float mean = __fdiv_rn(acc, (float)T);
-    const float penalty = fminf(__fsub_rn(__fdiv_rn(len_ref, dist), 1.0f), 0.0f);
-    const float score = __fadd_rn(mean, penalty);
-    const bool ok = cnt > (float)(0.8 * T) && score > 0.0f &&
-                    peak_valid[(b * K + ks) * M + ms] && peak_valid[(b * K + kd) * M + md];
-    const long long o = ((long long)(b * L + l) * M + ms) * M + md;
-    score_out[o] = score;
-    ok_out[o] = ok;
+    const unsigned long long key =
+        ((unsigned long long)__float_as_uint(x) << 32) | __float_as_uint(y);
+    const unsigned slots = __ballot_sync(kFull, on);
+    int first = lane;                                   // the first slot with my bits
+    if (on) first = __ffs(__match_any_sync(slots, key)) - 1;
+    const bool distinct = on && first == lane;
+    const unsigned reps = __ballot_sync(kFull, distinct);
+    const int a = __popc(reps & ((1u << lane) - 1u));   // rank among the distinct slots
+    const int mine = __shfl_sync(kFull, a, first);
+    if (distinct) { xd[k * M + a] = x; yd[k * M + a] = y; }
+    if (on) { map[k * M + lane] = (unsigned char)mine; pv[k * M + lane] = v; }
+    if (lane == 0) nd[k] = __popc(reps);
+  }
+  __syncthreads();
+  if (warp == 0) {                                    // distinct pairs per limb, scanned
+    int w = lane < L ? nd[lim[2 * lane]] * nd[lim[2 * lane + 1]] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, w, off);
+      if (lane >= off) w += v;
+    }
+    if (lane < L) woff[lane + 1] = w;
+    if (lane == 0) woff[0] = 0;
   }
   STAGE_STAMP(2);
+  popnet::cp_async_wait_all();
+  __syncthreads();
+  STAGE_STAMP(3);
+
+  // line integrals of the distinct pairs: G pairs a warp, a lane per point
+  const int G = 32 / T, t = lane % T, gi = lane / T;
+  const float ts = (float)((double)t / (double)(T - 1));
+  const int total = woff[L];
+  const int limb_end = lane < L ? woff[lane + 1] : INT_MAX;  // lane l: end of limb l's pairs
+  for (int base = warp * G; base < total; base += nwarps * G) {
+    const int item = base + gi;
+    const bool act = gi < G && item < total;
+    int l = 0, a = 0, d = 0;
+    for (int g = 0; g < G; ++g) {                    // the limb of each of the G pairs
+      const int lg = __popc(__ballot_sync(kFull, limb_end <= base + g));
+      if (g == gi) l = lg;
+    }
+    float proj = 0.0f, dist = 1.0f;
+    if (act) {
+      const int ks = lim[2 * l], kd = lim[2 * l + 1];
+      const int r = item - woff[l];
+      a = r / nd[kd];
+      d = r - a * nd[kd];
+      const float sx = xd[ks * M + a], sy = yd[ks * M + a];
+      const float dx = __fsub_rn(xd[kd * M + d], sx), dy = __fsub_rn(yd[kd * M + d], sy);
+      dist = __fadd_rn(sqrtf(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy))), 1e-8f);
+      const float ux = __fdiv_rn(dx, dist), uy = __fdiv_rn(dy, dist);
+      proj = line_point(pafs, H, W, C, 2 * l, sx, sy, dx, dy, ux, uy, ts, factor);
+    }
+    float acc = 0.0f, cnt = 0.0f;                     // in point order, as the plain sums
+    for (int tt = 0; tt < T; ++tt) {
+      const float p = __shfl_sync(kFull, proj, min(gi * T + tt, 31));
+      acc = __fadd_rn(acc, p);
+      cnt = __fadd_rn(cnt, p > thresh ? 1.0f : 0.0f);
+    }
+    if (act && t == 0) {
+      const float mean = __fdiv_rn(acc, (float)T);
+      const float penalty = fminf(__fsub_rn(__fdiv_rn(len_ref, dist), 1.0f), 0.0f);
+      const float score = __fadd_rn(mean, penalty);
+      res[l * MM + a * M + d] = score;
+      resok[l * MM + a * M + d] = cnt > (float)(0.8 * T) && score > 0.0f;
+    }
+  }
+  __syncthreads();
+  STAGE_STAMP(4);
+
+  // every (limb, ms, md) takes its distinct pair's result, md fastest
+  popnet::Dims3 f = {{M, M, L}, {0, 0, 0}, {0, 0, 0}, 1};
+  const long long obase = (long long)b * L * MM;
+  int o = tid;
+  for (popnet::Walk3 w(f, tid, blockDim.x); w.more(f); w.next(f), o += blockDim.x) {
+    const int md = w.d0, ms = w.d1, l = w.d2;
+    const int ks = lim[2 * l], kd = lim[2 * l + 1];
+    const int r = l * MM + map[ks * M + ms] * M + map[kd * M + md];
+    score_out[obase + o] = res[r];
+    ok_out[obase + o] = resok[r] && pv[ks * M + ms] && pv[kd * M + md];
+  }
+  STAGE_STAMP(5);
+}
+
+// A frame of the maps as paf_score_kernel walks it into its dense
+// (H, W, 2L) layout.
+popnet::Dims3 frame_dims(const void* paf, long long sb, long long sy, long long sx,
+                         long long sc, int L, int H, int W) {
+  const int n[3] = {H, W, 2 * L};
+  const long long src[3] = {sy, sx, sc};
+  const int dst[3] = {W * 2 * L, 2 * L, 1};
+  return popnet::memory_order(n, src, dst, paf, sb);
 }
 
 }  // namespace
+
+// Elements per copy with which paf_score_kernel brings a frame of these maps
+// into shared memory (1, 2 or 4).
+extern "C" int popnet_paf_score_copy_width(const void* paf, long long sb, long long sy,
+                                           long long sx, long long sc, int L, int H, int W) {
+  return frame_dims(paf, sb, sy, sx, sc, L, H, W).vec;
+}
 
 extern "C" int popnet_paf_score(const void* paf, long long sb, long long sy,
                                 long long sx, long long sc, const void* peaks,
@@ -131,18 +299,33 @@ extern "C" int popnet_paf_score(const void* paf, long long sb, long long sy,
                                 int K, int L, int M, int H, int W, int T,
                                 float factor, float thresh, float len_ref,
                                 void* score, void* ok, void* stream) {
-  if (B * L < 1 || M < 1 || T < 2 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const int threads = M * M < 1024 ? ((M * M + 31) / 32) * 32 : 1024;
-  const size_t smem = sizeof(float) * 2 * (size_t)(H + 4) * (W + 4);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(paf_score_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  paf_score_kernel<<<B * L, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)paf, sb, sy, sx, sc, (const float*)peaks, (const bool*)peak_valid,
-      (const int*)limbs, K, L, M, H, W, T, factor, thresh, len_ref, (float*)score,
-      (bool*)ok);
+  if (B < 1 || K < 1 || L < 1 || L > 32 || M < 1 || M > kMaxPeaks || T < 2 || T > 32 ||
+      H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = Layout(K, L, M, H, W).bytes;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(paf_score_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(paf_score_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  paf_score_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)paf, sb, frame_dims(paf, sb, sy, sx, sc, L, H, W), (const float*)peaks,
+      (const bool*)peak_valid, (const int*)limbs, K, L, M, H, W, T, factor, thresh, len_ref,
+      (float*)score, (bool*)ok);
   return (int)cudaGetLastError();
+}
+
+// Blocks of paf_score_kernel that one SM holds at these sizes.
+extern "C" int popnet_paf_score_blocks_per_sm(int K, int L, int M, int H, int W, void* out) {
+  const size_t smem = Layout(K, L, M, H, W).bytes;
+  cudaError_t e = cudaFuncSetAttribute(paf_score_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(paf_score_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor((int*)out, paf_score_kernel,
+                                                            kThreads, smem);
 }

@@ -97,6 +97,33 @@ def stage_clocks(source: str, fn) -> np.ndarray:
     return out
 
 
+def blocks_per_sm(source: str, *sizes: int) -> int:
+    """Blocks of the kernel of csrc/<source>.cu that one SM of the current
+    card holds at these sizes (find_peaks: K, H, W, M; paf_score: K, L, M,
+    H, W)."""
+    fn = getattr(_build.library(source), f"popnet_{source}_blocks_per_sm")
+    fn.argtypes, fn.restype = [_I] * len(sizes) + [_P], ctypes.c_int
+    n = ctypes.c_int(0)
+    err = fn(*sizes, ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"popnet_{source}_blocks_per_sm failed: CUDA error {err}")
+    return n.value
+
+
+def copy_width(source: str, t: torch.Tensor) -> int:
+    """Elements per asynchronous copy (1, 2 or 4) with which the kernel of
+    csrc/<source>.cu brings a frame of `t` into shared memory: find_peaks
+    (B, K, H, W) heat planes, paf_score (B, H, W, 2L) maps. 4 where the
+    strides leave 16-byte runs, as the serving path's PAF maps do."""
+    fn = getattr(_build.library(source), f"popnet_{source}_copy_width")
+    fn.argtypes, fn.restype = [_P] + [_LL] * 4 + [_I] * 3, ctypes.c_int
+    if source == "find_peaks":
+        _, K, H, W = t.shape
+        return fn(t.data_ptr(), *t.stride(), K, H, W)
+    _, H, W, C = t.shape
+    return fn(t.data_ptr(), *t.stride(), C // 2, H, W)
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None,
            contiguous: bool = False) -> None:
     if t.dtype != dtype:
@@ -229,6 +256,12 @@ def find_peaks_plain(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.
 def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
     B, K, H, W = heat.shape
     _check(heat, "heat", torch.float32)
+    if (win_size, factor) != (2, 8):
+        raise ValueError(f"the find_peaks kernels refine 5x5 windows upsampled 8x (win_size=2, "
+                         f"factor=8), got win_size={win_size}, factor={factor}")
+    if max_peaks > 32 or H > 255 or W > 255:
+        raise ValueError(f"the find_peaks kernels keep at most 32 peaks on grids of at most "
+                         f"255x255, got {max_peaks} on {H}x{W}")
     dev = heat.device
     U = _upsample(2 * win_size + 1, factor, dev)
     px, py, loc = (torch.empty((B, K, max_peaks), dtype=torch.int32, device=dev)
@@ -244,8 +277,9 @@ def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
 def find_peaks(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
                factor: int = 8, win_size: int = 2):
     """Peak NMS + top-M + windowed bicubic refine over (B, K, H, W) float32
-    heat planes (any strides), one block per plane. Same contract as
-    `find_peaks_plain`."""
+    heat planes (any strides), one block per frame. Same contract as
+    `find_peaks_plain`; on the card win_size=2, factor=8 and at most 32
+    peaks, as the decode uses."""
     if not _on_cuda(heat):
         return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
     out = _find_peaks_launch("popnet_find_peaks", heat, max_peaks, thresh, factor, win_size)
@@ -258,9 +292,9 @@ def find_peaks(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
 
 def find_peaks_row(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
                    factor: int = 8, win_size: int = 2):
-    """`find_peaks` by its second kernel (a per-warp top-M over the NMS
-    survivors). Same contract and the same plain version,
-    `find_peaks_plain`; the two kernels agree bit for bit."""
+    """`find_peaks` by its second kernel (a warp per plane that refines its
+    own picks). Same contract, limits and plain version as `find_peaks`;
+    the two kernels agree bit for bit."""
     if not _on_cuda(heat):
         return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
     out = _find_peaks_launch("popnet_find_peaks_row", heat, max_peaks, thresh, factor,
@@ -385,8 +419,9 @@ def paf_score(paf: torch.Tensor, peaks: torch.Tensor, peak_valid: torch.Tensor,
     _check(paf, "paf", torch.float32, (B, H, W, 2 * L))
     _check(peaks, "peaks", torch.float32, (B, K, M, 3), contiguous=True)
     _check(peak_valid, "peak_valid", torch.bool, (B, K, M), contiguous=True)
-    if M * M > 1024:
-        raise ValueError(f"paf_score takes at most 32 peaks per joint, got {M}")
+    if M > 32 or L > 32 or not 2 <= num_pts <= 32:
+        raise ValueError(f"paf_score takes at most 32 peaks per joint, 32 limbs and 2 to 32 "
+                         f"line points, got {M}, {L}, {num_pts}")
     dev = paf.device
     lt = _limbs_i32(limbs, dev)
     score = torch.empty((B, L, M, M), dtype=torch.float32, device=dev)

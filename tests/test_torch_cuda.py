@@ -41,6 +41,21 @@ def peak_heat(seed, B, K=16):
     return heat
 
 
+def sparse_heat(seed, B, H=28, W=28, K=16):
+    """Heat in the serving path's regime: noise below the threshold and up
+    to four bumps a plane, anywhere (borders included); many planes have
+    none."""
+    rng = np.random.default_rng(seed)
+    heat = rng.uniform(0, 0.08, (B, K, H, W)).astype(np.float32)
+    ys, xs = np.mgrid[0:H, 0:W]
+    for p in (0.45, 0.3, 0.2, 0.1):
+        amp = np.where(rng.uniform(size=(B, K)) < p, rng.uniform(0.3, 1.0, (B, K)), 0.0)
+        cy, cx = rng.integers(0, H, (B, K)), rng.integers(0, W, (B, K))
+        d2 = (ys - cy[..., None, None]) ** 2 + (xs - cx[..., None, None]) ** 2
+        heat = np.maximum(heat, (amp[..., None, None] * np.exp(-d2 / 2.0)).astype(np.float32))
+    return heat
+
+
 def test_find_peaks_kernel_matches_plain(cuda):
     h = torch.as_tensor(peak_heat(1, 5), device=cuda)[:, :15]   # strided, as in the pipeline
     kernels.reset_launches()
@@ -70,6 +85,41 @@ def test_find_peaks_row_kernel_matches_plain_and_find_peaks(cuda, grid, max_peak
                        kernels.find_peaks(h, max_peaks=max_peaks)):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert not row[4][2, 4].any() and row[4][0, 0].sum() > 1
+
+
+@pytest.mark.parametrize("memory", ["channels_last", "nchw"])
+@pytest.mark.parametrize("grid,max_peaks", [((28, 28), 16), ((12, 10), 32), ((9, 40), 5)])
+def test_find_peaks_kernels_on_sparse_heat(cuda, memory, grid, max_peaks):
+    """A few peaks on some planes and none on the others, the regime of the
+    serving path (most slots empty, one corner refine a plane): both
+    kernels bit-equal to the plain version, in channels-last memory (the
+    CNN's) and in NCHW memory, one launch each."""
+    heat = torch.as_tensor(sparse_heat(3, 6, *grid), device=cuda)
+    if memory == "channels_last":
+        heat = heat.contiguous(memory_format=torch.channels_last)
+    h = heat[:, :15]
+    kernels.reset_launches()
+    got = kernels.find_peaks(h, max_peaks=max_peaks)
+    row = kernels.find_peaks_row(h, max_peaks=max_peaks)
+    torch.cuda.synchronize()
+    assert kernels.find_peaks.launches == 1 and kernels.find_peaks_row.launches == 1
+    for a, b, c in zip(got, kernels.find_peaks_plain(h, max_peaks=max_peaks), row):
+        assert torch.equal(a, b) and torch.equal(c, b)
+    valid = got[4]
+    assert valid.any() and (~valid.any(-1)).any()       # planes with peaks and without
+
+
+def test_find_peaks_kernels_refuse_what_they_do_not_build(cuda):
+    """The kernels refine 5x5 windows upsampled 8x and keep at most 32 peaks:
+    other settings raise on the card instead of running something else."""
+    h = torch.rand((1, 15, 28, 28), device=cuda)
+    for fn in (kernels.find_peaks, kernels.find_peaks_row):
+        with pytest.raises(ValueError, match="win_size=2"):
+            fn(h, win_size=3)
+        with pytest.raises(ValueError, match="factor=8"):
+            fn(h, factor=4)
+        with pytest.raises(ValueError, match="at most 32 peaks"):
+            fn(h, max_peaks=33)
 
 
 def test_peak_local_max_kernel_matches_plain(cuda):
@@ -141,7 +191,41 @@ def test_paf_score_kernel_matches_plain(cuda):
     s, ok = kernels.paf_score(paf, peaks, valid, LIMBS)
     s_p, ok_p = kernels.paf_score_plain(paf, peaks, valid, LIMBS)
     assert torch.equal(ok, ok_p) and ok.any()
-    assert float((s - s_p).abs().max()) <= 1e-5
+    assert torch.equal(s, s_p)
+
+
+@pytest.mark.parametrize("paf_memory", ["nhwc", "sliced"])
+def test_paf_score_kernel_with_shared_coordinates(cuda, paf_memory):
+    """Peaks that share coordinates: K1's empty slots, two valid slots at one
+    point, x or y of +0.0 against -0.0, a limb's two ends at one point (limb
+    0 is torso 8 -> right hip 9); and peaks so far off the map that their
+    line's taps fall beyond the pad. The kernel integrates each distinct pair
+    once; score and ok stay bit-equal to the plain version, on the contiguous
+    NHWC maps of the serving path and on a slice of larger maps."""
+    from popnet_tpu_torch.decode.device import find_peaks_batched
+
+    rng = np.random.default_rng(8)
+    heat = torch.as_tensor(sparse_heat(4, 4), device=cuda).permute(0, 2, 3, 1)
+    peaks, valid = find_peaks_batched(heat)
+    peaks[0, 8, 1, :2] = peaks[0, 8, 0, :2]
+    peaks[0, 9, 0, :2] = torch.tensor([0.0, 5.0])
+    peaks[0, 9, 1, :2] = torch.tensor([-0.0, 5.0])
+    peaks[1, 8, 0, :2] = torch.tensor([7.0, 0.0])
+    peaks[1, 8, 1, :2] = torch.tensor([7.0, -0.0])
+    peaks[1, 9, 0, :2] = peaks[1, 8, 0, :2]
+    peaks[2, 8, 0, :2] = torch.tensor([1e8, 3.0])
+    peaks[2, 9, 0, :2] = torch.tensor([-1e8, 5.0])
+    valid[0:3, 8:10, :2] = True
+    big = torch.as_tensor(rng.uniform(-0.2, 1, (4, 31, 30, 33)).astype(np.float32), device=cuda)
+    paf = big[:, 2:30, 1:29, 3:31] if paf_memory == "sliced" else big[:, :28, :28, :28].contiguous()
+    kernels.reset_launches()
+    s, ok = kernels.paf_score(paf, peaks, valid, LIMBS)
+    torch.cuda.synchronize()
+    assert kernels.paf_score.launches == 1
+    s_p, ok_p = kernels.paf_score_plain(paf, peaks, valid, LIMBS)
+    assert torch.equal(s, s_p) and torch.equal(ok, ok_p)
+    assert torch.signbit(peaks[0, 9, 1, 0]) and not torch.signbit(peaks[0, 9, 0, 0])
+    assert (~valid).any() and ok.any()
 
 
 def test_readout_kernels_match_plain(cuda):

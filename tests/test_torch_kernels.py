@@ -58,6 +58,31 @@ def test_find_peaks_plain_matches_pallas(heat3, which):
     assert not got[4][2, 4].any() and got[4][0].sum() > 0
 
 
+def test_find_peaks_on_a_flat_plane_agrees_with_pallas_but_for_the_tied_refine():
+    """The documented tolerance case of the peak refine. On a plane of one
+    value below the threshold every slot is invalid and refines the corner
+    (0, 0) over a window whose upsampled values are all equal up to
+    rounding, so their argmax `loc` is decided by the rounding order: the
+    Pallas kernel's patch @ Q and the port's separable U * patch * U^T may
+    pick different cells (here 663 and 858, scores 0.050000004 and
+    0.05000001). valid and every valid slot's outputs agree exactly, the
+    invalid slots' px and py too, and every score within 1e-5."""
+    heat = peak_heat(11, 2)
+    heat[1, 6] = 0.05                              # the flat plane
+    ref = [np.asarray(a) for a in find_peaks_pallas_bt(jnp.asarray(heat), bt=2, interpret=True)]
+    got = [a.numpy() for a in kernels.find_peaks_plain(torch.from_numpy(heat))]
+    valid = ref[4]
+    np.testing.assert_array_equal(got[4], valid)
+    assert valid.sum() > 20 and not valid[1, 6].any()
+    for i in (0, 1, 2):
+        np.testing.assert_array_equal(got[i][valid], ref[i][valid])
+    for i in (0, 1):
+        np.testing.assert_array_equal(got[i][~valid], 0)
+        np.testing.assert_array_equal(ref[i][~valid], 0)
+    np.testing.assert_allclose(got[3], ref[3], atol=1e-5)
+    np.testing.assert_allclose(got[3][1, 6], 0.05, atol=1e-5)
+
+
 def test_find_peaks_batched_matches_xla(heat3):
     heat = np.concatenate([heat3, np.zeros_like(heat3[:, :1])], 1).transpose(0, 2, 3, 1)
     pk_x, v_x = jax_find_peaks(jnp.asarray(heat), refine="xla")
