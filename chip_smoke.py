@@ -637,7 +637,7 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float, str]:
         refine = float((per_slot * valid).sum()) + corner * float((~valid).any(-1).sum())
         ops = 6.0 * h.numel() + 2.0 * survivors + refine
         note = (f"; refines {refine / 1e9:.4f} GFLOP, one corner refine per plane with an empty "
-                f"slot (the PR 1 count refined every slot: {float(per_slot.sum()) / 1e9:.4f})")
+                f"slot (a refine of every slot would be {float(per_slot.sum()) / 1e9:.4f})")
     elif name == "paf_score":
         paf, peaks, score = inputs["paf"], inputs["peaks"], inputs["score"]
         nbytes = paf.numel() * 4 + peaks.numel() * 4 + peaks.numel() // 3 + score.numel() * 5
@@ -646,8 +646,8 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float, str]:
         # 11 ops, coordinates and projection about 17)
         pairs = float(distinct_pairs(peaks).sum())
         ops = pairs * PAIR_OPS
-        note = (f"; {pairs:.0f} distinct pairs integrated (the PR 1 count integrated every "
-                f"pair: {score.numel()}, {score.numel() * PAIR_OPS / 1e9:.3f} GFLOP)")
+        note = (f"; {pairs:.0f} distinct pairs integrated (every pair would be "
+                f"{score.numel()}, {score.numel() * PAIR_OPS / 1e9:.3f} GFLOP)")
     elif name == "window_readout":
         cx, cy, H, W = inputs["cx"], inputs["cy"], inputs["H"], inputs["W"]
         cells = (((cx + 1).clamp(0, W - 1) - (cx - 1).clamp(0, W - 1) + 1)
