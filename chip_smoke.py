@@ -82,7 +82,13 @@ PEAK_OUTPUTS = ("px", "py", "loc", "score", "valid")
 OPENPOSE_PATH = ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout")
 # the stages between a kernel's STAGE_STAMPs, in order (csrc/common.cuh)
 STAGES = {"find_peaks": ("load", "NMS", "top-M", "refine"),
-          "paf_score": ("copies issued", "peaks", "load wait", "integrals", "fill")}
+          "paf_score": ("copies issued", "peaks", "load wait", "integrals", "fill"),
+          "assemble_ids": ("load", "match", "merge", "pack")}
+
+
+def source_of(name: str) -> str:
+    """The csrc/ source name of a kernel (its library, its stage-clock build)."""
+    return os.path.splitext(os.path.basename(KERNEL_META[name][0]))[0]
 
 
 def say(phase: str, msg: str) -> None:
@@ -220,7 +226,7 @@ def phase_build():
     from popnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build_all(stamps=tuple(STAGES))
+    reports = _build.build_all(stamps=tuple(source_of(n) for n in STAGES))
     say("build", f"nvcc built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(reports.items()):
@@ -676,7 +682,7 @@ def stage_breakdown(name: str, call, ms: float) -> None:
     from popnet_tpu_torch.ops import kernels
 
     labels = STAGES[name]
-    st = kernels.stage_clocks(name, call)[:, : len(labels) + 1]
+    st = kernels.stage_clocks(source_of(name), call)[:, : len(labels) + 1]
     st = st[st[:, -1] != 0]
     per_block = np.diff(st, axis=1).astype(np.float64)
     cyc = per_block.mean(axis=0)
@@ -791,12 +797,12 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
             f"{tuple(h.shape)}, strides {tuple(h.stride())}")
         K, M, L = h.shape[1], 16, len(LIMBS)
         per_sm = {"find_peaks": kernels.blocks_per_sm("find_peaks", K, 28, 28, M),
-                  "paf_score": kernels.blocks_per_sm("paf_score", K, L, M, 28, 28)}
+                  "paf_score": kernels.blocks_per_sm("paf_score", K, L, M, 28, 28),
+                  "assemble_ids": kernels.blocks_per_sm("assemble", K, L, M)}
         say("timing", f"blocks (one per frame) that one SM holds at the main-path sizes: {per_sm}; "
             f"elements per shared-memory copy: find_peaks {kernels.copy_width('find_peaks', h)}, "
             f"paf_score {kernels.copy_width('paf_score', paf_n)}")
-        require(min(per_sm.values()) >= 2, "a frame's block of find_peaks or paf_score does not "
-                "fit two to an SM")
+        require(min(per_sm.values()) >= 2, f"a frame's block does not fit two to an SM: {per_sm}")
         px, py, _, _, slot_valid = kernels.find_peaks(h)
         peaks, pvalid = find_peaks_batched(heat_n)
         scores, ok = score_limb_pairs_batched(paf_n, peaks, pvalid)
@@ -840,6 +846,8 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         stage_breakdown("find_peaks", lambda: kernels.find_peaks(h), ms["find_peaks"])
         stage_breakdown("paf_score", lambda: kernels.paf_score(paf_n, peaks, pvalid, LIMBS),
                         ms["paf_score"])
+        stage_breakdown("assemble_ids", lambda: kernels.assemble_ids(ps, sm, LIMBS),
+                        ms["assemble_ids"])
     asm = next(r for r in rows if r["name"] == "assemble_ids")
     chain = int(conn.max())
     floor_ms = chain * SMEM_ROUND_TRIP_CYCLES / (sm_clock_mhz * 1e3)

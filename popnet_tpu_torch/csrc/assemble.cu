@@ -34,6 +34,8 @@
 #include <climits>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -64,6 +66,7 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
+  STAGE_STAMP(0);
   const float* sb = s_masked + (long long)b * L * M * M;
   for (int q = tid; q < L * M * M; q += kThreads) s[q] = sb[q];
   for (int q = tid; q < K * M; q += kThreads) ps[q] = peak_score[(long long)b * K * M + q];
@@ -71,6 +74,7 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
   int* out = ids_out + (long long)b * max_people * K;
   for (int q = tid; q < max_people * K; q += kThreads) out[q] = -1;
   __syncthreads();
+  STAGE_STAMP(1);
 
   // ---- stage 1: greedy 1-1 matching, one warp per limb --------------------
   for (int l = warp; l < L; l += kWarps) {
@@ -100,11 +104,12 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
     for (int e = m + lane; e < M; e += 32) cv[l * M + e] = -INFINITY;
   }
   __syncthreads();
-  if (warp != 0) return;
+  STAGE_STAMP(2);
 
   // ---- stage 2: sequential union-merge, warp 0 ----------------------------
+  // (the other warps wait at the stamps' barriers in the stage-clock build)
   int ncre = 0;
-  for (int t = 0; t < P; ++t) {
+  for (int t = 0; warp == 0 && t < P; ++t) {
     const float v = cv[t];
     if (!isfinite(v)) continue;
     const int l = t / M;
@@ -154,23 +159,33 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
     __syncwarp();
   }
 
+  STAGE_STAMP(3);
+
   // ---- stage 3: filter and pack in creation order -------------------------
-  int kept = 0;
-  const unsigned lt_mask = (1u << lane) - 1u;
-  for (int base = 0; base < ncre; base += 32) {
-    const int p = base + lane;
-    bool survive = false;
-    if (p < ncre && alive[p] && count[p] >= min_parts) {
-      const int c = count[p] > 1 ? count[p] : 1;
-      survive = __fdiv_rn(score[p], (float)c) >= min_score;
+  if (warp == 0) {
+    int kept = 0;
+    const unsigned lt_mask = (1u << lane) - 1u;
+    for (int base = 0; base < ncre; base += 32) {
+      const int p = base + lane;
+      bool survive = false;
+      if (p < ncre && alive[p] && count[p] >= min_parts) {
+        const int c = count[p] > 1 ? count[p] : 1;
+        survive = __fdiv_rn(score[p], (float)c) >= min_score;
+      }
+      const unsigned bal = __ballot_sync(kFull, survive);
+      const int rank = kept + __popc(bal & lt_mask);
+      if (survive && rank < max_people)
+        for (int k = 0; k < K; ++k) out[rank * K + k] = ids[p * K + k];
+      kept += __popc(bal);
     }
-    const unsigned bal = __ballot_sync(kFull, survive);
-    const int rank = kept + __popc(bal & lt_mask);
-    if (survive && rank < max_people)
-      for (int k = 0; k < K; ++k) out[rank * K + k] = ids[p * K + k];
-    kept += __popc(bal);
+    if (lane == 0) counts_out[b] = kept < max_people ? kept : max_people;
   }
-  if (lane == 0) counts_out[b] = kept < max_people ? kept : max_people;
+  STAGE_STAMP(4);
+}
+
+size_t smem_bytes(int K, int L, int M) {
+  const size_t P = (size_t)L * M;
+  return 4 * ((size_t)L * M * M + (size_t)K * M + 6 * P + P * K + 2 * (size_t)L);
 }
 
 }  // namespace
@@ -181,8 +196,7 @@ extern "C" int popnet_assemble(const void* peak_score, const void* s_masked,
                                void* ids, void* counts, void* stream) {
   if (B < 1 || K < 1 || K > 32 || L < 1 || M < 1 || M > 32 || max_people < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t P = (size_t)L * M;
-  size_t smem = 4 * ((size_t)L * M * M + (size_t)K * M + 6 * P + P * K + 2 * (size_t)L);
+  const size_t smem = smem_bytes(K, L, M);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(assemble_kernel,
@@ -194,4 +208,13 @@ extern "C" int popnet_assemble(const void* peak_score, const void* s_masked,
       (const float*)peak_score, (const float*)s_masked, (const int*)limbs, K, L, M,
       max_people, min_parts, min_score, (int*)ids, (int*)counts);
   return (int)cudaGetLastError();
+}
+
+extern "C" int popnet_assemble_blocks_per_sm(int K, int L, int M, void* out) {
+  const size_t smem = smem_bytes(K, L, M);
+  cudaError_t e = cudaFuncSetAttribute(assemble_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor((int*)out, assemble_kernel,
+                                                            kThreads, smem);
 }

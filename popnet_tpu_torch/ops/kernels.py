@@ -100,7 +100,7 @@ def stage_clocks(source: str, fn) -> np.ndarray:
 def blocks_per_sm(source: str, *sizes: int) -> int:
     """Blocks of the kernel of csrc/<source>.cu that one SM of the current
     card holds at these sizes (find_peaks: K, H, W, M; paf_score: K, L, M,
-    H, W)."""
+    H, W; assemble: K, L, M)."""
     fn = getattr(_build.library(source), f"popnet_{source}_blocks_per_sm")
     fn.argtypes, fn.restype = [_I] * len(sizes) + [_P], ctypes.c_int
     n = ctypes.c_int(0)
