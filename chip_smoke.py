@@ -273,6 +273,42 @@ def dense_candidates(rng: np.random.Generator, B: int, K: int = 15, M: int = 16)
     return peak_score, np.where(ok, scores, -np.inf).astype(np.float32)
 
 
+def tied_candidates(rng: np.random.Generator, B: int, K: int = 15, M: int = 16):
+    """Assembly inputs whose pair scores are quantized to 1/8, so equal
+    scores are common, with +0.0 and -0.0 among them (a tie that falls to
+    the lower flat index); every peak valid, half the pairs candidates, and
+    all 256 pairs of limb 4 candidates."""
+    from popnet_tpu_torch.core.skeleton import LIMBS
+
+    L = len(LIMBS)
+    peak_score = rng.uniform(0.1, 1.0, (B, K, M)).astype(np.float32)
+    scores = (np.round(rng.uniform(-0.25, 1.0, (B, L, M, M)) * 8) / 8).astype(np.float32)
+    zero = scores == 0
+    scores[zero] = np.where(rng.uniform(size=int(zero.sum())) < 0.5, -0.0, 0.0)
+    ok = rng.uniform(size=(B, L, M, M)) < 0.5
+    ok[:, 4] = True
+    return peak_score, np.where(ok, scores, -np.inf).astype(np.float32)
+
+
+def many_slot_candidates(rng: np.random.Generator, B: int, K: int = 15, M: int = 16):
+    """Assembly inputs on which every accepted connection opens a slot of its
+    own: limb l's candidates are a 4x4 block of pairs of peaks that no limb
+    before it used at its joints, so a frame creates 56 slots (more than one
+    warp's 32) of two joints each."""
+    from popnet_tpu_torch.core.skeleton import LIMBS
+
+    L = len(LIMBS)
+    peak_score = rng.uniform(0.1, 1.0, (B, K, M)).astype(np.float32)
+    scores = rng.uniform(0.01, 2.0, (B, L, M, M)).astype(np.float32)
+    ok = np.zeros((B, L, M, M), bool)
+    used = np.zeros(K, int)
+    for l, (a, c) in enumerate(LIMBS):
+        ok[:, l, used[a]:used[a] + 4, used[c]:used[c] + 4] = True
+        used[a] += 4
+        used[c] += 4
+    return peak_score, np.where(ok, scores, -np.inf).astype(np.float32)
+
+
 def sparse_heat(rng: np.random.Generator, B: int, K: int = 16, H: int = 28, W: int = 28):
     """(B, K, H, W) heat in the main path's regime: noise below the
     threshold and up to four bumps a plane, anywhere (borders included);
@@ -329,10 +365,13 @@ def distinct_pairs(peaks):
 
 
 def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator,
-                  rng3: np.random.Generator, dev, B: int) -> dict[str, float]:
+                  rng3: np.random.Generator, rng4: np.random.Generator, dev,
+                  B: int) -> dict[str, float]:
     """Each kernel against its plain version on the card; returns max |err|.
     `rng` feeds the four kernels of the first slice as it always did,
-    `rng_new` the later ones, `rng3` the sparse and shared-coordinate cases."""
+    `rng_new` the later ones, `rng3` the sparse and shared-coordinate cases,
+    `rng4` the readout's other radii and maps and the assembly's ties and
+    many slots."""
     import torch
 
     from popnet_tpu_torch.core.skeleton import LIMBS
@@ -407,16 +446,27 @@ def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator,
         f"slots, two valid slots at one point, x and y of +0.0 against -0.0; distinct pairs "
         f"per limb mean {float(pairs.float().mean()):.2f} of 256)")
 
-    # K4 with centres off the map
+    # K4 with centres on the borders and off the map, bit for bit
     z = maps(rng.uniform(0.5, 6, (B, 15, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
     hz = maps(rng.uniform(-0.2, 1, (B, 15, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
     cx = torch.as_tensor(rng.integers(-3, 31, (B, 16, 15)), dtype=torch.int32, device=dev)
     cy = torch.as_tensor(rng.integers(-3, 31, (B, 16, 15)), dtype=torch.int32, device=dev)
-    errs["window_readout"] = _maxerr(kernels.window_readout(z, hz, cx, cy),
-                                     kernels.window_readout_plain(z, hz, cx, cy))
-    require(errs["window_readout"] <= 1e-5, f"window_readout err {errs['window_readout']}")
-    say("kernels", f"window_readout z={tuple(z.shape)} c={tuple(cx.shape)}: max|err| "
-        f"{errs['window_readout']:.3g} (bar 1e-5)")
+    got, ref = kernels.window_readout(z, hz, cx, cy), kernels.window_readout_plain(z, hz, cx, cy)
+    _exact("window_readout", got, ref)
+    errs["window_readout"] = _maxerr(got, ref)
+    # radius 2 (the kernel's loop) beside radius 1 (its unrolled window), on
+    # the channels-last maps and on slices of larger NHWC maps
+    big = [torch.as_tensor(rng4.uniform(lo, hi, (B, 31, 30, 17)).astype(np.float32), device=dev)
+           for lo, hi in ((0.5, 6), (-0.2, 1))]
+    zs, hs = (t[:, 2:30, 1:29, 1:16] for t in big)
+    for radius in (1, 2):
+        for tag, zz, hh in (("channels-last", z, hz), ("sliced", zs, hs)):
+            _exact(f"window_readout radius {radius}, {tag} maps",
+                   kernels.window_readout(zz, hh, cx, cy, radius),
+                   kernels.window_readout_plain(zz, hh, cx, cy, radius))
+    say("kernels", f"window_readout z={tuple(z.shape)} c={tuple(cx.shape)}: exact, centres on the "
+        f"borders and off the map included; so at radius 1 and 2 on channels-last maps and on "
+        f"slices of larger NHWC maps")
 
     # K5 at (256, 224, 224) with 16*15 points per frame
     img = torch.as_tensor(rng.uniform(0.5, 6, (B, 224, 224)).astype(np.float32), device=dev)
@@ -467,9 +517,24 @@ def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator,
                                                min_score=0.5)):
         _exact("assemble_ids with max_people=3", a, b)
     errs["assemble_ids"] = _maxerr(ids_k, ids_p)
+    # tied scores with +0.0 and -0.0 and a limb of 256 candidates; 56 slots a
+    # frame, kept by min_parts=2 and 40 rows; a peak count other than 16
+    n_slots = {}
+    for tag, (a, b), kw in (
+            ("on tied scores", tied_candidates(rng4, B), {}),
+            ("with 56 slots a frame", many_slot_candidates(rng4, B),
+             dict(max_people=40, min_parts=2, min_score=0.0)),
+            ("at M=20 (the kernel's general build)", dense_candidates(rng4, B, M=20), {})):
+        pa, sa = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+        got, ref = kernels.assemble_ids(pa, sa, LIMBS, **kw), kernels.assemble_ids_plain(pa, sa, LIMBS, **kw)
+        _exact(f"assemble_ids ids {tag}", got[0], ref[0])
+        _exact(f"assemble_ids counts {tag}", got[1], ref[1])
+        n_slots[tag] = int(got[1].sum())
+    require(n_slots["with 56 slots a frame"] == 40 * B, "assemble_ids: 56 slots kept as 40 rows")
     say("kernels", f"assemble_ids peak_score={tuple(ps.shape)} s_masked={tuple(sm.shape)}: ids "
         f"and counts exact at candidate densities 0, 0.08, 0.3, 0.7, 1 ({int(cnt_k.sum())} "
-        f"people kept)")
+        f"people kept); so on tied scores with +0.0 and -0.0 and a limb of 256 candidates, with "
+        f"56 slots a frame (40 rows kept) and at M=20; people kept {n_slots}")
     torch.cuda.synchronize()
     return errs
 
@@ -798,7 +863,7 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         K, M, L = h.shape[1], 16, len(LIMBS)
         per_sm = {"find_peaks": kernels.blocks_per_sm("find_peaks", K, 28, 28, M),
                   "paf_score": kernels.blocks_per_sm("paf_score", K, L, M, 28, 28),
-                  "assemble_ids": kernels.blocks_per_sm("assemble", K, L, M)}
+                  "assemble_ids": kernels.blocks_per_sm("assemble", K, L, M, 16)}
         say("timing", f"blocks (one per frame) that one SM holds at the main-path sizes: {per_sm}; "
             f"elements per shared-memory copy: find_peaks {kernels.copy_width('find_peaks', h)}, "
             f"paf_score {kernels.copy_width('paf_score', paf_n)}")
@@ -942,7 +1007,8 @@ def main(argv=None) -> int:
     sm_clock_mhz = phase_device()
     phase_build()
     rng3 = np.random.default_rng([args.seed, 3])    # the sparse and shared-coordinate cases
-    errs = phase_kernels(rng, rng_new, rng3, dev, BATCH)
+    rng4 = np.random.default_rng([args.seed, 4])    # the readout's and the assembly's new cases
+    errs = phase_kernels(rng, rng_new, rng3, rng4, dev, BATCH)
     weights, weights_pn = load_npz(WEIGHTS), load_npz(WEIGHTS_POPNET)
     frames, launches, f32_out = phase_slice(rng, dev, BATCH, weights)
     frames_pn, launches_pn, f32_out_pn = phase_popnet_slice(rng_new, dev, BATCH, weights_pn)

@@ -100,7 +100,7 @@ def stage_clocks(source: str, fn) -> np.ndarray:
 def blocks_per_sm(source: str, *sizes: int) -> int:
     """Blocks of the kernel of csrc/<source>.cu that one SM of the current
     card holds at these sizes (find_peaks: K, H, W, M; paf_score: K, L, M,
-    H, W; assemble: K, L, M)."""
+    H, W; assemble: K, L, M, max_people)."""
     fn = getattr(_build.library(source), f"popnet_{source}_blocks_per_sm")
     fn.argtypes, fn.restype = [_I] * len(sizes) + [_P], ctypes.c_int
     n = ctypes.c_int(0)
@@ -637,7 +637,9 @@ def assemble_ids(peak_score: torch.Tensor, s_masked: torch.Tensor, limbs: tuple,
                  max_people: int = 16, min_parts: int = 3, min_score: float = 0.2):
     """Greedy assembly of one batch in one launch, one block per frame.
     peak_score (B, K, M) and s_masked (B, L, M, M) are contiguous float32,
-    K and M at most 32. Same contract as `assemble_ids_plain`."""
+    K and M at most 32 (M = 16, the decode's, has its own build of the
+    kernel; any other M takes the one for 32). Same contract as
+    `assemble_ids_plain`."""
     if not _on_cuda(peak_score, s_masked):
         return assemble_ids_plain(peak_score, s_masked, limbs, max_people, min_parts,
                                   min_score)

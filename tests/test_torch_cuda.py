@@ -155,29 +155,87 @@ def dense_candidates(seed, density, B=8, K=15, M=16):
     valid = np.arange(M)[None, None, :] < n_valid[:, :, None]
     peak_score = np.where(valid, rng.uniform(0.1, 1.0, size=(B, K, M)), 0.0).astype(np.float32)
     scores = rng.uniform(0.01, 2.0, size=(B, L, M, M)).astype(np.float32)
-    scores[0, 3, 2, 5] = scores[0, 3, 7, 1] = scores[0, 3, 7, 9] = 1.75   # tied pair scores
+    if M > 9:
+        scores[0, 3, 2, 5] = scores[0, 3, 7, 1] = scores[0, 3, 7, 9] = 1.75   # tied pair scores
     ok = rng.uniform(size=(B, L, M, M)) < density
     limbs = np.asarray(LIMBS)
     ok &= valid[:, limbs[:, 0]][:, :, :, None] & valid[:, limbs[:, 1]][:, :, None, :]
     return peak_score, np.where(ok, scores, -np.inf).astype(np.float32)
 
 
-@pytest.mark.parametrize("seed,density", [(0, 0.0), (0, 0.08), (1, 0.3), (2, 0.7), (3, 1.0)])
-def test_assemble_kernel_matches_plain(cuda, seed, density):
+def tied_candidates(seed, B=8, K=15, M=16):
+    """Pair scores quantized to 1/8 (many equal), +0.0 and -0.0 among them,
+    half the pairs candidates and all 256 of limb 4."""
+    rng = np.random.default_rng(seed)
+    L = len(LIMBS)
+    peak_score = rng.uniform(0.1, 1.0, (B, K, M)).astype(np.float32)
+    scores = (np.round(rng.uniform(-0.25, 1.0, (B, L, M, M)) * 8) / 8).astype(np.float32)
+    zero = scores == 0
+    scores[zero] = np.where(rng.uniform(size=int(zero.sum())) < 0.5, -0.0, 0.0)
+    ok = rng.uniform(size=(B, L, M, M)) < 0.5
+    ok[:, 4] = True
+    return peak_score, np.where(ok, scores, -np.inf).astype(np.float32)
+
+
+def many_slot_candidates(seed, B=8, K=15, M=16):
+    """Each limb's candidates pair peaks that no limb before it used, so
+    every accepted connection opens a slot: 56 a frame."""
+    rng = np.random.default_rng(seed)
+    L = len(LIMBS)
+    peak_score = rng.uniform(0.1, 1.0, (B, K, M)).astype(np.float32)
+    scores = rng.uniform(0.01, 2.0, (B, L, M, M)).astype(np.float32)
+    ok = np.zeros((B, L, M, M), bool)
+    used = np.zeros(K, int)
+    for limb, (a, c) in enumerate(LIMBS):
+        ok[:, limb, used[a]:used[a] + 4, used[c]:used[c] + 4] = True
+        used[a] += 4
+        used[c] += 4
+    return peak_score, np.where(ok, scores, -np.inf).astype(np.float32)
+
+
+ASSEMBLY_CASES = {"0.0": lambda: dense_candidates(0, 0.0), "0.08": lambda: dense_candidates(0, 0.08),
+                  "0.3": lambda: dense_candidates(1, 0.3), "0.7": lambda: dense_candidates(2, 0.7),
+                  "1.0": lambda: dense_candidates(3, 1.0), "ties": lambda: tied_candidates(4),
+                  "56 slots": lambda: many_slot_candidates(5)}
+
+
+@pytest.mark.parametrize("case", list(ASSEMBLY_CASES))
+def test_assemble_kernel_matches_plain(cuda, case):
     """ids and counts exact, from no candidate at all to every pair a
-    candidate (224 merge steps, slots created far past max_people)."""
-    ps, sm = (torch.as_tensor(a, device=cuda) for a in dense_candidates(seed, density))
+    candidate (224 merge steps, slots created far past max_people); on
+    scores quantized to 1/8 with +0.0 and -0.0 (ties fall to the lower flat
+    index) and a limb of 256 candidates; and with 56 slots a frame, more
+    than one warp's 32, kept by min_parts=2 in 40 rows."""
+    ps, sm = (torch.as_tensor(a, device=cuda) for a in ASSEMBLY_CASES[case]())
     kernels.reset_launches()
     ids, counts = kernels.assemble_ids(ps, sm, LIMBS)
     torch.cuda.synchronize()
     assert kernels.assemble_ids.launches == 1
     ref_ids, ref_counts = kernels.assemble_ids_plain(ps.cpu(), sm.cpu(), LIMBS)
     assert torch.equal(counts.cpu(), ref_counts) and torch.equal(ids.cpu(), ref_ids)
-    assert (counts.sum() > 0) == (density > 0)
-    small = kernels.assemble_ids(ps, sm, LIMBS, max_people=3, min_parts=2, min_score=0.5)
-    ref = kernels.assemble_ids_plain(ps.cpu(), sm.cpu(), LIMBS, max_people=3, min_parts=2,
-                                     min_score=0.5)
-    assert torch.equal(small[0].cpu(), ref[0]) and torch.equal(small[1].cpu(), ref[1])
+    assert (counts.sum() > 0) == (case != "0.0" and case != "56 slots")
+    for kw in (dict(max_people=3, min_parts=2, min_score=0.5),
+               dict(max_people=40, min_parts=2, min_score=0.0)):
+        got = kernels.assemble_ids(ps, sm, LIMBS, **kw)
+        ref = kernels.assemble_ids_plain(ps.cpu(), sm.cpu(), LIMBS, **kw)
+        assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    if case == "56 slots":
+        assert (got[1] == 40).all()
+
+
+@pytest.mark.parametrize("M", [5, 20, 32])
+def test_assemble_kernel_at_other_peak_counts(cuda, M):
+    """M = 16 has its own build of the kernel; every other M up to 32 takes
+    the build for 32, padded, and stays exact; more than 32 peaks raise."""
+    for density in (0.3, 1.0):
+        ps, sm = (torch.as_tensor(a, device=cuda) for a in dense_candidates(M, density, M=M))
+        ids, counts = kernels.assemble_ids(ps, sm, LIMBS)
+        ref_ids, ref_counts = kernels.assemble_ids_plain(ps.cpu(), sm.cpu(), LIMBS)
+        assert torch.equal(counts.cpu(), ref_counts) and torch.equal(ids.cpu(), ref_ids)
+        assert counts.sum() > 0
+    with pytest.raises(ValueError, match="at most 32"):
+        kernels.assemble_ids(torch.zeros((1, 15, 33), device=cuda),
+                             torch.zeros((1, len(LIMBS), 33, 33), device=cuda), LIMBS)
 
 
 def test_paf_score_kernel_matches_plain(cuda):
@@ -228,16 +286,28 @@ def test_paf_score_kernel_with_shared_coordinates(cuda, paf_memory):
     assert (~valid).any() and ok.any()
 
 
-def test_readout_kernels_match_plain(cuda):
+@pytest.mark.parametrize("memory", ["channels_last", "sliced"])
+@pytest.mark.parametrize("radius", [1, 2])
+def test_readout_kernels_match_plain(cuda, radius, memory):
+    """window_readout bit for bit, centres on the borders and off the map
+    included, at the decode's radius 1 (the kernel's unrolled window) and at
+    radius 2 (its loop), on channels-last maps and on slices of larger NHWC
+    maps; point_readout exact."""
     rng = np.random.default_rng(3)
-    z = torch.as_tensor(rng.uniform(0.5, 6, (2, 15, 28, 28)).astype(np.float32),
-                        device=cuda).permute(0, 2, 3, 1)
-    h = torch.as_tensor(rng.uniform(-0.2, 1, (2, 15, 28, 28)).astype(np.float32),
-                        device=cuda).permute(0, 2, 3, 1)
+    if memory == "channels_last":
+        z, h = (torch.as_tensor(rng.uniform(lo, 6 if lo > 0 else 1, (2, 15, 28, 28)).astype(
+            np.float32), device=cuda).permute(0, 2, 3, 1) for lo in (0.5, -0.2))
+    else:
+        z, h = (torch.as_tensor(rng.uniform(lo, 6 if lo > 0 else 1, (2, 31, 30, 17)).astype(
+            np.float32), device=cuda)[:, 2:30, 1:29, 1:16] for lo in (0.5, -0.2))
     cx = torch.as_tensor(rng.integers(-3, 31, (2, 6, 15)), dtype=torch.int32, device=cuda)
     cy = torch.as_tensor(rng.integers(-3, 31, (2, 6, 15)), dtype=torch.int32, device=cuda)
-    err = (kernels.window_readout(z, h, cx, cy) - kernels.window_readout_plain(z, h, cx, cy))
-    assert float(err.abs().max()) <= 1e-5
+    cx[0, 0], cy[0, 0] = 0, 27                                 # windows on the borders
+    kernels.reset_launches()
+    got = kernels.window_readout(z, h, cx, cy, radius)
+    torch.cuda.synchronize()
+    assert kernels.window_readout.launches == 1
+    assert torch.equal(got, kernels.window_readout_plain(z, h, cx, cy, radius))
     img = torch.as_tensor(rng.uniform(0.5, 6, (2, 64, 48)).astype(np.float32), device=cuda)
     px = torch.as_tensor(rng.integers(-2, 50, (2, 17)), dtype=torch.int32, device=cuda)
     py = torch.as_tensor(rng.integers(-2, 66, (2, 17)), dtype=torch.int32, device=cuda)

@@ -142,8 +142,10 @@ def test_paf_taps_beyond_the_pad_read_zero():
     assert 0.0 < float(s) < 10.0
 
 
-def test_window_readout_plain_matches_pallas():
-    """1e-5 including border-shrunken and collapsed (off-map centre) windows."""
+@pytest.mark.parametrize("radius", [1, 2])
+def test_window_readout_plain_matches_pallas(radius):
+    """1e-5 including border-shrunken and collapsed (off-map centre) windows,
+    at the decode's radius 1 and at radius 2."""
     rng = np.random.default_rng(3)
     B, H, W, K, P = 2, 28, 28, 15, 6
     z = rng.uniform(0.5, 6.0, (B, H, W, K)).astype(np.float32)
@@ -151,8 +153,9 @@ def test_window_readout_plain_matches_pallas():
     cx = rng.integers(-3, W + 3, (B, P, K)).astype(np.int32)
     cy = rng.integers(-3, H + 3, (B, P, K)).astype(np.int32)
     ref = jax_window(jnp.asarray(z), jnp.asarray(heat), jnp.asarray(cx), jnp.asarray(cy),
-                     use_pallas=True)
-    got = kernels.window_readout_plain(*(torch.from_numpy(a) for a in (z, heat, cx, cy)))
+                     radius=radius, use_pallas=True)
+    got = kernels.window_readout_plain(*(torch.from_numpy(a) for a in (z, heat, cx, cy)),
+                                       radius=radius)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
@@ -205,7 +208,12 @@ def test_peak_mask_matches_jax(thresh):
 def _assembly_case(family, seed):
     """(peaks, valid, scores, ok) of the three case families of the JAX
     package's assembly tests: decoded synthetic scenes, dense random
-    candidates (long merge chains, overflow past max_people), nothing."""
+    candidates (long merge chains, overflow past max_people), nothing; and
+    two more: `ties`, pair scores quantized to 1/8 with +0.0 and -0.0 among
+    them and a limb whose 256 pairs are all candidates (the greedy matching
+    must pick equal scores by the lower flat index, +0.0 equal to -0.0), and
+    `slots`, where each limb's candidates pair peaks that no limb before it
+    used, so every accepted connection opens a slot (56 a frame)."""
     B, K, M, L = 3, NUM_JOINTS, 16, len(LIMBS)
     if family == "synth":
         from tests.test_decode_device import synth
@@ -218,6 +226,27 @@ def _assembly_case(family, seed):
         return (np.zeros((B, K, M, 3), np.float32), np.zeros((B, K, M), bool),
                 np.zeros((B, L, M, M), np.float32), np.zeros((B, L, M, M), bool))
     rng = np.random.default_rng(seed)
+    if family in ("ties", "slots"):
+        peaks = np.zeros((B, K, M, 3), np.float32)
+        peaks[..., :2] = rng.uniform(0, 223, size=(B, K, M, 2))
+        peaks[..., 2] = rng.uniform(0.1, 1.0, size=(B, K, M))
+        valid = np.ones((B, K, M), bool)
+        if family == "ties":
+            scores = (np.round(rng.uniform(-0.25, 1.0, (B, L, M, M)) * 8) / 8).astype(np.float32)
+            zero = scores == 0
+            scores[zero] = np.where(rng.uniform(size=int(zero.sum())) < 0.5, -0.0, 0.0)
+            ok = rng.uniform(size=(B, L, M, M)) < 0.5
+            ok[:, 4] = True
+            assert np.signbit(scores[ok & zero]).any() and not np.signbit(scores[ok & zero]).all()
+        else:
+            scores = rng.uniform(0.01, 2.0, size=(B, L, M, M)).astype(np.float32)
+            ok = np.zeros((B, L, M, M), bool)
+            used = np.zeros(K, int)
+            for limb, (a, c) in enumerate(LIMBS):
+                ok[:, limb, used[a]:used[a] + 4, used[c]:used[c] + 4] = True
+                used[a] += 4
+                used[c] += 4
+        return peaks, valid, scores, ok
     density = (0.08, 0.3, 0.7, 1.0)[seed % 4]
     n_valid = rng.integers(0, M + 1, size=(B, K))
     valid = np.arange(M)[None, None, :] < n_valid[:, :, None]
@@ -234,26 +263,33 @@ def _assembly_case(family, seed):
 
 
 @pytest.mark.parametrize("family,seed", [("synth", 0), ("synth", 5), ("dense", 0), ("dense", 1),
-                                         ("dense", 2), ("dense", 3), ("empty", 0)])
+                                         ("dense", 2), ("dense", 3), ("empty", 0), ("ties", 0),
+                                         ("ties", 1), ("slots", 0)])
 def test_assemble_ids_plain_matches_pallas_and_scan(family, seed):
     """ids and counts exact against assemble_ids_pallas (interpret mode);
-    the joints that follow exact against the JAX scan."""
+    the joints that follow exact against the JAX scan. The `slots` case
+    keeps its two-joint slots (min_parts=2) in 40 rows."""
     peaks, valid, scores, ok = _assembly_case(family, seed)
     s_masked = np.where(ok, scores, -np.inf).astype(np.float32)
+    kw = dict(max_people=40, min_parts=2, min_score=0.0) if family == "slots" else {}
     ref_ids, ref_cnt = assemble_ids_pallas(jnp.asarray(peaks[..., 2]), jnp.asarray(s_masked),
-                                           limbs=LIMBS, interpret=True)
+                                           limbs=LIMBS, interpret=True, **kw)
     got_ids, got_cnt = kernels.assemble_ids_plain(
-        torch.from_numpy(np.ascontiguousarray(peaks[..., 2])), torch.from_numpy(s_masked), LIMBS)
-    assert got_ids.dtype == torch.int32 and got_ids.shape == (3, 16, NUM_JOINTS)
+        torch.from_numpy(np.ascontiguousarray(peaks[..., 2])), torch.from_numpy(s_masked), LIMBS,
+        **kw)
+    assert got_ids.dtype == torch.int32
+    assert got_ids.shape == (3, kw.get("max_people", 16), NUM_JOINTS)
     np.testing.assert_array_equal(got_cnt.numpy(), np.asarray(ref_cnt))
     np.testing.assert_array_equal(got_ids.numpy(), np.asarray(ref_ids))
     scan_j, scan_c = jax_assemble(*(jnp.asarray(a) for a in (peaks, valid, scores, ok)),
-                                  method="scan")
+                                  method="scan", **kw)
     for method in (None, "kernel", "scan"):        # on CPU tensors all three are the plain loops
         j, c = assemble_batched(*(torch.from_numpy(a) for a in (peaks, valid, scores, ok)),
-                                method=method)
+                                method=method, **kw)
         np.testing.assert_array_equal(c.numpy(), np.asarray(scan_c))
         np.testing.assert_array_equal(j.numpy(), np.asarray(scan_j))
+    if family == "slots":
+        assert (got_cnt == 40).all()                # 56 slots a frame, 40 rows kept
     if family == "empty":
         assert (got_cnt == 0).all() and (got_ids == -1).all()
     else:
