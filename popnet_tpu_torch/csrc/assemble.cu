@@ -35,12 +35,14 @@
 // - Stage 2, merge, warp 0: for each record of the list, lanes test 32 slots
 //   at a time (only slots created so far can be alive) and a ballot finds the
 //   first and second live slot that holds peak i at the source joint or j at
-//   the destination joint; then the case (new slot, set destination, merge,
-//   and the reference's `already` and `overlap` quirks) is applied to the
-//   row, lanes 0..K-1 each owning a joint. The next record is loaded while
-//   this one runs. Rows of the slot table have an odd stride, so a ballot's
-//   32 reads fall in 32 banks. Float32 sums keep the plain version's order,
-//   (a + b) + connection score.
+//   the destination joint; the lanes that read those slots hand over their
+//   score, count and destination id by shuffles, so a step reads shared
+//   memory once (a merge also reads the two rows). Then the case (new slot,
+//   set destination, merge, and the reference's `already` and `overlap`
+//   quirks) is applied to the row, lanes 0..K-1 each owning a joint. The
+//   next record is loaded while this one runs. Rows of the slot table have an
+//   odd stride, so a ballot's 32 reads fall in 32 banks. Float32 sums keep
+//   the plain version's order, (a + b) + connection score.
 // - Stage 3, pack: warp 0 computes mean = score / max(count, 1) as an IEEE
 //   division, keeps alive slots with count >= min_parts and mean >=
 //   min_score and ranks them by ballot prefix counts (creation order); then
@@ -173,23 +175,31 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
   STAGE_STAMP(0);
 
   // ---- load: the first limb's scores into registers, peak scores staged ----
+  // every global load of the first limb is issued before any is waited on
   const float* sb = s_masked + (long long)b * L * M * M;
+  const float* pb = peak_score + (long long)b * K * M;
+  const float p0 = tid < K * M ? pb[tid] : 0.0f;
   LimbPairs<MP> s;
-  int l = warp;
+  int l = warp, src_t = 0, dst_t = 0;
   if (l < L) {
     s.load(sb + (long long)l * M * M, M, vec, lane);
-    s.mark();
+    src_t = limbs[2 * l];
+    dst_t = limbs[2 * l + 1];
   }
-  for (int q = tid; q < K * M; q += blockDim.x) ps[q] = peak_score[(long long)b * K * M + q];
+  if (tid < K * M) ps[tid] = p0;
+  for (int q = tid + blockDim.x; q < K * M; q += blockDim.x) ps[q] = pb[q];
+  if (l < L) s.mark();
   __syncthreads();
   STAGE_STAMP(1);
 
   // ---- stage 1: greedy 1-1 matching, a warp per limb -------------------------
   for (; l < L; l += nwarps) {
-    const int n = match_limb<MP>(s, lane, M, limbs[2 * l], limbs[2 * l + 1], ps, stage + l * M);
+    const int n = match_limb<MP>(s, lane, M, src_t, dst_t, ps, stage + l * M);
     if (lane == 0) cnt[l] = n;
     if (l + nwarps < L) {
       s.load(sb + (long long)(l + nwarps) * M * M, M, vec, lane);
+      src_t = limbs[2 * (l + nwarps)];
+      dst_t = limbs[2 * (l + nwarps) + 1];
       s.mark();
     }
   }
@@ -218,19 +228,39 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
       const int src_t = (cn.x >> 16) & 0xff, dst_t = (cn.x >> 24) & 0xff;
       const float v = __int_as_float(cn.y), ps_src = __int_as_float(cn.z),
                   ps_dst = __int_as_float(cn.w);
-      int a0 = -1, a1 = -1;
+      // the first and second live slot that holds i at src_t or j at dst_t;
+      // the lanes that read them in the ballot's round hand over their
+      // score, count and destination id
+      int a0 = -1, a1 = -1, ct0 = 0, ct1 = 0, dst0 = 0;
+      float sc0 = 0.0f, sc1 = 0.0f;
       for (int base = 0; base < ncre && a1 < 0; base += 32) {
         const int p = base + lane;
         bool match = false;
+        float sc = 0.0f;
+        int ct = 0, y = 0;
         if (p < ncre) {
-          const int live = alive[p], x = ids[p * KS + src_t], y = ids[p * KS + dst_t];
+          const int live = alive[p], x = ids[p * KS + src_t];
+          y = ids[p * KS + dst_t];
+          sc = score[p];
+          ct = count[p];
           match = live && (x == i || y == j);
         }
         unsigned bal = __ballot_sync(kFull, match);
-        if (bal && a0 < 0) { a0 = base + __ffs(bal) - 1; bal &= bal - 1; }
-        if (bal && a1 < 0) a1 = base + __ffs(bal) - 1;
+        if (bal && a0 < 0) {
+          const int f = __ffs(bal) - 1;
+          a0 = base + f;
+          sc0 = __shfl_sync(kFull, sc, f);
+          ct0 = __shfl_sync(kFull, ct, f);
+          dst0 = __shfl_sync(kFull, y, f);
+          bal &= bal - 1;
+        }
+        if (bal) {
+          const int f = __ffs(bal) - 1;
+          a1 = base + f;
+          sc1 = __shfl_sync(kFull, sc, f);
+          ct1 = __shfl_sync(kFull, ct, f);
+        }
       }
-      bool set_dst = false;
       if (a0 < 0) {                                    // new slot
         if (lane < K) ids[ncre * KS + lane] = lane == dst_t ? j : (lane == src_t ? i : -1);
         if (lane == 0) {
@@ -239,28 +269,27 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
           alive[ncre] = 1;
         }
         ++ncre;
-      } else if (a1 >= 0) {                            // the connection joins two slots
-        const int r0 = lane < K ? ids[a0 * KS + lane] : -1;
-        const int r1 = lane < K ? ids[a1 * KS + lane] : -1;
-        const bool overlap = __any_sync(kFull, r0 >= 0 && r1 >= 0);
-        if (overlap) {
-          set_dst = true;
-        } else {
-          if (lane < K) ids[a0 * KS + lane] = r0 + r1 + 1;
-          if (lane == 0) {
-            score[a0] = __fadd_rn(__fadd_rn(score[a0], score[a1]), v);
-            count[a0] += count[a1];
-            alive[a1] = 0;
+      } else {
+        bool set_dst = a1 < 0 && dst0 != j;            // one slot: add the destination
+        if (a1 >= 0) {                                 // the connection joins two slots
+          const int r0 = lane < K ? ids[a0 * KS + lane] : -1;
+          const int r1 = lane < K ? ids[a1 * KS + lane] : -1;
+          if (__any_sync(kFull, r0 >= 0 && r1 >= 0)) {   // they overlap
+            set_dst = true;
+          } else {
+            if (lane < K) ids[a0 * KS + lane] = r0 + r1 + 1;
+            if (lane == 0) {
+              score[a0] = __fadd_rn(__fadd_rn(sc0, sc1), v);
+              count[a0] = ct0 + ct1;
+              alive[a1] = 0;
+            }
           }
         }
-      } else {                                         // one slot: add the destination
-        set_dst = ids[a0 * KS + dst_t] != j;
-      }
-      __syncwarp();
-      if (set_dst && lane == 0) {
-        ids[a0 * KS + dst_t] = j;
-        score[a0] = __fadd_rn(__fadd_rn(score[a0], ps_dst), v);
-        count[a0] += 1;
+        if (set_dst && lane == 0) {
+          ids[a0 * KS + dst_t] = j;
+          score[a0] = __fadd_rn(__fadd_rn(sc0, ps_dst), v);
+          count[a0] = ct0 + 1;
+        }
       }
       __syncwarp();
     }
