@@ -741,13 +741,15 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float, str]:
 
 
 def stage_breakdown(name: str, call, ms: float) -> None:
-    """Per-block stage clocks of one call of the kernel's stage-clock build:
-    each stage's mean cycles over the blocks, its share of a block's time,
-    and that share of the kernel's device time `ms` (the normal build's)."""
+    """Per-block stage clocks of a call of the kernel's stage-clock build,
+    the second of two back to back (the first warms the instruction and data
+    caches, as the timed replays have them): each stage's mean cycles over
+    the blocks, its share of a block's time, and that share of the kernel's
+    device time `ms` (the normal build's)."""
     from popnet_tpu_torch.ops import kernels
 
     labels = STAGES[name]
-    st = kernels.stage_clocks(source_of(name), call)[:, : len(labels) + 1]
+    st = kernels.stage_clocks(source_of(name), lambda: (call(), call()))[:, : len(labels) + 1]
     st = st[st[:, -1] != 0]
     per_block = np.diff(st, axis=1).astype(np.float64)
     cyc = per_block.mean(axis=0)
