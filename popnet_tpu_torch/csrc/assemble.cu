@@ -17,10 +17,8 @@
 // stays to the end, so the stage clocks' block barriers are safe.
 // - Load: each warp reads its limb's (M, M) scores straight into registers
 //   (M = 16: a lane holds half a row, two 16-byte loads; any other M up to
-//   32, padded to 32: a lane holds a row), with the limb's two joint ids;
-//   the block stages the frame's peak scores in shared memory. All of these
-//   loads are in flight at once, and a warp's next limb (where L exceeds the
-//   warps) is loaded while it works on the one before.
+//   32, padded to 32: a lane holds a row); the block stages the frame's peak
+//   scores in shared memory.
 // - Stage 1, match: the warp keeps a bit per candidate pair (value above
 //   -inf) and repeats: each lane's best live pair, then the warp's by two
 //   reductions, on the value's order key (+0.0 and -0.0 equal) and then on
@@ -30,31 +28,27 @@
 //   takes a pair when its row and column are free (assemble_pallas.py:49-51):
 //   each round is one accepted connection, and the limb ends when no live
 //   pair remains. M is a template constant (16, or 32 for every other M), so
-//   rows and columns come from shifts. Each pick is one 16-byte record (i,
-//   j, joints, value, both peak scores) in the limb's row of a (L, M) table;
-//   the limb's count is published after its records.
-// - Stage 2, merge, warp 0, overlapped with stage 1: warp 0 matches limb 0,
-//   then takes the limbs in order, waiting for each count (the other warps
-//   are matching theirs meanwhile) and matching its own further limbs when it
-//   comes to them, so the chain visits only the accepted connections,
-//   limb-major and in pick order, and starts as soon as limb 0 is matched.
-//   For each, lanes test 32 slots at a time (only slots created so far can
-//   be alive) and a ballot finds the first and second live slot that holds
-//   peak i at the source joint or j at the destination joint; the lanes that
-//   read those slots hand over their score, count and destination id by
-//   shuffles, so a step reads shared memory once (a merge also reads the two
-//   rows). Then the case (new slot, set destination, merge, and the
-//   reference's `already` and `overlap` quirks) is applied to the row, lanes
-//   0..K-1 each owning a joint. Rows of the slot table have an odd stride,
-//   so a ballot's 32 reads fall in 32 banks. Float32 sums keep the plain
-//   version's order, (a + b) + connection score.
+//   rows and columns come from shifts. Each pick goes out as one 16-byte
+//   record (i, j, joints, value, both peak scores); the records are then
+//   copied into one list, limb-major and in pick order, at offsets summed
+//   from the per-limb counts.
+// - Stage 2, merge, warp 0: for each record of the list, lanes test 32 slots
+//   at a time (only slots created so far can be alive) and a ballot finds the
+//   first and second live slot that holds peak i at the source joint or j at
+//   the destination joint. The lane that read the first slot keeps its
+//   score, count and destination id and applies the case to it itself (new
+//   slot, set destination, merge, and the reference's `already` and
+//   `overlap` quirks), so a step reads shared memory once and its chain is a
+//   load, a ballot and the update (a merge of two slots, rare on the main
+//   path, also reads both rows, lanes 0..K-1 each owning a joint). Slots
+//   not made yet read as not alive, so the ballot needs no bound. The next
+//   record is loaded while this one runs. Rows of the slot table have an
+//   odd stride, so a ballot's 32 reads fall in 32 banks. Float32 sums keep
+//   the plain version's order, (a + b) + connection score.
 // - Stage 3, pack: warp 0 computes mean = score / max(count, 1) as an IEEE
 //   division, keeps alive slots with count >= min_parts and mean >=
 //   min_score and ranks them by ballot prefix counts (creation order); then
 //   the block writes every output row once, the survivors' and then -1 rows.
-// Stage clocks: load (the peak scores' trip, while the pair scores land) |
-// warp 0's match of limb 0 | the merge, waits for the other limbs included |
-// pack.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,18 +63,20 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Shared memory of one block, in 4-byte words.
 struct Layout {
-  int P, KS;  // slots (L * M), row stride of the slot table (K made odd)
-  int stage, ids, score, count, alive, ps, cnt, sel, kept, words;
+  int P, P32, KS;  // slots (L * M), P rounded up to 32, slot-table row stride (K made odd)
+  int stage, list, ids, score, count, alive, ps, cnt, sel, kept, words;
   __host__ __device__ Layout(int K, int L, int M, int max_people) {
     P = L * M;
+    P32 = (P + 31) & ~31;
     KS = K | 1;
-    stage = 0;              // (L, M) records of accepted connections by limb, int4
-    ids = stage + 4 * P;    // (P, KS) slot table of peak ids
-    score = ids + P * KS;   // (P) slot score
-    count = score + P;      // (P) slot joint count
-    alive = count + P;      // (P) slot alive flag
-    ps = alive + P;         // (K, M) peak scores
-    cnt = ps + K * M;       // (L) connections per limb, -1 until the limb is matched
+    stage = 0;              // (L, M) records by limb, int4
+    list = stage + 4 * P;   // the records in one list, int4
+    ids = list + 4 * P;     // (P32, KS) slot table of peak ids
+    score = ids + P32 * KS; // (P32) slot score
+    count = score + P32;    // (P32) slot joint count
+    alive = count + P32;    // (P32) slot alive flag, 0 until the slot is made
+    ps = alive + P32;       // (K, M) peak scores
+    cnt = ps + K * M;       // (L) connections per limb
     sel = cnt + L;          // the survivors' slots, in rank order
     kept = sel + (max_people < P ? max_people : P);
     words = kept + 1;
@@ -126,14 +122,13 @@ struct LimbPairs {
   }
 };
 
-// Stage 1 for one limb, once its scores have landed: greedy 1-1 matching;
-// its m-th accepted connection goes to stage[m]. Returns the number accepted.
+// Stage 1 for one limb: greedy 1-1 matching; its m-th accepted connection
+// goes to stage[m]. Returns the number accepted.
 template <int MP>
 __device__ int match_limb(LimbPairs<MP>& s, int lane, int M, int src_t, int dst_t,
                           const float* ps, int4* stage) {
   constexpr int PER = LimbPairs<MP>::PER, SHIFT = LimbPairs<MP>::SHIFT;
   const int q0 = lane * PER, row = q0 >> SHIFT, c0 = q0 & (MP - 1);
-  s.mark();
   int n = 0;
   while (__any_sync(kFull, s.live != 0)) {
     // the lane's best live pair: a strict > keeps the first of equal values
@@ -159,88 +154,6 @@ __device__ int match_limb(LimbPairs<MP>& s, int lane, int M, int src_t, int dst_
   return n;
 }
 
-// The slot table of stage 2, in shared memory.
-struct Slots {
-  int* ids;      // (P, KS) peak ids
-  float* score;  // (P)
-  int* count;    // (P)
-  int* alive;    // (P)
-  int KS, K;
-};
-
-// One step of stage 2, by warp 0: merge the accepted connection `cn` into
-// the slot table, whose first ncre slots exist.
-__device__ void merge_step(const int4 cn, const Slots& t, int& ncre, int lane) {
-  const int i = cn.x & 0xff, j = (cn.x >> 8) & 0xff;
-  const int src_t = (cn.x >> 16) & 0xff, dst_t = (cn.x >> 24) & 0xff;
-  const float v = __int_as_float(cn.y), ps_src = __int_as_float(cn.z),
-              ps_dst = __int_as_float(cn.w);
-  // the first and second live slot that holds i at src_t or j at dst_t; the
-  // lanes that read them in the ballot's round hand over their score, count
-  // and destination id
-  int a0 = -1, a1 = -1, ct0 = 0, ct1 = 0, dst0 = 0;
-  float sc0 = 0.0f, sc1 = 0.0f;
-  for (int base = 0; base < ncre && a1 < 0; base += 32) {
-    const int p = base + lane;
-    bool match = false;
-    float sc = 0.0f;
-    int ct = 0, y = 0;
-    if (p < ncre) {
-      const int live = t.alive[p], x = t.ids[p * t.KS + src_t];
-      y = t.ids[p * t.KS + dst_t];
-      sc = t.score[p];
-      ct = t.count[p];
-      match = live && (x == i || y == j);
-    }
-    unsigned bal = __ballot_sync(kFull, match);
-    if (bal && a0 < 0) {
-      const int f = __ffs(bal) - 1;
-      a0 = base + f;
-      sc0 = __shfl_sync(kFull, sc, f);
-      ct0 = __shfl_sync(kFull, ct, f);
-      dst0 = __shfl_sync(kFull, y, f);
-      bal &= bal - 1;
-    }
-    if (bal) {
-      const int f = __ffs(bal) - 1;
-      a1 = base + f;
-      sc1 = __shfl_sync(kFull, sc, f);
-      ct1 = __shfl_sync(kFull, ct, f);
-    }
-  }
-  if (a0 < 0) {                                    // new slot
-    if (lane < t.K) t.ids[ncre * t.KS + lane] = lane == dst_t ? j : (lane == src_t ? i : -1);
-    if (lane == 0) {
-      t.score[ncre] = __fadd_rn(__fadd_rn(ps_src, ps_dst), v);
-      t.count[ncre] = 2;
-      t.alive[ncre] = 1;
-    }
-    ++ncre;
-  } else {
-    bool set_dst = a1 < 0 && dst0 != j;            // one slot: add the destination
-    if (a1 >= 0) {                                 // the connection joins two slots
-      const int r0 = lane < t.K ? t.ids[a0 * t.KS + lane] : -1;
-      const int r1 = lane < t.K ? t.ids[a1 * t.KS + lane] : -1;
-      if (__any_sync(kFull, r0 >= 0 && r1 >= 0)) {   // they overlap
-        set_dst = true;
-      } else {
-        if (lane < t.K) t.ids[a0 * t.KS + lane] = r0 + r1 + 1;
-        if (lane == 0) {
-          t.score[a0] = __fadd_rn(__fadd_rn(sc0, sc1), v);
-          t.count[a0] = ct0 + ct1;
-          t.alive[a1] = 0;
-        }
-      }
-    }
-    if (set_dst && lane == 0) {
-      t.ids[a0 * t.KS + dst_t] = j;
-      t.score[a0] = __fadd_rn(__fadd_rn(sc0, ps_dst), v);
-      t.count[a0] = ct0 + 1;
-    }
-  }
-  __syncwarp();
-}
-
 template <int MP>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ s_masked,
@@ -250,11 +163,15 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
   extern __shared__ __align__(16) int smem[];
   const Layout lay(K, L, M, max_people);
   int4* stage = reinterpret_cast<int4*>(smem + lay.stage);
-  const Slots slots = {smem + lay.ids, reinterpret_cast<float*>(smem + lay.score),
-                       smem + lay.count, smem + lay.alive, lay.KS, K};
+  int4* list = reinterpret_cast<int4*>(smem + lay.list);
+  int* ids = smem + lay.ids;
+  float* score = reinterpret_cast<float*>(smem + lay.score);
+  int* count = smem + lay.count;
+  int* alive = smem + lay.alive;
   float* ps = reinterpret_cast<float*>(smem + lay.ps);
   int* cnt = smem + lay.cnt;
   int* sel = smem + lay.sel;
+  const int KS = lay.KS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   const int b = blockIdx.x;
@@ -264,55 +181,119 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
   // every global load of the first limb is issued before any is waited on
   const float* sb = s_masked + (long long)b * L * M * M;
   const float* pb = peak_score + (long long)b * K * M;
+  const float p0 = tid < K * M ? pb[tid] : 0.0f;
   LimbPairs<MP> s;
   int l = warp, src_t = 0, dst_t = 0;
-  auto load_limb = [&](int at) {   // issues the loads; match_limb waits for them
-    s.load(sb + (long long)at * M * M, M, vec, lane);
-    src_t = limbs[2 * at];
-    dst_t = limbs[2 * at + 1];
-  };
-  const float p0 = tid < K * M ? pb[tid] : 0.0f;
-  if (l < L) load_limb(l);
+  if (l < L) {
+    s.load(sb + (long long)l * M * M, M, vec, lane);
+    src_t = limbs[2 * l];
+    dst_t = limbs[2 * l + 1];
+  }
   if (tid < K * M) ps[tid] = p0;
   for (int q = tid + blockDim.x; q < K * M; q += blockDim.x) ps[q] = pb[q];
-  for (int q = tid; q < L; q += blockDim.x) cnt[q] = -1;
+  for (int q = tid; q < lay.P32; q += blockDim.x) alive[q] = 0;
+  if (l < L) s.mark();
   __syncthreads();
   STAGE_STAMP(1);
 
-  // ---- stages 1 and 2: warps 1.. match their limbs and publish each limb's
-  // count after its records; warp 0 merges limb by limb, in limb order, as
-  // the counts arrive, and matches its own limbs when it comes to them ------
-  int ncre = 0;
-  if (warp != 0) {
-    for (; l < L; l += nwarps) {
-      const int n = match_limb<MP>(s, lane, M, src_t, dst_t, ps, stage + l * M);
-      if (lane == 0) {             // the records, then the count
-        __threadfence_block();
-        *(volatile int*)(cnt + l) = n;
-      }
-      if (l + nwarps < L) load_limb(l + nwarps);
+  // ---- stage 1: greedy 1-1 matching, a warp per limb -------------------------
+  for (; l < L; l += nwarps) {
+    const int n = match_limb<MP>(s, lane, M, src_t, dst_t, ps, stage + l * M);
+    if (lane == 0) cnt[l] = n;
+    if (l + nwarps < L) {
+      s.load(sb + (long long)(l + nwarps) * M * M, M, vec, lane);
+      src_t = limbs[2 * (l + nwarps)];
+      dst_t = limbs[2 * (l + nwarps) + 1];
+      s.mark();
     }
-  } else {
-    for (int m = 0; m < L; ++m) {
-      int n;
-      if (m == l) {                // warp 0's own limb
-        n = match_limb<MP>(s, lane, M, src_t, dst_t, ps, stage + m * M);
-        __syncwarp();
-        if (m == 0) STAGE_STAMP_WARP(2);
-        l += nwarps;
-        if (l < L) load_limb(l);
-      } else {
-        while ((n = *(volatile int*)(cnt + m)) < 0) {
+  }
+  __syncthreads();
+  // one list, limb-major: a limb's records after those of the limbs before it
+  for (int m = warp; m < L; m += nwarps) {
+    int off = 0;
+    for (int x = lane; x < m; x += 32) off += cnt[x];
+    off = __reduce_add_sync(kFull, off);
+    for (int e = lane; e < cnt[m]; e += 32) list[off + e] = stage[m * M + e];
+  }
+  int total = 0;
+  for (int x = lane; x < L; x += 32) total += cnt[x];
+  total = __reduce_add_sync(kFull, total);
+  __syncthreads();
+  STAGE_STAMP(2);
+
+  // ---- stage 2: sequential union-merge over the list, warp 0 ----------------
+  int ncre = 0;
+  if (warp == 0) {
+    int4 next = total > 0 ? list[0] : make_int4(0, 0, 0, 0);
+    for (int t = 0; t < total; ++t) {
+      const int4 cn = next;
+      if (t + 1 < total) next = list[t + 1];
+      const int i = cn.x & 0xff, j = (cn.x >> 8) & 0xff;
+      const int src_t = (cn.x >> 16) & 0xff, dst_t = (cn.x >> 24) & 0xff;
+      const float v = __int_as_float(cn.y), ps_src = __int_as_float(cn.z),
+                  ps_dst = __int_as_float(cn.w);
+      // the first and second live slot that holds i at src_t or j at dst_t
+      // (a slot not made yet is not alive); the lane that read the first
+      // keeps its score, count and destination id and updates it itself, the
+      // second's are shuffled to every lane (a merge of two slots, rare)
+      int a0 = -1, a1 = -1, ct0 = 0, ct1 = 0, y0 = 0;
+      float sc0 = 0.0f, sc1 = 0.0f;
+      bool own0 = false;
+      for (int base = 0; base < ncre && a1 < 0; base += 32) {
+        const int p = base + lane;
+        const int live = alive[p], x = ids[p * KS + src_t], y = ids[p * KS + dst_t];
+        const float sc = score[p];
+        const int ct = count[p];
+        unsigned bal = __ballot_sync(kFull, live && (x == i || y == j));
+        if (bal && a0 < 0) {
+          const int f = __ffs(bal) - 1;
+          a0 = base + f;
+          if (lane == f) {
+            own0 = true;
+            sc0 = sc;
+            ct0 = ct;
+            y0 = y;
+          }
+          bal &= bal - 1;
         }
-        __threadfence_block();
+        if (bal) {
+          const int f = __ffs(bal) - 1;
+          a1 = base + f;
+          sc1 = __shfl_sync(kFull, sc, f);
+          ct1 = __shfl_sync(kFull, ct, f);
+        }
       }
-      const int4* rec = stage + m * M;
-      int4 next = n > 0 ? rec[0] : make_int4(0, 0, 0, 0);
-      for (int e = 0; e < n; ++e) {
-        const int4 cn = next;
-        if (e + 1 < n) next = rec[e + 1];
-        merge_step(cn, slots, ncre, lane);
+      bool set_dst = false;
+      if (a0 < 0) {                                    // new slot
+        if (lane < K) ids[ncre * KS + lane] = lane == dst_t ? j : (lane == src_t ? i : -1);
+        if (lane == 0) {
+          score[ncre] = __fadd_rn(__fadd_rn(ps_src, ps_dst), v);
+          count[ncre] = 2;
+          alive[ncre] = 1;
+        }
+        ++ncre;
+      } else if (a1 < 0) {                             // one slot: add the destination
+        set_dst = own0 && y0 != j;
+      } else {                                         // the connection joins two slots
+        const int r0 = lane < K ? ids[a0 * KS + lane] : -1;
+        const int r1 = lane < K ? ids[a1 * KS + lane] : -1;
+        if (__any_sync(kFull, r0 >= 0 && r1 >= 0)) {   // they overlap
+          set_dst = own0;
+        } else {
+          if (lane < K) ids[a0 * KS + lane] = r0 + r1 + 1;
+          if (own0) {
+            score[a0] = __fadd_rn(__fadd_rn(sc0, sc1), v);
+            count[a0] = ct0 + ct1;
+            alive[a1] = 0;
+          }
+        }
       }
+      if (set_dst) {
+        ids[a0 * KS + dst_t] = j;
+        score[a0] = __fadd_rn(__fadd_rn(sc0, ps_dst), v);
+        count[a0] = ct0 + 1;
+      }
+      __syncwarp();
     }
   }
   STAGE_STAMP(3);
@@ -324,9 +305,9 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
     for (int base = 0; base < ncre; base += 32) {
       const int p = base + lane;
       bool survive = false;
-      if (p < ncre && slots.alive[p] && slots.count[p] >= min_parts) {
-        const int c = slots.count[p] > 1 ? slots.count[p] : 1;
-        survive = __fdiv_rn(slots.score[p], (float)c) >= min_score;
+      if (p < ncre && alive[p] && count[p] >= min_parts) {
+        const int c = count[p] > 1 ? count[p] : 1;
+        survive = __fdiv_rn(score[p], (float)c) >= min_score;
       }
       const unsigned bal = __ballot_sync(kFull, survive);
       const int rank = kept + __popc(bal & lt_mask);
@@ -344,7 +325,7 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
   int* out = ids_out + (long long)b * max_people * K;
   if (lane < K)
     for (int r = warp; r < max_people; r += nwarps)
-      out[r * K + lane] = r < kept ? slots.ids[sel[r] * lay.KS + lane] : -1;
+      out[r * K + lane] = r < kept ? ids[sel[r] * KS + lane] : -1;
   STAGE_STAMP(4);
 }
 

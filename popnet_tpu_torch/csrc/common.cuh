@@ -124,9 +124,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Stage clocks: a build with -DPOPNET_STAGE_CLOCKS records, per block,
 // clock64() after a block barrier at each STAGE_STAMP(i) into a device
 // array that popnet_stage_clocks copies out (chip_smoke.py phase 5 turns the
-// differences into a breakdown of each kernel's time). STAGE_STAMP_WARP(i)
-// is the stamp of code that warp 0 runs alone: a warp barrier, then the
-// clock. The normal build compiles the stamps to nothing.
+// differences into a breakdown of each kernel's time). The normal build
+// compiles the stamps to nothing.
 #ifdef POPNET_STAGE_CLOCKS
 namespace popnet {
 constexpr int kStampBlocks = 4096, kStamps = 8;
@@ -138,12 +137,6 @@ __device__ long long g_stage_clocks[kStampBlocks * kStamps];
     if (threadIdx.x == 0 && blockIdx.x < popnet::kStampBlocks)                      \
       popnet::g_stage_clocks[blockIdx.x * popnet::kStamps + (i)] = clock64();       \
   } while (0)
-#define STAGE_STAMP_WARP(i)                                                         \
-  do {                                                                              \
-    __syncwarp();                                                                   \
-    if (threadIdx.x == 0 && blockIdx.x < popnet::kStampBlocks)                      \
-      popnet::g_stage_clocks[blockIdx.x * popnet::kStamps + (i)] = clock64();       \
-  } while (0)
 extern "C" int popnet_stage_clocks(void* dst, int n) {
   if (n > popnet::kStampBlocks * popnet::kStamps) return (int)cudaErrorInvalidValue;
   return (int)cudaMemcpyFromSymbol(dst, popnet::g_stage_clocks, n * sizeof(long long));
@@ -151,8 +144,5 @@ extern "C" int popnet_stage_clocks(void* dst, int n) {
 #else
 #define STAGE_STAMP(i) \
   do {                 \
-  } while (0)
-#define STAGE_STAMP_WARP(i) \
-  do {                      \
   } while (0)
 #endif
