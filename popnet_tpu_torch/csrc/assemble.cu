@@ -139,12 +139,10 @@ __device__ int match_limb(LimbPairs<MP>& s, int lane, int M, int src_t, int dst_
       if (((s.live >> e) & 1u) && s.v[e] > bv) { bv = s.v[e]; be = e; }
     const unsigned key = s.live ? order_key(bv) : 0u;
     const unsigned top = __reduce_max_sync(kFull, key);
-    // lanes hold ascending runs of flat indices, in lane order, so the first
-    // lane with the top key holds the lowest flat index of the best value
-    const int wl = __ffs(__ballot_sync(kFull, key == top)) - 1;
-    const int win = wl * PER + __shfl_sync(kFull, be, wl);
-    const int r = win >> SHIFT, c = win & (MP - 1);
-    const float wv = __shfl_sync(kFull, bv, wl);
+    const unsigned q = s.live && key == top ? (unsigned)(q0 + be) : 0xffffffffu;
+    const unsigned win = __reduce_min_sync(kFull, q);
+    const int r = (int)(win >> SHIFT), c = (int)(win & (MP - 1));
+    const float wv = __shfl_sync(kFull, bv, (int)(win / PER));
     if (lane == 0)
       stage[n] = make_int4(r | c << 8 | src_t << 16 | dst_t << 24, __float_as_int(wv),
                            __float_as_int(ps[src_t * M + r]), __float_as_int(ps[dst_t * M + c]));
@@ -305,9 +303,12 @@ assemble_kernel(const float* __restrict__ peak_score, const float* __restrict__ 
     int kept = 0;
     const unsigned lt_mask = (1u << lane) - 1u;
     for (int base = 0; base < ncre; base += 32) {
-      const int p = base + lane, c = count[p];   // slots up to P32 exist, and read as dead
-      const bool survive = (p < ncre) & (alive[p] != 0) & (c >= min_parts) &
-                           (__fdiv_rn(score[p], (float)(c > 1 ? c : 1)) >= min_score);
+      const int p = base + lane;
+      bool survive = false;
+      if (p < ncre && alive[p] && count[p] >= min_parts) {
+        const int c = count[p] > 1 ? count[p] : 1;
+        survive = __fdiv_rn(score[p], (float)c) >= min_score;
+      }
       const unsigned bal = __ballot_sync(kFull, survive);
       const int rank = kept + __popc(bal & lt_mask);
       if (survive && rank < max_people) sel[rank] = p;
