@@ -14,15 +14,17 @@ committed trained weights, batch 256 of (512, 480) depth frames made from
 Phases, one or more lines each:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles the kernels of csrc/ in parallel, and find_peaks and
-   paf_score once more with stage clocks; ptxas's register, shared-memory
-   and spill lines are printed;
+2. build: nvcc compiles the kernels of csrc/ in parallel, and find_peaks,
+   paf_score and assemble once more with stage clocks; ptxas's register,
+   shared-memory and spill lines are printed;
 3. kernels: each of the seven kernels against its plain PyTorch version,
    on the card, at the main-path shapes plus edge cases (exact ties, border
    peaks, plateaus, a plane with no peak, sparse heat in two memory orders,
-   peaks that share coordinates, window centres off the map, assembly from
-   no candidate to every pair a candidate), and the two peak kernels against
-   each other;
+   peaks that share coordinates, window centres on the borders and off the
+   map at radius 1 and 2 on channels-last and sliced maps, assembly from no
+   candidate to every pair a candidate, on tied scores with +0.0 and -0.0,
+   with 56 slots a frame and at 20 peaks a joint), and the two peak kernels
+   against each other;
 4. slices, float32, 256 frames each, launch counts reset just before a path
    is driven and read just after: Open-Pose+ (then the assembly kernel
    against its plain version on that batch's candidates, and the same maps
@@ -37,8 +39,9 @@ Phases, one or more lines each:
    counted) beside the kernel's bound, counted from the work these inputs
    need; the plain assembler eager and as a CUDA graph beside the assembly
    kernel; the main path's valid peaks per plane and distinct coordinate
-   pairs per limb, the blocks an SM holds and the copy width of K1 and K3,
-   and their time by stage from per-block clock64() stamps.
+   pairs per limb, the blocks an SM holds (K1, K3, K6), the copy width of
+   K1 and K3, and the time by stage of K1, K3 and K6 from per-block
+   clock64() stamps.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run

@@ -9,16 +9,20 @@
 // K*M peak scores and writes max_people*K ids and one count: 16 KB at L=14,
 // M=16, K=15), but that is about a microsecond a batch. The real floor is
 // latency: stage 2 is a chain of dependent steps, one per accepted
-// connection (at most 16 a frame on the main path), each a few shared-memory
-// round trips. Frames are independent, so the batch costs about one frame's
-// chain as long as every frame has its own block in flight.
+// connection (at most 16 a frame on the main path). Frames are independent,
+// so the batch costs about its longest frame as long as every frame has its
+// own block in flight. What a block pays above that floor (chip_smoke.py
+// phase 5 stage clocks): a merge step is about a hundred instructions issued
+// by one warp, some 500 cycles, so the frame with the most connections sets
+// the kernel's time; then one trip to memory, the picks, and the pack.
 //
 // Design: one block per frame, a warp per limb (at most 16 warps); every warp
 // stays to the end, so the stage clocks' block barriers are safe.
 // - Load: each warp reads its limb's (M, M) scores straight into registers
 //   (M = 16: a lane holds half a row, two 16-byte loads; any other M up to
-//   32, padded to 32: a lane holds a row); the block stages the frame's peak
-//   scores in shared memory.
+//   32, padded to 32: a lane holds a row), and its two joint ids; the block
+//   stages the frame's peak scores in shared memory. All of these loads are
+//   in flight at once.
 // - Stage 1, match: the warp keeps a bit per candidate pair (value above
 //   -inf) and repeats: each lane's best live pair, then the warp's by two
 //   reductions, on the value's order key (+0.0 and -0.0 equal) and then on

@@ -294,12 +294,15 @@ def test_readout_kernels_match_plain(cuda, radius, memory):
     radius 2 (its loop), on channels-last maps and on slices of larger NHWC
     maps; point_readout exact."""
     rng = np.random.default_rng(3)
-    if memory == "channels_last":
-        z, h = (torch.as_tensor(rng.uniform(lo, 6 if lo > 0 else 1, (2, 15, 28, 28)).astype(
-            np.float32), device=cuda).permute(0, 2, 3, 1) for lo in (0.5, -0.2))
-    else:
-        z, h = (torch.as_tensor(rng.uniform(lo, 6 if lo > 0 else 1, (2, 31, 30, 17)).astype(
-            np.float32), device=cuda)[:, 2:30, 1:29, 1:16] for lo in (0.5, -0.2))
+
+    def maps(lo, hi):
+        if memory == "channels_last":                          # the CNN's memory
+            a = rng.uniform(lo, hi, (2, 15, 28, 28)).astype(np.float32)
+            return torch.as_tensor(a, device=cuda).permute(0, 2, 3, 1)
+        a = rng.uniform(lo, hi, (2, 31, 30, 17)).astype(np.float32)
+        return torch.as_tensor(a, device=cuda)[:, 2:30, 1:29, 1:16]
+
+    z, h = maps(0.5, 6), maps(-0.2, 1)
     cx = torch.as_tensor(rng.integers(-3, 31, (2, 6, 15)), dtype=torch.int32, device=cuda)
     cy = torch.as_tensor(rng.integers(-3, 31, (2, 6, 15)), dtype=torch.int32, device=cuda)
     cx[0, 0], cy[0, 0] = 0, 27                                 # windows on the borders
