@@ -12,9 +12,10 @@
 // connection (at most 16 a frame on the main path). Frames are independent,
 // so the batch costs about its longest frame as long as every frame has its
 // own block in flight. What a block pays above that floor (chip_smoke.py
-// phase 5 stage clocks): a merge step is about a hundred instructions issued
-// by one warp, some 500 cycles, so the frame with the most connections sets
-// the kernel's time; then one trip to memory, the picks, and the pack.
+// phase 5 stage clocks): a merge step is a chain of dependent instructions
+// issued by one warp, some 500 cycles, so the frame with the most
+// connections sets the kernel's time; then one trip to memory, the picks,
+// and the pack.
 //
 // Design: one block per frame, a warp per limb (at most 16 warps); every warp
 // stays to the end, so the stage clocks' block barriers are safe.
