@@ -20,11 +20,14 @@ Phases, one or more lines each:
 3. kernels: each of the seven kernels against its plain PyTorch version,
    on the card, at the main-path shapes plus edge cases (exact ties, border
    peaks, plateaus, a plane with no peak, sparse heat in two memory orders,
-   peaks that share coordinates, window centres on the borders and off the
-   map at radius 1 and 2 on channels-last and sliced maps, assembly from no
-   candidate to every pair a candidate, on tied scores with +0.0 and -0.0,
-   with 56 slots a frame and at 20 peaks a joint), and the two peak kernels
-   against each other;
+   the per-frame peak kernel at K = 1, 5, 15, 16 on three grids and three
+   memory layouts, peaks that share coordinates, window centres on the
+   borders and off the map at radius 1 and 2 on channels-last and sliced
+   maps, an image of signed zeros, assembly from no candidate to every pair
+   a candidate, on tied scores with +0.0 and -0.0, with 56 slots a frame and
+   at 20 peaks a joint), the two peak kernels against each other, and the
+   decode's fused readouts (K4 and K5 in one launch from the normalized
+   maps) against their plain version, on every value of a batch's input;
 4. slices, float32, 256 frames each, launch counts reset just before a path
    is driven and read just after: Open-Pose+ (then the assembly kernel
    against its plain version on that batch's candidates, and the same maps
@@ -39,9 +42,14 @@ Phases, one or more lines each:
    counted) beside the kernel's bound, counted from the work these inputs
    need; the plain assembler eager and as a CUDA graph beside the assembly
    kernel; the main path's valid peaks per plane and distinct coordinate
-   pairs per limb, the blocks an SM holds (K1, K3, K6), the copy width of
-   K1 and K3, and the time by stage of K1, K3 and K6 from per-block
-   clock64() stamps.
+   pairs per limb, the blocks an SM holds (K1, K2, K3, K6) and the
+   clusters of K2 the card places at once, the copy width of K1 and K3, the
+   time by stage of K1, K2, K3 and K6 from per-block clock64() stamps (and
+   how K1's and K2's blocks were scheduled, from their spans on the global
+   timer), K2 beside its variant without distributed shared memory, the
+   fused readouts beside K4 and K5 alone, the launch floor (a one-element
+   fill in a CUDA graph), the decode's readout stage as a CUDA graph, and
+   the device operations that it and the eager decode issue (torch.profiler).
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -85,8 +93,11 @@ PEAK_OUTPUTS = ("px", "py", "loc", "score", "valid")
 OPENPOSE_PATH = ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout")
 # the stages between a kernel's STAGE_STAMPs, in order (csrc/common.cuh)
 STAGES = {"find_peaks": ("load", "NMS", "top-M", "refine"),
+          "find_peaks_row": ("load", "NMS", "top-M", "refine"),
           "paf_score": ("copies issued", "peaks", "load wait", "integrals", "fill"),
           "assemble_ids": ("load", "match", "merge", "pack")}
+# the kernels that stamp each block's span on the global timer in stamp slots 6 and 7
+SPANS = ("find_peaks", "find_peaks_row")
 
 
 def source_of(name: str) -> str:
@@ -229,7 +240,7 @@ def phase_build():
     from popnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build_all(stamps=tuple(source_of(n) for n in STAGES))
+    reports = _build.build_all(stamps=tuple(sorted({source_of(n) for n in STAGES})))
     say("build", f"nvcc built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(reports.items()):
@@ -428,6 +439,11 @@ def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator,
     say("kernels", f"find_peaks_row (B,K,H,W)={tuple(h.shape)}: px/py/loc/score/valid exact "
         f"against the plain version and against find_peaks, on uniform and sparse heat; so "
         f"on a 12x10 grid of plateaus with 32 peaks")
+    n_k2 = k2_cases(rng4, dev)
+    say("kernels", f"find_peaks_row: px/py/loc/score/valid exact against the plain version and "
+        f"find_peaks in {n_k2} more cases: K = 1, 5, 15, 16 on 12x10, 28x28 and 46x46 grids, NCHW, "
+        f"NHWC and sliced planes, dense heat (a plane of at least 12 peaks, 32 kept), sparse "
+        f"heat and a flat plane; so the variant without distributed shared memory")
 
     # K3 on the peaks of that heat and a PAF map, then on peaks that share coordinates
     paf = maps(rng.uniform(-1, 1, (B, 28, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
@@ -478,7 +494,13 @@ def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator,
     a, b = kernels.point_readout(img, px, py), kernels.point_readout_plain(img, px, py)
     _exact("point_readout", a, b)
     errs["point_readout"] = _maxerr(a, b)
-    say("kernels", f"point_readout img={tuple(img.shape)} p={tuple(px.shape)}: exact")
+    signed = torch.where(img > 3.0, 0.0, -0.0)          # +0.0 and -0.0 read as they are
+    s_k = kernels.point_readout(signed, px, py)
+    _exact("point_readout on signed zeros", s_k, kernels.point_readout_plain(signed, px, py))
+    require(bool(torch.signbit(s_k).any()), "point_readout lost the sign of -0.0")
+    say("kernels", f"point_readout img={tuple(img.shape)} p={tuple(px.shape)}: exact; so on an "
+        f"image of +0.0 and -0.0")
+    readouts_cases(rng4, dev, B, maps)
 
     # K7 on quantized heat (equal neighbours are common) with plateaus inside
     # and on the borders, corner maxima and a constant plane, in the main
@@ -542,6 +564,115 @@ def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator,
     return errs
 
 
+def k2_cases(rng, dev) -> int:
+    """K2 (a cluster of 2 CTAs a frame) against the plain version and K1,
+    all five outputs bit for bit: K = 1, 5, 15 and 16 (fewer planes than
+    CTAs, odd, even); 12x10, 28x28 and 46x46 grids;
+    planes of NCHW and NHWC memory and slices of larger maps; dense heat
+    (uniform, with a lattice of at least 12 peaks in one plane, 32 kept),
+    sparse heat, and a flat plane below the threshold. Then the variant
+    without distributed shared memory on the main path's planes. Returns
+    the number of cases."""
+    import torch
+
+    from popnet_tpu_torch.ops import kernels
+
+    n = 0
+    for K in (1, 5, 15, 16):
+        for H, W in ((12, 10), (28, 28), (46, 46)):
+            dense = rng.uniform(0, 1, (3, K + 1, H + 3, W + 4)).astype(np.float32)
+            dense[0, 0, 1:H:3, 1:W:3] = 2.0 + rng.uniform(0, 1, dense[0, 0, 1:H:3, 1:W:3].shape)
+            dense[1, 0] = 0.05                                    # flat, below the threshold
+            sparse = np.zeros_like(dense)
+            sparse[:, :, :H, :W] = sparse_heat(rng, 3, K + 1, H, W)
+            for heat, M in ((dense, 32), (sparse, 16)):
+                t = torch.as_tensor(heat, device=dev)
+                for tag, h in (("NCHW", t[:, :K, :H, :W].contiguous()),
+                               ("NHWC", t[:, :K, :H, :W].contiguous(
+                                   memory_format=torch.channels_last)),
+                               ("sliced", t[:, 1:, 2:H + 2, 3:W + 3])):
+                    got = kernels.find_peaks_row(h, max_peaks=M)
+                    ref = kernels.find_peaks_plain(h, max_peaks=M)
+                    k1 = kernels.find_peaks(h, max_peaks=M)
+                    for i, name in enumerate(PEAK_OUTPUTS):
+                        what = f"find_peaks_row {name}, K={K}, {H}x{W}, {tag}, M={M}"
+                        _exact(what, got[i], ref[i])
+                        _exact(what + " against find_peaks", got[i], k1[i])
+                    n += 1
+                    if M == 32 and tag == "NCHW":
+                        require(int(got[4][0, 0].sum()) >= 12,
+                                "find_peaks_row: the dense plane holds at least 12 peaks")
+    h = torch.as_tensor(sparse_heat(rng, 256), device=dev).contiguous(
+        memory_format=torch.channels_last)[:, :15]
+    ref = kernels.find_peaks_plain(h)
+    for i, name in enumerate(PEAK_OUTPUTS):
+        _exact(f"find_peaks_row without distributed shared memory, {name}",
+               kernels._find_peaks_launch("popnet_find_peaks_row_nodsmem", h, 16, 0.1, 8, 2)[i],
+               ref[i])
+    return n
+
+
+def readouts_cases(rng4, dev, B: int, maps) -> None:
+    """The fused readouts against their plain version, torch.equal: z and
+    image in float32 and bfloat16, radius 1 and 2, channels-last and sliced
+    maps, joints on the borders and off the maps, B = 256 and B = 1; then
+    every one of the B x 224 x 224 input values read once, so the kernel's
+    denormalization is held bit for bit against the eager one on all of
+    them."""
+    import torch
+
+    from popnet_tpu_torch.ops import kernels
+
+    std, mean = 2.0, 3.0
+    z32 = maps(rng4.uniform(-1.5, 1.5, (B, 15, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
+    heat = maps(rng4.uniform(-0.2, 1, (B, 16, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
+    img32 = torch.as_tensor(rng4.uniform(-1.5, 1.5, (B, 224, 224, 1)).astype(np.float32),
+                            device=dev)[..., 0]
+    big = torch.as_tensor(rng4.uniform(-1.5, 1.5, (B, 31, 30, 17)).astype(np.float32), device=dev)
+    joints = torch.as_tensor(rng4.uniform(-20, 250, (B, 16, 15, 3)).astype(np.float32), device=dev)
+    joints[:, 0, :, :2] = -1.0                          # holes, as the assembly leaves them
+    joints[:, 1, :3, 0] = torch.tensor([0.0, 223.0, 223.99])
+    n = 0
+    for radius in (1, 2):
+        for zt, it in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                       (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)):
+            for tag, zz in (("channels-last", z32), ("sliced", big[:, 2:30, 1:29, 1:16])):
+                z, img = zz.to(zt), img32.to(it)
+                for bsz in (B, 1):
+                    args = (z[:bsz], heat[:bsz, ..., :15], joints[:bsz], img[:bsz], std, mean, 8,
+                            radius)
+                    kernels.reset_launches()
+                    got = kernels.readouts(*args)
+                    torch.cuda.synchronize()
+                    require(kernels.readouts.launches == 1
+                            and kernels.launch_counts()["window_readout"] == 1
+                            and kernels.launch_counts()["point_readout"] == 1,
+                            "readouts: one launch, counted once for K4 and once for K5")
+                    ref = kernels.readouts_plain(*args)
+                    _exact(f"readouts z_pose, radius {radius}, z {zt}, img {it}, {tag}, B={bsz}",
+                           got[0], ref[0])
+                    _exact(f"readouts z_raw, radius {radius}, z {zt}, img {it}, {tag}, B={bsz}",
+                           got[1], ref[1])
+                    n += 1
+    # every input value read once: 3346 x 15 points a frame cover the 50,176 pixels
+    P = 3346
+    i = torch.arange(P * 15, device=dev).clamp(max=224 * 224 - 1)
+    every = torch.stack([(i % 224).float() + 0.25, (i // 224).float() + 0.5,
+                         torch.zeros_like(i, dtype=torch.float32)], -1)
+    every = every.reshape(1, P, 15, 3).expand(B, P, 15, 3)
+    got = kernels.readouts(z32, heat[..., :15], every, img32, std, mean)
+    ref = kernels.readouts_plain(z32, heat[..., :15], every, img32, std, mean)
+    _exact("readouts z_raw over every input value", got[1], ref[1])
+    _exact("readouts z_pose at every input point", got[0], ref[0])
+    covered = got[1].reshape(B, -1)[:, :224 * 224].reshape(B, 224, 224)
+    _exact("readouts denormalization against the eager one", covered, img32 * std + mean)
+    say("kernels", f"readouts z={tuple(z32.shape)} img={tuple(img32.shape)} joints="
+        f"{tuple(joints.shape)}: z_pose and z_raw exact in {n} cases (radius 1 and 2; z and "
+        f"image float32 or bfloat16; channels-last and sliced maps; joints on the borders, off "
+        f"the maps and at holes; B={B} and 1), one launch each; and on all "
+        f"{B * 224 * 224} input values: the kernel's v * {std} + {mean} equals the eager one")
+
+
 def phase_slice(rng, dev, B, weights):
     """The float32 Open-Pose+ slice on B frames; returns the frames, the
     launch counts of its path (and of the per-frame peak kernel's decode)
@@ -567,9 +698,12 @@ def phase_slice(rng, dev, B, weights):
     buf = pipe(frames)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    say("openpose", f"main-path launches per kernel: {launches}")
+    fused = kernels.readouts.launches
+    say("openpose", f"main-path launches per kernel: {launches}; of them, launches of K4 and K5 "
+        f"together (readouts): {fused}")
     for name in OPENPOSE_PATH:
         require(launches[name] == 1, f"kernel {name}: {launches[name]} launches for one batch")
+    require(fused == 1, f"readouts: {fused} launches for one batch")
     out = unpack_outputs(buf.cpu().numpy(), 16, 15)
     require(buf.shape == (B, 16 * 15 * 6 + 1), f"packed buffer shape {tuple(buf.shape)}")
     require(bool(np.isfinite(out["joints2d"]).all() and np.isfinite(out["joints3d"]).all()),
@@ -743,7 +877,7 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float, str]:
     return nbytes, ops, bound_ms, note
 
 
-def stage_breakdown(name: str, call, ms: float) -> None:
+def stage_breakdown(name: str, call, ms: float, tag: str = "") -> None:
     """Per-block stage clocks of a call of the kernel's stage-clock build,
     the second of two back to back (the first warms the instruction and data
     caches, as the timed replays have them): each stage's mean cycles over
@@ -752,16 +886,35 @@ def stage_breakdown(name: str, call, ms: float) -> None:
     from popnet_tpu_torch.ops import kernels
 
     labels = STAGES[name]
-    st = kernels.stage_clocks(source_of(name), lambda: (call(), call()))[:, : len(labels) + 1]
+    stamps = kernels.stage_clocks(source_of(name), lambda: (call(), call()))
+    st, spans = stamps[:, : len(labels) + 1], stamps[:, 6:8]
     st = st[st[:, -1] != 0]
     per_block = np.diff(st, axis=1).astype(np.float64)
     cyc = per_block.mean(axis=0)
     total = float(cyc.sum())
     parts = ", ".join(f"{lab} {c:.0f} ({c / total:.1%}, {ms * c / total:.4f} ms)"
                       for lab, c in zip(labels, cyc))
-    say("timing", f"{name} stages, clock64 cycles per block (mean over {len(st)} blocks of "
+    say("timing", f"{name}{tag} stages, clock64 cycles per block (mean over {len(st)} blocks of "
         f"{total:.0f}, the longest block {per_block.sum(axis=1).max():.0f}; share; that share "
         f"of {ms:.4f} ms): {parts}")
+    if name in SPANS:
+        block_spans(f"{name}{tag}", spans[spans[:, 1] != 0])
+
+
+def block_spans(name: str, span) -> None:
+    """How the blocks of a call were scheduled, from each block's start and
+    end on the card's global timer (ns): the spread of their starts, their
+    mean life, and how many were resident at once at most."""
+    start, end = span[:, 0].astype(np.float64), span[:, 1].astype(np.float64)
+    t0 = start.min()
+    events = np.concatenate([np.stack([start, np.ones_like(start)], 1),
+                             np.stack([end, -np.ones_like(end)], 1)])
+    events = events[np.lexsort((events[:, 1], events[:, 0]))]
+    resident = int(np.cumsum(events[:, 1]).max())
+    say("timing", f"{name} block spans (global timer): {len(span)} blocks start over "
+        f"{(start.max() - t0) / 1e3:.2f} us, each lives {(end - start).mean() / 1e3:.2f} us on "
+        f"average, the call spans {(end.max() - t0) / 1e3:.2f} us, at most {resident} blocks "
+        f"resident at once")
 
 
 def greedy_connections(s_masked):
@@ -808,6 +961,44 @@ def time_kernels(calls: dict, launches: dict, errs: dict) -> list[dict]:
     return rows
 
 
+def device_ops(fn) -> str:
+    """The device operations (kernels, copies, fills) that one eager fn()
+    issues, counted from a torch.profiler trace of the card; "not measured"
+    where the trace holds no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        return "not measured (no device event in the trace)"
+    kernels = [e for e in ops if not e.name.startswith(("Memcpy", "Memset"))]
+    return f"{len(ops)} ({len(kernels)} kernels)"
+
+
+def readout_timing(stage, decode, ms: dict, dev) -> None:
+    """The decode's readout stage (depth_readouts: its inputs, then K4 and
+    K5) as one CUDA graph, the launch floor beside it (the graph-replay time
+    of a one-element fill), and the device operations that the stage and
+    the whole eager decode issue."""
+    import torch
+
+    one = torch.zeros(1, device=dev)
+    floor_ms = graph_ms(lambda: one.fill_(0.0))
+    stage_ms = graph_ms(stage)
+    say("timing", f"launch floor (one-element fill_, CUDA graph) {floor_ms:.4f} ms; "
+        f"window_readout {ms['window_readout']:.4f} ms = {ms['window_readout'] / floor_ms:.2f}x "
+        f"the floor; point_readout {ms['point_readout']:.4f} ms = "
+        f"{ms['point_readout'] / floor_ms:.2f}x the floor")
+    say("timing", f"readout stage (depth_readouts, CUDA graph) {stage_ms:.4f} ms; device "
+        f"operations per call: readout stage {device_ops(stage)}, eager decode "
+        f"{device_ops(decode)}")
+
+
 def time_stream(tag: str, pipe, frames, iters: int, check) -> None:
     """frames/s of `pipe` through serve_stream(queue_depth=3), after a warm
     window whose first batch goes to `check`."""
@@ -842,7 +1033,8 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
     from popnet_tpu_torch.decode.assemble_device import assemble_batched, assemble_inputs
     from popnet_tpu_torch.decode.device import (find_peaks_batched, peak_planes,
                                                 score_limb_pairs_batched)
-    from popnet_tpu_torch.decode.openpose_infer import openpose_decode, readout_inputs
+    from popnet_tpu_torch.decode.openpose_infer import (depth_readouts, openpose_decode,
+                                                        readout_inputs)
     from popnet_tpu_torch.interop.from_jax import load_into
     from popnet_tpu_torch.models import RTPoseLight3D
     from popnet_tpu_torch.models.layers import keep_batchnorm_float32
@@ -860,17 +1052,24 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
         cnn_ms = time_ms(lambda: model(xb), reps=10)
         (paf, heat, z), _ = model(xb)
-        heat_n, paf_n, z_n = (t.float().permute(0, 2, 3, 1) for t in (heat, paf, z))
+        # as the pipeline hands them to the decode: heat and PAF in float32, z as the CNN left it
+        heat_n, paf_n = (t.float().permute(0, 2, 3, 1) for t in (heat, paf))
+        z_n = z.permute(0, 2, 3, 1)
         decode_ms = time_ms(lambda: openpose_decode(heat_n, paf_n, z_n, x), reps=10)
         h = peak_planes(heat_n)
         say("timing", f"Open-Pose+ heat planes as the kernels get them: shape "
             f"{tuple(h.shape)}, strides {tuple(h.stride())}")
         K, M, L = h.shape[1], 16, len(LIMBS)
         per_sm = {"find_peaks": kernels.blocks_per_sm("find_peaks", K, 28, 28, M),
+                  "find_peaks_row": kernels.blocks_per_sm("find_peaks", K, 28, 28, M,
+                                                          kernel="find_peaks_row"),
                   "paf_score": kernels.blocks_per_sm("paf_score", K, L, M, 28, 28),
                   "assemble_ids": kernels.blocks_per_sm("assemble", K, L, M, 16)}
-        say("timing", f"blocks (one per frame) that one SM holds at the main-path sizes: {per_sm}; "
-            f"elements per shared-memory copy: find_peaks {kernels.copy_width('find_peaks', h)}, "
+        clusters = kernels.occupancy("find_peaks", "popnet_find_peaks_row_clusters", K, 28, 28, M)
+        say("timing", f"blocks (one per frame; find_peaks_row: half a frame) that one SM holds "
+            f"at the main-path sizes: {per_sm}; find_peaks_row clusters (a frame each) the card "
+            f"places at once: {clusters} for {B} frames; elements per shared-memory copy: "
+            f"find_peaks {kernels.copy_width('find_peaks', h)}, "
             f"paf_score {kernels.copy_width('paf_score', paf_n)}")
         require(min(per_sm.values()) >= 2, f"a frame's block does not fit two to an SM: {per_sm}")
         px, py, _, _, slot_valid = kernels.find_peaks(h)
@@ -879,7 +1078,12 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         ps, sm = assemble_inputs(peaks, scores, ok)
         ids, _ = kernels.assemble_ids(ps, sm, LIMBS)
         joints, counts = assemble_batched(peaks, pvalid, scores, ok)
-        (zmap, hk, gx, gy), (raw, rx, ry) = readout_inputs(joints, heat_n, z_n, x)
+        ro_in = readout_inputs(joints, heat_n, z_n, x)
+        # the standalone K4 and K5 read maps in metres at integer points
+        z_in, hk, jts, img_in, std, mean, ds = ro_in
+        gx, gy, rx, ry = kernels.readout_points(jts, img_in.shape[1], img_in.shape[2], ds)
+        zmap, raw = z_in.float() * std + mean, img_in * std + mean
+        rx, ry = rx.reshape(B, -1), ry.reshape(B, -1)
         bi, ryl, rxl = torch.arange(B, device=dev)[:, None], ry.long(), rx.long()
         conn = greedy_connections(sm)
         peak_in = {"heat": h, "px": px, "py": py, "valid": slot_valid,
@@ -904,6 +1108,16 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
                               "connections": conn}),
         }
         rows = time_kernels(calls, launches, errs)
+        fused_ms = graph_ms(lambda: kernels.readouts(*ro_in))
+        fused_plain_ms = graph_ms(lambda: kernels.readouts_plain(*ro_in), reps=5)
+        for r in rows:
+            if r["name"] in ("window_readout", "point_readout"):
+                r["launched_by"] = "readouts"       # the main path's one launch of K4 and K5
+                r["fused_ms"] = fused_ms
+        apart = sum(r["ms"] for r in rows if r["name"] in ("window_readout", "point_readout"))
+        say("timing", f"readouts (K4 and K5 in one launch, as the decode calls them, z "
+            f"{z_in.dtype}): {fused_ms:.4f} ms/batch on the card (CUDA graph), plain "
+            f"{fused_plain_ms:.4f} ms; standalone K4 + K5 {apart:.4f} ms")
         scan_ms = time_ms(lambda: kernels.assemble_ids_plain(ps, sm, LIMBS), reps=3, warm=1)
         nv, pairs = pvalid.sum(-1), distinct_pairs(peaks)
         say("timing", f"Open-Pose+ main path: valid peaks per plane mean "
@@ -914,10 +1128,21 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
             f"max {int(pairs.sum(1).max())}")
         ms = {r["name"]: r["ms"] for r in rows}
         stage_breakdown("find_peaks", lambda: kernels.find_peaks(h), ms["find_peaks"])
+        stage_breakdown("find_peaks_row", lambda: kernels.find_peaks_row(h),
+                        ms["find_peaks_row"])
+        local = lambda: kernels._find_peaks_launch("popnet_find_peaks_row_nodsmem", h, 16,
+                                                   DecodeConfig().thresh_heatmap, 8, 2)
+        local_ms = graph_ms(local)
+        say("timing", f"find_peaks_row without distributed shared memory (each CTA copies its "
+            f"own planes): {local_ms:.4f} ms/batch on the card (CUDA graph), against "
+            f"{ms['find_peaks_row']:.4f} ms with it and find_peaks {ms['find_peaks']:.4f} ms")
+        stage_breakdown("find_peaks_row", local, local_ms, " (without distributed shared memory)")
         stage_breakdown("paf_score", lambda: kernels.paf_score(paf_n, peaks, pvalid, LIMBS),
                         ms["paf_score"])
         stage_breakdown("assemble_ids", lambda: kernels.assemble_ids(ps, sm, LIMBS),
                         ms["assemble_ids"])
+        readout_timing(lambda: depth_readouts(joints, heat_n, z_n, x),
+                       lambda: openpose_decode(heat_n, paf_n, z_n, x), ms, dev)
     asm = next(r for r in rows if r["name"] == "assemble_ids")
     chain = int(conn.max())
     floor_ms = chain * SMEM_ROUND_TRIP_CYCLES / (sm_clock_mhz * 1e3)

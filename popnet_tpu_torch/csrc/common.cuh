@@ -23,9 +23,10 @@ struct Dims3 {
 // walk read neighbouring addresses whatever the layout; merge neighbours that
 // form one run in both memories; and copy 16 (or 8) bytes at a time where the
 // fastest run, the strides and the frame's address at `base` + b *
-// frame_stride allow it. Shared memory must start 16-byte aligned.
+// frame_stride allow it, `max_vec` elements at most. Shared memory must start
+// 16-byte aligned.
 inline Dims3 memory_order(const int n[3], const long long src[3], const int dst[3],
-                          const void* base, long long frame_stride) {
+                          const void* base, long long frame_stride, int max_vec = 4) {
   int o[3] = {0, 1, 2};
   for (int i = 1; i < 3; ++i)
     for (int j = i; j > 0 && src[o[j]] < src[o[j - 1]]; --j) {
@@ -45,7 +46,7 @@ inline Dims3 memory_order(const int n[3], const long long src[3], const int dst[
     d.dst[m] = dst[j];
     ++m;
   }
-  for (int v = 4; v > 1 && d.vec == 1; v /= 2) {
+  for (int v = max_vec; v > 1 && d.vec == 1; v /= 2) {
     bool ok = d.src[0] == 1 && d.dst[0] == 1 && d.n[0] % v == 0 && frame_stride % v == 0 &&
               reinterpret_cast<unsigned long long>(base) % (4 * v) == 0;
     for (int i = 1; i < 3; ++i) ok = ok && d.src[i] % v == 0 && d.dst[i] % v == 0;
@@ -137,6 +138,17 @@ __device__ long long g_stage_clocks[kStampBlocks * kStamps];
     if (threadIdx.x == 0 && blockIdx.x < popnet::kStampBlocks)                      \
       popnet::g_stage_clocks[blockIdx.x * popnet::kStamps + (i)] = clock64();       \
   } while (0)
+// The block's start or end on the card's global nanosecond timer, into
+// stamp slot i (a kernel that records its blocks' spans uses the last two).
+#define BLOCK_SPAN(i)                                                               \
+  do {                                                                              \
+    __syncthreads();                                                                \
+    if (threadIdx.x == 0 && blockIdx.x < popnet::kStampBlocks) {                    \
+      unsigned long long t;                                                         \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                        \
+      popnet::g_stage_clocks[blockIdx.x * popnet::kStamps + (i)] = (long long)t;    \
+    }                                                                               \
+  } while (0)
 extern "C" int popnet_stage_clocks(void* dst, int n) {
   if (n > popnet::kStampBlocks * popnet::kStamps) return (int)cudaErrorInvalidValue;
   return (int)cudaMemcpyFromSymbol(dst, popnet::g_stage_clocks, n * sizeof(long long));
@@ -144,5 +156,8 @@ extern "C" int popnet_stage_clocks(void* dst, int n) {
 #else
 #define STAGE_STAMP(i) \
   do {                 \
+  } while (0)
+#define BLOCK_SPAN(i) \
+  do {                \
   } while (0)
 #endif

@@ -50,6 +50,7 @@
 // bit; the TPU kernel's patch @ Q rounds differently and is held to 1e-5 on
 // the score.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <math.h>
@@ -119,7 +120,9 @@ __device__ __forceinline__ void lane_columns(const float* Us, int lane,
 // upA * U^T restricted to the window the border leaves, and its argmax with
 // the first-flat-index tie rule. Every lane ends with the value in bv and
 // the flat index in bi. Products and sums are unfused, in the order of the
-// plain PyTorch version.
+// plain PyTorch version. kPatch: `h` is the 5x5 patch of edge-clamped taps
+// itself (row stride 5), copied out of the plane beforehand.
+template <bool kPatch = false>
 __device__ __forceinline__ void refine_window(const float* h, int H, int W, int cx, int cy,
                                               const float* Us,
                                               const float (&u)[kSize][kSize], float* upA,
@@ -128,11 +131,12 @@ __device__ __forceinline__ void refine_window(const float* h, int H, int W, int 
   const int ky0 = max(0, kWin - cy), ky1 = kWin + min(H - 1 - cy, kWin);
   int row[kSize];
 #pragma unroll
-  for (int i = 0; i < kSize; ++i) row[i] = min(max(cy + i - kWin, 0), H - 1) * W;
+  for (int i = 0; i < kSize; ++i)
+    row[i] = kPatch ? i * kSize : min(max(cy + i - kWin, 0), H - 1) * W;
   const int s0 = ky0 * kFactor, n_up = (ky1 - ky0 + 1) * kFactor * kSize;
   for (int q = lane; q < n_up; q += 32) {
     const int s = s0 + q / kSize, j = q % kSize;
-    const int col = min(max(cx + j - kWin, 0), W - 1);
+    const int col = kPatch ? j : min(max(cx + j - kWin, 0), W - 1);
     float us[kSize];
     row5(Us + s * kRow, us);
     float acc = __fmul_rn(us[0], h[row[0] + col]);
@@ -166,39 +170,10 @@ __device__ __forceinline__ unsigned short cell_key(int y, int x) {
   return (unsigned short)((y << 8) | x);
 }
 
-// NMS + threshold of one plane `h` by one warp, survivors compacted into
-// `list` as keys in ascending flat index; returns their number (the same in
-// every lane).
-__device__ __forceinline__ int nms_survivors(const float* h, int H, int W, float thresh,
-                                             unsigned short* list, int lane) {
-  const int HW = H * W;
-  const unsigned lt_mask = (1u << lane) - 1u;
-  int n = 0, y = lane / W, x = lane - y * W;       // (y, x) of cell i, carried along
-  for (int base = 0; base < HW; base += 32) {
-    const int i = base + lane;
-    bool pass = false;
-    if (i < HW) {
-      float v = h[i];
-      float up = y > 0 ? h[i - W] : kSent;
-      float down = y < H - 1 ? h[i + W] : kSent;
-      float left = x > 0 ? h[i - 1] : kSent;
-      float right = x < W - 1 ? h[i + 1] : kSent;
-      float mx = fmaxf(fmaxf(up, down), fmaxf(left, right));
-      pass = v >= mx && v > thresh;
-    }
-    const unsigned bal = __ballot_sync(kFull, pass);
-    if (pass) list[n + __popc(bal & lt_mask)] = cell_key(y, x);
-    n += __popc(bal);
-    for (x += 32; x >= W; x -= W) ++y;
-  }
-  __syncwarp();
-  return n;
-}
-
 // NMS + threshold of all K planes by the block: a thread per column (k, x)
 // walks down the rows with the cells above and below in registers, and each
-// survivor sets its bit in its plane's mask of mw words. The same test as
-// nms_survivors.
+// survivor sets its bit in its plane's mask of mw words: v >= each of its
+// four neighbours (kSent off the plane) and v > thresh.
 __device__ __forceinline__ void nms_masks(const float* planes, int P, int K, int H, int W,
                                           float thresh, unsigned* masks, int mw) {
   for (int col = threadIdx.x; col < K * W; col += blockDim.x) {
@@ -262,6 +237,84 @@ __device__ __forceinline__ int pick_next(const float* h, int W, unsigned short* 
   return bi;
 }
 
+// The next top-M pick from a plane's survivor mask (mw words), by one warp:
+// the key of the best survivor left on (value descending, flat index
+// ascending), its bit cleared; INT_MAX when none is left. The same in every
+// lane, and the same choice as pick_next over a list of these survivors.
+__device__ __forceinline__ int pick_next_mask(const float* h, int W, unsigned* mask, int mw,
+                                              int lane) {
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  for (int w = lane; w < mw; w += 32)
+    for (unsigned bits = mask[w]; bits; bits &= bits - 1) {
+      const int i = w * 32 + __ffs(bits) - 1;
+      const float v = h[i];
+      if (better(v, i, bv, bi)) { bv = v; bi = i; }
+    }
+  const int mine = bi;
+  warp_argmax(bv, bi);
+  if (bi == INT_MAX) return INT_MAX;
+  if (mine == bi) mask[bi >> 5] &= ~(1u << (bi & 31));
+  __syncwarp();
+  const int y = bi / W;
+  return cell_key(y, bi - y * W);
+}
+
+// Top-M of one plane by one warp, next() giving its picks in order (lane m
+// keeps pick m): the plane's slots o .. o + M - 1 of px, py and valid
+// written at once, and its refines put on the work list: one per pick, and
+// one at the corner for all the empty slots. An item is (tag | slot << 8 |
+// corner << 16, the pick's key); the tag names the plane to run_refines.
+template <typename Next>
+__device__ __forceinline__ void pick_plane(Next next, int M, int tag, long long o, int* n_work,
+                                           int2* work, int* __restrict__ px_out,
+                                           int* __restrict__ py_out,
+                                           bool* __restrict__ valid_out, int lane) {
+  int m = 0, mine = 0;
+  for (; m < M; ++m) {
+    const int key = next();
+    if (key == INT_MAX) break;
+    if (lane == m) mine = key;
+  }
+  if (lane < M) {
+    px_out[o + lane] = lane < m ? mine & 0xFF : 0;
+    py_out[o + lane] = lane < m ? mine >> 8 : 0;
+    valid_out[o + lane] = lane < m;
+  }
+  int first = lane == 0 ? atomicAdd(n_work, m < M ? m + 1 : m) : 0;
+  first = __shfl_sync(kFull, first, 0);
+  if (lane < m) work[first + lane] = make_int2(tag | (lane << 8), mine);
+  else if (lane == m && m < M) work[first + m] = make_int2(tag | (m << 8) | (1 << 16), 0);
+}
+
+// The warp takes refines from the work list (nw items) until it is empty:
+// item (tag, slot m) refines plane `tag` at planes + tag * P and writes loc
+// and score at output row o_base + tag * o_step, slot m (a corner refine
+// fills every slot from m on).
+__device__ __forceinline__ void run_refines(const float* planes, int P, int H, int W, int M,
+                                            const float* Us, const float (&u)[kSize][kSize],
+                                            float* upA, const int2* work, int nw,
+                                            int* next_work, long long o_base, long long o_step,
+                                            int* __restrict__ loc_out,
+                                            float* __restrict__ score_out, int lane) {
+  for (;;) {
+    int e = lane == 0 ? atomicAdd(next_work, 1) : 0;
+    e = __shfl_sync(kFull, e, 0);
+    if (e >= nw) break;
+    const int2 w = work[e];
+    const int t = w.x & 0xFF, m = (w.x >> 8) & 0xFF;
+    float bv;
+    int bi;
+    refine_window(planes + t * P, H, W, w.y & 0xFF, w.y >> 8, Us, u, upA, lane, bv, bi);
+    const long long o = o_base + t * o_step;
+    const int end = (w.x >> 16) ? M : m + 1;          // a corner refine fills every empty slot
+    for (int s = m + lane; s < end; s += 32) {
+      loc_out[o + s] = bi;
+      score_out[o + s] = bv;
+    }
+  }
+}
+
 constexpr int kWarps = 16;
 
 // Shared memory of find_peaks_kernel, in bytes, each part 16-byte aligned:
@@ -304,6 +357,7 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, popnet::Dims3 g,
   const int P = plane_stride(H, W), mw = mask_words(H, W);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
+  BLOCK_SPAN(6);
   STAGE_STAMP(0);
   popnet::cp_async_frame(planes, heat + b * sb, g);
   load_u(U, Us);
@@ -323,22 +377,8 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, popnet::Dims3 g,
   for (int k = warp; k < K; k += kWarps) {
     const float* h = planes + k * P;
     const int n = mask_survivors(masks + k * mw, mw, W, list, lane);
-    int m = 0, mine = 0;
-    for (; m < M; ++m) {
-      const int key = pick_next(h, W, list, n, lane);
-      if (key == INT_MAX) break;
-      if (lane == m) mine = key;
-    }
-    const long long o = ((long long)b * K + k) * M;
-    if (lane < M) {
-      px_out[o + lane] = lane < m ? mine & 0xFF : 0;
-      py_out[o + lane] = lane < m ? mine >> 8 : 0;
-      valid_out[o + lane] = lane < m;
-    }
-    int first = lane == 0 ? atomicAdd(&n_work, m < M ? m + 1 : m) : 0;
-    first = __shfl_sync(kFull, first, 0);
-    if (lane < m) work[first + lane] = make_int2(k | (lane << 8), mine);
-    else if (lane == m && m < M) work[first + m] = make_int2(k | (m << 8) | (1 << 16), 0);
+    pick_plane([&] { return pick_next(h, W, list, n, lane); }, M, k,
+               ((long long)b * K + k) * M, &n_work, work, px_out, py_out, valid_out, lane);
   }
   __syncthreads();
   STAGE_STAMP(3);
@@ -346,25 +386,10 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, popnet::Dims3 g,
   // every warp takes refines from the work list
   float u[kSize][kSize];
   lane_columns(Us, lane, u);
-  float* upA = reinterpret_cast<float*>(scratch);
-  const int nw = n_work;
-  for (;;) {
-    int e = lane == 0 ? atomicAdd(&next_work, 1) : 0;
-    e = __shfl_sync(kFull, e, 0);
-    if (e >= nw) break;
-    const int2 w = work[e];
-    const int k = w.x & 0xFF, m = (w.x >> 8) & 0xFF;
-    float bv;
-    int bi;
-    refine_window(planes + k * P, H, W, w.y & 0xFF, w.y >> 8, Us, u, upA, lane, bv, bi);
-    const long long o = ((long long)b * K + k) * M;
-    const int end = (w.x >> 16) ? M : m + 1;          // a corner refine fills every empty slot
-    for (int s = m + lane; s < end; s += 32) {
-      loc_out[o + s] = bi;
-      score_out[o + s] = bv;
-    }
-  }
+  run_refines(planes, P, H, W, M, Us, u, reinterpret_cast<float*>(scratch), work, n_work,
+              &next_work, (long long)b * K * M, M, loc_out, score_out, lane);
   STAGE_STAMP(4);
+  BLOCK_SPAN(7);
 }
 
 // find_peaks_row_kernel: the same function by another design.
@@ -372,78 +397,275 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, popnet::Dims3 g,
 // Replaces: popnet_tpu/ops/pallas_kernels.py find_peaks_pallas (kernel
 // _find_peaks_kernel: one grid cell per frame, all K planes inside).
 //
-// Bound on the H100: operations, as for find_peaks_kernel (the same bytes and
-// the same needed arithmetic).
+// Bound on the H100: bytes, as for find_peaks_kernel (the same bytes and the
+// same needed arithmetic).
 //
-// Design: one block per frame, one warp per joint plane, no block barrier
-// after the load. The warp loads its plane into shared memory (x fastest,
-// whatever the strides), runs the NMS once over rows of 32 cells
-// (nms_survivors), picks top-M by the same pick_next as find_peaks_kernel and
-// refines each pick at once by the same refine_window; when the survivors run
-// out, the corner cell (0, 0) is refined once and its result fills every
-// empty slot. What it pays beyond the first kernel: each warp's refines run
-// one after another, and its load crosses the channels-last memory.
-constexpr int kRowWarps = 16;
+// Design: a cluster of 2 CTAs of 6 warps per frame; CTA r owns the planes
+// k = r, r + 2, r + 4, ... (8 and 7 at K = 15), about 37 KB of shared memory
+// at 28x28. The registers let 5 CTAs share an SM, and the card places all
+// 256 clusters of the main path at once: one wave, 12 warps a frame.
+// (Clusters of 8 and of 4 CTAs, and CTAs of 2, 4 and 7 warps, measured
+// slower: the card placed at most 992 CTAs of a cluster launch at once.)
+// - Load: CTA r reads its band of ceil(H/2) rows of every channel once, in
+//   the order of the frame's memory, and stores each value straight into its
+//   plane in the shared memory of the CTA that owns the channel (distributed
+//   shared memory); one cluster barrier. Channels-last bands (the serving
+//   path's) are read 16 bytes at a time as one flat run; other layouts are
+//   walked (common.cuh memory_order/Walk3, sorted on the host). No thread
+//   divides by W: rows and columns come from counters. Where the planes a
+//   CTA owns do not fit its shared memory at once, it takes them in rounds,
+//   the whole cluster with it.
+// - NMS: a thread per column of the CTA's planes walks down the rows into
+//   survivor masks (nms_masks, as find_peaks_kernel).
+// - Top-M: a warp per plane picks from its mask by warp reductions
+//   (pick_next_mask: the choice of pick_next). Its picks, and one corner
+//   refine if its survivors run out, go on the frame's work list, in the
+//   shared memory of the cluster's first CTA.
+// - Refine: all 12 warps of the frame take refines from that list, whatever
+//   CTA owns the plane: a warp copies the pick's 5x5 patch of edge-clamped
+//   taps out of the owner's shared memory and refines it (refine_window on
+//   the patch). A frame's refines are spread over 12 warps on 2 SMs, not
+//   queued on the warp of its busiest plane.
+constexpr int kCluster = 2;        // CTAs a frame
+constexpr int kRowThreads = 192;   // warps a CTA at most: 6
+constexpr int kSlotBits = 7;       // a work item's tag: owner << kSlotBits | the owner's slot
+static_assert((kCluster << kSlotBits) <= 256, "a tag fits the work item's 8 bits");
+constexpr int kMaxSmem = 227 * 1024 - 16;   // dynamic, beside the two counters
 
-__global__ void __launch_bounds__(kRowWarps * 32)
+// Shared memory of find_peaks_row_kernel, in bytes, each part 16-byte
+// aligned: U, the work list of a round's R * 8 planes (the frame's list, in
+// rank 0; each CTA's own in the variant without a cluster), R planes of
+// `stride` floats, their NMS masks, and each warp's upA and 5x5 patch.
+constexpr int kPatchFloats = 32;
+struct RowLayout {
+  int work, planes, stride, masks, scratch, per_warp, bytes;
+  __host__ __device__ RowLayout(int R, int H, int W, int M, int warps) {
+    stride = (H * W + 3) & ~3;
+    work = align16(4 * kS * kRow);
+    planes = work + align16(8 * R * kCluster * (M + 1));
+    masks = planes + 4 * R * stride;
+    scratch = masks + align16(4 * R * mask_words(H, W));
+    per_warp = 4 * (kS * kRow + kPatchFloats);
+    bytes = scratch + warps * per_warp;
+  }
+};
+
+// How a CTA of find_peaks_row_kernel gets its planes.
+enum RowLoad {
+  kLocal = 0,  // each CTA copies its own planes by cp.async (a variant kept for comparison)
+  kWalk = 1,   // its band of every channel, walked in memory order, into the owners' planes
+  kFlat = 2,   // the same from a band whose pixels hold their channels side by side
+};
+
+// The band `g` of a frame at `src`, read once by the CTA's threads in the
+// order of its memory, every value stored into its plane in the shared
+// memory of the CTA that owns its channel: the walk's shared offset is c <<
+// 16 | cell for channel c of the round (owner c % 2, slot c / 2), and the
+// band's first cell is `cell0`; cells from HW on (rows past the plane's
+// last, in the last band) are neither read nor stored. Four loads in
+// flight a thread.
+__device__ __forceinline__ void push_walk(const float* __restrict__ src, const popnet::Dims3& g,
+                                          float* planes, int stride, int cell0, int HW,
+                                          cooperative_groups::cluster_group& cluster) {
+  constexpr int kBatch = 4;
+  popnet::Walk3 w(g, threadIdx.x, blockDim.x);
+  while (w.more(g)) {
+    float v[kBatch];
+    int d[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      d[i] = -1;
+      if (w.more(g)) {
+        if (cell0 + (w.dst & 0xFFFF) < HW) {
+          v[i] = src[w.src];
+          d[i] = w.dst;
+        }
+        w.next(g);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (d[i] < 0) continue;
+      const int c = d[i] >> 16;
+      cluster.map_shared_rank(planes, c % kCluster)[(c / kCluster) * stride + cell0 +
+                                                    (d[i] & 0xFFFF)] = v[i];
+    }
+  }
+}
+
+// A band of n4 * 4 floats whose pixels hold their channels side by side
+// (pixel stride sx, a multiple of 4; rows back to back), read 16 bytes at a
+// time, four reads in flight a thread, each value stored into its plane in
+// the shared memory of the CTA that owns its channel; channels from nc on
+// (the unused ones between pixels) are read but not stored. Pixel p of the
+// band is cell cell0 + p; p and the channel advance by counters, no
+// division inside the loop.
+__device__ __forceinline__ void push_flat(const float* __restrict__ src, int n4, int sx, int nc,
+                                          float* planes, int stride, int cell0,
+                                          cooperative_groups::cluster_group& cluster) {
+  constexpr int kBatch = 4;
+  const float4* src4 = reinterpret_cast<const float4*>(src);
+  const int step = 4 * (int)blockDim.x, dp = step / sx, dc = step - dp * sx;
+  const int e0 = 4 * (int)threadIdx.x;
+  int p = e0 / sx, c = e0 - p * sx;
+  for (int q = threadIdx.x; q < n4; q += kBatch * blockDim.x) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      if (q + i * (int)blockDim.x < n4) v[i] = src4[q + i * blockDim.x];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (q + i * (int)blockDim.x < n4) {
+        const float f[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+        for (int l = 0; l < 4; ++l)
+          if (c + l < nc)
+            cluster.map_shared_rank(planes, (c + l) % kCluster)[((c + l) / kCluster) * stride +
+                                                                cell0 + p] = f[l];
+      }
+      c += dc;
+      p += dp;
+      if (c >= sx) { c -= sx; ++p; }
+    }
+  }
+}
+
+// The warp takes refines from its frame's work list (nw items, in rank 0 of
+// the cluster) until it is empty, wherever the plane lies: item (tag owner
+// << kSlotBits | j, slot m) refines plane j of CTA `owner`, whose 5x5 patch
+// of edge-clamped taps the warp first copies into `patch`; loc and score go
+// to output row o_frame + (owner + kCluster * j) * M, slot m (a corner
+// refine fills every slot from m on).
+__device__ __forceinline__ void run_cluster_refines(
+    cooperative_groups::cluster_group& cluster, const float* planes, int stride, int H, int W,
+    int M, const float* Us, const float (&u)[kSize][kSize], float* upA, float* patch,
+    const int2* work, int nw, int* next_work, long long o_frame, int* __restrict__ loc_out,
+    float* __restrict__ score_out, int lane) {
+  for (;;) {
+    int e = lane == 0 ? atomicAdd(next_work, 1) : 0;
+    e = __shfl_sync(kFull, e, 0);
+    if (e >= nw) break;
+    const int2 w = work[e];
+    const int owner = (w.x & 0xFF) >> kSlotBits, j = w.x & ((1 << kSlotBits) - 1);
+    const int m = (w.x >> 8) & 0xFF;
+    const int cx = w.y & 0xFF, cy = w.y >> 8;
+    if (lane < kSize * kSize) {
+      const int i = lane / kSize, c = lane - i * kSize;
+      const float* h = cluster.map_shared_rank(planes, owner) + j * stride;
+      patch[lane] = h[min(max(cy + i - kWin, 0), H - 1) * W + min(max(cx + c - kWin, 0), W - 1)];
+    }
+    __syncwarp();
+    float bv;
+    int bi;
+    refine_window<true>(patch, H, W, cx, cy, Us, u, upA, lane, bv, bi);
+    const long long o = o_frame + (long long)(owner + kCluster * j) * M;
+    const int end = (w.x >> 16) ? M : m + 1;          // a corner refine fills every empty slot
+    for (int s = m + lane; s < end; s += 32) {
+      loc_out[o + s] = bi;
+      score_out[o + s] = bv;
+    }
+  }
+}
+
+// g_full and g_last: with kWalk the walks of a band of a full and of the
+// last round; with kLocal g_full walks one plane; kFlat needs neither.
+template <int kLoad>
+__global__ void __launch_bounds__(kRowThreads, 5)
 find_peaks_row_kernel(const float* __restrict__ heat, long long sb, long long sk,
-                      long long sy, long long sx, int K, int H, int W, int M,
-                      float thresh, const float* __restrict__ U,
+                      long long sy, long long sx, popnet::Dims3 g_full, popnet::Dims3 g_last,
+                      int K, int H, int W, int M, int R, float thresh,
+                      const float* __restrict__ U,
                       int* __restrict__ px_out, int* __restrict__ py_out,
                       int* __restrict__ loc_out, float* __restrict__ score_out,
                       bool* __restrict__ valid_out) {
   extern __shared__ float4 row_smem4[];
-  const int HW = H * W;
-  const int nwarps = blockDim.x >> 5;
+  char* smem = reinterpret_cast<char*>(row_smem4);
+  const int warps = blockDim.x >> 5;
+  const RowLayout ly(R, H, W, M, warps);
+  float* Us = reinterpret_cast<float*>(smem);                   // (S, kRow)
+  int2* work = reinterpret_cast<int2*>(smem + ly.work);         // R * (M + 1) refines
+  float* planes = reinterpret_cast<float*>(smem + ly.planes);   // R x (H, W), stride ly.stride
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + ly.masks);
+  float* upA = reinterpret_cast<float*>(smem + ly.scratch + (threadIdx.x >> 5) * ly.per_warp);
+  float* patch = upA + kS * kRow;
+  __shared__ int n_work, next_work;
+
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* Us = reinterpret_cast<float*>(row_smem4);          // (S, kRow)
-  float* upA = Us + kS * kRow * (1 + warp);                 // this warp's (S, kRow)
-  float* h = Us + kS * kRow * (1 + nwarps) + warp * HW;     // this warp's plane
-  unsigned short* list = reinterpret_cast<unsigned short*>(
-      Us + kS * kRow * (1 + nwarps) + nwarps * HW) + warp * list_stride(H, W);
-
+  const int rank = blockIdx.x % kCluster, b = blockIdx.x / kCluster;
+  const int band = (H + kCluster - 1) / kCluster, y0 = rank * band;      // this CTA's rows
+  const int slots = (K + kCluster - 1) / kCluster, mw = mask_words(H, W);
+  BLOCK_SPAN(6);
   load_u(U, Us);
-  __syncthreads();
-  float u[kSize][kSize];
-  lane_columns(Us, lane, u);
 
-  const int b = blockIdx.x;
-  for (int k = warp; k < K; k += nwarps) {
-    const float* src = heat + b * sb + k * sk;
-    for (int i = lane; i < HW; i += 32) h[i] = src[(i / W) * sy + (i % W) * sx];
-    __syncwarp();
-    const int n = nms_survivors(h, H, W, thresh, list, lane);
-    const long long obase = ((long long)b * K + k) * M;
-    int m = 0;
-    for (; m < M; ++m) {
-      const int key = pick_next(h, W, list, n, lane);
-      if (key == INT_MAX) break;                  // no survivor left
-      const int cx = key & 0xFF, cy = key >> 8;
-      float rv;
-      int ri;
-      refine_window(h, H, W, cx, cy, Us, u, upA, lane, rv, ri);
-      if (lane == 0) {
-        px_out[obase + m] = cx;
-        py_out[obase + m] = cy;
-        valid_out[obase + m] = true;
-        loc_out[obase + m] = ri;
-        score_out[obase + m] = rv;
+  for (int s0 = 0; s0 < slots; s0 += R) {           // rounds: the same count in every CTA
+    const int c0 = s0 * kCluster;                     // the round's channels c0 .. c0 + nc - 1
+    const int nc = min(K - c0, R * kCluster);
+    const int own = nc > rank ? (nc - rank + kCluster - 1) / kCluster : 0;
+    if (tid == 0) { n_work = 0; next_work = 0; }
+    for (int i = tid; i < own * mw; i += blockDim.x) masks[i] = 0u;
+    STAGE_STAMP(0);
+    // the frame's work list and its counters: rank 0's, or the CTA's own without a cluster
+    int2* f_work = work;
+    int *f_n_work = &n_work, *f_next = &next_work;
+    if constexpr (kLoad == kLocal) {
+      for (int j = 0; j < own; ++j)
+        popnet::cp_async_frame(planes + j * ly.stride,
+                               heat + b * sb + (c0 + rank + kCluster * j) * sk, g_full);
+      popnet::cp_async_wait_all();
+      __syncthreads();
+    } else {
+      cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+      if (s0 == 0) cluster.sync();    // every CTA of the frame runs
+      f_work = cluster.map_shared_rank(work, 0);
+      f_n_work = cluster.map_shared_rank(&n_work, 0);
+      f_next = cluster.map_shared_rank(&next_work, 0);
+      if (y0 < H) {
+        const float* base = heat + b * sb + c0 * sk + y0 * sy;
+        if constexpr (kLoad == kFlat)
+          push_flat(base, min(band, H - y0) * W * (int)sx / 4, (int)sx, nc, planes, ly.stride,
+                    y0 * W, cluster);
+        else
+          push_walk(base, s0 + R < slots ? g_full : g_last, planes, ly.stride, y0 * W, H * W,
+                    cluster);
       }
+      cluster.sync();
     }
-    if (m < M) {                                // empty slots all refine at (0, 0)
-      float rv;
-      int ri;
-      refine_window(h, H, W, 0, 0, Us, u, upA, lane, rv, ri);
-      for (int e = m + lane; e < M; e += 32) {
-        px_out[obase + e] = 0;
-        py_out[obase + e] = 0;
-        valid_out[obase + e] = false;
-        loc_out[obase + e] = ri;
-        score_out[obase + e] = rv;
-      }
+    STAGE_STAMP(1);
+    nms_masks(planes, ly.stride, own, H, W, thresh, masks, mw);
+    __syncthreads();
+    STAGE_STAMP(2);
+
+    // a warp per plane: top-M, and its refines on the frame's work list
+    const long long o_base = ((long long)b * K + c0 + rank) * M;
+    for (int j = warp; j < own; j += warps) {
+      const float* h = planes + j * ly.stride;
+      unsigned* mask = masks + j * mw;
+      pick_plane([&] { return pick_next_mask(h, W, mask, mw, lane); }, M,
+                 kLoad == kLocal ? j : rank << kSlotBits | j, o_base + (long long)j * kCluster * M,
+                 f_n_work, f_work, px_out, py_out, valid_out, lane);
     }
-    __syncwarp();
+    float u[kSize][kSize];
+    if constexpr (kLoad == kLocal) {
+      __syncthreads();
+      STAGE_STAMP(3);
+      lane_columns(Us, lane, u);
+      run_refines(planes, ly.stride, H, W, M, Us, u, upA, work, n_work, &next_work, o_base,
+                  (long long)kCluster * M, loc_out, score_out, lane);
+      __syncthreads();                // the planes, masks and work list are free
+    } else {
+      // every warp of the frame takes refines from its list, whatever CTA owns the plane
+      cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+      cluster.sync();                 // the frame's list is complete
+      STAGE_STAMP(3);
+      lane_columns(Us, lane, u);
+      run_cluster_refines(cluster, planes, ly.stride, H, W, M, Us, u, upA, patch, f_work,
+                          *f_n_work, f_next, ((long long)b * K + c0) * M, loc_out, score_out,
+                          lane);
+      cluster.sync();                 // no CTA reads another's planes or list after this
+    }
+    STAGE_STAMP(4);
   }
+  BLOCK_SPAN(7);
 }
 
 // A frame of the planes as find_peaks_kernel walks it into its [k][y][x]
@@ -468,6 +690,91 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
   if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+// The planes a CTA of find_peaks_row_kernel holds at once (R) and its warps:
+// every plane it owns and 6 warps where they fit, else fewer planes a round,
+// then fewer warps. False where not even one plane and one warp fit.
+bool row_config(int K, int H, int W, int M, int& R, int& warps, size_t& smem) {
+  const int slots = (K + kCluster - 1) / kCluster;
+  for (warps = kRowThreads / 32; warps >= 1; --warps)
+    for (R = slots; R >= 1; --R) {
+      smem = RowLayout(R, H, W, M, warps).bytes;
+      if (smem <= (size_t)kMaxSmem) return true;
+    }
+  return false;
+}
+
+// The walk over one CTA's band of find_peaks_row_kernel: nc channels of a
+// round, ceil(H/2) rows, W columns, sorted by the source strides; its shared
+// offsets are c << 16 | cell, one float a copy.
+popnet::Dims3 band_dims(const void* heat, long long sb, long long sk, long long sy,
+                        long long sx, int nc, int H, int W) {
+  const int n[3] = {nc, (H + kCluster - 1) / kCluster, W};
+  const long long src[3] = {sk, sy, sx};
+  const int dst[3] = {1 << 16, W, 1};
+  return popnet::memory_order(n, src, dst, heat, sb, 1);
+}
+
+template <int kLoad>
+cudaError_t launch_row_kernel(const cudaLaunchConfig_t& cfg, const void* heat, long long sb,
+                              long long sk, long long sy, long long sx, popnet::Dims3 g_full,
+                              popnet::Dims3 g_last, int K, int H, int W, int M, int R,
+                              float thresh, const void* U, void* px, void* py, void* loc,
+                              void* score, void* valid) {
+  cudaError_t e = allow_smem((const void*)find_peaks_row_kernel<kLoad>, cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return e;
+  return cudaLaunchKernelEx(&cfg, find_peaks_row_kernel<kLoad>, (const float*)heat, sb, sk, sy,
+                            sx, g_full, g_last, K, H, W, M, R, thresh, (const float*)U,
+                            (int*)px, (int*)py, (int*)loc, (float*)score, (bool*)valid);
+}
+
+// readable: the bytes from `heat` to the end of its storage, so that the
+// flat load may read a whole pixel's run of channels at the frame's end.
+int launch_row(bool dsmem, const void* heat, long long sb, long long sk, long long sy,
+               long long sx, long long readable, int B, int K, int H, int W, int M,
+               float thresh, int win, int factor, const void* U, void* px, void* py, void* loc,
+               void* score, void* valid, void* stream) {
+  int R, warps;
+  size_t smem;
+  if (bad_args(B, K, H, W, M, win, factor) || !row_config(K, H, W, M, R, warps, smem))
+    return (int)cudaErrorInvalidValue;
+  const int slots = (K + kCluster - 1) / kCluster, rounds = (slots + R - 1) / R;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * kCluster);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = dsmem ? kCluster : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e;
+  if (!dsmem) {
+    const int n[3] = {1, H, W}, dst[3] = {0, W, 1};
+    const long long src[3] = {0, sy, sx};
+    const popnet::Dims3 g =
+        popnet::memory_order(n, src, dst, heat, sb, sk % 4 == 0 ? 4 : sk % 2 == 0 ? 2 : 1);
+    e = launch_row_kernel<kLocal>(cfg, heat, sb, sk, sy, sx, g, g, K, H, W, M, R, thresh, U, px,
+                                  py, loc, score, valid);
+  } else if (sk == 1 && sx % 4 == 0 && sx >= K && sy == W * sx && rounds == 1 && sb % 4 == 0 &&
+             reinterpret_cast<unsigned long long>(heat) % 16 == 0 &&
+             ((long long)(B - 1) * sb + (long long)H * W * sx) * 4 <= readable) {
+    const popnet::Dims3 g = {};
+    e = launch_row_kernel<kFlat>(cfg, heat, sb, sk, sy, sx, g, g, K, H, W, M, R, thresh, U, px,
+                                 py, loc, score, valid);
+  } else {
+    const popnet::Dims3 g_full = band_dims(heat, sb, sk, sy, sx, R * kCluster, H, W);
+    const popnet::Dims3 g_last =
+        band_dims(heat, sb, sk, sy, sx, K - (rounds - 1) * R * kCluster, H, W);
+    e = launch_row_kernel<kWalk>(cfg, heat, sb, sk, sy, sx, g_full, g_last, K, H, W, M, R,
+                                 thresh, U, px, py, loc, score, valid);
+  }
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -503,19 +810,56 @@ extern "C" int popnet_find_peaks_blocks_per_sm(int K, int H, int W, int M, void*
                                                             kWarps * 32, smem);
 }
 
-extern "C" int popnet_find_peaks_row(const void* heat, long long sb, long long sk,
-                                     long long sy, long long sx, int B, int K, int H,
-                                     int W, int M, float thresh, int win, int factor,
-                                     const void* U, void* px, void* py, void* loc,
-                                     void* score, void* valid, void* stream) {
-  if (bad_args(B, K, H, W, M, win, factor)) return (int)cudaErrorInvalidValue;
-  const int nwarps = K < kRowWarps ? K : kRowWarps;
-  const size_t smem = sizeof(float) * ((size_t)kS * kRow * (1 + nwarps) + (size_t)nwarps * H * W) +
-                      sizeof(unsigned short) * (size_t)nwarps * list_stride(H, W);
-  cudaError_t e = allow_smem((const void*)find_peaks_row_kernel, smem);
+// Blocks of find_peaks_row_kernel (6 warps, half a frame) that one SM holds
+// at these sizes.
+extern "C" int popnet_find_peaks_row_blocks_per_sm(int K, int H, int W, int M, void* out) {
+  int R, warps;
+  size_t smem;
+  if (!row_config(K, H, W, M, R, warps, smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem((const void*)find_peaks_row_kernel<kFlat>, smem);
   if (e != cudaSuccess) return (int)e;
-  find_peaks_row_kernel<<<B, nwarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)heat, sb, sk, sy, sx, K, H, W, M, thresh, (const float*)U, (int*)px,
-      (int*)py, (int*)loc, (float*)score, (bool*)valid);
-  return (int)cudaGetLastError();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      (int*)out, find_peaks_row_kernel<kFlat>, warps * 32, smem);
+}
+
+// Clusters of find_peaks_row_kernel (a frame each) that the card places at
+// once at these sizes.
+extern "C" int popnet_find_peaks_row_clusters(int K, int H, int W, int M, void* out) {
+  int R, warps;
+  size_t smem;
+  if (!row_config(K, H, W, M, R, warps, smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem((const void*)find_peaks_row_kernel<kFlat>, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters((int*)out, find_peaks_row_kernel<kFlat>, &cfg);
+}
+
+extern "C" int popnet_find_peaks_row(const void* heat, long long sb, long long sk,
+                                     long long sy, long long sx, long long readable, int B,
+                                     int K, int H, int W, int M, float thresh, int win,
+                                     int factor, const void* U, void* px, void* py, void* loc,
+                                     void* score, void* valid, void* stream) {
+  return launch_row(true, heat, sb, sk, sy, sx, readable, B, K, H, W, M, thresh, win, factor,
+                    U, px, py, loc, score, valid, stream);
+}
+
+// The variant without distributed shared memory, for comparison only.
+extern "C" int popnet_find_peaks_row_nodsmem(const void* heat, long long sb, long long sk,
+                                             long long sy, long long sx, long long readable,
+                                             int B, int K, int H, int W, int M, float thresh,
+                                             int win, int factor, const void* U, void* px,
+                                             void* py, void* loc, void* score, void* valid,
+                                             void* stream) {
+  return launch_row(false, heat, sb, sk, sy, sx, readable, B, K, H, W, M, thresh, win, factor,
+                    U, px, py, loc, score, valid, stream);
 }

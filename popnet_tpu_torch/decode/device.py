@@ -31,9 +31,10 @@ def find_peaks_batched(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 
     heat: (B, H, W, C >= num_joints). Returns peaks (B, K, M, 3) of
     (x, y, score) and valid (B, K, M).
 
-    refine: "kernel" (None takes it) is `find_peaks`, one block per plane;
-    "kernel_row" is `find_peaks_row`, one block per frame. Both give the
-    same result bit for bit."""
+    refine: "kernel" (None takes it) is `find_peaks`, one block of 16 warps
+    per frame; "kernel_row" is `find_peaks_row`, a cluster of 2 CTAs per
+    frame, each owning every other plane. Both give the same result bit for
+    bit."""
     if refine not in (None, "kernel", "kernel_row"):
         raise ValueError(f"unknown refine {refine!r}")
     fn = kernels.find_peaks_row if refine == "kernel_row" else kernels.find_peaks

@@ -3,8 +3,8 @@
     peaks + subpixel refine  (decode/device.find_peaks_batched, kernel K1)
     PAF pair scoring         (decode/device.score_limb_pairs_batched, K3)
     greedy person assembly   (decode/assemble_device.assemble_batched)
-    heat-weighted z readout  (window_readout_heat_weighted, K4)
-    raw-depth readout        (ops/kernels.point_readout, K5)
+    heat-weighted z readout  (depth_readouts: ops/kernels.readouts, K4 and
+    raw-depth readout         K5 in one launch from the normalized maps)
     scale to the output resolution + pinhole back-projection
 
 Maps are (B, H, W, C) at this interface, as in the JAX package.
@@ -22,39 +22,26 @@ from popnet_tpu_torch.decode.device import find_peaks_batched, score_limb_pairs_
 from popnet_tpu_torch.ops import kernels
 
 
-def window_readout_heat_weighted(depthmaps: torch.Tensor, heatmaps: torch.Tensor,
-                                 cx: torch.Tensor, cy: torch.Tensor,
-                                 radius: int = 1) -> torch.Tensor:
-    """Batched heat-weighted depth readout over the inclusive window
-    clip(c - r)..clip(c + r), which shrinks at the borders and collapses to
-    the edge cell for centres off the map. depthmaps, heatmaps (B, H, W, K);
-    cx, cy (B, P, K) int32 -> (B, P, K)."""
-    return kernels.window_readout(depthmaps.float(), heatmaps.float(),
-                                  cx.to(torch.int32).contiguous(),
-                                  cy.to(torch.int32).contiguous(), radius)
-
-
 def readout_inputs(joints: torch.Tensor, heat: torch.Tensor, zmap: torch.Tensor,
                    image: torch.Tensor, downsample: int = 8,
                    depth: DepthStats = KDH3D_DEPTH):
-    """What the two depth readouts receive for decoded joints (B, P, K, 3)
-    in input-image coords; maps as in `openpose_decode`.
+    """The arguments of `kernels.readouts` for decoded joints (B, P, K, 3)
+    in input-image coords; maps as in `openpose_decode`: the z map and the
+    input image as the CNN and the preproc left them, normalized (no
+    denormalized copy of either is made: the readouts denormalize what they
+    read), the joints' heat channels, and the depth statistics."""
+    K = joints.shape[2]
+    return (zmap, heat[..., :K].float(), joints, image[..., 0], depth.std, depth.mean,
+            downsample)
 
-    Returns ((zmap_m, heat_k, gx, gy), (raw_m, rx, ry)): K4's z map in
-    metres (B, H, W, K), the joints' heat channels and the window centres
-    (B, P, K) int32 at truncated low-res coords (int() semantics); K5's raw
-    depth in metres (B, Hi, Wi) and its points (B, P*K) int32, clamped to
-    the image and truncated."""
-    x_up, y_up = joints[..., 0], joints[..., 1]
-    B, P, K = x_up.shape
-    zmap = zmap.float() * depth.std + depth.mean
-    raw = image[..., 0].float() * depth.std + depth.mean
-    gx = (x_up / downsample).to(torch.int32)
-    gy = (y_up / downsample).to(torch.int32)
-    Hi, Wi = raw.shape[1], raw.shape[2]
-    rx = x_up.clamp(0, Wi - 1).to(torch.int32).reshape(B, P * K)
-    ry = y_up.clamp(0, Hi - 1).to(torch.int32).reshape(B, P * K)
-    return (zmap, heat[..., :K].float(), gx, gy), (raw, rx, ry)
+
+def depth_readouts(joints: torch.Tensor, heat: torch.Tensor, zmap: torch.Tensor,
+                   image: torch.Tensor, downsample: int = 8,
+                   depth: DepthStats = KDH3D_DEPTH):
+    """The decode's two depth readouts of joints (B, P, K, 3), in one
+    launch: the pose depth over heat-weighted windows (K4) and the raw depth
+    at the points (K5), each (B, P, K) in metres."""
+    return kernels.readouts(*readout_inputs(joints, heat, zmap, image, downsample, depth))
 
 
 def openpose_decode(heat: torch.Tensor, paf: torch.Tensor, zmap: torch.Tensor,
@@ -65,7 +52,8 @@ def openpose_decode(heat: torch.Tensor, paf: torch.Tensor, zmap: torch.Tensor,
                     w_out: float = 480.0, h_out: float = 512.0,
                     limbs: tuple = LIMBS) -> dict[str, torch.Tensor]:
     """heat (B, H, W, >=K), paf (B, H, W, 2L), zmap (B, H, W, K) normalized
-    z, image (B, input_y, input_x, 1) normalized input depth.
+    z (float32 or bfloat16), image (B, input_y, input_x, 1) normalized
+    input depth.
 
     Returns joints2d (B, P, K, 2) in (w_out, h_out) coords with (-1, -1)
     holes; joints3d / joints3d_raw (B, P, K, 3) from the pose-z and
@@ -87,10 +75,7 @@ def openpose_decode(heat: torch.Tensor, paf: torch.Tensor, zmap: torch.Tensor,
     x_up, y_up, conf = joints[..., 0], joints[..., 1], joints[..., 2]
     vis = x_up >= 0  # border-clamped refinement keeps real joints at x, y >= 0
 
-    # pose-depth readout over heat-weighted windows, raw-depth readout at points
-    window_in, point_in = readout_inputs(joints, heat, zmap, image, dcfg.downsample, depth)
-    z_pose = window_readout_heat_weighted(*window_in)
-    z_raw = kernels.point_readout(*point_in).reshape(vis.shape)
+    z_pose, z_raw = depth_readouts(joints, heat, zmap, image, dcfg.downsample, depth)
 
     z_pose = torch.where(vis, z_pose, -1.0)
     z_raw = torch.where(vis, z_raw, -1.0)

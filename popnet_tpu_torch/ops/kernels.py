@@ -8,11 +8,14 @@ CUDA kernel, with its plain PyTorch version beside it.
 | `paf_score`      | csrc/paf_score.cu      | pallas_kernels.py paf_sample_pallas      |
 | `window_readout` | csrc/readout.cu        | pallas_kernels.py window_readout_pallas  |
 | `point_readout`  | csrc/readout.cu        | pallas_kernels.py point_readout_pallas   |
+| `readouts`       | csrc/readout.cu        | both readouts above, in one launch       |
 | `assemble_ids`   | csrc/assemble.cu       | assemble_pallas.py assemble_ids_pallas   |
 | `peak_local_max` | csrc/peak_mask.cu      | pallas_kernels.py peak_local_max_pallas  |
 
 `find_peaks` and `find_peaks_row` are two designs of one function and share
-one plain version, `find_peaks_plain`.
+one plain version, `find_peaks_plain`. `readouts` is the Open-Pose+
+decode's launch of K4 and K5 together, from the normalized maps: it counts
+as one launch of each of the two.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel on the current stream or raises. Nothing falls back.
@@ -44,15 +47,20 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _FIND_PEAKS_ARGS = [_P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P]
+_FIND_PEAKS_ROW_ARGS = _FIND_PEAKS_ARGS[:5] + [_LL] + _FIND_PEAKS_ARGS[5:]  # + readable bytes
 _SIGNATURES = {
     "popnet_find_peaks": ("find_peaks", _FIND_PEAKS_ARGS),
-    "popnet_find_peaks_row": ("find_peaks", _FIND_PEAKS_ARGS),
+    "popnet_find_peaks_row": ("find_peaks", _FIND_PEAKS_ROW_ARGS),
+    "popnet_find_peaks_row_nodsmem": ("find_peaks", _FIND_PEAKS_ROW_ARGS),
     "popnet_paf_score": ("paf_score", [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _F, _F, _F, _P, _P, _P]),
     "popnet_window_readout": ("readout", [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL,
                                           _LL, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
     "popnet_point_readout": ("readout", [_P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I,
                                          _P, _P]),
+    "popnet_readouts": ("readout", [_P, _LL, _LL, _LL, _LL, _I, _P, _LL, _LL, _LL, _LL,
+                                    _P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P]),
     "popnet_assemble": ("assemble", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P]),
     "popnet_peak_mask": ("peak_mask", [_P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _F, _P, _LL,
                                        _LL, _LL, _LL, _P]),
@@ -97,16 +105,24 @@ def stage_clocks(source: str, fn) -> np.ndarray:
     return out
 
 
-def blocks_per_sm(source: str, *sizes: int) -> int:
-    """Blocks of the kernel of csrc/<source>.cu that one SM of the current
-    card holds at these sizes (find_peaks: K, H, W, M; paf_score: K, L, M,
-    H, W; assemble: K, L, M, max_people)."""
-    fn = getattr(_build.library(source), f"popnet_{source}_blocks_per_sm")
+def blocks_per_sm(source: str, *sizes: int, kernel: str | None = None) -> int:
+    """Blocks of the kernel of csrc/<source>.cu (or of its `kernel`, where
+    the source has two) that one SM of the current card holds at these
+    sizes (find_peaks, find_peaks_row: K, H, W, M; paf_score: K, L, M, H,
+    W; assemble: K, L, M, max_people)."""
+    return occupancy(source, f"popnet_{kernel or source}_blocks_per_sm", *sizes)
+
+
+def occupancy(source: str, symbol: str, *sizes: int) -> int:
+    """What an occupancy query of csrc/<source>.cu reports at these sizes:
+    `popnet_<kernel>_blocks_per_sm`, or `popnet_find_peaks_row_clusters`
+    (the clusters the card places at once)."""
+    fn = getattr(_build.library(source), symbol)
     fn.argtypes, fn.restype = [_I] * len(sizes) + [_P], ctypes.c_int
     n = ctypes.c_int(0)
     err = fn(*sizes, ctypes.addressof(n))
     if err != 0:
-        raise RuntimeError(f"popnet_{source}_blocks_per_sm failed: CUDA error {err}")
+        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
     return n.value
 
 
@@ -268,7 +284,11 @@ def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
                    for _ in range(3))
     score = torch.empty((B, K, max_peaks), dtype=torch.float32, device=dev)
     valid = torch.empty((B, K, max_peaks), dtype=torch.bool, device=dev)
-    _launch(symbol, dev, heat.data_ptr(), *heat.stride(), B, K, H, W,
+    # the row kernel may read whole pixel runs up to the end of the storage
+    storage = heat.untyped_storage()
+    readable = ([storage.data_ptr() + storage.nbytes() - heat.data_ptr()]
+                if symbol != "popnet_find_peaks" else [])
+    _launch(symbol, dev, heat.data_ptr(), *heat.stride(), *readable, B, K, H, W,
             max_peaks, thresh, win_size, factor, U.data_ptr(), px.data_ptr(),
             py.data_ptr(), loc.data_ptr(), score.data_ptr(), valid.data_ptr())
     return px, py, loc, score, valid
@@ -287,14 +307,16 @@ def find_peaks(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
     return out
 
 
-# ---- K2: the same function, one block per frame and one warp per plane -----
+# ---- K2: the same function, a cluster of 2 CTAs per frame ----------------------
 
 
 def find_peaks_row(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
                    factor: int = 8, win_size: int = 2):
-    """`find_peaks` by its second kernel (a warp per plane that refines its
-    own picks). Same contract, limits and plain version as `find_peaks`;
-    the two kernels agree bit for bit."""
+    """`find_peaks` by its second kernel (a cluster of 2 CTAs per frame,
+    each owning every other plane, loaded through distributed shared memory,
+    the frame's refines shared by all 12 warps).
+    Same contract, limits and plain version as `find_peaks`; the two
+    kernels agree bit for bit."""
     if not _on_cuda(heat):
         return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
     out = _find_peaks_launch("popnet_find_peaks_row", heat, max_peaks, thresh, factor,
@@ -517,6 +539,80 @@ def point_readout(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torc
     return out
 
 
+# ---- K4 + K5: both readouts of the decode in one launch ------------------------
+
+
+def readout_points(joints: torch.Tensor, Hi: int, Wi: int, downsample: int = 8):
+    """Where the readouts look for joints (B, P, K, >=2) in input-image
+    coordinates: the window centres trunc(x / downsample), trunc(y /
+    downsample) on the maps and the points trunc(clip(x, 0, Wi - 1)),
+    trunc(clip(y, 0, Hi - 1)) on the (Hi, Wi) image, each (B, P, K) int32.
+    The division is by a tensor, so it is a true division on every device
+    (the card multiplies by the reciprocal of a Python number)."""
+    x, y = joints[..., 0].float(), joints[..., 1].float()
+    ds = _const(("downsample", float(downsample)), lambda: torch.tensor(float(downsample)),
+                joints.device)
+    gx, gy = (x / ds).to(torch.int32), (y / ds).to(torch.int32)
+    rx = x.clamp(0, Wi - 1).to(torch.int32)
+    ry = y.clamp(0, Hi - 1).to(torch.int32)
+    return gx, gy, rx, ry
+
+
+def readouts_plain(z: torch.Tensor, heat: torch.Tensor, joints: torch.Tensor,
+                   img: torch.Tensor, std: float, mean: float, downsample: int = 8,
+                   radius: int = 1):
+    """Plain version of `readouts`: the points of `readout_points`, the
+    affines z * std + mean and img * std + mean over the whole maps, then
+    `window_readout_plain` and `point_readout_plain`. Returns (z_pose,
+    z_raw), each (B, P, K) float32."""
+    B, P, K = joints.shape[:3]
+    gx, gy, rx, ry = readout_points(joints, img.shape[1], img.shape[2], downsample)
+    z_pose = window_readout_plain(z.float() * std + mean, heat, gx, gy, radius)
+    z_raw = point_readout_plain(img.float() * std + mean, rx.reshape(B, P * K),
+                                ry.reshape(B, P * K))
+    return z_pose, z_raw.reshape(B, P, K)
+
+
+_MAP_TYPES = (torch.float32, torch.bfloat16)
+
+
+def readouts(z: torch.Tensor, heat: torch.Tensor, joints: torch.Tensor, img: torch.Tensor,
+             std: float, mean: float, downsample: int = 8, radius: int = 1):
+    """The heat-weighted window readout of the z map (K4) and the point
+    readout of the image (K5) at joints (B, P, K, >=2) float32, in one
+    launch. z (B, H, W, K) and img (B, Hi, Wi) are the normalized maps,
+    float32 or bfloat16, any strides; each value read is denormalized as v *
+    std + mean. heat (B, H, W, K) float32, any strides. Same contract as
+    `readouts_plain`; counts one launch of `window_readout` and of
+    `point_readout` besides its own."""
+    if not _on_cuda(z, heat, joints, img):
+        return readouts_plain(z, heat, joints, img, std, mean, downsample, radius)
+    B, H, W, K = z.shape
+    P = joints.shape[1]
+    Hi, Wi = img.shape[1], img.shape[2]
+    for t, name in ((z, "z"), (img, "img")):
+        if t.dtype not in _MAP_TYPES:
+            raise ValueError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
+    _check(heat, "heat", torch.float32, (B, H, W, K))
+    _check(joints, "joints", torch.float32)
+    if img.dim() != 3 or img.shape[0] != B or joints.dim() != 4 \
+            or tuple(joints.shape[:3]) != (B, P, K) or joints.shape[3] < 2:
+        raise ValueError(f"readouts: img (B, Hi, Wi) and joints (B, P, K, >=2) for z "
+                         f"{tuple(z.shape)}, got {tuple(img.shape)} and {tuple(joints.shape)}")
+    dev = z.device
+    z_pose = torch.empty((B, P, K), dtype=torch.float32, device=dev)
+    z_raw = torch.empty((B, P, K), dtype=torch.float32, device=dev)
+    _launch("popnet_readouts", dev, z.data_ptr(), *z.stride(), int(z.dtype == torch.bfloat16),
+            heat.data_ptr(), *heat.stride(), joints.data_ptr(), *joints.stride(),
+            img.data_ptr(), *img.stride(), int(img.dtype == torch.bfloat16), B, P, K, H, W,
+            Hi, Wi, radius, float(downsample), float(std), float(mean), z_pose.data_ptr(),
+            z_raw.data_ptr())
+    readouts.launches += 1
+    window_readout.launches += 1
+    point_readout.launches += 1
+    return z_pose, z_raw
+
+
 # ---- K6: greedy person assembly to packed peak-id tables ----------------------
 
 
@@ -697,15 +793,18 @@ def peak_mask(heat: torch.Tensor, thresh: float) -> torch.Tensor:
 
 
 KERNELS = (find_peaks, find_peaks_row, paf_score, window_readout, point_readout,
-           assemble_ids, peak_local_max)
-for _k in KERNELS:
+           assemble_ids, peak_local_max)      # one wrapper per TPU kernel
+for _k in KERNELS + (readouts,):
     _k.launches = 0
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in KERNELS + (readouts,):
         k.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
+    """Launches of each TPU kernel's counterpart (a `readouts` launch counts
+    for `window_readout` and `point_readout`; its own count is
+    `readouts.launches`)."""
     return {k.__name__: k.launches for k in KERNELS}

@@ -137,8 +137,9 @@ def build_openpose_pipeline(weights: dict[str, np.ndarray],
         (paf, heat, z), _ = model(x.permute(0, 3, 1, 2).to(dtype))
         if stage == "cnn":
             return pack_outputs(heat.amax(dim=(2, 3)), paf.float().mean(dim=(2, 3)))
-        nhwc = lambda t: t.float().permute(0, 2, 3, 1)                    # views, no copy
-        out = openpose_decode(nhwc(heat), nhwc(paf), nhwc(z), x)
+        nhwc = lambda t: t.permute(0, 2, 3, 1)                            # views, no copy
+        # the readouts read z in the CNN's type; peaks and PAF run in float32
+        out = openpose_decode(nhwc(heat).float(), nhwc(paf).float(), nhwc(z), x)
         if pack == "q16":
             return pack_outputs_q16(out["joints2d"], out["joints3d"][..., 2],
                                     out["conf"], out["counts"])

@@ -317,6 +317,111 @@ def test_readout_kernels_match_plain(cuda, radius, memory):
     assert torch.equal(kernels.point_readout(img, px, py), kernels.point_readout_plain(img, px, py))
 
 
+@pytest.mark.parametrize("memory", ["channels_last", "sliced"])
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("z_dtype,img_dtype", [("float32", "float32"), ("bfloat16", "float32"),
+                                               ("float32", "bfloat16"), ("bfloat16", "bfloat16")])
+def test_readouts_kernel_matches_plain(cuda, z_dtype, img_dtype, radius, memory):
+    """K4 and K5 in one launch from the normalized maps, bit for bit against
+    the plain version (the affines over the whole maps, then the two plain
+    readouts): z and image in float32 or bfloat16, radius 1 and 2,
+    channels-last and sliced maps, joints off the maps, on the borders and
+    at holes, B = 256 and B = 1; one launch a call, counted once for each
+    readout."""
+    rng = np.random.default_rng(21)
+    B = 256
+    if memory == "channels_last":
+        z = torch.as_tensor(rng.uniform(-1.5, 1.5, (B, 15, 28, 28)).astype(np.float32),
+                            device=cuda).permute(0, 2, 3, 1)
+    else:
+        big = torch.as_tensor(rng.uniform(-1.5, 1.5, (B, 31, 30, 17)).astype(np.float32),
+                              device=cuda)
+        z = big[:, 2:30, 1:29, 1:16]
+    heat = torch.as_tensor(rng.uniform(-0.2, 1, (B, 16, 28, 28)).astype(np.float32),
+                           device=cuda).permute(0, 2, 3, 1)[..., :15]
+    img = torch.as_tensor(rng.uniform(-1.5, 1.5, (B, 224, 224, 1)).astype(np.float32),
+                          device=cuda)[..., 0]
+    joints = torch.as_tensor(rng.uniform(-20, 250, (B, 16, 15, 3)).astype(np.float32),
+                             device=cuda)
+    joints[:, 0, :, :2] = -1.0
+    joints[:, 1, :3, 0] = torch.tensor([0.0, 223.0, 223.99])
+    z, img = z.to(getattr(torch, z_dtype)), img.to(getattr(torch, img_dtype))
+    for b in (B, 1):
+        args = (z[:b], heat[:b], joints[:b], img[:b], 2.0, 3.0, 8, radius)
+        kernels.reset_launches()
+        got = kernels.readouts(*args)
+        torch.cuda.synchronize()
+        assert kernels.readouts.launches == 1
+        counts = kernels.launch_counts()
+        assert counts["window_readout"] == counts["point_readout"] == 1
+        ref = kernels.readouts_plain(*args)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_point_readout_keeps_negative_zero(cuda):
+    """The standalone point readout takes the build without the affine: an
+    image of +0.0 and -0.0 reads back with its signs."""
+    rng = np.random.default_rng(22)
+    img = torch.where(torch.as_tensor(rng.uniform(size=(3, 40, 36)) < 0.5, device=cuda),
+                      torch.tensor(-0.0, device=cuda), torch.tensor(0.0, device=cuda))
+    px = torch.as_tensor(rng.integers(-2, 38, (3, 300)), dtype=torch.int32, device=cuda)
+    py = torch.as_tensor(rng.integers(-2, 42, (3, 300)), dtype=torch.int32, device=cuda)
+    got = kernels.point_readout(img, px, py)
+    ref = kernels.point_readout_plain(img, px, py)
+    assert torch.equal(torch.signbit(got), torch.signbit(ref)) and torch.signbit(got).any()
+
+
+def k2_heat(seed, K, H, W):
+    """(3, K + 1, H + 3, W + 4) heat: uniform with a lattice of at least 12
+    peaks in plane 0 of frame 0 and a flat plane below the threshold in
+    frame 1; and the same size of sparse heat."""
+    rng = np.random.default_rng(seed)
+    dense = rng.uniform(0, 1, (3, K + 1, H + 3, W + 4)).astype(np.float32)
+    dense[0, 0, 1:H:3, 1:W:3] = 2.0 + rng.uniform(0, 1, dense[0, 0, 1:H:3, 1:W:3].shape)
+    dense[1, 0] = 0.05
+    sparse = np.zeros_like(dense)
+    sparse[:, :, :H, :W] = sparse_heat(seed, 3, H, W, K + 1)
+    return dense, sparse
+
+
+@pytest.mark.parametrize("grid", [(12, 10), (28, 28), (46, 46)])
+@pytest.mark.parametrize("K", [1, 5, 15, 16])
+def test_find_peaks_row_cluster_matches_plain_and_find_peaks(cuda, K, grid):
+    """The per-frame kernel (2 CTAs a frame, planes loaded through
+    distributed shared memory) bit-equal to the plain version and to
+    find_peaks: K of 1 (one CTA owns nothing), odd and even; dense heat
+    with 32 peaks kept, sparse heat and a flat plane; planes of NCHW and
+    NHWC memory and slices of larger maps. One launch a call."""
+    H, W = grid
+    for heat, M in zip(k2_heat(K * 100 + H, K, H, W), (32, 16)):
+        t = torch.as_tensor(heat, device=cuda)
+        for h in (t[:, :K, :H, :W].contiguous(),
+                  t[:, :K, :H, :W].contiguous(memory_format=torch.channels_last),
+                  t[:, 1:, 2:H + 2, 3:W + 3]):
+            kernels.reset_launches()
+            row = kernels.find_peaks_row(h, max_peaks=M)
+            torch.cuda.synchronize()
+            assert kernels.find_peaks_row.launches == 1
+            for a, b, c in zip(row, kernels.find_peaks_plain(h, max_peaks=M),
+                               kernels.find_peaks(h, max_peaks=M)):
+                assert torch.equal(a, b) and torch.equal(a, c)
+        if M == 32:
+            assert row[4].any()
+    dense = torch.as_tensor(k2_heat(K * 100 + H, K, H, W)[0], device=cuda)[:, :K, :H, :W]
+    assert kernels.find_peaks_row(dense, max_peaks=32)[4][0, 0].sum() >= 12
+
+
+def test_find_peaks_row_on_large_planes(cuda):
+    """A single 195x195 plane, which the kernel of the previous design took
+    too: the CTA holds it in one round of one plane and stays bit-equal;
+    planes too large for the shared memory still raise."""
+    heat = torch.as_tensor(sparse_heat(9, 2, 195, 195, 1), device=cuda)
+    for a, b in zip(kernels.find_peaks_row(heat), kernels.find_peaks_plain(heat)):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kernels.find_peaks_row(torch.rand((1, 1, 255, 255), device=cuda))
+
+
 def test_slice_on_the_card_matches_the_cpu(cuda):
     """float32 pipeline on the card (cuDNN without TF32, the five kernels
     of its path) against the same pipeline on the CPU (plain versions)."""
@@ -337,6 +442,7 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
         on_path = {"find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout"}
         assert kernels.launch_counts() == {k.__name__: int(k.__name__ in on_path)
                                            for k in kernels.KERNELS}
+        assert kernels.readouts.launches == 1      # K4 and K5 in one launch, counted for each
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     cpu = build_openpose_pipeline(weights, dtype=torch.float32, device="cpu")(frames)

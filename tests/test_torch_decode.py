@@ -88,6 +88,27 @@ def test_openpose_decode_matches_jax():
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=1e-4, err_msg=k)
 
 
+def test_openpose_decode_with_bf16_z_matches_jax():
+    """z maps in bfloat16, as the serving CNN leaves them: the decode's
+    readouts take them as they are (no denormalized copy) and agree with
+    the JAX decode of the same rounded values: counts and visibility exact,
+    joints within 1e-4."""
+    heat, paf = synth(7, 3, B=3)
+    rng = np.random.default_rng(1)
+    zmap = rng.uniform(-0.5, 0.5, heat.shape[:3] + (15,)).astype(np.float32)
+    image = rng.uniform(-1.5, 1.5, (3, 224, 224, 1)).astype(np.float32)
+    z_bf16 = torch.from_numpy(zmap).to(torch.bfloat16)
+    ref = jax_decode(jnp.asarray(heat), jnp.asarray(paf), jnp.asarray(zmap, dtype=jnp.bfloat16),
+                     jnp.asarray(image), depth=JaxDepthStats(), cam=JAX_CAM)
+    got = openpose_decode(torch.from_numpy(heat), torch.from_numpy(paf), z_bf16,
+                          torch.from_numpy(image))
+    np.testing.assert_array_equal(got["counts"].numpy(), np.asarray(ref["counts"]))
+    np.testing.assert_array_equal(got["visibility"].numpy(), np.asarray(ref["visibility"]))
+    assert got["counts"].sum() > 0
+    for k in ("joints2d", "joints3d", "joints3d_raw", "conf"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=1e-4, err_msg=k)
+
+
 def test_config_and_skeleton_copies_match_jax():
     import dataclasses
 

@@ -19,6 +19,7 @@ from popnet_tpu.ops.pallas_kernels import (
     paf_sample_pallas,
     peak_local_max_pallas,
     point_readout_pallas,
+    window_readout_pallas,
 )
 from popnet_tpu.ops.pallas_kernels import peak_mask as jax_peak_mask
 from popnet_tpu_torch.core.skeleton import LIMBS, NUM_JOINTS
@@ -168,6 +169,46 @@ def test_point_readout_plain_matches_pallas():
     ref = point_readout_pallas(jnp.asarray(img), jnp.asarray(cx), jnp.asarray(cy), interpret=True)
     got = kernels.point_readout_plain(*(torch.from_numpy(a) for a in (img, cx, cy)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("radius", [1, 2])
+def test_readouts_plain_matches_pallas(radius, dtype):
+    """The fused readouts' plain version against the JAX composition: the
+    Pallas window and point readouts (interpret mode) of z * std + mean and
+    img * std + mean at the joints' centres trunc(x / 8) and points
+    trunc(clip(x)); normalized z and image in float32 or bfloat16 (the same
+    rounded values on both sides), joints off the maps and at holes
+    included. 1e-5 for both outputs, K4's bar: XLA on the CPU may contract
+    the affine into one rounding, so the points are not held exact here (on
+    the card the kernel is held exact against this plain version)."""
+    rng = np.random.default_rng(17)
+    B, H, W, K, P, Hi, Wi = 2, 28, 28, 15, 6, 64, 48
+    std, mean = 2.0, 3.0
+    z = rng.uniform(-1.5, 1.5, (B, H, W, K)).astype(np.float32)
+    heat = rng.uniform(-0.2, 1.0, (B, H, W, K)).astype(np.float32)
+    img = rng.uniform(-1.5, 1.5, (B, Hi, Wi)).astype(np.float32)
+    joints = rng.uniform(-20, 260, (B, P, K, 3)).astype(np.float32)
+    joints[:, 0, :, :2] = -1.0                     # holes
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    z_t, img_t = torch.from_numpy(z).to(tdt), torch.from_numpy(img).to(tdt)
+    z_j, img_j = (jnp.asarray(a, dtype=jdt).astype(jnp.float32) for a in (z, img))
+    gx, gy = (np.trunc(joints[..., i] / 8).astype(np.int32) for i in (0, 1))
+    rx = np.trunc(np.clip(joints[..., 0], 0, Wi - 1)).astype(np.int32).reshape(B, P * K)
+    ry = np.trunc(np.clip(joints[..., 1], 0, Hi - 1)).astype(np.int32).reshape(B, P * K)
+    ref_pose = window_readout_pallas(z_j * std + mean, jnp.asarray(heat), jnp.asarray(gx),
+                                     jnp.asarray(gy), radius=radius, interpret=True)
+    ref_raw = point_readout_pallas(img_j * std + mean, jnp.asarray(rx), jnp.asarray(ry),
+                                   interpret=True)
+    got_pose, got_raw = kernels.readouts_plain(z_t, torch.from_numpy(heat),
+                                               torch.from_numpy(joints), img_t, std, mean,
+                                               radius=radius)
+    assert got_pose.shape == got_raw.shape == (B, P, K)
+    np.testing.assert_allclose(got_pose.numpy(), np.asarray(ref_pose), atol=1e-5)
+    np.testing.assert_allclose(got_raw.numpy(), np.asarray(ref_raw).reshape(B, P, K), atol=1e-5)
+    got = kernels.readouts(z_t, torch.from_numpy(heat), torch.from_numpy(joints), img_t, std,
+                           mean, radius=radius)             # on the CPU: the plain version
+    assert torch.equal(got[0], got_pose) and torch.equal(got[1], got_raw)
 
 
 def plateau_heat(seed, N, H=28, W=28):
