@@ -46,8 +46,7 @@ Phases, one or more lines each:
    clusters of K2 the card places at once, the copy width of K1 and K3, the
    time by stage of K1, K2, K3 and K6 from per-block clock64() stamps (and
    how K1's and K2's blocks were scheduled, from their spans on the global
-   timer), K2 beside its variant without distributed shared memory, the
-   fused readouts beside K4 and K5 alone, the launch floor (a one-element
+   timer), the fused readouts beside K4 and K5 alone, the launch floor (a one-element
    fill in a CUDA graph), the decode's readout stage as a CUDA graph, and
    the device operations that it and the eager decode issue (torch.profiler).
 
@@ -443,7 +442,7 @@ def phase_kernels(rng: np.random.Generator, rng_new: np.random.Generator,
     say("kernels", f"find_peaks_row: px/py/loc/score/valid exact against the plain version and "
         f"find_peaks in {n_k2} more cases: K = 1, 5, 15, 16 on 12x10, 28x28 and 46x46 grids, NCHW, "
         f"NHWC and sliced planes, dense heat (a plane of at least 12 peaks, 32 kept), sparse "
-        f"heat and a flat plane; so the variant without distributed shared memory")
+        f"heat and a flat plane")
 
     # K3 on the peaks of that heat and a PAF map, then on peaks that share coordinates
     paf = maps(rng.uniform(-1, 1, (B, 28, 28, 28)).astype(np.float32)).permute(0, 2, 3, 1)
@@ -570,9 +569,8 @@ def k2_cases(rng, dev) -> int:
     CTAs, odd, even); 12x10, 28x28 and 46x46 grids;
     planes of NCHW and NHWC memory and slices of larger maps; dense heat
     (uniform, with a lattice of at least 12 peaks in one plane, 32 kept),
-    sparse heat, and a flat plane below the threshold. Then the variant
-    without distributed shared memory on the main path's planes. Returns
-    the number of cases."""
+    sparse heat, and a flat plane below the threshold. Returns the number
+    of cases."""
     import torch
 
     from popnet_tpu_torch.ops import kernels
@@ -602,13 +600,6 @@ def k2_cases(rng, dev) -> int:
                     if M == 32 and tag == "NCHW":
                         require(int(got[4][0, 0].sum()) >= 12,
                                 "find_peaks_row: the dense plane holds at least 12 peaks")
-    h = torch.as_tensor(sparse_heat(rng, 256), device=dev).contiguous(
-        memory_format=torch.channels_last)[:, :15]
-    ref = kernels.find_peaks_plain(h)
-    for i, name in enumerate(PEAK_OUTPUTS):
-        _exact(f"find_peaks_row without distributed shared memory, {name}",
-               kernels._find_peaks_launch("popnet_find_peaks_row_nodsmem", h, 16, 0.1, 8, 2)[i],
-               ref[i])
     return n
 
 
@@ -877,7 +868,7 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float, str]:
     return nbytes, ops, bound_ms, note
 
 
-def stage_breakdown(name: str, call, ms: float, tag: str = "") -> None:
+def stage_breakdown(name: str, call, ms: float) -> None:
     """Per-block stage clocks of a call of the kernel's stage-clock build,
     the second of two back to back (the first warms the instruction and data
     caches, as the timed replays have them): each stage's mean cycles over
@@ -894,11 +885,11 @@ def stage_breakdown(name: str, call, ms: float, tag: str = "") -> None:
     total = float(cyc.sum())
     parts = ", ".join(f"{lab} {c:.0f} ({c / total:.1%}, {ms * c / total:.4f} ms)"
                       for lab, c in zip(labels, cyc))
-    say("timing", f"{name}{tag} stages, clock64 cycles per block (mean over {len(st)} blocks of "
+    say("timing", f"{name} stages, clock64 cycles per block (mean over {len(st)} blocks of "
         f"{total:.0f}, the longest block {per_block.sum(axis=1).max():.0f}; share; that share "
         f"of {ms:.4f} ms): {parts}")
     if name in SPANS:
-        block_spans(f"{name}{tag}", spans[spans[:, 1] != 0])
+        block_spans(name, spans[spans[:, 1] != 0])
 
 
 def block_spans(name: str, span) -> None:
@@ -1130,13 +1121,6 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         stage_breakdown("find_peaks", lambda: kernels.find_peaks(h), ms["find_peaks"])
         stage_breakdown("find_peaks_row", lambda: kernels.find_peaks_row(h),
                         ms["find_peaks_row"])
-        local = lambda: kernels._find_peaks_launch("popnet_find_peaks_row_nodsmem", h, 16,
-                                                   DecodeConfig().thresh_heatmap, 8, 2)
-        local_ms = graph_ms(local)
-        say("timing", f"find_peaks_row without distributed shared memory (each CTA copies its "
-            f"own planes): {local_ms:.4f} ms/batch on the card (CUDA graph), against "
-            f"{ms['find_peaks_row']:.4f} ms with it and find_peaks {ms['find_peaks']:.4f} ms")
-        stage_breakdown("find_peaks_row", local, local_ms, " (without distributed shared memory)")
         stage_breakdown("paf_score", lambda: kernels.paf_score(paf_n, peaks, pvalid, LIMBS),
                         ms["paf_score"])
         stage_breakdown("assemble_ids", lambda: kernels.assemble_ids(ps, sm, LIMBS),

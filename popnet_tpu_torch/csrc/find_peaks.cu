@@ -404,8 +404,10 @@ find_peaks_kernel(const float* __restrict__ heat, long long sb, popnet::Dims3 g,
 // k = r, r + 2, r + 4, ... (8 and 7 at K = 15), about 37 KB of shared memory
 // at 28x28. The registers let 5 CTAs share an SM, and the card places all
 // 256 clusters of the main path at once: one wave, 12 warps a frame.
-// (Clusters of 8 and of 4 CTAs, and CTAs of 2, 4 and 7 warps, measured
-// slower: the card placed at most 992 CTAs of a cluster launch at once.)
+// (Measured slower: clusters of 8 and of 4 CTAs, of which the card placed
+// at most 992 CTAs at once; CTAs of 4 and 7 warps; and CTAs that copy their
+// own planes from the frame without distributed shared memory, which pulls
+// each frame through L2 once per CTA.)
 // - Load: CTA r reads its band of ceil(H/2) rows of every channel once, in
 //   the order of the frame's memory, and stores each value straight into its
 //   plane in the shared memory of the CTA that owns the channel (distributed
@@ -433,9 +435,9 @@ static_assert((kCluster << kSlotBits) <= 256, "a tag fits the work item's 8 bits
 constexpr int kMaxSmem = 227 * 1024 - 16;   // dynamic, beside the two counters
 
 // Shared memory of find_peaks_row_kernel, in bytes, each part 16-byte
-// aligned: U, the work list of a round's R * 8 planes (the frame's list, in
-// rank 0; each CTA's own in the variant without a cluster), R planes of
-// `stride` floats, their NMS masks, and each warp's upA and 5x5 patch.
+// aligned: U, the work list of a round's R * kCluster planes (the frame's
+// list: rank 0's is used), R planes of `stride` floats, their NMS masks, and
+// each warp's upA and 5x5 patch.
 constexpr int kPatchFloats = 32;
 struct RowLayout {
   int work, planes, stride, masks, scratch, per_warp, bytes;
@@ -450,11 +452,10 @@ struct RowLayout {
   }
 };
 
-// How a CTA of find_peaks_row_kernel gets its planes.
+// How a CTA of find_peaks_row_kernel loads its band into the owners' planes.
 enum RowLoad {
-  kLocal = 0,  // each CTA copies its own planes by cp.async (a variant kept for comparison)
-  kWalk = 1,   // its band of every channel, walked in memory order, into the owners' planes
-  kFlat = 2,   // the same from a band whose pixels hold their channels side by side
+  kWalk = 0,  // walked in memory order
+  kFlat = 1,  // as one flat run, where the band's pixels hold their channels side by side
 };
 
 // The band `g` of a frame at `src`, read once by the CTA's threads in the
@@ -568,7 +569,7 @@ __device__ __forceinline__ void run_cluster_refines(
 }
 
 // g_full and g_last: with kWalk the walks of a band of a full and of the
-// last round; with kLocal g_full walks one plane; kFlat needs neither.
+// last round; kFlat needs neither.
 template <int kLoad>
 __global__ void __launch_bounds__(kRowThreads, 5)
 find_peaks_row_kernel(const float* __restrict__ heat, long long sb, long long sk,
@@ -583,7 +584,7 @@ find_peaks_row_kernel(const float* __restrict__ heat, long long sb, long long sk
   const int warps = blockDim.x >> 5;
   const RowLayout ly(R, H, W, M, warps);
   float* Us = reinterpret_cast<float*>(smem);                   // (S, kRow)
-  int2* work = reinterpret_cast<int2*>(smem + ly.work);         // R * (M + 1) refines
+  int2* work = reinterpret_cast<int2*>(smem + ly.work);         // R * kCluster * (M + 1)
   float* planes = reinterpret_cast<float*>(smem + ly.planes);   // R x (H, W), stride ly.stride
   unsigned* masks = reinterpret_cast<unsigned*>(smem + ly.masks);
   float* upA = reinterpret_cast<float*>(smem + ly.scratch + (threadIdx.x >> 5) * ly.per_warp);
@@ -594,6 +595,11 @@ find_peaks_row_kernel(const float* __restrict__ heat, long long sb, long long sk
   const int rank = blockIdx.x % kCluster, b = blockIdx.x / kCluster;
   const int band = (H + kCluster - 1) / kCluster, y0 = rank * band;      // this CTA's rows
   const int slots = (K + kCluster - 1) / kCluster, mw = mask_words(H, W);
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  // the frame's work list and its counters, in the shared memory of rank 0
+  int2* f_work = cluster.map_shared_rank(work, 0);
+  int* f_n_work = cluster.map_shared_rank(&n_work, 0);
+  int* f_next = cluster.map_shared_rank(&next_work, 0);
   BLOCK_SPAN(6);
   load_u(U, Us);
 
@@ -604,32 +610,17 @@ find_peaks_row_kernel(const float* __restrict__ heat, long long sb, long long sk
     if (tid == 0) { n_work = 0; next_work = 0; }
     for (int i = tid; i < own * mw; i += blockDim.x) masks[i] = 0u;
     STAGE_STAMP(0);
-    // the frame's work list and its counters: rank 0's, or the CTA's own without a cluster
-    int2* f_work = work;
-    int *f_n_work = &n_work, *f_next = &next_work;
-    if constexpr (kLoad == kLocal) {
-      for (int j = 0; j < own; ++j)
-        popnet::cp_async_frame(planes + j * ly.stride,
-                               heat + b * sb + (c0 + rank + kCluster * j) * sk, g_full);
-      popnet::cp_async_wait_all();
-      __syncthreads();
-    } else {
-      cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-      if (s0 == 0) cluster.sync();    // every CTA of the frame runs
-      f_work = cluster.map_shared_rank(work, 0);
-      f_n_work = cluster.map_shared_rank(&n_work, 0);
-      f_next = cluster.map_shared_rank(&next_work, 0);
-      if (y0 < H) {
-        const float* base = heat + b * sb + c0 * sk + y0 * sy;
-        if constexpr (kLoad == kFlat)
-          push_flat(base, min(band, H - y0) * W * (int)sx / 4, (int)sx, nc, planes, ly.stride,
-                    y0 * W, cluster);
-        else
-          push_walk(base, s0 + R < slots ? g_full : g_last, planes, ly.stride, y0 * W, H * W,
-                    cluster);
-      }
-      cluster.sync();
+    if (s0 == 0) cluster.sync();      // every CTA of the frame runs
+    if (y0 < H) {
+      const float* base = heat + b * sb + c0 * sk + y0 * sy;
+      if constexpr (kLoad == kFlat)
+        push_flat(base, min(band, H - y0) * W * (int)sx / 4, (int)sx, nc, planes, ly.stride,
+                  y0 * W, cluster);
+      else
+        push_walk(base, s0 + R < slots ? g_full : g_last, planes, ly.stride, y0 * W, H * W,
+                  cluster);
     }
+    cluster.sync();
     STAGE_STAMP(1);
     nms_masks(planes, ly.stride, own, H, W, thresh, masks, mw);
     __syncthreads();
@@ -641,28 +632,17 @@ find_peaks_row_kernel(const float* __restrict__ heat, long long sb, long long sk
       const float* h = planes + j * ly.stride;
       unsigned* mask = masks + j * mw;
       pick_plane([&] { return pick_next_mask(h, W, mask, mw, lane); }, M,
-                 kLoad == kLocal ? j : rank << kSlotBits | j, o_base + (long long)j * kCluster * M,
-                 f_n_work, f_work, px_out, py_out, valid_out, lane);
+                 rank << kSlotBits | j, o_base + (long long)j * kCluster * M, f_n_work, f_work,
+                 px_out, py_out, valid_out, lane);
     }
+    // every warp of the frame takes refines from its list, whatever CTA owns the plane
+    cluster.sync();                   // the frame's list is complete
+    STAGE_STAMP(3);
     float u[kSize][kSize];
-    if constexpr (kLoad == kLocal) {
-      __syncthreads();
-      STAGE_STAMP(3);
-      lane_columns(Us, lane, u);
-      run_refines(planes, ly.stride, H, W, M, Us, u, upA, work, n_work, &next_work, o_base,
-                  (long long)kCluster * M, loc_out, score_out, lane);
-      __syncthreads();                // the planes, masks and work list are free
-    } else {
-      // every warp of the frame takes refines from its list, whatever CTA owns the plane
-      cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-      cluster.sync();                 // the frame's list is complete
-      STAGE_STAMP(3);
-      lane_columns(Us, lane, u);
-      run_cluster_refines(cluster, planes, ly.stride, H, W, M, Us, u, upA, patch, f_work,
-                          *f_n_work, f_next, ((long long)b * K + c0) * M, loc_out, score_out,
-                          lane);
-      cluster.sync();                 // no CTA reads another's planes or list after this
-    }
+    lane_columns(Us, lane, u);
+    run_cluster_refines(cluster, planes, ly.stride, H, W, M, Us, u, upA, patch, f_work,
+                        *f_n_work, f_next, ((long long)b * K + c0) * M, loc_out, score_out, lane);
+    cluster.sync();                   // no CTA reads another's planes or list after this
     STAGE_STAMP(4);
   }
   BLOCK_SPAN(7);
@@ -731,7 +711,7 @@ cudaError_t launch_row_kernel(const cudaLaunchConfig_t& cfg, const void* heat, l
 
 // readable: the bytes from `heat` to the end of its storage, so that the
 // flat load may read a whole pixel's run of channels at the frame's end.
-int launch_row(bool dsmem, const void* heat, long long sb, long long sk, long long sy,
+int launch_row(const void* heat, long long sb, long long sk, long long sy,
                long long sx, long long readable, int B, int K, int H, int W, int M,
                float thresh, int win, int factor, const void* U, void* px, void* py, void* loc,
                void* score, void* valid, void* stream) {
@@ -747,20 +727,13 @@ int launch_row(bool dsmem, const void* heat, long long sb, long long sk, long lo
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = dsmem ? kCluster : 1;
+  attr[0].val.clusterDim.x = kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e;
-  if (!dsmem) {
-    const int n[3] = {1, H, W}, dst[3] = {0, W, 1};
-    const long long src[3] = {0, sy, sx};
-    const popnet::Dims3 g =
-        popnet::memory_order(n, src, dst, heat, sb, sk % 4 == 0 ? 4 : sk % 2 == 0 ? 2 : 1);
-    e = launch_row_kernel<kLocal>(cfg, heat, sb, sk, sy, sx, g, g, K, H, W, M, R, thresh, U, px,
-                                  py, loc, score, valid);
-  } else if (sk == 1 && sx % 4 == 0 && sx >= K && sy == W * sx && rounds == 1 && sb % 4 == 0 &&
+  if (sk == 1 && sx % 4 == 0 && sx >= K && sy == W * sx && rounds == 1 && sb % 4 == 0 &&
              reinterpret_cast<unsigned long long>(heat) % 16 == 0 &&
              ((long long)(B - 1) * sb + (long long)H * W * sx) * 4 <= readable) {
     const popnet::Dims3 g = {};
@@ -849,17 +822,6 @@ extern "C" int popnet_find_peaks_row(const void* heat, long long sb, long long s
                                      int K, int H, int W, int M, float thresh, int win,
                                      int factor, const void* U, void* px, void* py, void* loc,
                                      void* score, void* valid, void* stream) {
-  return launch_row(true, heat, sb, sk, sy, sx, readable, B, K, H, W, M, thresh, win, factor,
-                    U, px, py, loc, score, valid, stream);
-}
-
-// The variant without distributed shared memory, for comparison only.
-extern "C" int popnet_find_peaks_row_nodsmem(const void* heat, long long sb, long long sk,
-                                             long long sy, long long sx, long long readable,
-                                             int B, int K, int H, int W, int M, float thresh,
-                                             int win, int factor, const void* U, void* px,
-                                             void* py, void* loc, void* score, void* valid,
-                                             void* stream) {
-  return launch_row(false, heat, sb, sk, sy, sx, readable, B, K, H, W, M, thresh, win, factor,
-                    U, px, py, loc, score, valid, stream);
+  return launch_row(heat, sb, sk, sy, sx, readable, B, K, H, W, M, thresh, win, factor, U, px,
+                    py, loc, score, valid, stream);
 }

@@ -51,7 +51,6 @@ _FIND_PEAKS_ROW_ARGS = _FIND_PEAKS_ARGS[:5] + [_LL] + _FIND_PEAKS_ARGS[5:]  # + 
 _SIGNATURES = {
     "popnet_find_peaks": ("find_peaks", _FIND_PEAKS_ARGS),
     "popnet_find_peaks_row": ("find_peaks", _FIND_PEAKS_ROW_ARGS),
-    "popnet_find_peaks_row_nodsmem": ("find_peaks", _FIND_PEAKS_ROW_ARGS),
     "popnet_paf_score": ("paf_score", [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _F, _F, _F, _P, _P, _P]),
     "popnet_window_readout": ("readout", [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL,
