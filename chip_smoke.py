@@ -69,11 +69,16 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "examples", "results", "bench_weights_openpose.npz")
 WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet.npz")
+WEIGHTS_YOLO = os.path.join(ROOT, "examples", "results", "bench_weights_yolo.npz")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores (data sheet)
 SMEM_ROUND_TRIP_CYCLES = 30  # one dependent shared-memory load, about, on sm_90
 BATCH = 256                 # the serving batch of bench.py's Open-Pose+ row
 TIMED_BATCHES = 10          # batches in each timed serve_stream window
+MAX_CROPS = 4               # A2J crops a frame, as bench.py's Yolo->A2J row
+A2J_SEED = 0                # the seeded A2J init (no A2J weights are committed)
+A2J_HOST_FRAMES = 16        # frames whose crops' A2J vote is also run on the host
+A2J_HOST_CNN_CROPS = 2      # crops whose A2J heads are also computed on the host
 
 # name: (source, the TPU kernel it replaces)
 KERNEL_META = {
@@ -716,11 +721,10 @@ def phase_slice(rng, dev, B, weights):
                 "kernel and plain decode disagree on counts")
         require(np.array_equal(dk["counts"].cpu().numpy(), counts), "pipeline counts differ")
         require(torch.equal(dk["visibility"].cpu(), dp["visibility"]), "visibility differs")
-        e2 = _maxerr(dk["joints2d"].cpu(), dp["joints2d"])
-        e3 = _maxerr(dk["joints3d"].cpu(), dp["joints3d"])
-        say("openpose", f"kernel decode vs plain decode (host) on the same maps: counts and "
-            f"visibility exact, joints2d max|err| {e2:.3g} px, joints3d {e3:.3g} m (bar 1e-4)")
-        require(e2 <= 1e-4 and e3 <= 1e-4, "kernel and plain decode joints differ")
+        for k in ("joints2d", "joints3d", "joints3d_raw"):
+            _exact(f"Open-Pose+ decode {k}, card against host", dk[k], dp[k])
+        say("openpose", "kernel decode vs plain decode (host) on the same maps: counts, "
+            "visibility, joints2d, joints3d and joints3d_raw bit for bit")
 
         # the assembly kernel on this batch's candidates (decoded synthetic scenes)
         pk1, v1 = find_peaks_batched(heat_n)
@@ -789,12 +793,124 @@ def phase_popnet_slice(rng, dev, B, weights):
         dp = popnet_decode(*[t.cpu() for t in nhwc])
     require(torch.equal(dk["valid"].cpu(), dp["valid"]), "kernel and plain decode disagree on valid")
     require(np.array_equal(dk["valid"].cpu().numpy(), out["counts"] > 0), "pipeline valid differs")
-    e2 = _maxerr(dk["joints2d"].cpu(), dp["joints2d"])
-    e3 = _maxerr(dk["joints3d"].cpu(), dp["joints3d"])
-    say("popnet", f"kernel decode vs plain decode (host) on the same maps: valid exact, "
-        f"joints2d max|err| {e2:.3g} px, joints3d {e3:.3g} m (bar 1e-4)")
-    require(e2 <= 1e-4 and e3 <= 1e-4, "kernel and plain decode joints differ")
+    for k in ("joints2d", "joints3d"):
+        _exact(f"PoP-Net decode {k}, card against host", dk[k], dp[k])
+    say("popnet", "kernel decode vs plain decode (host) on the same maps: valid, joints2d and "
+        "joints3d bit for bit")
     return frames, launches, out
+
+
+def phase_yolo_slice(rng, dev, B, weights):
+    """The float32 Yolo-Pose+ slice on B frames over the background; returns
+    the frames, the path's launch counts and its unpacked output."""
+    import torch
+
+    from popnet_tpu_torch import build_yolo_pipeline
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import YoloPoseNet
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.serving import preproc_depth, unpack_outputs, yolo_decode
+
+    torch.backends.cudnn.allow_tf32 = False
+    frames = person_frames(rng, B, dev, background=True)
+    pipe = build_yolo_pipeline(weights, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    buf = pipe(frames)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say("yolo", f"main-path launches per kernel: {launches} (no hand kernel is on this path)")
+    require(buf.shape == (B, 16 * 15 * 6 + 16), f"packed buffer shape {tuple(buf.shape)}")
+    require(bool(torch.isfinite(buf).all()), "non-finite values in the packed output")
+    out = unpack_outputs(buf.cpu().numpy(), 16, 15)
+    people = (out["counts"] > 0).sum(axis=1)
+    found = float((people > 0).mean())
+    say("yolo", f"B={B}: people valid on {found:.1%} of frames, people-per-frame histogram "
+        f"{np.bincount(people, minlength=4).tolist()}")
+    require(found >= 0.5, "people valid on fewer than half of the frames")
+
+    model = load_into(YoloPoseNet(), weights).eval().to(dev)
+    with torch.inference_mode():
+        prior = model(preproc_depth(frames).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        dk, dp = yolo_decode(prior), yolo_decode(prior.cpu())
+    for k in ("valid", "dets", "joints2d", "joints3d", "conf"):
+        _exact(f"Yolo-Pose+ decode {k}, card against host", dk[k], dp[k])
+    require(np.array_equal(dk["valid"].cpu().numpy(), out["counts"] > 0), "pipeline valid differs")
+    say("yolo", "card decode vs host decode on the same prior maps: valid, dets, joints2d, "
+        "joints3d and conf bit for bit")
+    return frames, launches, out
+
+
+def phase_a2j_slice(frames, dev, weights, yolo_out):
+    """The float32 Yolo->A2J slice on the Yolo slice's frames, max_crops
+    boxes a frame, A2J from its seeded init: the path's launch counts, its
+    crops against the host's from the same boxes (bit for bit, every crop),
+    its A2J heads against the host's on a few crops, its vote against the
+    host's on the crops of the first A2J_HOST_FRAMES frames, and its flags
+    against the detector's. Returns the launch counts and the output."""
+    import torch
+
+    from popnet_tpu_torch import build_yolo_a2j_pipeline
+    from popnet_tpu_torch.data.a2j_crops import CROP, crop_resize_batch
+    from popnet_tpu_torch.decode.a2j import a2j_post_process
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import A2J, YoloPoseNet
+    from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.serving import a2j_boxes, preproc_depth, unpack_outputs, yolo_decode
+
+    torch.backends.cudnn.allow_tf32 = False
+    B, C = frames.shape[0], MAX_CROPS
+    pipe = build_yolo_a2j_pipeline(weights, dtype=torch.float32, device="cuda", max_crops=C,
+                                   seed=A2J_SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    buf = pipe(frames)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say("a2j", f"main-path launches per kernel: {launches} (no hand kernel is on this path)")
+    require(buf.shape == (B, C * 15 * 6 + C), f"packed buffer shape {tuple(buf.shape)}")
+    require(bool(torch.isfinite(buf).all()), "non-finite values in the packed output")
+    out = unpack_outputs(buf.cpu().numpy(), C, 15)
+    require(np.array_equal(out["counts"], yolo_out["counts"][:, :C]),
+            "A2J valid differs from the detector's first max_crops flags")
+    require(np.array_equal(out["conf"], np.broadcast_to(out["counts"][..., None], out["conf"].shape)),
+            "A2J conf differs from valid")
+    say("a2j", f"B={B}, {C} crops a frame: valid equals the detector's first {C} flags on every "
+        f"frame ({int(out['counts'].sum())} of {B * C} slots), conf equals valid, all finite")
+
+    yolo = load_into(YoloPoseNet(), weights).eval().to(dev)
+    a2j = A2J().init_seeded(A2J_SEED).eval().to(dev)
+    anchors = torch.as_tensor(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()),
+                              dtype=torch.float32, device=dev)
+    n_host = A2J_HOST_FRAMES * C
+    with torch.inference_mode():
+        det = yolo_decode(yolo(preproc_depth(frames).permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+        boxes = a2j_boxes(det["dets"], C)
+        idx = torch.arange(B, device=dev).repeat_interleave(C)
+        crops = crop_resize_batch(frames, idx, boxes, 3.0, 2.0)
+        _exact("A2J crops, card against host", crops,
+               crop_resize_batch(frames.cpu(), idx.cpu(), boxes.cpu(), 3.0, 2.0))
+        heads = a2j(crops[:, None])
+        host_heads = A2J().init_seeded(A2J_SEED).eval()(crops[:A2J_HOST_CNN_CROPS, None].cpu())
+        for name, h, r in zip(("classification", "regression", "depth"), heads, host_heads):
+            err = _maxerr(h[:A2J_HOST_CNN_CROPS].cpu(), r)
+            scale = float(r.abs().max())
+            say("a2j", f"A2J {name} head, card (cuDNN, no TF32) vs host on "
+                f"{A2J_HOST_CNN_CROPS} crops: max|err| {err:.4g} of max|value| {scale:.4g} "
+                f"(bar 1e-4 of it)")
+            require(err <= 1e-4 * scale, f"A2J {name} head differs between card and host")
+        kp = a2j_post_process(heads, anchors)[:n_host].cpu()
+        kp_host = a2j_post_process([h[:n_host].cpu() for h in heads], anchors.cpu())
+    for name, sl in (("(y, x)", slice(0, 2)), ("z", slice(2, 3))):
+        err = _maxerr(kp[..., sl], kp_host[..., sl])
+        bar = 2.0 ** -18 * float(kp_host[..., sl].abs().max())
+        say("a2j", f"A2J vote {name}, card vs host on the crops of frames 0-"
+            f"{A2J_HOST_FRAMES - 1} ({n_host} crops): max|err| {err:.4g} (bar {bar:.4g}: 64 "
+            f"float32 ulps of the largest magnitude; the softmax and the sums over "
+            f"{anchors.shape[0]} anchors run in another order on the card)")
+        require(err <= bar, f"A2J vote {name} differs between card and host")
+    return launches, out
 
 
 def _refine_ops(px, py, H: int, W: int, size: int = 5, factor: int = 8):
@@ -1176,6 +1292,105 @@ def phase_popnet_timing(frames, weights, dev, iters: int, errs, launches, f32_ou
     return rows
 
 
+def phase_yolo_timing(frames, weights, dev, iters: int, f32_out) -> None:
+    """Yolo-Pose+: the timed bf16+q16 stream, and the CNN and decode times."""
+    import torch
+
+    from popnet_tpu_torch import build_yolo_pipeline
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import YoloPoseNet
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+    from popnet_tpu_torch.serving import preproc_depth, unpack_outputs_q16, yolo_decode
+
+    pipe = build_yolo_pipeline(weights, pack="q16")          # bf16 CNN, the default
+    time_stream("Yolo-Pose+", pipe, frames, iters,
+                lambda buf: check_bf16("Yolo-Pose+", unpack_outputs_q16(buf, 16, 15), f32_out))
+    model = keep_batchnorm_float32(load_into(YoloPoseNet(), weights).eval().to(dev, torch.bfloat16))
+    with torch.inference_mode():
+        xb = preproc_depth(frames).permute(0, 3, 1, 2).to(torch.bfloat16)
+        cnn_ms = time_ms(lambda: model(xb), reps=10)
+        prior = model(xb).float().permute(0, 2, 3, 1)
+        decode_ms = time_ms(lambda: yolo_decode(prior), reps=10)
+    say("timing", f"Yolo-Pose+ CNN bf16 {cnn_ms:.3f} ms/batch; decode (eager) "
+        f"{decode_ms:.3f} ms/batch")
+
+
+def conv_flops(model, x) -> float:
+    """Operations of the convolutions of one model(x) call, 2 per
+    multiply-add, counted from each conv's output shape."""
+    import torch
+
+    total = [0.0]
+
+    def hook(m, _, out):
+        kh, kw = m.kernel_size
+        total[0] += 2.0 * out.numel() * (m.in_channels // m.groups) * kh * kw
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_a2j_timing(frames, weights, dev, iters: int, f32_out) -> None:
+    """Yolo->A2J: the timed bf16+q16 stream, and the times of its stages:
+    the detector (CNN and decode), the crop, the A2J CNN and the vote."""
+    import torch
+
+    from popnet_tpu_torch import build_yolo_a2j_pipeline
+    from popnet_tpu_torch.data.a2j_crops import CROP, crop_resize_batch
+    from popnet_tpu_torch.decode.a2j import a2j_post_process
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import A2J, YoloPoseNet
+    from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+    from popnet_tpu_torch.serving import a2j_boxes, preproc_depth, unpack_outputs_q16, yolo_decode
+
+    B, C = frames.shape[0], MAX_CROPS
+    pipe = build_yolo_a2j_pipeline(weights, pack="q16", max_crops=C, seed=A2J_SEED)
+    time_stream("Yolo->A2J", pipe, frames, iters,
+                lambda buf: check_a2j_bf16(unpack_outputs_q16(buf, C, 15), f32_out))
+    bf16 = torch.bfloat16
+    yolo = keep_batchnorm_float32(load_into(YoloPoseNet(), weights).eval().to(dev, bf16))
+    a2j = keep_batchnorm_float32(A2J().init_seeded(A2J_SEED).eval().to(dev, bf16))
+    anchors = torch.as_tensor(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()),
+                              dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        xb = preproc_depth(frames).permute(0, 3, 1, 2).to(bf16)
+        det_ms = time_ms(lambda: yolo_decode(yolo(xb).float().permute(0, 2, 3, 1)), reps=10)
+        boxes = a2j_boxes(yolo_decode(yolo(xb).float().permute(0, 2, 3, 1))["dets"], C)
+        idx = torch.arange(B, device=dev).repeat_interleave(C)
+        crop_ms = time_ms(lambda: crop_resize_batch(frames, idx, boxes, 3.0, 2.0), reps=10)
+        cb = crop_resize_batch(frames, idx, boxes, 3.0, 2.0)[:, None].to(bf16)
+        cnn_ms = time_ms(lambda: a2j(cb), reps=5)
+        flops = conv_flops(a2j, cb[:1]) * cb.shape[0]
+        heads = [h.float() for h in a2j(cb)]
+        vote_ms = time_ms(lambda: a2j_post_process(heads, anchors), reps=10)
+    say("timing", f"Yolo->A2J per batch of {B} frames, {B * C} crops: detector (bf16 CNN and "
+        f"decode) {det_ms:.3f} ms; crop {crop_ms:.3f} ms; A2J CNN bf16 {cnn_ms:.3f} ms "
+        f"({flops / (B * C) / 1e9:.2f} GFLOP a crop in its convolutions, {flops / 1e12:.2f} "
+        f"TFLOP a batch: {flops / cnn_ms / 1e9:.1f} TFLOP/s); vote {vote_ms:.3f} ms")
+
+
+def check_a2j_bf16(q16: dict, f32: dict) -> None:
+    """The timed Yolo->A2J configuration against the float32 slice on the
+    same frames: the flags are the detector's, so people per frame equal on
+    at least 80% of the frames and people in all within 10% (as
+    check_bf16); every value finite. The joints come from an A2J init and
+    are not compared."""
+    cq, cf = (o["counts"].astype(int).sum(axis=1) for o in (q16, f32))
+    same = float((cq == cf).mean())
+    say("timing", f"Yolo->A2J bf16+q16 vs f32 on the same {len(cf)} frames: people per frame "
+        f"equal on {same:.1%} (bar 80%), people {cq.sum()} vs {cf.sum()}")
+    require(bool(np.isfinite(q16["joints3d"]).all()), "non-finite values in the q16 output")
+    require(same >= 0.80, "bf16 and f32 person counts differ on more than 20% of frames")
+    require(abs(int(cq.sum()) - int(cf.sum())) <= 0.10 * cf.sum(), "bf16 people differ by over 10%")
+
+
 def check_bf16(tag: str, q16: dict, f32: dict) -> None:
     """The timed configuration (bf16 CNN, q16 wire) against the float32
     slice on the same frames: people per frame equal on at least 80% of the
@@ -1226,10 +1441,16 @@ def main(argv=None) -> int:
     weights, weights_pn = load_npz(WEIGHTS), load_npz(WEIGHTS_POPNET)
     frames, launches, f32_out = phase_slice(rng, dev, BATCH, weights)
     frames_pn, launches_pn, f32_out_pn = phase_popnet_slice(rng_new, dev, BATCH, weights_pn)
+    weights_yolo = load_npz(WEIGHTS_YOLO)
+    rng_yolo = np.random.default_rng([args.seed, 5])  # the Yolo-Pose+ and Yolo->A2J frames
+    frames_y, _, f32_out_y = phase_yolo_slice(rng_yolo, dev, BATCH, weights_yolo)
+    _, f32_out_a2j = phase_a2j_slice(frames_y, dev, weights_yolo, f32_out_y)
     rows = phase_timing(frames, weights, dev, BATCH, TIMED_BATCHES, errs, launches, f32_out,
                         sm_clock_mhz)
     rows += phase_popnet_timing(frames_pn, weights_pn, dev, TIMED_BATCHES, errs, launches_pn,
                                 f32_out_pn)
+    phase_yolo_timing(frames_y, weights_yolo, dev, TIMED_BATCHES, f32_out_y)
+    phase_a2j_timing(frames_y, weights_yolo, dev, TIMED_BATCHES, f32_out_a2j)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")
     require(all(r["launches"] >= 1 for r in rows), "a kernel was launched on no path")
     print(json.dumps({"kernels": rows}))

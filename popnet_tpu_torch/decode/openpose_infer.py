@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics
+from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics, back_project
 from popnet_tpu_torch.core.config import KDH3D_DEPTH, DecodeConfig, DepthStats, EncoderConfig
 from popnet_tpu_torch.core.skeleton import LIMBS
 from popnet_tpu_torch.decode.assemble_device import assemble_batched
@@ -84,13 +84,10 @@ def openpose_decode(heat: torch.Tensor, paf: torch.Tensor, zmap: torch.Tensor,
     x2 = torch.where(vis, x_up * sx, x_up)
     y2 = torch.where(vis, y_up * sy, y_up)
 
-    def backproj(z):
-        return torch.stack([(x2 - cam.cx) / cam.fx * z, (y2 - cam.cy) / cam.fy * z, z], dim=-1)
-
     return {
         "joints2d": torch.stack([x2, y2], dim=-1),
-        "joints3d": backproj(z_pose),
-        "joints3d_raw": backproj(z_raw),
+        "joints3d": back_project(x2, y2, z_pose, cam),
+        "joints3d_raw": back_project(x2, y2, z_raw, cam),
         "conf": conf,
         "visibility": vis.to(torch.int32),
         "counts": counts,

@@ -18,8 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics
+from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics, back_project
 from popnet_tpu_torch.core.config import KDH3D_DEPTH, DecodeConfig, DepthStats, EncoderConfig
+from popnet_tpu_torch.core.numerics import div_const
 from popnet_tpu_torch.decode.prior import decode_prior_maps, stable_top_k
 from popnet_tpu_torch.ops import kernels
 
@@ -128,8 +129,8 @@ def popnet_decode(heat: torch.Tensor, zmap: torch.Tensor, align: torch.Tensor,
 
         # where local heat evidence is weak, keep the prior's prediction
         use_align = heat_at > dcfg.thresh_heatmap
-        out_x = torch.where(use_align, ref_x / Wg, jx) * w_out
-        out_y = torch.where(use_align, ref_y / Hg, jy) * h_out
+        out_x = torch.where(use_align, div_const(ref_x, Wg), jx) * w_out
+        out_y = torch.where(use_align, div_const(ref_y, Hg), jy) * h_out
         out_z = torch.where(use_align, z, jz_prior)
     else:
         px, py, pk_valid = _int_peaks_batched(heat_k, ht_thresh, dcfg.max_peaks)  # (B, K, N)
@@ -162,17 +163,15 @@ def popnet_decode(heat: torch.Tensor, zmap: torch.Tensor, align: torch.Tensor,
         zwin2 = window(zmap, gyw2, gxw2)
         z = (_sum_last(zwin2 * hwin2) / _sum_last(hwin2)) * depth.std + depth.mean
 
-        out_x = ref_x / Wg * w_out
-        out_y = ref_y / Hg * h_out
+        out_x = div_const(ref_x, Wg) * w_out
+        out_y = div_const(ref_y, Hg) * h_out
         out_z = z
 
-    X = (out_x - cam.cx) / cam.fx * out_z
-    Y = (out_y - cam.cy) / cam.fy * out_z
     scale = torch.tensor([w_out, h_out, w_out, h_out, 1.0], device=dev)
     return {
         "boxes": dets[..., :5] * scale,
         "joints2d": torch.stack([out_x, out_y], dim=-1),
-        "joints3d": torch.stack([X, Y, out_z], dim=-1),
+        "joints3d": back_project(out_x, out_y, out_z, cam),
         "conf": heat_at,
         "valid": valid,
     }

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from popnet_tpu_torch.core.config import DepthStats
+from popnet_tpu_torch.core.numerics import div_const, mul_add
 
 
 def stable_top_k(score: torch.Tensor, k: int):
@@ -37,9 +38,9 @@ def decode_prior_maps(prior: torch.Tensor, anchors: torch.Tensor, depth_mean: fl
     dets rows are [cx, cy, w, h, conf, K*x, K*y, K*z(, K*vis)] with box and
     joint (x, y) normalized by the prior grid, z in meters; rows are sorted
     by descending confidence (the earlier candidate first among equals) and
-    NMS-filtered. The grid sizes divide as tensors: a tensor divided by a
-    Python number is multiplied by its reciprocal on the card, and would
-    round differently there."""
+    NMS-filtered. The grid sizes divide, and the joint offsets multiply and
+    add, as the JAX package's compiled decode rounds them (`core.numerics`),
+    on the CPU and on the card alike."""
     b, h, w, _ = prior.shape
     a = anchors.shape[0]
     naf = prior.shape[-1] // a
@@ -51,17 +52,14 @@ def decode_prior_maps(prior: torch.Tensor, anchors: torch.Tensor, depth_mean: fl
     gy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None, None]
     aw = anchors[:, 0].float()[None, None, None, :]
     ah = anchors[:, 1].float()[None, None, None, :]
-    wt = torch.full((), float(w), device=dev)
-    ht = torch.full((), float(h), device=dev)
-    two = torch.full((), 2.0, device=dev)
 
-    cx = (p[..., 0] + gx) / wt
-    cy = (p[..., 1] + gy) / ht
-    bw = p[..., 2] * aw / wt
-    bh = p[..., 3] * ah / ht
+    cx = div_const(p[..., 0] + gx, w)
+    cy = div_const(p[..., 1] + gy, h)
+    bw = div_const(p[..., 2] * aw, w)
+    bh = div_const(p[..., 3] * ah, h)
     conf = p[..., 4]
-    jx = (p[..., 5:5 + K] * (aw[..., None] / two) + gx[..., None]) / wt
-    jy = (p[..., 5 + K:5 + 2 * K] * (ah[..., None] / two) + gy[..., None]) / ht
+    jx = div_const(mul_add(p[..., 5:5 + K], aw[..., None] * 0.5, gx[..., None]), w)
+    jy = div_const(mul_add(p[..., 5 + K:5 + 2 * K], ah[..., None] * 0.5, gy[..., None]), h)
     jz = p[..., 5 + 2 * K:5 + 3 * K] * depth_std + depth_mean
 
     fields = [cx[..., None], cy[..., None], bw[..., None], bh[..., None], conf[..., None],
@@ -78,10 +76,10 @@ def decode_prior_maps(prior: torch.Tensor, anchors: torch.Tensor, depth_mean: fl
 
     # triangular IoU conflicts, then a sequential suppression that never
     # visits candidate 0 nor the last candidate
-    x1 = dets[..., 0] - dets[..., 2] / two
-    y1 = dets[..., 1] - dets[..., 3] / two
-    x2 = dets[..., 0] + dets[..., 2] / two
-    y2 = dets[..., 1] + dets[..., 3] / two
+    x1 = dets[..., 0] - dets[..., 2] * 0.5
+    y1 = dets[..., 1] - dets[..., 3] * 0.5
+    x2 = dets[..., 0] + dets[..., 2] * 0.5
+    y2 = dets[..., 1] + dets[..., 3] * 0.5
     dx = (torch.minimum(x2[:, :, None], x2[:, None, :])
           - torch.maximum(x1[:, :, None], x1[:, None, :])).clamp(min=0.0)
     dy = (torch.minimum(y2[:, :, None], y2[:, None, :])

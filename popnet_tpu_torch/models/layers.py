@@ -61,17 +61,18 @@ class CPMBranch(nn.Module):
 
 class BasicBlock(nn.Module):
     """torchvision-style residual block; no conv has a bias. The 1x1
-    projection exists only when the channel count changes."""
+    projection exists only when the stride or the channel count changes;
+    the stride-2 3x3 conv pads (1, 1), torch-symmetric."""
 
-    def __init__(self, in_ch: int, features: int):
+    def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, features, 3, padding=1, bias=False)
+        self.Conv_0 = nn.Conv2d(in_ch, features, 3, stride=stride, padding=1, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
         self.Conv_1 = nn.Conv2d(features, features, 3, padding=1, bias=False)
         self.BatchNorm_1 = nn.BatchNorm2d(features, eps=1e-5)
-        self.project = in_ch != features
+        self.project = stride != 1 or in_ch != features
         if self.project:
-            self.Conv_2 = nn.Conv2d(in_ch, features, 1, bias=False)
+            self.Conv_2 = nn.Conv2d(in_ch, features, 1, stride=stride, bias=False)
             self.BatchNorm_2 = nn.BatchNorm2d(features, eps=1e-5)
 
     def forward(self, x):
@@ -84,6 +85,11 @@ class BasicBlock(nn.Module):
 def avg_pool_3x3_s2(x):
     """3x3 stride-2 average pool, pad 1, zero padding counted."""
     return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+
+
+def max_pool_3x3_s2(x):
+    """3x3 stride-2 max pool, pad 1 (padding never wins the max)."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)
 
 
 def max_pool_2x2(x):
@@ -112,6 +118,26 @@ class ResPreprocessStem(nn.Module):
         x = self.BasicBlock_2(avg_pool_3x3_s2(x))
         x = F.relu(self.BatchNorm_1(self.Conv_1(x)))
         return avg_pool_3x3_s2(x)
+
+
+class ResNet34Stem(nn.Module):
+    """ResNet-34 layer1-2: 7x7/2 conv -> 3x3/2 max pool -> BasicBlock x3
+    @64 -> BasicBlock/2 and x3 @128: stride 8, 128 channels."""
+
+    def __init__(self, in_ch: int = 1):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_ch, 64, 7, stride=2, padding=3, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm2d(64, eps=1e-5)
+        chans = [(64, 64, 1)] * 3 + [(64, 128, 2)] + [(128, 128, 1)] * 3
+        for n, (cin, cout, stride) in enumerate(chans):
+            self.add_module(f"BasicBlock_{n}", BasicBlock(cin, cout, stride))
+        self.n_blocks = len(chans)
+
+    def forward(self, x):
+        x = max_pool_3x3_s2(F.relu(self.BatchNorm_0(self.Conv_0(x))))
+        for n in range(self.n_blocks):
+            x = getattr(self, f"BasicBlock_{n}")(x)
+        return x
 
 
 def keep_batchnorm_float32(module: nn.Module) -> nn.Module:

@@ -1,11 +1,11 @@
-"""Open-Pose+ and PoP-Net serving: raw depth frames -> packed 3D human
-tensors.
+"""Depth serving: raw depth frames -> packed 3D human tensors.
 
-`build_openpose_pipeline` and `build_popnet_pipeline` return a callable
-that takes a (B, H, W) batch of raw depth in metres and returns ONE packed
-buffer per batch on the device (f32, or the uint16 fixed-point wire
-format), so a batch leaves the card in one copy. `serve_stream` keeps a few
-batches in flight; the copy to the host is its synchronization point.
+`build_openpose_pipeline`, `build_popnet_pipeline`, `build_yolo_pipeline`
+and `build_yolo_a2j_pipeline` return a callable that takes a (B, H, W)
+batch of raw depth in metres and returns ONE packed buffer per batch on the
+device (f32, or the uint16 fixed-point wire format), so a batch leaves the
+card in one copy. `serve_stream` keeps a few batches in flight; the copy to
+the host is its synchronization point.
 """
 
 from __future__ import annotations
@@ -15,8 +15,11 @@ from collections import deque
 import numpy as np
 import torch
 
-from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics
-from popnet_tpu_torch.core.config import KDH3D_DEPTH, DepthStats
+from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics, back_project
+from popnet_tpu_torch.core.config import KDH3D_DEPTH, DecodeConfig, DepthStats, EncoderConfig
+from popnet_tpu_torch.core.numerics import div_const
+from popnet_tpu_torch.data.a2j_crops import CROP, crop_resize_batch
+from popnet_tpu_torch.decode.prior import decode_prior_maps
 from popnet_tpu_torch.ops.resize import resize_bilinear_cv2
 
 
@@ -181,6 +184,147 @@ def build_popnet_pipeline(weights: dict[str, np.ndarray],
             return pack_outputs_q16(out["joints2d"], out["joints3d"][..., 2],
                                     out["conf"], out["valid"])
         return pack_outputs(out["joints2d"], out["joints3d"], out["conf"], out["valid"])
+
+    return pipeline
+
+
+def yolo_decode(prior: torch.Tensor, ecfg: EncoderConfig = EncoderConfig(),
+                dcfg: DecodeConfig = DecodeConfig(), depth: DepthStats = KDH3D_DEPTH,
+                cam: CameraIntrinsics = KDH3D_INTRINSICS, w_out: float = 480.0,
+                h_out: float = 512.0) -> dict[str, torch.Tensor]:
+    """Yolo-Pose+ decode of float32 prior maps (B, Hp, Wp, A*(5+3K)):
+    the prior decode and NMS, then joints scaled to (w_out, h_out) pixels
+    and back-projected. Returns dets (B, M, 5+3K) as `decode_prior_maps`
+    gives them, valid (B, M), joints2d (B, M, K, 2), joints3d (B, M, K, 3),
+    conf (B, M, K): the row's confidence where valid, else 0."""
+    K = ecfg.num_joints
+    anchors = torch.tensor(ecfg.anchors, dtype=torch.float32, device=prior.device)
+    dets, valid = decode_prior_maps(
+        prior, anchors, depth.mean, depth.std, num_joints=K,
+        conf_threshold=dcfg.conf_threshold, nms_threshold=dcfg.nms_threshold,
+        max_det=dcfg.max_people)
+    jx = dets[..., 5:5 + K] * w_out
+    jy = dets[..., 5 + K:5 + 2 * K] * h_out
+    jz = dets[..., 5 + 2 * K:5 + 3 * K]
+    return {
+        "dets": dets,
+        "valid": valid,
+        "joints2d": torch.stack([jx, jy], dim=-1),
+        "joints3d": back_project(jx, jy, jz, cam),
+        "conf": dets[..., 4:5].expand_as(jz) * valid[..., None],
+    }
+
+
+def build_yolo_pipeline(weights: dict[str, np.ndarray],
+                        dtype: torch.dtype = torch.bfloat16,
+                        device: str | torch.device = "cuda", pack: str = "f32"):
+    """Yolo-Pose+ serving fn: (B, H, W) raw depth -> (B, L) packed buffer of
+    (joints2d, joints3d, conf, valid), or the q16 wire of (joints2d, z,
+    conf, valid); `unpack_outputs` / `unpack_outputs_q16` read both.
+
+    weights: YoloPoseNet's Flax variables as {'/'-joined path: array}
+    (`interop.load_npz`). The CNN runs in `dtype` with float32 BatchNorm;
+    the decode (`yolo_decode`) runs in float32. The committed weights
+    expect people over a depth background: on an empty one they find none."""
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import YoloPoseNet
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+
+    device = _check_build_args(device, pack)
+    model = load_into(YoloPoseNet(), weights).eval().to(device=device, dtype=dtype)
+    keep_batchnorm_float32(model)
+
+    @torch.inference_mode()
+    def pipeline(raw_depth) -> torch.Tensor:
+        raw_depth = torch.as_tensor(raw_depth, device=device)
+        x = preproc_depth(raw_depth)                                      # (B, 224, 224, 1)
+        prior = model(x.permute(0, 3, 1, 2).to(dtype)).float().permute(0, 2, 3, 1)
+        out = yolo_decode(prior)
+        if pack == "q16":
+            return pack_outputs_q16(out["joints2d"], out["joints3d"][..., 2],
+                                    out["conf"], out["valid"])
+        return pack_outputs(out["joints2d"], out["joints3d"], out["conf"], out["valid"])
+
+    return pipeline
+
+
+def a2j_boxes(dets: torch.Tensor, max_crops: int, w_out: float = 480.0,
+              h_out: float = 512.0) -> torch.Tensor:
+    """The first `max_crops` (the most confident) detection rows of
+    (B, M, >=4) -> (B * max_crops, 4) [xmin, ymin, xmax, ymax] boxes in
+    (w_out, h_out) pixels."""
+    d = dets[:, :max_crops]
+    cx, cy = d[..., 0] * w_out, d[..., 1] * h_out
+    bw, bh = d[..., 2] * w_out, d[..., 3] * h_out
+    boxes = torch.stack([cx - bw * 0.5, cy - bh * 0.5, cx + bw * 0.5, cy + bh * 0.5], dim=-1)
+    return boxes.reshape(-1, 4)
+
+
+def a2j_uncrop(kp: torch.Tensor, boxes: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Keypoints (N, K, 3) as (y, x, z) in the CROP x CROP crops of `boxes`
+    (N, 4) -> image-space (x, y, z), each (N, K)."""
+    bx0, by0 = boxes[:, 0:1], boxes[:, 1:2]
+    jx = div_const(kp[..., 1], CROP) * (boxes[:, 2:3] - bx0) + bx0
+    jy = div_const(kp[..., 0], CROP) * (boxes[:, 3:4] - by0) + by0
+    return jx, jy, kp[..., 2]
+
+
+def build_yolo_a2j_pipeline(yolo_weights: dict[str, np.ndarray],
+                            a2j_weights: dict[str, np.ndarray] | None = None,
+                            dtype: torch.dtype = torch.bfloat16,
+                            device: str | torch.device = "cuda", pack: str = "f32",
+                            max_crops: int = 4, seed: int = 0):
+    """Two-stage Yolo->A2J serving fn: (B, H, W) raw depth -> (B, L) packed
+    buffer with `max_crops` rows a frame: (joints2d, joints3d, conf, valid),
+    or the q16 wire; `unpack_outputs(buf, max_crops, K)` reads it.
+
+    The Yolo-Pose+ detector and its decode, the `max_crops` most confident
+    boxes a frame, one nearest-neighbour gather of (B * max_crops, 288, 288)
+    normalized crops, A2J and its anchor vote, then the keypoints uncropped
+    to image pixels and back-projected. Empty slots ride along masked
+    (valid 0, conf 0).
+
+    yolo_weights / a2j_weights: Flax variables as {'/'-joined path: array}.
+    Without `a2j_weights`, A2J is initialised from a `torch.Generator`
+    seeded with `seed` (`A2J.init_seeded`); those values differ from the
+    JAX builder's Flax init at PRNGKey(0). Both CNNs run in `dtype` with
+    float32 BatchNorm; crops, decode and vote run in float32."""
+    from popnet_tpu_torch.decode.a2j import a2j_post_process
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import A2J, YoloPoseNet
+    from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+
+    device = _check_build_args(device, pack)
+    yolo = load_into(YoloPoseNet(), yolo_weights).eval().to(device=device, dtype=dtype)
+    a2j = A2J().init_seeded(seed) if a2j_weights is None else load_into(A2J(), a2j_weights)
+    a2j = a2j.eval().to(device=device, dtype=dtype)
+    keep_batchnorm_float32(yolo)
+    keep_batchnorm_float32(a2j)
+    all_anchors = torch.as_tensor(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()),
+                                  dtype=torch.float32, device=device)
+    C = max_crops
+
+    @torch.inference_mode()
+    def pipeline(raw_depth) -> torch.Tensor:
+        raw_depth = torch.as_tensor(raw_depth, device=device)
+        B = raw_depth.shape[0]
+        x = preproc_depth(raw_depth)
+        prior = yolo(x.permute(0, 3, 1, 2).to(dtype)).float().permute(0, 2, 3, 1)
+        det = yolo_decode(prior)
+        valid = det["valid"][:, :C]
+        boxes = a2j_boxes(det["dets"], C)                                 # (B*C, 4)
+        image_idx = torch.arange(B, device=device).repeat_interleave(C)
+        crops = crop_resize_batch(raw_depth.float(), image_idx, boxes, KDH3D_DEPTH.mean,
+                                  KDH3D_DEPTH.std)
+        heads = a2j(crops[:, None].to(dtype))
+        kp = a2j_post_process(tuple(h.float() for h in heads), all_anchors)  # (B*C, K, 3)
+        jx, jy, jz = (t.reshape(B, C, -1) for t in a2j_uncrop(kp, boxes))
+        joints2d = torch.stack([jx, jy], dim=-1)
+        conf = valid[..., None].float().expand_as(jz)
+        if pack == "q16":
+            return pack_outputs_q16(joints2d, jz, conf, valid)
+        return pack_outputs(joints2d, back_project(jx, jy, jz, KDH3D_INTRINSICS), conf, valid)
 
     return pipeline
 

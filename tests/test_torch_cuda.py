@@ -12,14 +12,36 @@ import numpy as np
 import pytest
 import torch
 
-from popnet_tpu_torch import build_openpose_pipeline, build_popnet_pipeline, load_npz
+from popnet_tpu_torch import (
+    build_openpose_pipeline,
+    build_popnet_pipeline,
+    build_yolo_a2j_pipeline,
+    build_yolo_pipeline,
+    load_npz,
+)
+from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, back_project
 from popnet_tpu_torch.core.skeleton import LIMBS
+from popnet_tpu_torch.data.a2j_crops import crop_resize_batch
+from popnet_tpu_torch.decode.a2j import a2j_post_process
+from popnet_tpu_torch.decode.openpose_infer import openpose_decode
+from popnet_tpu_torch.decode.popnet_infer import popnet_decode
+from popnet_tpu_torch.interop.from_jax import load_into
+from popnet_tpu_torch.models import PopNet, RTPoseLight3D, YoloPoseNet
+from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
 from popnet_tpu_torch.ops import kernels
-from popnet_tpu_torch.serving import unpack_outputs, unpack_outputs_q16
+from popnet_tpu_torch.serving import (
+    a2j_boxes,
+    a2j_uncrop,
+    preproc_depth,
+    unpack_outputs,
+    unpack_outputs_q16,
+    yolo_decode,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "examples", "results", "bench_weights_openpose.npz")
 WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet.npz")
+WEIGHTS_YOLO = os.path.join(ROOT, "examples", "results", "bench_weights_yolo.npz")
 
 pytestmark = pytest.mark.cuda
 
@@ -496,3 +518,154 @@ def test_popnet_slice_on_the_card_matches_the_cpu(cuda):
     assert ok.any(axis=1).all()
     np.testing.assert_allclose(a["joints2d"][ok], b["joints2d"][ok], atol=1e-2)
     np.testing.assert_allclose(a["joints3d"][ok][..., 2], b["joints3d"][ok][..., 2], atol=1e-3)
+
+
+def figure_frames(seed, B, background=True):
+    """(B, 512, 480) frames of 2 or 3 standing figures of 15 depth blocks,
+    over the smooth 2.5-5.5 m background the PoP-Net and Yolo weights were
+    trained on (a phase per frame), or over zeros."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:512, 0:480]
+    frames = np.zeros((B, 512, 480), np.float32)
+    for b in range(B):
+        if background:
+            frames[b] = 4.0 + 1.5 * np.sin(xs / 60.0 + 0.7 * b) * np.cos(ys / 80.0)
+        for cx in (120, 250, 380)[: 2 + b % 2]:
+            z = rng.uniform(2.5, 4.0)
+            for dx, dy in ((0, -96), (0, -62), (-30, -56), (30, -56), (-32, -14), (32, -14),
+                           (-34, 26), (34, 26), (0, 0), (-20, 46), (20, 46), (-22, 96),
+                           (22, 96), (-22, 144), (22, 144)):
+                x, y = cx + dx + int(rng.integers(-6, 7)), 250 + dy + int(rng.integers(-6, 7))
+                frames[b, y - 18:y + 18, x - 18:x + 18] = z
+    return frames
+
+
+def _cnn_maps(model_cls, weights, frames, cuda):
+    """The float32 CNN's NHWC maps on the card (cuDNN without TF32) and the
+    preprocessed input, for decoding the same maps on both devices."""
+    model = load_into(model_cls(), load_npz(weights)).eval().to(cuda)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            x = preproc_depth(torch.as_tensor(frames, device=cuda))
+            out = model(x.permute(0, 3, 1, 2))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    maps = out[0] if isinstance(out, tuple) else (out,)
+    return [t.permute(0, 2, 3, 1).contiguous() for t in maps], x
+
+
+def _decode_on_both(path, cuda):
+    """(card, host) outputs of one path's decode of the same card-made maps."""
+    if path == "openpose":
+        (paf, heat, z), x = _cnn_maps(RTPoseLight3D, WEIGHTS, figure_frames(11, 4, False), cuda)
+        return (openpose_decode(heat, paf, z, x),
+                openpose_decode(heat.cpu(), paf.cpu(), z.cpu(), x.cpu()))
+    if path == "popnet":
+        maps, _ = _cnn_maps(PopNet, WEIGHTS_POPNET, figure_frames(12, 4), cuda)
+        return popnet_decode(*maps), popnet_decode(*[t.cpu() for t in maps])
+    if path == "yolo":
+        (prior,), _ = _cnn_maps(YoloPoseNet, WEIGHTS_YOLO, figure_frames(13, 4), cuda)
+        return yolo_decode(prior), yolo_decode(prior.cpu())
+    # the A2J tail: crop-space keypoints of 4 frames x 4 crops, uncropped
+    # from the detector's boxes and back-projected
+    (prior,), _ = _cnn_maps(YoloPoseNet, WEIGHTS_YOLO, figure_frames(14, 4), cuda)
+    boxes = a2j_boxes(yolo_decode(prior)["dets"], 4)
+    kp = torch.as_tensor(np.random.default_rng(15).uniform(-20, 300, (16, 15, 3)),
+                         dtype=torch.float32, device=cuda)
+
+    def tail(kp, boxes):
+        jx, jy, jz = a2j_uncrop(kp, boxes)
+        return {"joints2d": torch.stack([jx, jy], -1),
+                "joints3d": back_project(jx, jy, jz, KDH3D_INTRINSICS)}
+
+    return tail(kp, boxes), tail(kp.cpu(), boxes.cpu())
+
+
+@pytest.mark.parametrize("path", ["openpose", "popnet", "yolo", "a2j"])
+def test_decode_on_the_card_equals_the_host_bit_for_bit(cuda, path):
+    """Each path's decode of the same maps on the card and on the CPU:
+    joints2d and joints3d bit for bit (the divisions by constants round
+    alike on both, `core.numerics.div_const`), and the flags exact."""
+    card, host = _decode_on_both(path, cuda)
+    for k in ("joints2d", "joints3d"):
+        assert torch.equal(card[k].cpu(), host[k]), k
+    flag = {"openpose": "counts", "popnet": "valid", "yolo": "valid"}.get(path)
+    if flag:
+        assert torch.equal(card[flag].cpu(), host[flag]) and bool(host[flag].any())
+    if path == "yolo":
+        assert torch.equal(card["dets"].cpu(), host["dets"])
+
+
+def test_crop_on_the_card_equals_the_cpu(cuda):
+    """The A2J crop of boxes that reach past every edge, lie wholly outside,
+    or have extents that share a factor with 288, bit for bit."""
+    images = np.random.default_rng(16).uniform(0.5, 6.0, (3, 512, 480)).astype(np.float32)
+    boxes = np.array([[100.3, 150.7, 260.1, 470.2], [-40.5, -12.25, 100.0, 200.0],
+                      [20.0, 30.0, 116.0, 174.0], [300.0, 400.0, 876.0, 496.0],
+                      [500.0, 600.0, 700.0, 800.0], [0.0, 0.0, 480.0, 512.0]], np.float32)
+    idx = np.array([0, 1, 2, 0, 1, 2])
+    args = [torch.from_numpy(a) for a in (images, idx, boxes)]
+    got = crop_resize_batch(*(a.to(cuda) for a in args))
+    ref = crop_resize_batch(*args)
+    assert got.shape == (6, 288, 288) and torch.equal(got.cpu(), ref)
+
+
+def test_a2j_post_process_on_the_card_matches_the_cpu(cuda):
+    """The softmax vote over 5184 anchors sums in another order on the card:
+    (y, x) within 5e-3 px and z within 1e-4 m, the bars of the port's vote
+    against XLA's (tests/test_torch_yolo_a2j.py). A float32 sum taken in
+    sequence along the anchor axis drifts as about sqrt(5184) = 72 ulps of
+    the ~300 px and ~4 m magnitudes (2.6e-3 px, 2.4e-5 m)."""
+    rng = np.random.default_rng(17)
+    anchors = torch.as_tensor(shift_anchors((18, 18), 16, generate_anchors()), dtype=torch.float32)
+    N = anchors.shape[0]
+    heads = (rng.normal(0, 3, (8, N, 15)), rng.normal(0, 10, (8, N, 15, 2)),
+             rng.normal(3, 0.5, (8, N, 15)))
+    heads = [torch.as_tensor(h, dtype=torch.float32) for h in heads]
+    got = a2j_post_process([h.to(cuda) for h in heads], anchors.to(cuda)).cpu()
+    ref = a2j_post_process(heads, anchors)
+    assert got.shape == (8, 15, 3)
+    torch.testing.assert_close(got[..., :2], ref[..., :2], atol=5e-3, rtol=0)
+    torch.testing.assert_close(got[..., 2], ref[..., 2], atol=1e-4, rtol=0)
+
+
+def test_yolo_slice_on_the_card_matches_the_cpu(cuda):
+    """The float32 Yolo-Pose+ pipeline on the card (cuDNN without TF32)
+    against the same pipeline on the CPU: valid exact with people on every
+    frame, joints2d within 1e-2 px, joints3d within 1e-3 m (the CNNs' sums
+    run in other orders on the two devices)."""
+    frames = figure_frames(18, 4)
+    weights = load_npz(WEIGHTS_YOLO)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kernels.reset_launches()
+        gpu = build_yolo_pipeline(weights, dtype=torch.float32)(frames)
+        torch.cuda.synchronize()
+        assert sum(kernels.launch_counts().values()) == 0     # no hand kernel on this path
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu = build_yolo_pipeline(weights, dtype=torch.float32, device="cpu")(frames)
+    a, b = unpack_outputs(gpu.cpu().numpy(), 16, 15), unpack_outputs(cpu.numpy(), 16, 15)
+    np.testing.assert_array_equal(a["counts"], b["counts"])
+    ok = a["counts"] > 0
+    assert ok.any(axis=1).all()
+    np.testing.assert_allclose(a["joints2d"][ok], b["joints2d"][ok], atol=1e-2)
+    np.testing.assert_allclose(a["joints3d"][ok], b["joints3d"][ok], atol=1e-3)
+
+
+def test_yolo_a2j_pipeline_on_the_card(cuda):
+    """The default bf16 Yolo->A2J pipeline with the q16 wire on the card:
+    shapes, finite values, conf equal to valid, and valid equal to the
+    detector's first max_crops flags of the same frames."""
+    frames = torch.as_tensor(figure_frames(19, 3), device=cuda)
+    weights = load_npz(WEIGHTS_YOLO)
+    buf = build_yolo_a2j_pipeline(weights, pack="q16", max_crops=4)(frames)
+    assert buf.dtype == torch.uint16 and buf.device.type == "cuda"
+    out = unpack_outputs_q16(buf.cpu().numpy(), 4, 15)
+    assert out["joints2d"].shape == (3, 4, 15, 2) and np.isfinite(out["joints3d"]).all()
+    det = unpack_outputs_q16(build_yolo_pipeline(weights, pack="q16")(frames).cpu().numpy(), 16, 15)
+    np.testing.assert_array_equal(out["counts"], det["counts"][:, :4])
+    np.testing.assert_array_equal(out["conf"], np.broadcast_to(out["counts"][..., None], (3, 4, 15)))

@@ -16,17 +16,20 @@ import popnet_tpu_torch
 from popnet_tpu_torch import (
     build_openpose_pipeline,
     build_popnet_pipeline,
+    build_yolo_a2j_pipeline,
+    build_yolo_pipeline,
     load_npz,
     state_dict_from_jax,
 )
 from popnet_tpu_torch.interop.from_jax import load_into
-from popnet_tpu_torch.models import PopNet, RTPoseAlign3D, RTPoseLight3D
+from popnet_tpu_torch.models import A2J, PopNet, RTPoseAlign3D, RTPoseLight3D, YoloPoseNet
 from popnet_tpu_torch.ops import _build, kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "popnet_tpu_torch")
 WEIGHTS = os.path.join(ROOT, "examples", "results", "bench_weights_openpose.npz")
 WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet.npz")
+WEIGHTS_YOLO = os.path.join(ROOT, "examples", "results", "bench_weights_yolo.npz")
 
 
 def _port_modules():
@@ -59,7 +62,8 @@ def test_port_imports_with_jax_and_reference_blocked():
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "popnet_tpu")]
         assert not leaked, leaked
         for m in ("models.popnet", "models.rtpose_align3d", "models.yolo_posenet", "decode.prior",
-                  "decode.popnet_infer"):
+                  "decode.popnet_infer", "models.a2j", "decode.a2j", "data.a2j_crops",
+                  "core.numerics"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -126,6 +130,27 @@ def test_load_npz_maps_every_committed_popnet_key():
         load_into(PopNet(), extra)
 
 
+def test_load_npz_maps_every_committed_yolo_key():
+    """The Yolo-Pose+ npz: 122 arrays, a ResNet-34 stem whose stride-2
+    block projects, bare `tower4` (with bias) and `head3` (without) convs;
+    a module of another model refuses it."""
+    flat = load_npz(WEIGHTS_YOLO)
+    assert len(flat) == 122 and len(state_dict_from_jax(flat)) == 122
+    model = load_into(YoloPoseNet(), flat)
+    assert model.head3.bias is None and model.tower4.bias is not None
+    assert model.stem.BasicBlock_3.Conv_0.stride == (2, 2)
+    assert model.stem.BasicBlock_3.Conv_2.stride == (2, 2)
+    np.testing.assert_array_equal(model.stem.BasicBlock_3.Conv_2.weight.detach().numpy(),
+                                  flat["params/stem/BasicBlock_3/Conv_2/kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(model.tower4.bias.detach().numpy(), flat["params/tower4/bias"])
+    np.testing.assert_array_equal(model.head2.BatchNorm_0.running_var.numpy(),
+                                  flat["batch_stats/head2/BatchNorm_0/var"])
+    with pytest.raises(ValueError, match="missing"):
+        load_into(PopNet(), flat)
+    with pytest.raises(ValueError, match="missing"):
+        load_into(A2J(), flat)
+
+
 def test_loader_raises_on_unmapped_keys():
     flat = load_npz(WEIGHTS)
     with pytest.raises(ValueError, match="unmapped"):
@@ -156,6 +181,40 @@ def test_popnet_entry_point_defaults_to_cuda_and_never_runs_on_cpu_unasked():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_popnet_pipeline(load_npz(WEIGHTS_POPNET))
+
+
+@pytest.mark.parametrize("builder", [build_yolo_pipeline, build_yolo_a2j_pipeline])
+def test_yolo_entry_points_default_to_cuda_and_never_run_on_cpu_unasked(builder):
+    params = inspect.signature(builder).parameters
+    assert params["device"].default == "cuda" and params["dtype"].default == torch.bfloat16
+    assert params["pack"].default == "f32"
+    if builder is build_yolo_a2j_pipeline:
+        assert params["max_crops"].default == 4 and params["a2j_weights"].default is None
+    assert builder.__name__ in popnet_tpu_torch.__all__
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        builder(load_npz(WEIGHTS_YOLO))
+    with pytest.raises(ValueError, match="unknown pack"):
+        builder(load_npz(WEIGHTS_YOLO), device="cpu", pack="f16")
+
+
+def test_a2j_seeded_init_is_reproducible_and_follows_the_flax_scales():
+    """The seeded init: the same seed gives the same weights, another seed
+    others; He-normal trunk convs (std sqrt(2 / fan_in)), Glorot-normal head
+    convs, zero head biases but the depth output's `depth_prior`, unit
+    BatchNorm."""
+    a, b, c = A2J(depth_prior=3.0).init_seeded(0), A2J().init_seeded(0), A2J().init_seeded(1)
+    w = a.backbone.DilatedBottleneck_4.Conv_1.weight
+    assert torch.equal(w, b.backbone.DilatedBottleneck_4.Conv_1.weight)
+    assert not torch.equal(w, c.backbone.DilatedBottleneck_4.Conv_1.weight)
+    assert abs(float(w.detach().std()) / (2.0 / (9 * 128)) ** 0.5 - 1) < 0.05
+    hw = a.regression.Conv_0.weight
+    assert abs(float(hw.detach().std()) / (2.0 / (9 * 2048 + 9 * 256)) ** 0.5 - 1) < 0.05
+    assert (a.depth.Conv_4.bias == 3.0).all() and (b.depth.Conv_4.bias == 0).all()
+    assert (a.classification.Conv_2.bias == 0).all()
+    bn = a.backbone.DilatedBottleneck_0.BatchNorm_2
+    assert (bn.weight == 1).all() and (bn.running_var == 1).all() and (bn.running_mean == 0).all()
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
