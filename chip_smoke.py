@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (popnet_tpu_torch) on one NVIDIA card.
 
-Drives the port's two serving paths at the models' full width with the
-committed trained weights, batch 256 of (512, 480) depth frames made from
---seed with two or three person-like figures each:
+Drives the port's four serving paths at the models' full width, batch 256
+of (512, 480) depth frames made from --seed with two or three person-like
+figures each:
 
 - Open-Pose+ (RTPoseLight3D, 28 PAF / 16 heat / 15 z channels on a 28x28
   grid), frames on a zero background;
 - PoP-Net (PopNet: heat 16 / z 15 / align 30 channels on 28x28 and a prior
   subnet of 2 anchors x 50 channels on 14x14), the same figures over the
-  smooth 2.5-5.5 m background its weights were trained on.
+  smooth 2.5-5.5 m background its weights were trained on;
+- Yolo-Pose+ (YoloPoseNet, 2 anchors x 50 channels on 14x14), the
+  committed weights, frames over the same background;
+- Yolo->A2J: that detector's 4 best boxes a frame cropped to 288x288 and
+  refined by A2J (dilated ResNet-50, 16 anchors on 18x18) from its seeded
+  init, as no A2J weights are committed.
 
 Phases, one or more lines each:
 
@@ -31,13 +36,19 @@ Phases, one or more lines each:
 4. slices, float32, 256 frames each, launch counts reset just before a path
    is driven and read just after: Open-Pose+ (then the assembly kernel
    against its plain version on that batch's candidates, and the same maps
-   decoded once more through the per-frame peak kernel), and PoP-Net. The
-   same CNN maps decoded through the kernels and through the plain versions
-   (on the host) must agree, and people must be found on most frames;
+   decoded once more through the per-frame peak kernel), PoP-Net,
+   Yolo-Pose+ and Yolo->A2J. The same CNN maps decoded on the card (through
+   the kernels) and on the host (through the plain versions) must agree bit
+   for bit, and people must be found on most frames; Yolo->A2J's crops on
+   card and host bit for bit, its A2J heads and vote against the host's on
+   a few crops, the bf16 A2J against the float32 one on every crop, and the
+   Yolo paths' outputs against their stages run one by one, bit for bit;
 5. timing: each path's default bf16 pipeline with the q16 wire through
    serve_stream(queue_depth=3): its output against the float32 slice's on
-   the same frames, frames/s, CUDA-event times per batch of the CNN and the
-   decode, and each kernel's, its plain version's and the library call's
+   the same frames (Yolo->A2J's also against its stages run one by one in
+   bf16), frames/s, CUDA-event times per batch of the CNN and the decode
+   (Yolo->A2J: the detector, the crop, the A2J CNN, the vote), and each
+   kernel's, its plain version's and the library call's
    device time (calls captured in a CUDA graph, so host dispatch is not
    counted) beside the kernel's bound, counted from the work these inputs
    need; the plain assembler eager and as a CUDA graph beside the assembly
@@ -79,6 +90,11 @@ MAX_CROPS = 4               # A2J crops a frame, as bench.py's Yolo->A2J row
 A2J_SEED = 0                # the seeded A2J init (no A2J weights are committed)
 A2J_HOST_FRAMES = 16        # frames whose crops' A2J vote is also run on the host
 A2J_HOST_CNN_CROPS = 2      # crops whose A2J heads are also computed on the host
+# bf16 A2J against float32 on the same crops (bf16_heads): about twice the
+# readings on an H100 80GB HBM3 at 700 W (each head within 1.4-1.7% of its
+# largest magnitude; the vote's (y, x) median 2.3, 99th percentile 34.1 crop px)
+A2J_BF16_BARS = {"classification": 0.03, "regression": 0.03, "depth": 0.03,
+                 "vote_median": 5.0, "vote_p99": 70.0}
 
 # name: (source, the TPU kernel it replaces)
 KERNEL_META = {
@@ -829,15 +845,20 @@ def phase_yolo_slice(rng, dev, B, weights):
         f"{np.bincount(people, minlength=4).tolist()}")
     require(found >= 0.5, "people valid on fewer than half of the frames")
 
+    H, W = frames.shape[-2:]
     model = load_into(YoloPoseNet(), weights).eval().to(dev)
     with torch.inference_mode():
         prior = model(preproc_depth(frames).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        dk, dp = yolo_decode(prior), yolo_decode(prior.cpu())
+        dk, dp = yolo_decode(prior, W, H), yolo_decode(prior.cpu(), W, H)
     for k in ("valid", "dets", "joints2d", "joints3d", "conf"):
         _exact(f"Yolo-Pose+ decode {k}, card against host", dk[k], dp[k])
     require(np.array_equal(dk["valid"].cpu().numpy(), out["counts"] > 0), "pipeline valid differs")
+    for k in ("joints2d", "joints3d", "conf"):
+        require(np.array_equal(out[k], dk[k].cpu().numpy()),
+                f"Yolo-Pose+ pipeline {k} differs from its CNN and decode run one by one")
     say("yolo", "card decode vs host decode on the same prior maps: valid, dets, joints2d, "
-        "joints3d and conf bit for bit")
+        "joints3d and conf bit for bit; the pipeline's own output equals its stages run one by "
+        "one, bit for bit")
     return frames, launches, out
 
 
@@ -857,7 +878,9 @@ def phase_a2j_slice(frames, dev, weights, yolo_out):
     from popnet_tpu_torch.models import A2J, YoloPoseNet
     from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
     from popnet_tpu_torch.ops import kernels
-    from popnet_tpu_torch.serving import a2j_boxes, preproc_depth, unpack_outputs, yolo_decode
+    from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, back_project
+    from popnet_tpu_torch.serving import (a2j_boxes, a2j_uncrop, preproc_depth, unpack_outputs,
+                                          yolo_decode)
 
     torch.backends.cudnn.allow_tf32 = False
     B, C = frames.shape[0], MAX_CROPS
@@ -879,14 +902,16 @@ def phase_a2j_slice(frames, dev, weights, yolo_out):
     say("a2j", f"B={B}, {C} crops a frame: valid equals the detector's first {C} flags on every "
         f"frame ({int(out['counts'].sum())} of {B * C} slots), conf equals valid, all finite")
 
+    H, W = frames.shape[-2:]
     yolo = load_into(YoloPoseNet(), weights).eval().to(dev)
     a2j = A2J().init_seeded(A2J_SEED).eval().to(dev)
     anchors = torch.as_tensor(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()),
                               dtype=torch.float32, device=dev)
     n_host = A2J_HOST_FRAMES * C
     with torch.inference_mode():
-        det = yolo_decode(yolo(preproc_depth(frames).permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
-        boxes = a2j_boxes(det["dets"], C)
+        det = yolo_decode(yolo(preproc_depth(frames).permute(0, 3, 1, 2)).permute(0, 2, 3, 1),
+                          W, H)
+        boxes = a2j_boxes(det["dets"], C, W, H)
         idx = torch.arange(B, device=dev).repeat_interleave(C)
         crops = crop_resize_batch(frames, idx, boxes, 3.0, 2.0)
         _exact("A2J crops, card against host", crops,
@@ -900,15 +925,26 @@ def phase_a2j_slice(frames, dev, weights, yolo_out):
                 f"{A2J_HOST_CNN_CROPS} crops: max|err| {err:.4g} of max|value| {scale:.4g} "
                 f"(bar 1e-4 of it)")
             require(err <= 1e-4 * scale, f"A2J {name} head differs between card and host")
-        kp = a2j_post_process(heads, anchors)[:n_host].cpu()
+        kp_all = a2j_post_process(heads, anchors)
+        jx, jy, jz = (t.reshape(B, C, -1) for t in a2j_uncrop(kp_all, boxes))
+        stages = {"joints2d": torch.stack([jx, jy], dim=-1),
+                  "joints3d": back_project(jx, jy, jz, KDH3D_INTRINSICS)}
+        for k, v in stages.items():
+            require(np.array_equal(out[k], v.cpu().numpy()),
+                    f"Yolo->A2J pipeline {k} differs from its stages run one by one")
+        say("a2j", "the pipeline's joints2d and joints3d equal its stages run one by one (detector, "
+            "boxes, crops, A2J, vote, uncrop, back-projection), bit for bit, on all "
+            f"{B * C} slots")
+        bf16_heads(crops, heads, kp_all, anchors, det["valid"][:, :C].reshape(-1))
+        kp = kp_all[:n_host].cpu()
         kp_host = a2j_post_process([h[:n_host].cpu() for h in heads], anchors.cpu())
     for name, sl in (("(y, x)", slice(0, 2)), ("z", slice(2, 3))):
         err = _maxerr(kp[..., sl], kp_host[..., sl])
         bar = 2.0 ** -18 * float(kp_host[..., sl].abs().max())
         say("a2j", f"A2J vote {name}, card vs host on the crops of frames 0-"
             f"{A2J_HOST_FRAMES - 1} ({n_host} crops): max|err| {err:.4g} (bar {bar:.4g}: 64 "
-            f"float32 ulps of the largest magnitude; the softmax and the sums over "
-            f"{anchors.shape[0]} anchors run in another order on the card)")
+            f"float32 ulps of the largest magnitude; the host's float32 softmax over the "
+            f"{anchors.shape[0]} anchors is the less exact, `tools/measure.py vote`)")
         require(err <= bar, f"A2J vote {name} differs between card and host")
     return launches, out
 
@@ -1310,7 +1346,8 @@ def phase_yolo_timing(frames, weights, dev, iters: int, f32_out) -> None:
         xb = preproc_depth(frames).permute(0, 3, 1, 2).to(torch.bfloat16)
         cnn_ms = time_ms(lambda: model(xb), reps=10)
         prior = model(xb).float().permute(0, 2, 3, 1)
-        decode_ms = time_ms(lambda: yolo_decode(prior), reps=10)
+        decode_ms = time_ms(lambda: yolo_decode(prior, frames.shape[-1], frames.shape[-2]),
+                            reps=10)
     say("timing", f"Yolo-Pose+ CNN bf16 {cnn_ms:.3f} ms/batch; decode (eager) "
         f"{decode_ms:.3f} ms/batch")
 
@@ -1337,23 +1374,25 @@ def conv_flops(model, x) -> float:
 
 
 def phase_a2j_timing(frames, weights, dev, iters: int, f32_out) -> None:
-    """Yolo->A2J: the timed bf16+q16 stream, and the times of its stages:
-    the detector (CNN and decode), the crop, the A2J CNN and the vote."""
+    """Yolo->A2J: the timed bf16+q16 stream, its output against its stages
+    run one by one in bf16 and against the float32 slice, and the times of
+    its stages: the detector (CNN and decode), the crop, the A2J CNN and
+    the vote."""
     import torch
 
     from popnet_tpu_torch import build_yolo_a2j_pipeline
+    from popnet_tpu_torch.core.config import KDH3D_DEPTH
     from popnet_tpu_torch.data.a2j_crops import CROP, crop_resize_batch
     from popnet_tpu_torch.decode.a2j import a2j_post_process
     from popnet_tpu_torch.interop.from_jax import load_into
     from popnet_tpu_torch.models import A2J, YoloPoseNet
     from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
     from popnet_tpu_torch.models.layers import keep_batchnorm_float32
-    from popnet_tpu_torch.serving import a2j_boxes, preproc_depth, unpack_outputs_q16, yolo_decode
+    from popnet_tpu_torch.serving import (a2j_boxes, a2j_uncrop, pack_outputs_q16, preproc_depth,
+                                          unpack_outputs_q16, yolo_decode)
 
-    B, C = frames.shape[0], MAX_CROPS
-    pipe = build_yolo_a2j_pipeline(weights, pack="q16", max_crops=C, seed=A2J_SEED)
-    time_stream("Yolo->A2J", pipe, frames, iters,
-                lambda buf: check_a2j_bf16(unpack_outputs_q16(buf, C, 15), f32_out))
+    (B, H, W), C = frames.shape, MAX_CROPS
+    mean, std = KDH3D_DEPTH.mean, KDH3D_DEPTH.std
     bf16 = torch.bfloat16
     yolo = keep_batchnorm_float32(load_into(YoloPoseNet(), weights).eval().to(dev, bf16))
     a2j = keep_batchnorm_float32(A2J().init_seeded(A2J_SEED).eval().to(dev, bf16))
@@ -1361,19 +1400,77 @@ def phase_a2j_timing(frames, weights, dev, iters: int, f32_out) -> None:
                               dtype=torch.float32, device=dev)
     with torch.inference_mode():
         xb = preproc_depth(frames).permute(0, 3, 1, 2).to(bf16)
-        det_ms = time_ms(lambda: yolo_decode(yolo(xb).float().permute(0, 2, 3, 1)), reps=10)
-        boxes = a2j_boxes(yolo_decode(yolo(xb).float().permute(0, 2, 3, 1))["dets"], C)
+        det = yolo_decode(yolo(xb).float().permute(0, 2, 3, 1), W, H)
+        boxes = a2j_boxes(det["dets"], C, W, H)
         idx = torch.arange(B, device=dev).repeat_interleave(C)
-        crop_ms = time_ms(lambda: crop_resize_batch(frames, idx, boxes, 3.0, 2.0), reps=10)
-        cb = crop_resize_batch(frames, idx, boxes, 3.0, 2.0)[:, None].to(bf16)
+
+        def a2j_heads():
+            cb = crop_resize_batch(frames, idx, boxes, mean, std)[:, None].to(bf16)
+            return cb, [h.float() for h in a2j(cb)]
+
+        def stages_q16():
+            _, heads = a2j_heads()
+            jx, jy, jz = (t.reshape(B, C, -1)
+                          for t in a2j_uncrop(a2j_post_process(heads, anchors), boxes))
+            valid = det["valid"][:, :C]
+            return pack_outputs_q16(torch.stack([jx, jy], dim=-1), jz,
+                                    valid[..., None].float().expand_as(jz), valid)
+
+        stages = stages_q16()      # its heads are freed before the stream's memory is read
+
+    def check(buf):
+        steps = buf.astype(np.int32) - stages.cpu().numpy().astype(np.int32)
+        flags = slice(C * 15 * 3, None)                  # conf and valid
+        say("timing", f"Yolo->A2J bf16+q16 buffer vs its stages run one by one in bf16: "
+            f"{int((steps != 0).sum())} of {steps.size} codes differ, by at most "
+            f"{int(np.abs(steps).max())} q16 step (bar 1; conf and valid exact)")
+        require(np.abs(steps).max() <= 1 and not steps[:, flags].any(),
+                "the timed Yolo->A2J output differs from its stages run one by one")
+        check_a2j_bf16(unpack_outputs_q16(buf, C, 15), f32_out)
+
+    pipe = build_yolo_a2j_pipeline(weights, pack="q16", max_crops=C, seed=A2J_SEED)
+    time_stream("Yolo->A2J", pipe, frames, iters, check)
+    with torch.inference_mode():
+        cb, heads = a2j_heads()
+        det_ms = time_ms(lambda: yolo_decode(yolo(xb).float().permute(0, 2, 3, 1), W, H), reps=10)
+        crop_ms = time_ms(lambda: crop_resize_batch(frames, idx, boxes, mean, std), reps=10)
         cnn_ms = time_ms(lambda: a2j(cb), reps=5)
         flops = conv_flops(a2j, cb[:1]) * cb.shape[0]
-        heads = [h.float() for h in a2j(cb)]
         vote_ms = time_ms(lambda: a2j_post_process(heads, anchors), reps=10)
     say("timing", f"Yolo->A2J per batch of {B} frames, {B * C} crops: detector (bf16 CNN and "
         f"decode) {det_ms:.3f} ms; crop {crop_ms:.3f} ms; A2J CNN bf16 {cnn_ms:.3f} ms "
         f"({flops / (B * C) / 1e9:.2f} GFLOP a crop in its convolutions, {flops / 1e12:.2f} "
         f"TFLOP a batch: {flops / cnn_ms / 1e9:.1f} TFLOP/s); vote {vote_ms:.3f} ms")
+
+
+def bf16_heads(crops, heads, kp, anchors, valid) -> None:
+    """A2J in bf16, as the timed pipeline runs it, on the float32 slice's
+    crops against the float32 heads: each head's largest error over its
+    largest magnitude, and the vote's crop-space (y, x) on the valid slots,
+    at A2J_BF16_BARS. The seeded init's softmax is sharp, so a bf16 rounding
+    can move a joint's vote by whole anchors: its bars are a median and a
+    99th percentile, not a maximum."""
+    import torch
+
+    from popnet_tpu_torch.decode.a2j import a2j_post_process
+    from popnet_tpu_torch.models import A2J
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+
+    a2j = A2J().init_seeded(A2J_SEED).eval().to(crops.device, torch.bfloat16)
+    a2j = keep_batchnorm_float32(a2j)
+    hb = [h.float() for h in a2j(crops[:, None].to(torch.bfloat16))]
+    for name, b, f in zip(("classification", "regression", "depth"), hb, heads):
+        rel = _maxerr(b, f) / float(f.abs().max())
+        say("a2j", f"A2J {name} head, bf16 vs float32 on the same {len(f)} crops: max|err| "
+            f"{rel:.4g} of max|value| (bar {A2J_BF16_BARS[name]:.4g})")
+        require(rel <= A2J_BF16_BARS[name], f"A2J {name} head in bf16 is off the float32 one")
+    d = (a2j_post_process(hb, anchors) - kp)[valid][..., :2].norm(dim=-1)
+    q50, q99, top = (float(v) for v in (d.median(), torch.quantile(d, 0.99), d.max()))
+    say("a2j", f"A2J vote (y, x) in crop pixels, bf16 vs float32 heads on the {int(valid.sum())} "
+        f"valid crops' {d.numel()} joints: median {q50:.4g}, 99th percentile {q99:.4g}, max "
+        f"{top:.4g} (bars {A2J_BF16_BARS['vote_median']:.4g}, {A2J_BF16_BARS['vote_p99']:.4g})")
+    require(q50 <= A2J_BF16_BARS["vote_median"] and q99 <= A2J_BF16_BARS["vote_p99"],
+            "the A2J vote of bf16 heads is off the float32 one")
 
 
 def check_a2j_bf16(q16: dict, f32: dict) -> None:
@@ -1443,8 +1540,11 @@ def main(argv=None) -> int:
     frames_pn, launches_pn, f32_out_pn = phase_popnet_slice(rng_new, dev, BATCH, weights_pn)
     weights_yolo = load_npz(WEIGHTS_YOLO)
     rng_yolo = np.random.default_rng([args.seed, 5])  # the Yolo-Pose+ and Yolo->A2J frames
+    # the Yolo slices' pipelines and their stages run one by one pick the same cuDNN algorithms
+    torch.backends.cudnn.deterministic = True
     frames_y, _, f32_out_y = phase_yolo_slice(rng_yolo, dev, BATCH, weights_yolo)
     _, f32_out_a2j = phase_a2j_slice(frames_y, dev, weights_yolo, f32_out_y)
+    torch.backends.cudnn.deterministic = False
     rows = phase_timing(frames, weights, dev, BATCH, TIMED_BATCHES, errs, launches, f32_out,
                         sm_clock_mhz)
     rows += phase_popnet_timing(frames_pn, weights_pn, dev, TIMED_BATCHES, errs, launches_pn,

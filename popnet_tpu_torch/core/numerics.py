@@ -14,13 +14,3 @@ def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     reciprocal when c is a Python number: the two round apart by an ulp.)"""
     return x * float(np.float32(1.0) / np.float32(c))
 
-
-def mul_add(a: torch.Tensor, b, c) -> torch.Tensor:
-    """a * b + c in float32 with one rounding, as XLA's CPU compiler
-    contracts it into a fused multiply-add. The product of two float32
-    values is exact in float64, and so is the sum whenever the bits of
-    a * b and c span at most 53 places (the prior decode's offsets and
-    integer grid coordinates do); otherwise it rounds twice, which differs
-    from the fused result only where the float64 sum lands exactly on a
-    float32 rounding midpoint."""
-    return (a.double() * b.double() + c.double()).float()

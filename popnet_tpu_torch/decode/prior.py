@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from popnet_tpu_torch.core.config import DepthStats
-from popnet_tpu_torch.core.numerics import div_const, mul_add
+from popnet_tpu_torch.core.numerics import div_const
 
 
 def stable_top_k(score: torch.Tensor, k: int):
@@ -38,9 +38,9 @@ def decode_prior_maps(prior: torch.Tensor, anchors: torch.Tensor, depth_mean: fl
     dets rows are [cx, cy, w, h, conf, K*x, K*y, K*z(, K*vis)] with box and
     joint (x, y) normalized by the prior grid, z in meters; rows are sorted
     by descending confidence (the earlier candidate first among equals) and
-    NMS-filtered. The grid sizes divide, and the joint offsets multiply and
-    add, as the JAX package's compiled decode rounds them (`core.numerics`),
-    on the CPU and on the card alike."""
+    NMS-filtered. The grid sizes divide as the JAX package's compiled decode
+    divides by them (`core.numerics.div_const`), on the CPU and on the card
+    alike."""
     b, h, w, _ = prior.shape
     a = anchors.shape[0]
     naf = prior.shape[-1] // a
@@ -58,8 +58,8 @@ def decode_prior_maps(prior: torch.Tensor, anchors: torch.Tensor, depth_mean: fl
     bw = div_const(p[..., 2] * aw, w)
     bh = div_const(p[..., 3] * ah, h)
     conf = p[..., 4]
-    jx = div_const(mul_add(p[..., 5:5 + K], aw[..., None] * 0.5, gx[..., None]), w)
-    jy = div_const(mul_add(p[..., 5 + K:5 + 2 * K], ah[..., None] * 0.5, gy[..., None]), h)
+    jx = div_const(p[..., 5:5 + K] * (aw[..., None] * 0.5) + gx[..., None], w)
+    jy = div_const(p[..., 5 + K:5 + 2 * K] * (ah[..., None] * 0.5) + gy[..., None], h)
     jz = p[..., 5 + 2 * K:5 + 3 * K] * depth_std + depth_mean
 
     fields = [cx[..., None], cy[..., None], bw[..., None], bh[..., None], conf[..., None],

@@ -188,21 +188,22 @@ def build_popnet_pipeline(weights: dict[str, np.ndarray],
     return pipeline
 
 
-def yolo_decode(prior: torch.Tensor, ecfg: EncoderConfig = EncoderConfig(),
-                dcfg: DecodeConfig = DecodeConfig(), depth: DepthStats = KDH3D_DEPTH,
-                cam: CameraIntrinsics = KDH3D_INTRINSICS, w_out: float = 480.0,
-                h_out: float = 512.0) -> dict[str, torch.Tensor]:
-    """Yolo-Pose+ decode of float32 prior maps (B, Hp, Wp, A*(5+3K)):
-    the prior decode and NMS, then joints scaled to (w_out, h_out) pixels
+_ECFG, _DCFG = EncoderConfig(), DecodeConfig()
+
+
+def yolo_decode(prior: torch.Tensor, w_out: float, h_out: float) -> dict[str, torch.Tensor]:
+    """Yolo-Pose+ decode of float32 prior maps (B, Hp, Wp, A*(5+3K)) with
+    the KDH3D anchors, thresholds, depth statistics and camera: the prior
+    decode and NMS, then joints scaled to the (w_out, h_out) frame's pixels
     and back-projected. Returns dets (B, M, 5+3K) as `decode_prior_maps`
     gives them, valid (B, M), joints2d (B, M, K, 2), joints3d (B, M, K, 3),
     conf (B, M, K): the row's confidence where valid, else 0."""
-    K = ecfg.num_joints
-    anchors = torch.tensor(ecfg.anchors, dtype=torch.float32, device=prior.device)
+    K = _ECFG.num_joints
+    anchors = torch.tensor(_ECFG.anchors, dtype=torch.float32, device=prior.device)
     dets, valid = decode_prior_maps(
-        prior, anchors, depth.mean, depth.std, num_joints=K,
-        conf_threshold=dcfg.conf_threshold, nms_threshold=dcfg.nms_threshold,
-        max_det=dcfg.max_people)
+        prior, anchors, KDH3D_DEPTH.mean, KDH3D_DEPTH.std, num_joints=K,
+        conf_threshold=_DCFG.conf_threshold, nms_threshold=_DCFG.nms_threshold,
+        max_det=_DCFG.max_people)
     jx = dets[..., 5:5 + K] * w_out
     jy = dets[..., 5 + K:5 + 2 * K] * h_out
     jz = dets[..., 5 + 2 * K:5 + 3 * K]
@@ -210,7 +211,7 @@ def yolo_decode(prior: torch.Tensor, ecfg: EncoderConfig = EncoderConfig(),
         "dets": dets,
         "valid": valid,
         "joints2d": torch.stack([jx, jy], dim=-1),
-        "joints3d": back_project(jx, jy, jz, cam),
+        "joints3d": back_project(jx, jy, jz, KDH3D_INTRINSICS),
         "conf": dets[..., 4:5].expand_as(jz) * valid[..., None],
     }
 
@@ -239,7 +240,7 @@ def build_yolo_pipeline(weights: dict[str, np.ndarray],
         raw_depth = torch.as_tensor(raw_depth, device=device)
         x = preproc_depth(raw_depth)                                      # (B, 224, 224, 1)
         prior = model(x.permute(0, 3, 1, 2).to(dtype)).float().permute(0, 2, 3, 1)
-        out = yolo_decode(prior)
+        out = yolo_decode(prior, raw_depth.shape[-1], raw_depth.shape[-2])
         if pack == "q16":
             return pack_outputs_q16(out["joints2d"], out["joints3d"][..., 2],
                                     out["conf"], out["valid"])
@@ -248,8 +249,7 @@ def build_yolo_pipeline(weights: dict[str, np.ndarray],
     return pipeline
 
 
-def a2j_boxes(dets: torch.Tensor, max_crops: int, w_out: float = 480.0,
-              h_out: float = 512.0) -> torch.Tensor:
+def a2j_boxes(dets: torch.Tensor, max_crops: int, w_out: float, h_out: float) -> torch.Tensor:
     """The first `max_crops` (the most confident) detection rows of
     (B, M, >=4) -> (B * max_crops, 4) [xmin, ymin, xmax, ymax] boxes in
     (w_out, h_out) pixels."""
@@ -308,12 +308,12 @@ def build_yolo_a2j_pipeline(yolo_weights: dict[str, np.ndarray],
     @torch.inference_mode()
     def pipeline(raw_depth) -> torch.Tensor:
         raw_depth = torch.as_tensor(raw_depth, device=device)
-        B = raw_depth.shape[0]
+        B, H, W = raw_depth.shape
         x = preproc_depth(raw_depth)
         prior = yolo(x.permute(0, 3, 1, 2).to(dtype)).float().permute(0, 2, 3, 1)
-        det = yolo_decode(prior)
+        det = yolo_decode(prior, W, H)
         valid = det["valid"][:, :C]
-        boxes = a2j_boxes(det["dets"], C)                                 # (B*C, 4)
+        boxes = a2j_boxes(det["dets"], C, W, H)                           # (B*C, 4)
         image_idx = torch.arange(B, device=device).repeat_interleave(C)
         crops = crop_resize_batch(raw_depth.float(), image_idx, boxes, KDH3D_DEPTH.mean,
                                   KDH3D_DEPTH.std)

@@ -567,11 +567,11 @@ def _decode_on_both(path, cuda):
         return popnet_decode(*maps), popnet_decode(*[t.cpu() for t in maps])
     if path == "yolo":
         (prior,), _ = _cnn_maps(YoloPoseNet, WEIGHTS_YOLO, figure_frames(13, 4), cuda)
-        return yolo_decode(prior), yolo_decode(prior.cpu())
+        return yolo_decode(prior, 480, 512), yolo_decode(prior.cpu(), 480, 512)
     # the A2J tail: crop-space keypoints of 4 frames x 4 crops, uncropped
     # from the detector's boxes and back-projected
     (prior,), _ = _cnn_maps(YoloPoseNet, WEIGHTS_YOLO, figure_frames(14, 4), cuda)
-    boxes = a2j_boxes(yolo_decode(prior)["dets"], 4)
+    boxes = a2j_boxes(yolo_decode(prior, 480, 512)["dets"], 4, 480, 512)
     kp = torch.as_tensor(np.random.default_rng(15).uniform(-20, 300, (16, 15, 3)),
                          dtype=torch.float32, device=cuda)
 
@@ -613,11 +613,15 @@ def test_crop_on_the_card_equals_the_cpu(cuda):
 
 
 def test_a2j_post_process_on_the_card_matches_the_cpu(cuda):
-    """The softmax vote over 5184 anchors sums in another order on the card:
-    (y, x) within 5e-3 px and z within 1e-4 m, the bars of the port's vote
-    against XLA's (tests/test_torch_yolo_a2j.py). A float32 sum taken in
-    sequence along the anchor axis drifts as about sqrt(5184) = 72 ulps of
-    the ~300 px and ~4 m magnitudes (2.6e-3 px, 2.4e-5 m)."""
+    """The softmax vote over 5184 anchors on the card against the CPU:
+    (y, x) within 4.5e-3 px and z within 9e-5 m, 1.5 times the largest
+    readings over seeds 0-39 of these inputs on an H100 (2.98e-3 px,
+    5.70e-5 m; seed 17 reads 1.007e-3 px, 1.62e-5 m;
+    `popnet_tpu_torch/tools/measure.py vote`). The gap is the CPU's: its
+    float32 softmax along the non-innermost anchor axis is 46-137 eps off
+    the float64 weights, the card's 10-17, while the weighted sums are
+    1.4-4.6 ulps off on both, so the CPU's vote is 70-195 ulps off the
+    float64 one and the card's 3-12."""
     rng = np.random.default_rng(17)
     anchors = torch.as_tensor(shift_anchors((18, 18), 16, generate_anchors()), dtype=torch.float32)
     N = anchors.shape[0]
@@ -627,8 +631,8 @@ def test_a2j_post_process_on_the_card_matches_the_cpu(cuda):
     got = a2j_post_process([h.to(cuda) for h in heads], anchors.to(cuda)).cpu()
     ref = a2j_post_process(heads, anchors)
     assert got.shape == (8, 15, 3)
-    torch.testing.assert_close(got[..., :2], ref[..., :2], atol=5e-3, rtol=0)
-    torch.testing.assert_close(got[..., 2], ref[..., 2], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[..., :2], ref[..., :2], atol=4.5e-3, rtol=0)
+    torch.testing.assert_close(got[..., 2], ref[..., 2], atol=9e-5, rtol=0)
 
 
 def test_yolo_slice_on_the_card_matches_the_cpu(cuda):

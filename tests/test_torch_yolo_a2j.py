@@ -123,10 +123,11 @@ def test_anchor_tables_match_jax():
 
 def test_a2j_post_process_matches_jax():
     """The softmax vote over 5184 anchors on random heads: (y, x) within
-    5e-3 px and z within 1e-4 m. XLA's CPU reduction adds the 5184 terms
-    in sequence, so its rounding error grows as about sqrt(5184) = 72 ulps
-    of the ~300 px and ~4 m magnitudes (2.6e-3 px and 2.4e-5 m); the port's
-    tree sum sits far closer to the float64 value."""
+    5e-3 px and z within 1e-4 m. The gap is the port's on the CPU: PyTorch's
+    float32 softmax along the non-innermost anchor axis is up to 62 eps off
+    the float64 weights (10 for XLA's, and for the port's on the card), so
+    on these heads the port's vote is 1.3e-3 px and 2.1e-5 m off the
+    float64 one and XLA's 4.0e-5 px and 9.2e-7 m."""
     rng = np.random.default_rng(2)
     anchors = port_a2j.shift_anchors((18, 18), 16, port_a2j.generate_anchors()).astype(np.float32)
     N = anchors.shape[0]
@@ -191,8 +192,13 @@ def test_division_by_a_constant_rounds_as_xla(c):
 
 def test_back_project_and_prior_decode_match_jax_bit_for_bit():
     """The back-projection and the prior decode round as the JAX package's
-    compiled ones: dets and valid of `decode_prior_maps`, and X, Y of the
-    back-projection, bit for bit on the same inputs."""
+    compiled ones: X, Y of the back-projection, and valid and every dets
+    column but the joints' x and y of `decode_prior_maps`, bit for bit on
+    the same inputs. XLA's CPU compiler fuses a joint's p * a / 2 + g into
+    one rounding and the port rounds twice, in plain float32 on every
+    device: the joints' x and y are within 2**-22, two ulps of their
+    largest magnitude (about 1.36), one from the fused sum (at most 2**-19
+    grid units over the grid of 14) and one from the quotient's rounding."""
     rng = np.random.default_rng(6)
     x = rng.uniform(-5, 485, (3, 16, 15)).astype(np.float32)
     y = rng.uniform(-5, 517, (3, 16, 15)).astype(np.float32)
@@ -215,7 +221,11 @@ def test_back_project_and_prior_decode_match_jax_bit_for_bit():
                                     max_det=P)
     assert 0 < int(valid.sum()) < valid.numel()
     np.testing.assert_array_equal(valid.numpy(), np.asarray(ref_valid))
-    np.testing.assert_array_equal(dets.numpy(), np.asarray(ref_dets))
+    dets, ref_dets = dets.numpy(), np.asarray(ref_dets)
+    joints = np.zeros(dets.shape[-1], bool)
+    joints[5:5 + 2 * K] = True
+    np.testing.assert_array_equal(dets[..., ~joints], ref_dets[..., ~joints])
+    np.testing.assert_allclose(dets[..., joints], ref_dets[..., joints], atol=2.0 ** -22, rtol=0)
 
 
 def test_yolo_pipeline_matches_jax_pipeline(frames):
@@ -281,5 +291,6 @@ def test_yolo_a2j_pipeline_matches_jax_pipeline(frames, a2j_init):
     model = load_into(YoloPoseNet(), weights).eval()
     with torch.no_grad():
         port_prior = model(preproc_depth(torch.from_numpy(frames)).permute(0, 3, 1, 2))
-    boxes = a2j_boxes(yolo_decode(port_prior.permute(0, 2, 3, 1))["dets"], 2).numpy()
+    det = yolo_decode(port_prior.permute(0, 2, 3, 1), 480, 512)
+    boxes = a2j_boxes(det["dets"], 2, 480, 512).numpy()
     np.testing.assert_allclose(boxes, ref_boxes, atol=1e-3)
