@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (popnet_tpu_torch) on one NVIDIA card.
 
-Drives the port's four serving paths at the models' full width, batch 256
-of (512, 480) depth frames made from --seed with two or three person-like
-figures each:
+Drives the port's five serving paths at the models' full width: the four
+depth paths at batch 256 of (512, 480) depth frames made from --seed with
+two or three person-like figures each, and COCO RGB at batch 64 of
+(480, 640, 3) BGR frames uniform in [0, 255):
 
 - Open-Pose+ (RTPoseLight3D, 28 PAF / 16 heat / 15 z channels on a 28x28
   grid), frames on a zero background;
@@ -14,7 +15,11 @@ figures each:
   committed weights, frames over the same background;
 - Yolo->A2J: that detector's 4 best boxes a frame cropped to 288x288 and
   refined by A2J (dilated ResNet-50, 16 anchors on 18x18) from its seeded
-  init, as no A2J weights are committed.
+  init, as no A2J weights are committed;
+- COCO RGB: RTPoseVGG (VGG19 trunk, 6 stages, 38 PAF / 19 heat channels on
+  46x46 at 368 px) from its seeded init with the stage-6 heads scaled
+  (coco_weights), as no COCO weights are committed, and the 2D decode with
+  the COCO-18 tables (K1, K3 in two groups of limbs a frame, K6).
 
 Phases, one or more lines each:
 
@@ -33,13 +38,17 @@ Phases, one or more lines each:
    at 20 peaks a joint), the two peak kernels against each other, and the
    decode's fused readouts (K4 and K5 in one launch from the normalized
    maps) against their plain version, on every value of a batch's input;
+   then K1, K3 and K6 at the COCO shapes on painted people (2-4 a frame,
+   coco_people_maps) in two memory orders, and the COCO decode of those
+   maps on the card against the host's and against the painted people;
 4. slices, float32, 256 frames each, launch counts reset just before a path
    is driven and read just after: Open-Pose+ (then the assembly kernel
    against its plain version on that batch's candidates, and the same maps
    decoded once more through the per-frame peak kernel), PoP-Net,
-   Yolo-Pose+ and Yolo->A2J. The same CNN maps decoded on the card (through
-   the kernels) and on the host (through the plain versions) must agree bit
-   for bit, and people must be found on most frames; Yolo->A2J's crops on
+   Yolo-Pose+, Yolo->A2J and COCO RGB (64 frames; its MobileNet trunk on
+   8). The same CNN maps decoded on the card (through the kernels) and on
+   the host (through the plain versions) must agree bit for bit, and people
+   must be found on most frames; Yolo->A2J's crops on
    card and host bit for bit, its A2J heads and vote against the host's on
    a few crops, the bf16 A2J against the float32 one on every crop, and the
    Yolo paths' outputs against their stages run one by one, bit for bit;
@@ -59,7 +68,11 @@ Phases, one or more lines each:
    how K1's and K2's blocks were scheduled, from their spans on the global
    timer), the fused readouts beside K4 and K5 alone, the launch floor (a one-element
    fill in a CUDA graph), the decode's readout stage as a CUDA graph, and
-   the device operations that it and the eager decode issue (torch.profiler).
+   the device operations that it and the eager decode issue (torch.profiler);
+   COCO RGB's stream on the f32 wire, its CNN's TFLOP/s from its conv
+   shapes, its decode and its device operations, and K1, K3 and K6 at the
+   COCO shapes on the painted maps beside their bounds (a "coco" entry in
+   their rows of the kernels line), with K3's stages.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -87,6 +100,13 @@ SMEM_ROUND_TRIP_CYCLES = 30  # one dependent shared-memory load, about, on sm_90
 BATCH = 256                 # the serving batch of bench.py's Open-Pose+ row
 TIMED_BATCHES = 10          # batches in each timed serve_stream window
 MAX_CROPS = 4               # A2J crops a frame, as bench.py's Yolo->A2J row
+COCO_BATCH = 64             # the batch of bench.py's COCO RGB row (BENCH_MODEL=rtpose_vgg)
+COCO_FRAME = (480, 640)     # its BGR frames, (H, W)
+COCO_HEAD_SCALE = 2.0 ** 35  # the seeded RTPoseVGG's stage-6 heads (coco_weights)
+# bf16 RTPoseVGG's maps against float32 on the same frames, over the largest
+# magnitude: about 2.5 times the 2.0% (heat) and 1.7% (PAF) read on the CPU
+# (16 frames of the seeded init)
+COCO_BF16_MAP_BAR = 0.05
 A2J_SEED = 0                # the seeded A2J init (no A2J weights are committed)
 A2J_HOST_FRAMES = 16        # frames whose crops' A2J vote is also run on the host
 A2J_HOST_CNN_CROPS = 2      # crops whose A2J heads are also computed on the host
@@ -111,6 +131,7 @@ KERNEL_META = {
 }
 PEAK_OUTPUTS = ("px", "py", "loc", "score", "valid")
 OPENPOSE_PATH = ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout")
+COCO_PATH = ("find_peaks", "paf_score", "assemble_ids")
 # the stages between a kernel's STAGE_STAMPs, in order (csrc/common.cuh)
 STAGES = {"find_peaks": ("load", "NMS", "top-M", "refine"),
           "find_peaks_row": ("load", "NMS", "top-M", "refine"),
@@ -387,14 +408,15 @@ def distinct_per_plane(peaks):
     return 1 + (key[..., 1:] != key[..., :-1]).sum(-1)
 
 
-def distinct_pairs(peaks):
-    """(B, L) count of distinct (src, dst) coordinate pairs per limb."""
+def distinct_pairs(peaks, limbs=None):
+    """(B, L) count of distinct (src, dst) coordinate pairs per limb of
+    `limbs` (the depth skeleton's by default)."""
     import torch
 
     from popnet_tpu_torch.core.skeleton import LIMBS
 
     nd = distinct_per_plane(peaks)
-    la = torch.as_tensor(LIMBS, device=peaks.device)
+    la = torch.as_tensor(LIMBS if limbs is None else limbs, device=peaks.device)
     return nd[:, la[:, 0]] * nd[:, la[:, 1]]
 
 
@@ -995,7 +1017,7 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float, str]:
         # a line integral per distinct (src, dst) coordinate pair of a limb:
         # 10 points x (2 channels x 16 taps multiply-add, 8 cubic weights of
         # 11 ops, coordinates and projection about 17)
-        pairs = float(distinct_pairs(peaks).sum())
+        pairs = float(distinct_pairs(peaks, inputs.get("limbs")).sum())
         ops = pairs * PAIR_OPS
         note = (f"; {pairs:.0f} distinct pairs integrated (every pair would be "
                 f"{score.numel()}, {score.numel() * PAIR_OPS / 1e9:.3f} GFLOP)")
@@ -1020,7 +1042,7 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float, str]:
     return nbytes, ops, bound_ms, note
 
 
-def stage_breakdown(name: str, call, ms: float) -> None:
+def stage_breakdown(name: str, call, ms: float, tag: str = "") -> None:
     """Per-block stage clocks of a call of the kernel's stage-clock build,
     the second of two back to back (the first warms the instruction and data
     caches, as the timed replays have them): each stage's mean cycles over
@@ -1037,7 +1059,7 @@ def stage_breakdown(name: str, call, ms: float) -> None:
     total = float(cyc.sum())
     parts = ", ".join(f"{lab} {c:.0f} ({c / total:.1%}, {ms * c / total:.4f} ms)"
                       for lab, c in zip(labels, cyc))
-    say("timing", f"{name} stages, clock64 cycles per block (mean over {len(st)} blocks of "
+    say("timing", f"{tag}{name} stages, clock64 cycles per block (mean over {len(st)} blocks of "
         f"{total:.0f}, the longest block {per_block.sum(axis=1).max():.0f}; share; that share "
         f"of {ms:.4f} ms): {parts}")
     if name in SPANS:
@@ -1079,7 +1101,7 @@ def greedy_connections(s_masked):
     return n
 
 
-def time_kernels(calls: dict, launches: dict, errs: dict) -> list[dict]:
+def time_kernels(calls: dict, launches: dict, errs: dict, tag: str = "") -> list[dict]:
     """Time each kernel, its plain version and its library call (device
     time, CUDA-graph replays) and set them beside the bound; `calls` maps a
     kernel's name to (kernel, plain, library or None, inputs for _bounds)."""
@@ -1092,7 +1114,7 @@ def time_kernels(calls: dict, launches: dict, errs: dict) -> list[dict]:
         lib_ms = graph_ms(lib) if lib is not None else None
         nbytes, ops, bound_ms, note = _bounds(name, inputs)
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
-        say("timing", f"{name}: {ms:.4f} ms/batch on the card (CUDA graph; "
+        say("timing", f"{tag}{name}: {ms:.4f} ms/batch on the card (CUDA graph; "
             f"{eager_ms:.4f} ms per eager call), plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP{note})"
             + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
@@ -1142,7 +1164,7 @@ def readout_timing(stage, decode, ms: dict, dev) -> None:
         f"{device_ops(decode)}")
 
 
-def time_stream(tag: str, pipe, frames, iters: int, check) -> None:
+def time_stream(tag: str, pipe, frames, iters: int, check, wire: str = "q16") -> None:
     """frames/s of `pipe` through serve_stream(queue_depth=3), after a warm
     window whose first batch goes to `check`."""
     import torch
@@ -1158,7 +1180,7 @@ def time_stream(tag: str, pipe, frames, iters: int, check) -> None:
     for buf in serve_stream(pipe, (frames for _ in range(iters)), queue_depth=3):
         n += buf.shape[0]
     wall = time.perf_counter() - t0
-    say("timing", f"{tag} serve_stream bf16 q16 queue_depth=3: {iters} batches of "
+    say("timing", f"{tag} serve_stream bf16 {wire} queue_depth=3: {iters} batches of "
         f"{frames.shape[0]} in {wall:.3f} s = {n / wall:.1f} frames/s "
         f"({wall / iters * 1e3:.2f} ms/batch); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -1443,6 +1465,312 @@ def phase_a2j_timing(frames, weights, dev, iters: int, f32_out) -> None:
         f"TFLOP a batch: {flops / cnn_ms / 1e9:.1f} TFLOP/s); vote {vote_ms:.3f} ms")
 
 
+# COCO joints of a standing person in grid cells (46x46 at 368 px), from the neck
+COCO_TEMPLATE = np.array([
+    (0.0, -3.0), (0.0, 0.0), (-2.5, 0.5), (-3.5, 4.0), (-4.0, 7.5), (2.5, 0.5), (3.5, 4.0),
+    (4.0, 7.5), (-1.5, 9.0), (-1.8, 14.0), (-2.0, 19.0), (1.5, 9.0), (1.8, 14.0), (2.0, 19.0),
+    (-0.8, -3.8), (0.8, -3.8), (-1.8, -3.4), (1.8, -3.4)])
+
+
+def coco_people_maps(rng: np.random.Generator, B: int, H: int = 46, W: int = 46):
+    """Painted COCO maps: per frame 2-4 standing people of 18 joints side by
+    side (COCO_TEMPLATE, scaled 0.75-1, jittered), Gaussian heat blobs of
+    sigma 7/8 cell (the encoders' 7 px at stride 8) in 18 joint channels and
+    a background channel, and the unit limb vector of each of the 19 limbs
+    on the cells within one cell of the limb's line and box (averaged where
+    people overlap). Returns heat (B, H, W, 19) and paf (B, H, W, 38)
+    float32 and the people a frame (B,)."""
+    from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS
+
+    limbs = np.asarray(COCO_LIMBS)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    heat = np.zeros((B, H, W, 19))
+    paf = np.zeros((B, H, W, 38))
+    n_paint = np.zeros((B, H, W, 19))
+    people = rng.integers(2, 5, size=B)
+    for b in range(B):
+        n = people[b]
+        for p in range(n):
+            neck = np.array([(p + 0.5) * W / n + rng.uniform(-1, 1), rng.uniform(10, 14)])
+            j = neck + COCO_TEMPLATE * rng.uniform(0.75, 1.0) + rng.normal(0, 0.25, (18, 2))
+            d2 = (xs[..., None] - j[:, 0]) ** 2 + (ys[..., None] - j[:, 1]) ** 2
+            heat[b, ..., :18] = np.maximum(heat[b, ..., :18], np.exp(-d2 / (2 * 0.875 ** 2)))
+            a, c = j[limbs[:, 0]], j[limbs[:, 1]]                      # (19, 2) each
+            v = (c - a) / np.linalg.norm(c - a, axis=1, keepdims=True)
+            rx, ry = xs[..., None] - a[:, 0], ys[..., None] - a[:, 1]  # (H, W, 19)
+            on = ((np.abs(rx * v[:, 1] - ry * v[:, 0]) <= 1.0)
+                  & (xs[..., None] >= np.minimum(a[:, 0], c[:, 0]) - 1)
+                  & (xs[..., None] <= np.maximum(a[:, 0], c[:, 0]) + 1)
+                  & (ys[..., None] >= np.minimum(a[:, 1], c[:, 1]) - 1)
+                  & (ys[..., None] <= np.maximum(a[:, 1], c[:, 1]) + 1))
+            paf[b, ..., 0::2] += on * v[:, 0]
+            paf[b, ..., 1::2] += on * v[:, 1]
+            n_paint[b] += on
+    paf /= np.repeat(np.maximum(n_paint, 1), 2, axis=-1)
+    heat[..., 18] = np.maximum(1.0 - heat[..., :18].max(-1), 0.0)
+    return heat.astype(np.float32), paf.astype(np.float32), people
+
+
+def coco_weights(seed: int = 0) -> dict:
+    """RTPoseVGG.init_seeded(seed) as Flax-named variables, the stage-6 PAF
+    and heat heads scaled by COCO_HEAD_SCALE: the seeded init's maps are
+    about 1e-11 (normal(0.01) kernels through 51 convs without a norm), and
+    the network is linear in each head's kernel, so the scaled maps cross
+    thresh_heatmap and the decode does real work."""
+    from popnet_tpu_torch.models import RTPoseVGG
+
+    model = RTPoseVGG().init_seeded(seed)
+    flat = {}
+    for name, t in model.state_dict().items():
+        *path, leaf = name.split(".")
+        a = t.numpy()
+        if leaf == "weight":
+            a = a.transpose(2, 3, 1, 0)                             # OIHW -> HWIO
+            if path[0] in ("stage6_paf", "stage6_heat") and path[1] == "Conv_0":
+                a = a * COCO_HEAD_SCALE
+        flat["/".join(["params", *path, "kernel" if leaf == "weight" else leaf])] = a
+    return flat
+
+
+def phase_coco_kernels(rng, dev, B: int):
+    """K1, K3 (two groups of limbs a frame) and K6 against their plain
+    versions at the COCO shapes, on painted people in both memory orders of
+    the maps; K3 at the depth shapes keeps one group; the COCO decode of the
+    painted maps on the card against the host's, bit for bit, and its
+    people against the painted ones. Returns max |err| per kernel and the
+    painted maps (channels-last)."""
+    import torch
+
+    from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS
+    from popnet_tpu_torch.decode.assemble_device import assemble_inputs
+    from popnet_tpu_torch.decode.device import find_peaks_batched, peak_planes
+    from popnet_tpu_torch.decode.openpose_infer import paf_decode_2d
+    from popnet_tpu_torch.ops import kernels
+
+    K, L, M = COCO_NUM_JOINTS, len(COCO_LIMBS), 16
+    groups, smem = kernels.paf_score_groups(K, L, M, 46, 46)
+    depth_groups = kernels.paf_score_groups(15, 14, M, 28, 28)
+    require(groups == 2, f"paf_score takes {groups} groups of limbs at COCO sizes, not 2")
+    require(depth_groups[0] == 1, f"paf_score takes {depth_groups[0]} groups at depth sizes")
+    heat_np, paf_np, people = coco_people_maps(rng, B)
+    errs, maps = {}, {}
+    for tag, fmt in (("NCHW memory", torch.contiguous_format),
+                     ("channels-last", torch.channels_last)):
+        heat, paf = (torch.as_tensor(a, device=dev).permute(0, 3, 1, 2).contiguous(
+            memory_format=fmt).permute(0, 2, 3, 1) for a in (heat_np, paf_np))
+        h = peak_planes(heat, K)
+        got, ref = kernels.find_peaks(h), kernels.find_peaks_plain(h)
+        for i, n in enumerate(PEAK_OUTPUTS):
+            _exact(f"find_peaks {n} at COCO shapes, {tag}", got[i], ref[i])
+        peaks, valid = find_peaks_batched(heat, num_joints=K)
+        s_k, ok_k = kernels.paf_score(paf, peaks, valid, COCO_LIMBS)
+        s_p, ok_p = kernels.paf_score_plain(paf, peaks, valid, COCO_LIMBS)
+        _exact(f"paf_score score at COCO shapes, {tag}", s_k, s_p)
+        _exact(f"paf_score ok at COCO shapes, {tag}", ok_k, ok_p)
+        ps, sm = assemble_inputs(peaks, s_k, ok_k)
+        ids, cnt = kernels.assemble_ids(ps, sm, COCO_LIMBS)
+        ids_p, cnt_p = kernels.assemble_ids_plain(ps, sm, COCO_LIMBS)
+        _exact(f"assemble_ids ids at COCO shapes, {tag}", ids, ids_p)
+        _exact(f"assemble_ids counts at COCO shapes, {tag}", cnt, cnt_p)
+        for name, err in (("find_peaks", _maxerr(got[3], ref[3])), ("paf_score",
+                          _maxerr(s_k, s_p)), ("assemble_ids", _maxerr(ids, ids_p))):
+            errs[name] = max(errs.get(name, 0.0), err)
+        maps = {"heat": heat, "paf": paf}
+    nv = valid.sum(-1)
+    say("coco", f"find_peaks (B,K,H,W)={tuple(h.shape)} strides {tuple(h.stride())}, paf_score "
+        f"paf={tuple(paf.shape)} with {L} limbs in {groups} groups a frame ({smem} bytes of "
+        f"shared memory a block; {depth_groups[0]} group, {depth_groups[1]} bytes at the depth "
+        f"shapes), assemble_ids with {L} limbs: all outputs exact against the plain versions "
+        f"on painted people, in NCHW and channels-last memory; valid peaks per plane mean "
+        f"{float(nv.float().mean()):.3f}, {int(ok_k.sum())} pairs ok")
+    per_sm = {"find_peaks": kernels.blocks_per_sm("find_peaks", K, 46, 46, M),
+              "paf_score": kernels.blocks_per_sm("paf_score", K, L, M, 46, 46),
+              "assemble_ids": kernels.blocks_per_sm("assemble", K, L, M, 16)}
+    say("coco", f"blocks that one SM holds at the COCO sizes: {per_sm}; elements per "
+        f"shared-memory copy: find_peaks {kernels.copy_width('find_peaks', h)}, paf_score "
+        f"{kernels.copy_width('paf_score', paf, K, M)}")
+
+    # the COCO decode of the painted maps, scaled to a 640x480 frame
+    heat, paf = maps["heat"], maps["paf"]
+    sx, sy = COCO_FRAME[1] / 368, COCO_FRAME[0] / 368
+    kernels.reset_launches()
+    dk = paf_decode_2d(heat, paf, K, limbs=COCO_LIMBS, sx=sx, sy=sy)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    for name in COCO_PATH:
+        require(launched[name] == 1, f"the COCO decode launched {name} {launched[name]} times")
+    dp = paf_decode_2d(heat.cpu(), paf.cpu(), K, limbs=COCO_LIMBS, sx=sx, sy=sy)
+    for k in ("joints2d", "conf", "visibility", "counts"):
+        _exact(f"COCO decode {k}, card against host on painted people", dk[k], dp[k])
+    counts = dk["counts"].cpu().numpy()
+    found = float((counts == people).mean())
+    say("coco", f"COCO decode of painted people (B={B}, 2-4 a frame, 18 joints): card equals "
+        f"host bit for bit (joints2d, conf, visibility, counts); people found as painted on "
+        f"{found:.1%} of frames (bar 90%), {int(counts.sum())} of {int(people.sum())}, "
+        f"visible joints a person "
+        f"{float(dk['visibility'].sum()) / max(int(counts.sum()), 1):.2f}")
+    require(found >= 0.9, "the COCO decode finds the painted people on fewer than 90% of frames")
+    torch.cuda.synchronize()
+    return errs, maps
+
+
+def phase_coco_slice(rng, dev, B: int):
+    """The float32 COCO RGB slice on B frames of 480x640x3 BGR, RTPoseVGG
+    from its seeded init with scaled stage-6 heads: the path's launch
+    counts, its output against its CNN and decode run one by one, the
+    decode of its maps on the card against the host's, bit for bit; the
+    MobileNet trunk on 8 frames. Returns frames, launch counts, output, the
+    float32 maps and the weights."""
+    import torch
+
+    from popnet_tpu_torch import build_rtpose_vgg_pipeline
+    from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS
+    from popnet_tpu_torch.decode.device import find_peaks_batched
+    from popnet_tpu_torch.decode.openpose_infer import paf_decode_2d
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import RTPoseVGG
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.serving import preproc_rgb, unpack_outputs_2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    Hf, Wf = COCO_FRAME
+    frames = torch.as_tensor(rng.uniform(0, 255, (B, Hf, Wf, 3)).astype(np.float32), device=dev)
+    weights = coco_weights()
+    pipe = build_rtpose_vgg_pipeline(weights, dtype=torch.float32)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    buf = pipe(frames)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say("coco", f"main-path launches per kernel: {launches}")
+    for name, n in launches.items():
+        require(n == int(name in COCO_PATH), f"kernel {name}: {n} launches on the COCO path")
+    require(buf.shape == (B, 16 * 18 * 3 + 1) and buf.dtype == torch.float32,
+            f"packed buffer {tuple(buf.shape)} {buf.dtype}")
+    require(bool(torch.isfinite(buf).all()), "non-finite values in the packed output")
+    out = unpack_outputs_2d(buf.cpu().numpy(), 16, 18)
+
+    model = load_into(RTPoseVGG(), weights).eval().to(dev)
+    with torch.inference_mode():
+        (paf, heat), _ = model(preproc_rgb(frames))
+        heat_n, paf_n = heat.permute(0, 2, 3, 1), paf.permute(0, 2, 3, 1)
+        sx, sy = Wf / 368, Hf / 368
+        dk = paf_decode_2d(heat_n, paf_n, COCO_NUM_JOINTS, limbs=COCO_LIMBS, sx=sx, sy=sy)
+        dp = paf_decode_2d(heat_n.cpu(), paf_n.cpu(), COCO_NUM_JOINTS, limbs=COCO_LIMBS,
+                           sx=sx, sy=sy)
+    for k in ("joints2d", "conf", "visibility", "counts"):
+        _exact(f"COCO decode {k}, card against host", dk[k], dp[k])
+    for k in ("joints2d", "conf"):
+        require(np.array_equal(out[k], dk[k].cpu().numpy()),
+                f"COCO pipeline {k} differs from its CNN and decode run one by one")
+    require(np.array_equal(out["counts"][:, 0], dk["counts"].cpu().numpy()),
+            "COCO pipeline counts differ from its CNN and decode run one by one")
+    counts = out["counts"][:, 0].astype(int)
+    peaks, valid = find_peaks_batched(heat_n, num_joints=COCO_NUM_JOINTS)
+    nv = valid.sum(-1)
+    say("coco", f"B={B} frames of {Hf}x{Wf}: heat max {float(heat.max()):.3f}, paf |max| "
+        f"{float(paf.abs().max()):.3f}; valid peaks per plane mean "
+        f"{float(nv.float().mean()):.2f}, "
+        f"max {int(nv.max())}; people per frame histogram "
+        f"{np.bincount(counts, minlength=4).tolist()}, visible joints a person "
+        f"{float(dk['visibility'].sum()) / max(int(counts.sum()), 1):.2f}; the pipeline's "
+        f"output equals its CNN and decode run one by one, and the decode of its maps on the "
+        f"card equals the host's, bit for bit")
+    require(int(counts.sum()) > 0, "the COCO slice found nobody: the decode did no work")
+
+    mobile = build_rtpose_vgg_pipeline(dtype=torch.float32, trunk="mobilenet")
+    mb = mobile(frames[:8])
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(mb).all())
+    require(mb.shape == (8, 16 * 18 * 3 + 1) and finite,
+            f"MobileNet trunk: packed buffer {tuple(mb.shape)}, finite {finite}")
+    say("coco", "MobileNet trunk (seeded init), float32, 8 frames: packed buffer "
+        f"{tuple(mb.shape)}, all finite")
+    return frames, launches, out, {"heat": heat, "paf": paf}, weights
+
+
+def phase_coco_timing(frames, weights, dev, iters: int, launches, f32_out, f32_maps, painted,
+                      errs) -> dict:
+    """COCO RGB: the timed bf16 + f32-wire stream and the bf16 CNN's maps
+    against the float32 slice's, the CNN's time and rate from its conv
+    shapes, the eager decode and its device operations, and K1, K3 and K6
+    at the COCO shapes on the painted maps (CUDA-graph replays) beside
+    their bounds. Returns the kernels' rows by name."""
+    import torch
+
+    from popnet_tpu_torch import build_rtpose_vgg_pipeline
+    from popnet_tpu_torch.core.config import DecodeConfig
+    from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS
+    from popnet_tpu_torch.decode.assemble_device import assemble_inputs
+    from popnet_tpu_torch.decode.device import (find_peaks_batched, peak_planes,
+                                                score_limb_pairs_batched)
+    from popnet_tpu_torch.decode.openpose_infer import paf_decode_2d
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import RTPoseVGG
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.serving import preproc_rgb, unpack_outputs_2d
+
+    B, Hf, Wf, _ = frames.shape
+    K, sx, sy = COCO_NUM_JOINTS, Wf / 368, Hf / 368
+    pipe = build_rtpose_vgg_pipeline(weights)                 # bf16 CNN, the default
+    time_stream("COCO RGB", pipe, frames, iters,
+                lambda buf: check_coco_bf16(unpack_outputs_2d(buf, 16, K), f32_out), wire="f32")
+    model = load_into(RTPoseVGG(), weights).eval().to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        xb = preproc_rgb(frames).to(torch.bfloat16)
+        cnn_ms = time_ms(lambda: model(xb), reps=5)
+        flops = conv_flops(model, xb[:1]) * B
+        (paf, heat), _ = model(xb)
+        for name, b16, f32 in (("heat", heat, f32_maps["heat"]), ("paf", paf, f32_maps["paf"])):
+            rel = _maxerr(b16, f32) / float(f32.abs().max())
+            say("timing", f"COCO RGB {name} maps, bf16 CNN vs float32 on the same {B} frames: "
+                f"max|err| {rel:.4g} of max|value| (bar {COCO_BF16_MAP_BAR})")
+            require(rel <= COCO_BF16_MAP_BAR,
+                    f"COCO RGB bf16 {name} maps are off the float32 ones")
+        heat_n, paf_n = heat.permute(0, 2, 3, 1), paf.permute(0, 2, 3, 1)
+
+        def decode():
+            return paf_decode_2d(heat_n, paf_n, K, limbs=COCO_LIMBS, sx=sx, sy=sy)
+
+        decode_ms = time_ms(decode, reps=10)
+        say("timing", f"COCO RGB per batch of {B} frames: CNN bf16 {cnn_ms:.3f} ms "
+            f"({flops / B / 1e9:.2f} GFLOP a frame in its convolutions, {flops / 1e12:.2f} "
+            f"TFLOP a batch: {flops / cnn_ms / 1e9:.1f} TFLOP/s); decode (eager, through the "
+            f"kernels) {decode_ms:.3f} ms, device operations per call {device_ops(decode)}; "
+            f"the maps as the decode gets them: heat strides {tuple(heat_n.stride())}, paf "
+            f"strides {tuple(paf_n.stride())}")
+
+        # the kernels at the COCO shapes, on the painted people
+        heat, paf = painted["heat"], painted["paf"]
+        h = peak_planes(heat, K)
+        px, py, _, _, slot_valid = kernels.find_peaks(h)
+        peaks, pvalid = find_peaks_batched(heat, num_joints=K)
+        scores, ok = score_limb_pairs_batched(paf, peaks, pvalid, limbs=COCO_LIMBS)
+        ps, sm = assemble_inputs(peaks, scores, ok)
+        ids, _ = kernels.assemble_ids(ps, sm, COCO_LIMBS)
+        calls = {
+            "find_peaks": (lambda: kernels.find_peaks(h), lambda: kernels.find_peaks_plain(h),
+                           None, {"heat": h, "px": px, "py": py, "valid": slot_valid,
+                                  "thresh": DecodeConfig().thresh_heatmap}),
+            "paf_score": (lambda: kernels.paf_score(paf, peaks, pvalid, COCO_LIMBS),
+                          lambda: kernels.paf_score_plain(paf, peaks, pvalid, COCO_LIMBS),
+                          None, {"paf": paf, "peaks": peaks, "score": scores,
+                                 "limbs": COCO_LIMBS}),
+            "assemble_ids": (lambda: kernels.assemble_ids(ps, sm, COCO_LIMBS),
+                             lambda: kernels.assemble_ids_plain(ps, sm, COCO_LIMBS), None,
+                             {"peak_score": ps, "s_masked": sm, "ids": ids,
+                              "connections": greedy_connections(sm)}),
+        }
+        rows = {r["name"]: r for r in time_kernels(calls, launches, errs, tag="COCO ")}
+        pairs = distinct_pairs(peaks, COCO_LIMBS)
+        say("timing", f"COCO painted maps: distinct coordinate pairs per limb mean "
+            f"{float(pairs.float().mean()):.3f}, max {int(pairs.max())}; per frame mean "
+            f"{float(pairs.sum(1).float().mean()):.1f}")
+        stage_breakdown("paf_score", lambda: kernels.paf_score(paf, peaks, pvalid, COCO_LIMBS),
+                        rows["paf_score"]["ms"], tag="COCO ")
+    return rows
+
+
 def bf16_heads(crops, heads, kp, anchors, valid) -> None:
     """A2J in bf16, as the timed pipeline runs it, on the float32 slice's
     crops against the float32 heads: each head's largest error over its
@@ -1488,6 +1816,27 @@ def check_a2j_bf16(q16: dict, f32: dict) -> None:
     require(abs(int(cq.sum()) - int(cf.sum())) <= 0.10 * cf.sum(), "bf16 people differ by over 10%")
 
 
+def check_coco_bf16(b16: dict, f32: dict) -> None:
+    """The timed COCO RGB configuration (bf16 CNN, f32 wire) against the
+    float32 slice on the same frames: people and visible joints within 10%,
+    every value finite. The seeded init's maps are noise whose many peaks
+    and pairs sit near the decode's thresholds, and the bf16 CNN moves the
+    maps by about 2% of their range: people per frame is printed, not held
+    to a bar (on these maps it is a count of near-ties; check_bf16's 80% is
+    for trained weights' peaked maps). The maps themselves are held at
+    COCO_BF16_MAP_BAR in phase_coco_timing."""
+    cq, cf = (o["counts"].astype(int).sum(axis=1) for o in (b16, f32))
+    vq, vf = (int((o["joints2d"][..., 0] >= 0).sum()) for o in (b16, f32))
+    say("timing", f"COCO RGB bf16+f32 vs f32 on the same {len(cf)} frames: people per frame "
+        f"equal on {float((cq == cf).mean()):.1%} (within one on "
+        f"{float((np.abs(cq - cf) <= 1).mean()):.1%}; no bar), people {cq.sum()} vs "
+        f"{cf.sum()}, visible joints {vq} vs {vf} (bar 10%)")
+    require(bool(np.isfinite(b16["joints2d"]).all()), "non-finite values in the f32 output")
+    require(abs(int(cq.sum()) - int(cf.sum())) <= 0.10 * cf.sum(),
+            "bf16 people differ by over 10%")
+    require(abs(vq - vf) <= 0.10 * vf, "bf16 visible joints differ by over 10%")
+
+
 def check_bf16(tag: str, q16: dict, f32: dict) -> None:
     """The timed configuration (bf16 CNN, q16 wire) against the float32
     slice on the same frames: people per frame equal on at least 80% of the
@@ -1524,6 +1873,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from popnet_tpu_torch import load_npz
 
@@ -1535,6 +1885,8 @@ def main(argv=None) -> int:
     rng3 = np.random.default_rng([args.seed, 3])    # the sparse and shared-coordinate cases
     rng4 = np.random.default_rng([args.seed, 4])    # the readout's and the assembly's new cases
     errs = phase_kernels(rng, rng_new, rng3, rng4, dev, BATCH)
+    rng_coco = np.random.default_rng([args.seed, 6])  # the COCO painted maps and frames
+    errs_coco, painted = phase_coco_kernels(rng_coco, dev, COCO_BATCH)
     weights, weights_pn = load_npz(WEIGHTS), load_npz(WEIGHTS_POPNET)
     frames, launches, f32_out = phase_slice(rng, dev, BATCH, weights)
     frames_pn, launches_pn, f32_out_pn = phase_popnet_slice(rng_new, dev, BATCH, weights_pn)
@@ -1544,6 +1896,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.deterministic = True
     frames_y, _, f32_out_y = phase_yolo_slice(rng_yolo, dev, BATCH, weights_yolo)
     _, f32_out_a2j = phase_a2j_slice(frames_y, dev, weights_yolo, f32_out_y)
+    # so do the COCO pipeline and its CNN run alone
+    frames_c, launches_c, f32_out_c, f32_maps_c, weights_c = phase_coco_slice(rng_coco, dev,
+                                                                              COCO_BATCH)
     torch.backends.cudnn.deterministic = False
     rows = phase_timing(frames, weights, dev, BATCH, TIMED_BATCHES, errs, launches, f32_out,
                         sm_clock_mhz)
@@ -1551,8 +1906,15 @@ def main(argv=None) -> int:
                                 f32_out_pn)
     phase_yolo_timing(frames_y, weights_yolo, dev, TIMED_BATCHES, f32_out_y)
     phase_a2j_timing(frames_y, weights_yolo, dev, TIMED_BATCHES, f32_out_a2j)
+    coco = phase_coco_timing(frames_c, weights_c, dev, TIMED_BATCHES, launches_c, f32_out_c,
+                             f32_maps_c, painted, errs_coco)
+    for r in rows:                  # K1, K3 and K6 at the COCO shapes, beside their depth rows
+        if r["name"] in coco:
+            r["coco"] = {k: v for k, v in coco[r["name"]].items()
+                         if k not in ("name", "route", "source", "replaces")}
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")
     require(all(r["launches"] >= 1 for r in rows), "a kernel was launched on no path")
+    say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

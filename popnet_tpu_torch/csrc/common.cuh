@@ -153,6 +153,14 @@ extern "C" int popnet_stage_clocks(void* dst, int n) {
   if (n > popnet::kStampBlocks * popnet::kStamps) return (int)cudaErrorInvalidValue;
   return (int)cudaMemcpyFromSymbol(dst, popnet::g_stage_clocks, n * sizeof(long long));
 }
+// Zero the stamps, so that blocks beyond a smaller grid than the last one
+// read as not run.
+extern "C" int popnet_stage_clocks_clear() {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, popnet::g_stage_clocks);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(popnet::g_stage_clocks));
+  return (int)e;
+}
 #else
 #define STAGE_STAMP(i) \
   do {                 \

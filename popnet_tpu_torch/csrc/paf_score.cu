@@ -9,9 +9,10 @@
 // Bound on the H100: bytes. Inputs are the PAF maps (B*H*W*2L*4 bytes,
 // 22.5 MB at B=256, 28x28, L=14), the peaks and their validity; outputs are
 // the (B, L, M, M) scores and ok flags (4.6 MB): about 8 us at the memory
-// rate. A pair's score is a function of its two coordinates alone, and on
-// the main path most slots are empty and share one coordinate (K1's
-// contract), so a limb holds about 8 distinct coordinate pairs of its 256:
+// rate (COCO at B=64, 46x46, L=19: 20.6 MB of maps, about 7 us). A pair's
+// score is a function of its two coordinates alone, and on the main path
+// most slots are empty and share one coordinate (K1's contract), so a limb
+// holds about 8 distinct coordinate pairs of its 256:
 // their line integrals (10 points x 16 taps x 2 channels, 8 cubic weights,
 // about 1700 operations each) take well under the bytes' time
 // (chip_smoke.py _bounds). What the kernel pays above the bound: the copy of
@@ -19,21 +20,32 @@
 // people (up to 237 distinct pairs a frame against 110 on average), and the
 // fill of the 3584 outputs a frame (chip_smoke.py phase 5, stage clocks).
 //
-// Design: one block of 16 warps per frame (two fit an SM, so 256 frames fill
-// 132 SMs in one wave).
-// - Load: the frame's (H, W, 2L) maps go to shared memory in one pass of
-//   cp.async copies, threads numbered in the order of the memory the strides
-//   show, 16 bytes a copy where the strides allow (one contiguous 87.8 KB
-//   range on the serving path; common.cuh), stored [y][x][c] so that a tap
-//   reads a limb's two channels as one 8-byte word.
+// Design: one block of 16 warps per frame and group of limbs. A frame's
+// maps go to shared memory whole when they fit one block (G = 1: every
+// depth shape; two blocks fit an SM, so 256 frames fill 132 SMs in one
+// wave). Larger maps (COCO: 46x46 with 19 limbs, 321.6 KB) are split over G
+// blocks a frame, each holding the channels of consecutive limbs
+// [l0, l1) = [ceil(g L / G), ceil((g + 1) L / G)): the host takes the
+// smallest G whose largest group fits 227 KB (G = 2 at COCO, 10 + 9 limbs,
+// 169.3 KB of maps a block). A pair's integral reads its own limb's two
+// channels only, so the split changes no bit of any result.
+// - Load: the group's (H, W, 2(l1 - l0)) maps go to shared memory in one
+//   pass of cp.async copies, threads numbered in the order of the memory the
+//   strides show, 16 bytes a copy where the strides allow (one contiguous
+//   87.8 KB range on the depth path; 8 bytes a copy from each 152-byte pixel
+//   of the COCO maps; common.cuh), stored [y][x][c] so that a tap reads a
+//   limb's two channels as one 8-byte word. The copy shape comes from the
+//   host, one for the groups of ceil(L / G) limbs and one for those of
+//   floor(L / G), at the copy width that every group's address allows.
 //   The edge pad is not stored: a tap clamps its cell into the map, and
 //   reads 0 beyond the 2-cell pad, as the padded planes of the TPU kernel
-//   give. (Padding all 28 channels to 32x32 would take 114.7 KB, one block
-//   an SM.)
+//   give. (Padding all 28 depth channels to 32x32 would take 114.7 KB, one
+//   block an SM.)
 // - While the copies fly, a warp per joint maps each slot to the first slot
 //   whose (x, y) has the same bit patterns (__match_any_sync on the bits, so
 //   +0.0 and -0.0 or two NaNs of other payloads stay apart) and lists the
-//   distinct coordinates. Equal inputs through the same arithmetic give the
+//   distinct coordinates; every block of a frame does so for all K joints
+//   (a few hundred cycles). Equal inputs through the same arithmetic give the
 //   same bits, so integrating each distinct (src, dst) pair once is exact
 //   for any input, not only for K1's output.
 // - Integrals: a warp takes three distinct pairs at a time, a lane per line
@@ -120,13 +132,18 @@ __device__ __forceinline__ float line_point(const float* pafs, int H, int W, int
   return __fadd_rn(__fmul_rn(vx, ux), __fmul_rn(vy, uy));
 }
 
-// Shared memory of one frame, in this order (4-byte items first, so every
-// part stays aligned).
+// The first limb of group g when L limbs are split into G groups: ceil(g L / G).
+__host__ __device__ __forceinline__ int group_start(int g, int L, int G) {
+  return (g * L + G - 1) / G;
+}
+
+// Shared memory of one block, for a group of L limbs, in this order (4-byte
+// items first, so every part stays aligned).
 struct Layout {
   int paf, res, xd, yd, woff, nd, lim, map, resok, pv, bytes;
   __host__ __device__ Layout(int K, int L, int M, int H, int W) {
     int o = 0;
-    paf = o;   o += 4 * H * W * 2 * L;   // (H, W, 2L) maps
+    paf = o;   o += 4 * H * W * 2 * L;   // (H, W, 2L) maps of the group's limbs
     res = o;   o += 4 * L * M * M;       // score of each distinct (src, dst) pair, (L, M, M)
     xd = o;    o += 4 * K * M;           // distinct coordinates of each joint, in slot order
     yd = o;    o += 4 * K * M;
@@ -141,14 +158,24 @@ struct Layout {
 };
 
 __global__ void __launch_bounds__(kThreads, 2)
-paf_score_kernel(const float* __restrict__ paf, long long sb, popnet::Dims3 g,
-                 const float* __restrict__ peaks, const bool* __restrict__ peak_valid,
-                 const int* __restrict__ limbs, int K, int L, int M, int H, int W, int T,
-                 float factor, float thresh, float len_ref,
-                 float* __restrict__ score_out, bool* __restrict__ ok_out) {
+paf_score_kernel(const float* __restrict__ paf, long long sb, long long sc, popnet::Dims3 g_hi,
+                 popnet::Dims3 g_lo, const float* __restrict__ peaks,
+                 const bool* __restrict__ peak_valid, const int* __restrict__ limbs, int K,
+                 int L, int ngroups, int M, int H, int W, int T, float factor, float thresh,
+                 float len_ref, float* __restrict__ score_out, bool* __restrict__ ok_out) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const Layout ly(K, L, M, H, W);
+  // this block's frame and group of limbs; one group a frame (every depth
+  // shape) takes no division
+  int b = blockIdx.x, l0 = 0, nl = L, Lg = L;       // Lg: limbs of the largest group
+  if (ngroups > 1) {
+    b = blockIdx.x / ngroups;
+    const int grp = blockIdx.x - b * ngroups;
+    l0 = group_start(grp, L, ngroups);
+    nl = group_start(grp + 1, L, ngroups) - l0;
+    Lg = (L + ngroups - 1) / ngroups;
+  }
+  const Layout ly(K, Lg, M, H, W);
   float* pafs = reinterpret_cast<float*>(smem + ly.paf);
   float* res = reinterpret_cast<float*>(smem + ly.res);
   float* xd = reinterpret_cast<float*>(smem + ly.xd);
@@ -160,13 +187,12 @@ paf_score_kernel(const float* __restrict__ paf, long long sb, popnet::Dims3 g,
   unsigned char* resok = reinterpret_cast<unsigned char*>(smem + ly.resok);
   bool* pv = reinterpret_cast<bool*>(smem + ly.pv);
 
-  const int C = 2 * L, MM = M * M;
+  const int C = 2 * nl, MM = M * M;                   // this block's channels and limbs
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int b = blockIdx.x;
   STAGE_STAMP(0);
   // the limbs and this warp's first joint's peaks are read before the
   // copies start, so their loads do not queue behind the maps
-  const int limb_joint = tid < 2 * L ? limbs[tid] : 0;
+  const int limb_joint = tid < 2 * nl ? limbs[2 * l0 + tid] : 0;
   float x0 = 0.0f, y0 = 0.0f;
   bool v0 = false;
   if (warp < K && lane < M) {
@@ -175,11 +201,17 @@ paf_score_kernel(const float* __restrict__ paf, long long sb, popnet::Dims3 g,
     y0 = peaks[o * 3 + 1];
     v0 = peak_valid[o];
   }
-  popnet::cp_async_frame(pafs, paf + b * sb, g);
+  // the walk straight from the parameters: a struct chosen at run time would
+  // be copied to the stack and re-read at every step of the walk
+  const float* frame = paf + b * sb + 2 * l0 * sc;
+  if (nl == Lg)
+    popnet::cp_async_frame(pafs, frame, g_hi);
+  else
+    popnet::cp_async_frame(pafs, frame, g_lo);
   STAGE_STAMP(1);
 
   // while the maps fly: a warp per joint, a lane per slot
-  if (tid < 2 * L) lim[tid] = limb_joint;
+  if (tid < 2 * nl) lim[tid] = limb_joint;
   for (int k = warp; k < K; k += nwarps) {
     const bool on = lane < M;
     float x = x0, y = y0;
@@ -205,12 +237,12 @@ paf_score_kernel(const float* __restrict__ paf, long long sb, popnet::Dims3 g,
   }
   __syncthreads();
   if (warp == 0) {                                    // distinct pairs per limb, scanned
-    int w = lane < L ? nd[lim[2 * lane]] * nd[lim[2 * lane + 1]] : 0;
+    int w = lane < nl ? nd[lim[2 * lane]] * nd[lim[2 * lane + 1]] : 0;
     for (int off = 1; off < 32; off <<= 1) {
       const int v = __shfl_up_sync(kFull, w, off);
       if (lane >= off) w += v;
     }
-    if (lane < L) woff[lane + 1] = w;
+    if (lane < nl) woff[lane + 1] = w;
     if (lane == 0) woff[0] = 0;
   }
   STAGE_STAMP(2);
@@ -221,8 +253,8 @@ paf_score_kernel(const float* __restrict__ paf, long long sb, popnet::Dims3 g,
   // line integrals of the distinct pairs: G pairs a warp, a lane per point
   const int G = 32 / T, t = lane % T, gi = lane / T;
   const float ts = (float)((double)t / (double)(T - 1));
-  const int total = woff[L];
-  const int limb_end = lane < L ? woff[lane + 1] : INT_MAX;  // lane l: end of limb l's pairs
+  const int total = woff[nl];
+  const int limb_end = lane < nl ? woff[lane + 1] : INT_MAX;  // lane l: end of limb l's pairs
   for (int base = warp * G; base < total; base += nwarps * G) {
     const int item = base + gi;
     const bool act = gi < G && item < total;
@@ -260,9 +292,9 @@ paf_score_kernel(const float* __restrict__ paf, long long sb, popnet::Dims3 g,
   __syncthreads();
   STAGE_STAMP(4);
 
-  // every (limb, ms, md) takes its distinct pair's result, md fastest
-  popnet::Dims3 f = {{M, M, L}, {0, 0, 0}, {0, 0, 0}, 1};
-  const long long obase = (long long)b * L * MM;
+  // every (limb, ms, md) of the group takes its distinct pair's result, md fastest
+  popnet::Dims3 f = {{M, M, nl}, {0, 0, 0}, {0, 0, 0}, 1};
+  const long long obase = ((long long)b * L + l0) * MM;
   int o = tid;
   for (popnet::Walk3 w(f, tid, blockDim.x); w.more(f); w.next(f), o += blockDim.x) {
     const int md = w.d0, ms = w.d1, l = w.d2;
@@ -274,23 +306,77 @@ paf_score_kernel(const float* __restrict__ paf, long long sb, popnet::Dims3 g,
   STAGE_STAMP(5);
 }
 
-// A frame of the maps as paf_score_kernel walks it into its dense
-// (H, W, 2L) layout.
-popnet::Dims3 frame_dims(const void* paf, long long sb, long long sy, long long sx,
-                         long long sc, int L, int H, int W) {
-  const int n[3] = {H, W, 2 * L};
+constexpr size_t kMaxSmem = 227 * 1024;   // the dynamic shared memory a block may have
+
+// Blocks a frame (groups of limbs) at these sizes: the smallest G whose
+// largest group's layout fits kMaxSmem, or 0 where one limb does not fit.
+int groups_for(int K, int L, int M, int H, int W) {
+  if (8LL * H * W > (long long)kMaxSmem) return 0;   // one limb's two channels alone
+  for (int G = 1; G <= L; ++G)
+    if ((size_t)Layout(K, (L + G - 1) / G, M, H, W).bytes <= kMaxSmem) return G;
+  return 0;
+}
+
+// The walk of a group of nl limbs' channels of a frame of the maps into its
+// dense (H, W, 2 nl) layout, at most max_vec elements a copy.
+popnet::Dims3 group_dims(const float* paf, long long sb, long long sy, long long sx,
+                         long long sc, int l0, int nl, int H, int W, int max_vec = 4) {
+  const int n[3] = {H, W, 2 * nl};
   const long long src[3] = {sy, sx, sc};
-  const int dst[3] = {W * 2 * L, 2 * L, 1};
-  return popnet::memory_order(n, src, dst, paf, sb);
+  const int dst[3] = {W * 2 * nl, 2 * nl, 1};
+  return popnet::memory_order(n, src, dst, paf + 2 * l0 * sc, sb, max_vec);
+}
+
+// The walks of the groups of ceil(L / G) and of floor(L / G) limbs, at the
+// widest copy that the address of every group allows.
+void frame_walks(const float* paf, long long sb, long long sy, long long sx, long long sc,
+                 int L, int G, int H, int W, popnet::Dims3* hi, popnet::Dims3* lo) {
+  const int Lg = (L + G - 1) / G;
+  int vec = 4, l0_hi = 0, l0_lo = 0;
+  for (int g = 0; g < G; ++g) {
+    const int l0 = group_start(g, L, G), nl = group_start(g + 1, L, G) - l0;
+    const int v = group_dims(paf, sb, sy, sx, sc, l0, nl, H, W).vec;
+    vec = v < vec ? v : vec;
+    (nl == Lg ? l0_hi : l0_lo) = l0;
+  }
+  *hi = group_dims(paf, sb, sy, sx, sc, l0_hi, Lg, H, W, vec);
+  *lo = L % G == 0 ? *hi : group_dims(paf, sb, sy, sx, sc, l0_lo, Lg - 1, H, W, vec);
+}
+
+cudaError_t allow_smem(size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(paf_score_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(paf_score_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  return e;
 }
 
 }  // namespace
 
-// Elements per copy with which paf_score_kernel brings a frame of these maps
-// into shared memory (1, 2 or 4).
+// The groups of limbs (blocks a frame) that paf_score_kernel takes at these
+// sizes into *groups, 0 where no G holds them, and the shared memory a block
+// needs then into *bytes (with one limb a block where no G holds them).
+extern "C" int popnet_paf_score_groups(int K, int L, int M, int H, int W, void* groups,
+                                       void* bytes) {
+  if (K < 1 || L < 1 || M < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int G = groups_for(K, L, M, H, W);
+  *(int*)groups = G;
+  *(long long*)bytes = G ? Layout(K, (L + G - 1) / G, M, H, W).bytes
+                         : 8LL * H * W + Layout(K, 1, M, 0, 0).bytes;
+  return 0;
+}
+
+// Elements per copy with which paf_score_kernel brings the groups of a frame
+// of these maps into shared memory (1, 2 or 4).
 extern "C" int popnet_paf_score_copy_width(const void* paf, long long sb, long long sy,
-                                           long long sx, long long sc, int L, int H, int W) {
-  return frame_dims(paf, sb, sy, sx, sc, L, H, W).vec;
+                                           long long sx, long long sc, int K, int L, int M,
+                                           int H, int W) {
+  const int G = groups_for(K, L, M, H, W);
+  if (G == 0) return 0;
+  popnet::Dims3 hi, lo;
+  frame_walks((const float*)paf, sb, sy, sx, sc, L, G, H, W, &hi, &lo);
+  return hi.vec;
 }
 
 extern "C" int popnet_paf_score(const void* paf, long long sb, long long sy,
@@ -302,29 +388,26 @@ extern "C" int popnet_paf_score(const void* paf, long long sb, long long sy,
   if (B < 1 || K < 1 || L < 1 || L > 32 || M < 1 || M > kMaxPeaks || T < 2 || T > 32 ||
       H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = Layout(K, L, M, H, W).bytes;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(paf_score_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(paf_score_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  const int G = groups_for(K, L, M, H, W);
+  if (G == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = Layout(K, (L + G - 1) / G, M, H, W).bytes;
+  cudaError_t e = allow_smem(smem);
   if (e != cudaSuccess) return (int)e;
-  paf_score_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)paf, sb, frame_dims(paf, sb, sy, sx, sc, L, H, W), (const float*)peaks,
-      (const bool*)peak_valid, (const int*)limbs, K, L, M, H, W, T, factor, thresh, len_ref,
-      (float*)score, (bool*)ok);
+  popnet::Dims3 hi, lo;
+  frame_walks((const float*)paf, sb, sy, sx, sc, L, G, H, W, &hi, &lo);
+  paf_score_kernel<<<(unsigned)B * G, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)paf, sb, sc, hi, lo, (const float*)peaks, (const bool*)peak_valid,
+      (const int*)limbs, K, L, G, M, H, W, T, factor, thresh, len_ref, (float*)score,
+      (bool*)ok);
   return (int)cudaGetLastError();
 }
 
 // Blocks of paf_score_kernel that one SM holds at these sizes.
 extern "C" int popnet_paf_score_blocks_per_sm(int K, int L, int M, int H, int W, void* out) {
-  const size_t smem = Layout(K, L, M, H, W).bytes;
-  cudaError_t e = cudaFuncSetAttribute(paf_score_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(paf_score_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  const int G = groups_for(K, L, M, H, W);
+  if (G == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = Layout(K, (L + G - 1) / G, M, H, W).bytes;
+  cudaError_t e = allow_smem(smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor((int*)out, paf_score_kernel,
                                                             kThreads, smem);

@@ -7,11 +7,15 @@
     raw-depth readout         K5 in one launch from the normalized maps)
     scale to the output resolution + pinhole back-projection
 
+`paf_decode_2d` is the same decode without the depth stages, for any
+skeleton (the COCO RGB path runs it with the COCO-18 tables).
+
 Maps are (B, H, W, C) at this interface, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics, back_project
@@ -89,6 +93,39 @@ def openpose_decode(heat: torch.Tensor, paf: torch.Tensor, zmap: torch.Tensor,
         "joints3d": back_project(x2, y2, z_pose, cam),
         "joints3d_raw": back_project(x2, y2, z_raw, cam),
         "conf": conf,
+        "visibility": vis.to(torch.int32),
+        "counts": counts,
+    }
+
+
+def paf_decode_2d(heat: torch.Tensor, paf: torch.Tensor, num_joints: int,
+                  dcfg: DecodeConfig = DecodeConfig(), limbs: tuple = LIMBS,
+                  sx: float = 1.0, sy: float = 1.0) -> dict[str, torch.Tensor]:
+    """The skeleton-generic 2D PAF decode of the RGB models: peaks and
+    subpixel refine (K1), PAF pair scores (K3), greedy assembly (K6), then
+    joints scaled from model-input pixels by float32(sx), float32(sy); no
+    depth stage. heat (B, H, W, >= num_joints) raw heat maps, paf (B, H, W,
+    2L) for L = len(limbs), any float type.
+
+    Returns joints2d (B, P, K, 2) with (-1, -1) holes, conf (B, P, K),
+    visibility (B, P, K) int32 and counts (B,) int32."""
+    heat, paf = heat.float(), paf.float()
+    peaks, pvalid = find_peaks_batched(
+        heat, max_peaks=dcfg.max_peaks, thresh=dcfg.thresh_heatmap,
+        factor=dcfg.downsample, win_size=dcfg.win_size, num_joints=num_joints)
+    scores, ok = score_limb_pairs_batched(
+        paf, peaks, pvalid, num_intermed_pts=dcfg.num_intermed_pts,
+        thresh_paf=dcfg.thresh_paf, factor=dcfg.downsample, limbs=limbs)
+    joints, counts = assemble_batched(
+        peaks, pvalid, scores, ok, limbs=limbs, max_people=dcfg.max_people,
+        min_parts=dcfg.min_parts, min_score=dcfg.min_score)
+    x, y = joints[..., 0], joints[..., 1]
+    vis = x >= 0
+    x2 = torch.where(vis, x * float(np.float32(sx)), x)
+    y2 = torch.where(vis, y * float(np.float32(sy)), y)
+    return {
+        "joints2d": torch.stack([x2, y2], dim=-1),
+        "conf": joints[..., 2],
         "visibility": vis.to(torch.int32),
         "counts": counts,
     }

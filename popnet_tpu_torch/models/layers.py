@@ -20,16 +20,21 @@ def _same_pad(kernel: int) -> int:
 
 
 class ConvBN(nn.Module):
-    """conv -> [BatchNorm] -> LeakyReLU(0.1), the CPM layer. Open-Pose+
-    normalizes every layer; PoP-Net's heat branches (and RTPoseAlign3D's
-    PAF branches) pass `norm=False` and carry no BatchNorm_0."""
+    """conv -> [BatchNorm] -> activation, the CPM layer: LeakyReLU(0.1) by
+    default, ReLU with `act="relu"`. Open-Pose+ normalizes every
+    layer; PoP-Net's heat branches (and RTPoseAlign3D's PAF branches) pass
+    `norm=False` and carry no BatchNorm_0; RTPoseVGG's branches are
+    `act="relu", norm=False`."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3, norm: bool = True,
-                 use_bias: bool = True):
+                 use_bias: bool = True, act: str = "leaky_relu"):
         super().__init__()
+        if act not in ("leaky_relu", "relu"):
+            raise ValueError(f"unknown act {act!r}")
         self.Conv_0 = nn.Conv2d(in_ch, features, kernel, padding=_same_pad(kernel),
                                 bias=use_bias)
         self.norm = norm
+        self.act = act
         if norm:
             self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
 
@@ -37,17 +42,18 @@ class ConvBN(nn.Module):
         x = self.Conv_0(x)
         if self.norm:
             x = self.BatchNorm_0(x)
-        return F.leaky_relu(x, 0.1)
+        return F.leaky_relu(x, 0.1) if self.act == "leaky_relu" else F.relu(x)
 
 
 class CPMBranch(nn.Module):
     """N x ConvBN, then a bare conv with `out_features` channels."""
 
     def __init__(self, in_ch: int, spec: Sequence[tuple[int, int]],
-                 out_features: int, out_kernel: int = 1, norm: bool = True):
+                 out_features: int, out_kernel: int = 1, norm: bool = True,
+                 act: str = "leaky_relu"):
         super().__init__()
         for n, (feats, k) in enumerate(spec):
-            self.add_module(f"ConvBN_{n}", ConvBN(in_ch, feats, k, norm=norm))
+            self.add_module(f"ConvBN_{n}", ConvBN(in_ch, feats, k, norm=norm, act=act))
             in_ch = feats
         self.n_hidden = len(spec)
         self.Conv_0 = nn.Conv2d(in_ch, out_features, out_kernel,

@@ -1,5 +1,5 @@
-"""The decode kernels of the Open-Pose+ and PoP-Net paths: one wrapper per
-CUDA kernel, with its plain PyTorch version beside it.
+"""The decode kernels of the Open-Pose+, PoP-Net and COCO RGB paths: one
+wrapper per CUDA kernel, with its plain PyTorch version beside it.
 
 | wrapper          | CUDA source            | TPU kernel it replaces                   |
 | ---------------- | ---------------------- | ---------------------------------------- |
@@ -32,6 +32,7 @@ package.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -89,6 +90,12 @@ def stage_clocks(source: str, fn) -> np.ndarray:
     stamps that its blocks recorded at each STAGE_STAMP (csrc/common.cuh;
     zero for blocks beyond the grid). A measurement tool: the serving paths
     never call it."""
+    lib = _build.library(source, stamps=True)
+    lib.popnet_stage_clocks_clear.restype = ctypes.c_int
+    torch.cuda.synchronize()
+    err = lib.popnet_stage_clocks_clear()
+    if err != 0:
+        raise RuntimeError(f"popnet_stage_clocks_clear of {source} failed: CUDA error {err}")
     _stamped.add(source)
     try:
         fn()
@@ -96,7 +103,7 @@ def stage_clocks(source: str, fn) -> np.ndarray:
     finally:
         _stamped.discard(source)
     out = np.zeros((STAMP_BLOCKS, STAMPS), np.int64)
-    copy = _build.library(source, stamps=True).popnet_stage_clocks
+    copy = lib.popnet_stage_clocks
     copy.argtypes, copy.restype = [_P, _I], ctypes.c_int
     err = copy(out.ctypes.data, out.size)
     if err != 0:
@@ -125,18 +132,20 @@ def occupancy(source: str, symbol: str, *sizes: int) -> int:
     return n.value
 
 
-def copy_width(source: str, t: torch.Tensor) -> int:
+def copy_width(source: str, t: torch.Tensor, K: int = 15, M: int = 16) -> int:
     """Elements per asynchronous copy (1, 2 or 4) with which the kernel of
     csrc/<source>.cu brings a frame of `t` into shared memory: find_peaks
-    (B, K, H, W) heat planes, paf_score (B, H, W, 2L) maps. 4 where the
-    strides leave 16-byte runs, as the serving path's PAF maps do."""
+    (B, K, H, W) heat planes, paf_score (B, H, W, 2L) maps for K joints of
+    M peaks (the width every group of limbs gets, `paf_score_groups`). 4
+    where the strides leave 16-byte runs, as the depth path's PAF maps do."""
     fn = getattr(_build.library(source), f"popnet_{source}_copy_width")
-    fn.argtypes, fn.restype = [_P] + [_LL] * 4 + [_I] * 3, ctypes.c_int
     if source == "find_peaks":
+        fn.argtypes, fn.restype = [_P] + [_LL] * 4 + [_I] * 3, ctypes.c_int
         _, K, H, W = t.shape
         return fn(t.data_ptr(), *t.stride(), K, H, W)
+    fn.argtypes, fn.restype = [_P] + [_LL] * 4 + [_I] * 5, ctypes.c_int
     _, H, W, C = t.shape
-    return fn(t.data_ptr(), *t.stride(), C // 2, H, W)
+    return fn(t.data_ptr(), *t.stride(), K, C // 2, M, H, W)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None,
@@ -427,11 +436,30 @@ def paf_score_plain(paf: torch.Tensor, peaks: torch.Tensor, peak_valid: torch.Te
     return score, ok
 
 
+@functools.cache
+def paf_score_groups(K: int, L: int, M: int, H: int, W: int) -> tuple[int, int]:
+    """(G, bytes): the blocks a frame over which the paf_score kernel splits
+    its L limbs at these sizes, the smallest G whose largest group of limbs
+    fits a block's 227 KB of shared memory (1 at every depth shape, 2 at
+    COCO's 46x46 with 19 limbs), and the shared memory a block takes then.
+    G is 0 where even one limb a block does not fit; bytes is then what one
+    limb a block would take."""
+    fn = _build.library("paf_score").popnet_paf_score_groups
+    fn.argtypes, fn.restype = [_I] * 5 + [_P, _P], ctypes.c_int
+    g, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
+    err = fn(K, L, M, H, W, ctypes.addressof(g), ctypes.addressof(nbytes))
+    if err != 0:
+        raise RuntimeError(f"popnet_paf_score_groups failed: CUDA error {err}")
+    return g.value, nbytes.value
+
+
 def paf_score(paf: torch.Tensor, peaks: torch.Tensor, peak_valid: torch.Tensor,
               limbs: tuple, num_pts: int = 10, factor: int = 8, thresh: float = 0.05):
     """PAF scores of every (src, dst) peak pair of every limb. paf may have
-    any strides; peaks and peak_valid are contiguous. Same contract as
-    `paf_score_plain`."""
+    any strides; peaks and peak_valid are contiguous. Maps larger than a
+    block's shared memory are split over blocks by groups of limbs
+    (`paf_score_groups`); a size where one limb does not fit raises. Same
+    contract as `paf_score_plain`."""
     if not _on_cuda(paf, peaks, peak_valid):
         return paf_score_plain(paf, peaks, peak_valid, limbs, num_pts, factor, thresh)
     B, H, W, C = paf.shape
@@ -443,6 +471,11 @@ def paf_score(paf: torch.Tensor, peaks: torch.Tensor, peak_valid: torch.Tensor,
     if M > 32 or L > 32 or not 2 <= num_pts <= 32:
         raise ValueError(f"paf_score takes at most 32 peaks per joint, 32 limbs and 2 to 32 "
                          f"line points, got {M}, {L}, {num_pts}")
+    groups, nbytes = paf_score_groups(K, L, M, H, W)
+    if groups == 0:
+        raise ValueError(f"paf_score cannot hold ({H}, {W}) maps: one limb a block takes "
+                         f"{nbytes} bytes of shared memory with K={K}, M={M}, over the "
+                         f"{227 * 1024} a block may have")
     dev = paf.device
     lt = _limbs_i32(limbs, dev)
     score = torch.empty((B, L, M, M), dtype=torch.float32, device=dev)

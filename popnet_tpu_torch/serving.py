@@ -1,11 +1,12 @@
-"""Depth serving: raw depth frames -> packed 3D human tensors.
+"""Serving: raw depth or RGB frames -> packed human tensors.
 
 `build_openpose_pipeline`, `build_popnet_pipeline`, `build_yolo_pipeline`
 and `build_yolo_a2j_pipeline` return a callable that takes a (B, H, W)
 batch of raw depth in metres and returns ONE packed buffer per batch on the
 device (f32, or the uint16 fixed-point wire format), so a batch leaves the
-card in one copy. `serve_stream` keeps a few batches in flight; the copy to
-the host is its synchronization point.
+card in one copy; `build_rtpose_vgg_pipeline` does the same for (B, H, W, 3)
+BGR frames with COCO's 18 joints in 2D (f32 only). `serve_stream` keeps a
+few batches in flight; the copy to the host is its synchronization point.
 """
 
 from __future__ import annotations
@@ -325,6 +326,84 @@ def build_yolo_a2j_pipeline(yolo_weights: dict[str, np.ndarray],
         if pack == "q16":
             return pack_outputs_q16(joints2d, jz, conf, valid)
         return pack_outputs(joints2d, back_project(jx, jy, jz, KDH3D_INTRINSICS), conf, valid)
+
+    return pipeline
+
+
+def unpack_outputs_2d(buf: np.ndarray, max_people: int, num_joints: int):
+    """Host inverse of the RGB pipeline's (joints2d, conf, counts) f32 pack
+    layout. Returns numpy views."""
+    buf = np.asarray(buf)
+    B = buf.shape[0]
+    s1, s2 = max_people * num_joints * 2, max_people * num_joints
+    return {
+        "joints2d": buf[:, :s1].reshape(B, max_people, num_joints, 2),
+        "conf": buf[:, s1:s1 + s2].reshape(B, max_people, num_joints),
+        "counts": buf[:, s1 + s2:],
+    }
+
+
+_RGB_MODES = ("rtpose", "vgg", "inception")   # the normalizations of the RGB pipeline
+
+
+def preproc_rgb(frames: torch.Tensor, input_size: int = 368,
+                preprocess: str = "rtpose") -> torch.Tensor:
+    """(B, H, W, 3) BGR frames -> (B, 3, input_size, input_size) float32:
+    the square cv2-bilinear resize of every channel, then the `preprocess`
+    normalization (`rtpose`, `vgg` or `inception`), as the JAX RGB
+    pipeline does before its CNN."""
+    from popnet_tpu_torch.data.preprocessing import PREPROCESSORS
+
+    if preprocess not in _RGB_MODES:
+        raise ValueError(f"unsupported preprocess mode {preprocess!r}")
+    x = resize_bilinear_cv2(frames.float().permute(0, 3, 1, 2), input_size, input_size)
+    return PREPROCESSORS[preprocess](x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def build_rtpose_vgg_pipeline(weights: dict[str, np.ndarray] | None = None,
+                              dtype: torch.dtype = torch.bfloat16,
+                              device: str | torch.device = "cuda", trunk: str = "vgg19",
+                              input_size: int = 368, preprocess: str = "rtpose",
+                              pack: str = "f32"):
+    """COCO RGB serving fn: (B, H, W, 3) BGR frames -> (B, L) f32 buffer of
+    (joints2d, conf, counts); `unpack_outputs_2d(buf, 16, 18)` reads it.
+
+    A square cv2-bilinear resize to `input_size` and the `preprocess`
+    normalization (`preproc_rgb`), RTPoseVGG (its `trunk`: "vgg19" or
+    "mobilenet") in `dtype`, then the 2D PAF decode with the COCO-18 tables
+    (`paf_decode_2d`: K1, K3, K6 on the card) in float32, joints scaled to
+    the source frame's pixels.
+
+    weights: RTPoseVGG's Flax variables as {'/'-joined path: array}
+    (`interop.load_npz`). Without them the CNN is initialised from a
+    `torch.Generator` seeded with 0 (`RTPoseVGG.init_seeded`); no COCO
+    weights are committed. The RGB path has no depth channel, so only the
+    f32 wire is defined."""
+    from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS
+    from popnet_tpu_torch.decode.openpose_infer import paf_decode_2d
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import RTPoseVGG
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+
+    if pack != "f32":
+        raise ValueError("the RGB pipeline has no depth channel; only the f32 wire is defined")
+    if preprocess not in _RGB_MODES:
+        raise ValueError(f"unsupported preprocess mode {preprocess!r}")
+    device = _check_build_args(device, pack)
+    model = RTPoseVGG(trunk=trunk)
+    model = model.init_seeded(0) if weights is None else load_into(model, weights)
+    model = keep_batchnorm_float32(model.eval().to(device=device, dtype=dtype))
+
+    @torch.inference_mode()
+    def pipeline(frames) -> torch.Tensor:
+        frames = torch.as_tensor(frames, device=device)
+        B, H, W, _ = frames.shape
+        x = preproc_rgb(frames, input_size, preprocess)
+        (paf, heat), _ = model(x.to(dtype))
+        nhwc = lambda t: t.permute(0, 2, 3, 1)                            # views, no copy
+        out = paf_decode_2d(nhwc(heat), nhwc(paf), COCO_NUM_JOINTS, _DCFG, COCO_LIMBS,
+                            sx=W / input_size, sy=H / input_size)
+        return pack_outputs(out["joints2d"], out["conf"], out["counts"])
 
     return pipeline
 

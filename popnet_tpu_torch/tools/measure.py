@@ -1,6 +1,7 @@
 """Measurements of the port on one CUDA card, beside what chip_smoke.py prints.
 
     python3 popnet_tpu_torch/tools/measure.py decodes [--root CHECKOUT]
+    python3 popnet_tpu_torch/tools/measure.py paf_score [--root CHECKOUT]
     python3 popnet_tpu_torch/tools/measure.py vote
 
 decodes: imports popnet_tpu_torch from CHECKOUT (default: the checkout
@@ -11,6 +12,13 @@ PoP-Net, and Yolo-Pose+ where the checkout has it. One JSON line a
 decode: CUDA-event ms a call, the device operations one call issues and
 their summed device time (torch.profiler). Run on two checkouts in turn
 (A B B A, one call) to compare them on one card.
+
+paf_score: the PAF scoring kernel (K3) of CHECKOUT on the Open-Pose+
+path's inputs (the bf16 CNN's maps of chip_smoke.py's frames, batch 256,
+seed 0, and the peaks found on them) and, where the checkout's kernel
+takes them, on COCO's (this checkout's chip_smoke.py painted people, batch
+64, 46x46, 19 limbs): device ms a call from CUDA-graph replays, one JSON
+line each. Run on two checkouts in turn (A B B A, one call).
 
 vote: the A2J vote (`decode.a2j.a2j_post_process`) of random heads made
 as tests/test_torch_cuda.py makes them from seeds 0-39, on the card and
@@ -103,6 +111,46 @@ def decodes(root: str) -> None:
             report("Yolo-Pose+", lambda: serving.yolo_decode(prior, w_out=480, h_out=512))
 
 
+def paf_score(root: str) -> None:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from popnet_tpu_torch import load_npz, serving
+    from popnet_tpu_torch.core.skeleton import LIMBS
+    from popnet_tpu_torch.decode.device import find_peaks_batched
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import RTPoseLight3D
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+    from popnet_tpu_torch.ops import _build, kernels
+
+    smoke = _smoke()
+    _build.build_all(("find_peaks", "paf_score"))
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+    weights = load_npz(os.path.join(SELF_ROOT, "examples", "results",
+                                    "bench_weights_openpose.npz"))
+    model = keep_batchnorm_float32(load_into(RTPoseLight3D(), weights).eval().to(dev, bf16))
+
+    def report(shape, fn):
+        print(json.dumps({"tree": root, "paf_score": shape, "ms": smoke.graph_ms(fn)}),
+              flush=True)
+
+    with torch.inference_mode():
+        frames = smoke.person_frames(np.random.default_rng(0), BATCH, dev)
+        x = serving.preproc_depth(frames)
+        (paf, heat, _), _ = model(x.permute(0, 3, 1, 2).to(bf16))
+        heat, paf = (t.float().permute(0, 2, 3, 1) for t in (heat, paf))
+        peaks, valid = find_peaks_batched(heat)
+        report("depth", lambda: kernels.paf_score(paf, peaks, valid, LIMBS))
+        if hasattr(kernels, "paf_score_groups"):
+            from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS
+
+            h, f, _ = smoke.coco_people_maps(np.random.default_rng([0, 6]), 64)
+            h, f = (torch.as_tensor(a, device=dev) for a in (h, f))
+            pk, v = find_peaks_batched(h, num_joints=18)
+            report("coco", lambda: kernels.paf_score(f, pk, v, COCO_LIMBS))
+
+
 def vote() -> None:
     sys.path.insert(0, SELF_ROOT)
     import torch
@@ -151,8 +199,9 @@ def vote() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="what", required=True)
-    d = sub.add_parser("decodes")
-    d.add_argument("--root", default=SELF_ROOT, help="checkout whose popnet_tpu_torch to time")
+    for what in ("decodes", "paf_score"):
+        d = sub.add_parser(what)
+        d.add_argument("--root", default=SELF_ROOT, help="checkout whose popnet_tpu_torch to time")
     sub.add_parser("vote")
     args = ap.parse_args(argv)
 
@@ -163,6 +212,8 @@ def main(argv=None) -> int:
         return 2
     if args.what == "decodes":
         decodes(args.root)
+    elif args.what == "paf_score":
+        paf_score(args.root)
     else:
         vote()
     return 0

@@ -15,15 +15,19 @@ import torch
 from popnet_tpu_torch import (
     build_openpose_pipeline,
     build_popnet_pipeline,
+    build_rtpose_vgg_pipeline,
     build_yolo_a2j_pipeline,
     build_yolo_pipeline,
     load_npz,
 )
 from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, back_project
 from popnet_tpu_torch.core.skeleton import LIMBS
+from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS
 from popnet_tpu_torch.data.a2j_crops import crop_resize_batch
 from popnet_tpu_torch.decode.a2j import a2j_post_process
-from popnet_tpu_torch.decode.openpose_infer import openpose_decode
+from popnet_tpu_torch.decode.assemble_device import assemble_inputs
+from popnet_tpu_torch.decode.device import find_peaks_batched, peak_planes
+from popnet_tpu_torch.decode.openpose_infer import openpose_decode, paf_decode_2d
 from popnet_tpu_torch.decode.popnet_infer import popnet_decode
 from popnet_tpu_torch.interop.from_jax import load_into
 from popnet_tpu_torch.models import PopNet, RTPoseLight3D, YoloPoseNet
@@ -34,6 +38,7 @@ from popnet_tpu_torch.serving import (
     a2j_uncrop,
     preproc_depth,
     unpack_outputs,
+    unpack_outputs_2d,
     unpack_outputs_q16,
     yolo_decode,
 )
@@ -673,3 +678,117 @@ def test_yolo_a2j_pipeline_on_the_card(cuda):
     det = unpack_outputs_q16(build_yolo_pipeline(weights, pack="q16")(frames).cpu().numpy(), 16, 15)
     np.testing.assert_array_equal(out["counts"], det["counts"][:, :4])
     np.testing.assert_array_equal(out["conf"], np.broadcast_to(out["counts"][..., None], (3, 4, 15)))
+
+
+def coco_maps(seed, B, memory="channels_last"):
+    """Painted COCO maps on the card, (B, 46, 46, 19) heat and (B, 46, 46,
+    38) PAF views in channels-last or NCHW memory, and the people a frame
+    (chip_smoke.coco_people_maps: 2-4 standing people of 18 joints)."""
+    from chip_smoke import coco_people_maps
+
+    heat, paf, people = coco_people_maps(np.random.default_rng(seed), B)
+    fmt = torch.channels_last if memory == "channels_last" else torch.contiguous_format
+    heat, paf = (torch.as_tensor(a, device="cuda").permute(0, 3, 1, 2).contiguous(
+        memory_format=fmt).permute(0, 2, 3, 1) for a in (heat, paf))
+    return heat, paf, people
+
+
+@pytest.mark.parametrize("memory", ["channels_last", "nchw"])
+def test_find_peaks_and_assembly_at_coco_sizes(cuda, memory):
+    """K1 at 46x46 with K = 18 read through the 19-channel heat (one block
+    an SM), and K6 with 19 limbs over its 16 warps (some warps match a
+    second limb): bit for bit against the plain versions."""
+    heat, paf, _ = coco_maps(20, 6, memory)
+    h = peak_planes(heat, COCO_NUM_JOINTS)
+    assert tuple(h.shape) == (6, 18, 46, 46)
+    for a, b in zip(kernels.find_peaks(h), kernels.find_peaks_plain(h)):
+        assert torch.equal(a, b)
+    assert kernels.blocks_per_sm("find_peaks", 18, 46, 46, 16) >= 1
+    peaks, valid = find_peaks_batched(heat, num_joints=COCO_NUM_JOINTS)
+    s, ok = kernels.paf_score_plain(paf, peaks, valid, COCO_LIMBS)
+    ps, sm = assemble_inputs(peaks, s, ok)
+    ids, counts = kernels.assemble_ids(ps, sm, COCO_LIMBS)
+    ref_ids, ref_counts = kernels.assemble_ids_plain(ps, sm, COCO_LIMBS)
+    assert torch.equal(ids, ref_ids) and torch.equal(counts, ref_counts) and counts.sum() > 0
+
+
+@pytest.mark.parametrize("memory", ["channels_last", "nchw", "sliced"])
+@pytest.mark.parametrize("sizes,groups", [((46, 46, COCO_LIMBS, 18), 2), ((28, 28, LIMBS, 15), 1),
+                                          ((70, 60, COCO_LIMBS, 18), 4)])
+def test_paf_score_kernel_splits_large_maps_over_groups_of_limbs(cuda, sizes, groups, memory):
+    """K3 at the COCO sizes takes 2 blocks a frame (10 + 9 limbs), at the
+    depth sizes 1, at 70x60 with 19 limbs 4 (5 + 5 + 5 + 4): bit for bit
+    against the plain version on the channels-last maps, on NCHW memory
+    (a copy of 4 bytes) and on a slice of larger maps; one launch each."""
+    H, W, limbs, K = sizes
+    L = len(limbs)
+    rng = np.random.default_rng(21)
+    # the peaks from the plain version: K1 holds a frame's planes in one block
+    heat = torch.as_tensor(sparse_heat(22, 4, H, W, K + 1)).permute(0, 2, 3, 1)
+    peaks, valid = (t.to(cuda) for t in find_peaks_batched(heat, num_joints=K))
+    peaks[0, 1, 1, :2] = peaks[0, 1, 0, :2]                    # two valid slots at one point
+    valid[0, 1, :2] = True
+    big = torch.as_tensor(rng.uniform(-0.2, 1, (4, H + 3, W + 2, 2 * L + 5)).astype(np.float32),
+                          device=cuda)
+    paf = {"channels_last": big[:, :H, :W, :2 * L].contiguous(),
+           "nchw": big[:, :H, :W, :2 * L].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+           "sliced": big[:, 2:H + 2, 1:W + 1, 3:2 * L + 3]}[memory]
+    assert kernels.paf_score_groups(K, L, 16, H, W)[0] == groups
+    kernels.reset_launches()
+    s, ok = kernels.paf_score(paf, peaks, valid, limbs)
+    torch.cuda.synchronize()
+    assert kernels.paf_score.launches == 1
+    s_p, ok_p = kernels.paf_score_plain(paf, peaks, valid, limbs)
+    assert torch.equal(s, s_p) and torch.equal(ok, ok_p) and ok.any()
+
+
+def test_paf_score_kernel_refuses_maps_that_no_group_holds(cuda):
+    """One limb's two channels of 200x200 maps take 320,000 bytes, over a
+    block's 232,448: the wrapper raises and names the size."""
+    assert kernels.paf_score_groups(18, 19, 16, 200, 200)[0] == 0
+    paf = torch.zeros((1, 200, 200, 38), device=cuda)
+    peaks = torch.zeros((1, 18, 16, 3), device=cuda)
+    valid = torch.zeros((1, 18, 16), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match=r"cannot hold \(200, 200\) maps"):
+        kernels.paf_score(paf, peaks, valid, COCO_LIMBS)
+
+
+def test_coco_decode_on_the_card_equals_the_host_bit_for_bit(cuda):
+    """paf_decode_2d with the COCO tables on painted people: joints2d, conf,
+    visibility and counts on the card equal the host's bit for bit, K1, K3
+    and K6 launched once each, the painted people found."""
+    heat, paf, people = coco_maps(23, 8)
+    kernels.reset_launches()
+    card = paf_decode_2d(heat, paf, COCO_NUM_JOINTS, limbs=COCO_LIMBS, sx=640 / 368,
+                         sy=480 / 368)
+    torch.cuda.synchronize()
+    on_path = {"find_peaks", "paf_score", "assemble_ids"}
+    assert kernels.launch_counts() == {k.__name__: int(k.__name__ in on_path)
+                                       for k in kernels.KERNELS}
+    host = paf_decode_2d(heat.cpu(), paf.cpu(), COCO_NUM_JOINTS, limbs=COCO_LIMBS,
+                         sx=640 / 368, sy=480 / 368)
+    for k in ("joints2d", "conf", "visibility", "counts"):
+        assert torch.equal(card[k].cpu(), host[k]), k
+    np.testing.assert_array_equal(card["counts"].cpu().numpy(), people)
+
+
+@pytest.mark.parametrize("trunk", ["vgg19", "mobilenet"])
+def test_rtpose_vgg_pipeline_buffer_on_the_card(cuda, trunk):
+    """The COCO builder on the card, seeded init: a float32 (B, 16*18*3 + 1)
+    buffer of (joints2d, conf, counts) on the card, finite, unpacked by
+    unpack_outputs_2d; one launch of K1, K3 and K6 a batch; q16 refused."""
+    frames = torch.as_tensor(np.random.default_rng(24).uniform(0, 255, (3, 240, 320, 3)),
+                             dtype=torch.float32, device=cuda)
+    kernels.reset_launches()
+    buf = build_rtpose_vgg_pipeline(dtype=torch.float32, trunk=trunk)(frames)
+    torch.cuda.synchronize()
+    assert buf.dtype == torch.float32 and buf.device.type == "cuda"
+    assert buf.shape == (3, 16 * 18 * 3 + 1) and bool(torch.isfinite(buf).all())
+    out = unpack_outputs_2d(buf.cpu().numpy(), 16, COCO_NUM_JOINTS)
+    assert out["joints2d"].shape == (3, 16, 18, 2) and out["conf"].shape == (3, 16, 18)
+    assert out["counts"].shape == (3, 1)
+    assert {n: kernels.launch_counts()[n] for n in ("find_peaks", "paf_score",
+                                                     "assemble_ids")} == dict.fromkeys(
+        ("find_peaks", "paf_score", "assemble_ids"), 1)
+    with pytest.raises(ValueError, match="f32"):
+        build_rtpose_vgg_pipeline(pack="q16")
