@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (popnet_tpu_torch) on one NVIDIA card.
 
-Drives the port's five serving paths at the models' full width: the four
+Drives the port's five serving paths at the models' full width, and its
+MP-3DHP evaluation drivers for the four depth families: the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -74,6 +75,19 @@ Phases, one or more lines each:
    COCO shapes on the painted maps beside their bounds (a "coco" entry in
    their rows of the kernels line), with K3's stages.
 
+6. eval: the MP-3DHP evaluation drivers (popnet_tpu_torch.cli) on two
+   labelled sets of 256 frames written to a temporary directory (.npy depth
+   and an MP-3DHP labels.json; zero and depth backgrounds), batch 64,
+   float32 CNNs with the committed weights (A2J seeded): Open-Pose+ with the
+   host decode and with device_decode, PoP-Net, Yolo-Pose+ and Yolo->A2J,
+   launch counts reset just before and read just after; each driver run
+   once more on the host with the same CNN outputs (plain versions): JSON
+   equal bit for bit (A2J joints within the vote's 64-ulp bar) and metrics
+   equal; the batched metrics on the card against NumPy's; each family's
+   four metrics and eval frames/s; the painted Open-Pose+ oracle
+   (openpose_painted_maps) over pck2d 0.95, pck3d 0.9, map2d 0.9, map3d
+   0.85 and perfect_2d 0.95; the evaluate and benchmark subcommands once.
+
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
 from the root of a checkout: python3 chip_smoke.py
@@ -108,6 +122,8 @@ COCO_HEAD_SCALE = 2.0 ** 35  # the seeded RTPoseVGG's stage-6 heads (coco_weight
 # (16 frames of the seeded init)
 COCO_BF16_MAP_BAR = 0.05
 A2J_SEED = 0                # the seeded A2J init (no A2J weights are committed)
+EVAL_FRAMES = 256           # labelled frames of each set of the eval phase
+EVAL_BATCH = 64             # the eval phase's batch
 A2J_HOST_FRAMES = 16        # frames whose crops' A2J vote is also run on the host
 A2J_HOST_CNN_CROPS = 2      # crops whose A2J heads are also computed on the host
 # bf16 A2J against float32 on the same crops (bf16_heads): about twice the
@@ -203,11 +219,13 @@ def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
 
 
 def person_frames(rng: np.random.Generator, B: int, device, H: int = 512, W: int = 480,
-                  background: bool = False):
+                  background: bool = False, people: bool = False):
     """(B, H, W) depth frames in metres: 2-3 people per frame, each a
     kinematic 15-joint template (the layout of tests/synthetic_data.py
     person_scene) drawn as 36-px depth blocks, on a zero background or, with
-    `background`, on that module's smooth 2.5-5.5 m one (a phase per frame)."""
+    `background`, on that module's smooth 2.5-5.5 m one (a phase per frame).
+    With `people`, also the drawn people: {"joints2d": (B, 3, 15, 2) px,
+    "z": (B, 3, 15) metres, "present": (B, 3) bool}."""
     import torch
 
     n_people = 3
@@ -257,6 +275,8 @@ def person_frames(rng: np.random.Generator, B: int, device, H: int = 512, W: int
                                 device=device)
         bg = 4.0 + 1.5 * torch.sin(xs / 60.0 + phase) * torch.cos(ys / 80.0)
         depth = torch.where(depth > 0, depth, bg)
+    if people:
+        return depth, {"joints2d": pts, "z": z, "present": present}
     return depth
 
 
@@ -1863,6 +1883,416 @@ def check_bf16(tag: str, q16: dict, f32: dict) -> None:
     require(abs(vq - vf) <= 0.10 * vf, "bf16 visible joints differ by over 10%")
 
 
+def write_eval_set(root: str, frames, people: dict) -> tuple[str, str]:
+    """Write (B, H, W) depth frames as root/depth_maps/<b>.npy and their
+    people as root/labels.json in the MP-3DHP label format: per frame a list
+    of {"2d_joints", "3d_joints" (back-projected with the KDH3D camera),
+    "bbox" (the joints' box with a 20 px margin)}, and the camera under
+    "intrinsics". Returns (image directory, label path)."""
+    from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS as cam, back_project_np
+
+    img_dir = os.path.join(root, "depth_maps")
+    os.makedirs(img_dir, exist_ok=True)
+    labels = {"intrinsics": {"fx": cam.fx, "fy": cam.fy, "cx": cam.cx, "cy": cam.cy}}
+    host = frames.cpu().numpy()
+    for b in range(host.shape[0]):
+        name = f"frame_{b:04d}.npy"
+        np.save(os.path.join(img_dir, name), host[b])
+        anns = []
+        for p in np.flatnonzero(people["present"][b]):
+            j2, z = people["joints2d"][b, p], people["z"][b, p]
+            anns.append({"2d_joints": j2.tolist(),
+                         "3d_joints": back_project_np(j2[:, 0], j2[:, 1], z, cam).tolist(),
+                         "bbox": [float(j2[:, 0].min() - 20), float(j2[:, 1].min() - 20),
+                                  float(j2[:, 0].max() + 20), float(j2[:, 1].max() + 20)]})
+        labels[name] = anns
+    path = os.path.join(root, "labels.json")
+    with open(path, "w") as f:
+        json.dump(labels, f)
+    return img_dir, path
+
+
+def openpose_painted_maps(frame_anns, w_org: int = 480, h_org: int = 512, size: int = 224,
+                          stride: int = 8, depth_mean: float = 3.0, depth_std: float = 2.0):
+    """Open-Pose+ maps painted from labels, as a trained CNN would give
+    them: for each frame's list of annotations, 15 Gaussian heat blobs of
+    sigma 7/8 cell at the joints (in grid cells, whose centres lie at
+    (c + 0.5) * stride - 0.5 input px) and a background channel; the unit
+    vector of each of the 14 limbs on the cells within one cell of the
+    limb's line and box (averaged where people overlap); and each joint's
+    normalized GT depth in its channel on the 5x5 cells around the joint's
+    cell. Returns heat (B, g, g, 16), paf (B, g, g, 28) and z (B, g, g, 15)
+    float32 for g = size / stride."""
+    from popnet_tpu_torch.core.skeleton import LIMBS
+
+    limbs = np.asarray(LIMBS)
+    g = size // stride
+    ys, xs = np.mgrid[0:g, 0:g].astype(np.float64)
+    B = len(frame_anns)
+    heat = np.zeros((B, g, g, 16))
+    paf = np.zeros((B, g, g, 28))
+    z = np.zeros((B, g, g, 15))
+    n_paint = np.zeros((B, g, g, 14))
+    for b, anns in enumerate(frame_anns):
+        for a in anns:
+            px = np.asarray(a["2d_joints"], np.float64) * [size / w_org, size / h_org]
+            j = (px + 0.5) / stride - 0.5                               # (15, 2) grid cells
+            d2 = (xs[..., None] - j[:, 0]) ** 2 + (ys[..., None] - j[:, 1]) ** 2
+            heat[b, ..., :15] = np.maximum(heat[b, ..., :15], np.exp(-d2 / (2 * 0.875 ** 2)))
+            p0, p1 = j[limbs[:, 0]], j[limbs[:, 1]]
+            v = (p1 - p0) / np.maximum(np.linalg.norm(p1 - p0, axis=1, keepdims=True), 1e-9)
+            rx, ry = xs[..., None] - p0[:, 0], ys[..., None] - p0[:, 1]
+            on = ((np.abs(rx * v[:, 1] - ry * v[:, 0]) <= 1.0)
+                  & (xs[..., None] >= np.minimum(p0[:, 0], p1[:, 0]) - 1)
+                  & (xs[..., None] <= np.maximum(p0[:, 0], p1[:, 0]) + 1)
+                  & (ys[..., None] >= np.minimum(p0[:, 1], p1[:, 1]) - 1)
+                  & (ys[..., None] <= np.maximum(p0[:, 1], p1[:, 1]) + 1))
+            paf[b, ..., 0::2] += on * v[:, 0]
+            paf[b, ..., 1::2] += on * v[:, 1]
+            n_paint[b] += on
+            zn = (np.asarray(a["3d_joints"], np.float64)[:, 2] - depth_mean) / depth_std
+            cell = np.clip(np.floor(px / stride).astype(int), 0, g - 1)
+            for k in range(15):
+                x0, y0 = cell[k]
+                z[b, max(y0 - 2, 0):y0 + 3, max(x0 - 2, 0):x0 + 3, k] = zn[k]
+    paf /= np.repeat(np.maximum(n_paint, 1), 2, axis=-1)
+    heat[..., 15] = np.maximum(1.0 - heat[..., :15].max(-1), 0.0)
+    return heat.astype(np.float32), paf.astype(np.float32), z.astype(np.float32)
+
+
+# the families of the eval phase: (tag, model, frame set, run_evaluation options)
+EVAL_FAMILIES = (("openpose", "openpose", "zero", {"device_decode": False}),
+                 ("openpose_device_decode", "openpose", "zero", {"device_decode": True}),
+                 ("popnet", "popnet", "bg", {"readout": "universe"}),
+                 ("yolo", "yolo", "bg", {}),
+                 ("a2j", "a2j", "bg", {}))
+EVAL_PATH = ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout",
+             "peak_local_max")
+ORACLE_BARS = {"pck2d": 0.95, "pck3d": 0.9, "map2d": 0.9, "map3d": 0.85}
+
+
+def eval_sets(rng, dev, n: int, root: str) -> dict:
+    """Two labelled sets of n person frames under root: "zero" on the zero
+    background (Open-Pose+'s weights), "bg" over the smooth depth background
+    (PoP-Net's and Yolo's). Returns {name: (image directory, label path)}."""
+    sets = {}
+    for name, bg in (("zero", False), ("bg", True)):
+        frames, people = person_frames(rng, n, dev, background=bg, people=True)
+        sets[name] = write_eval_set(os.path.join(root, name), frames, people)
+    return sets
+
+
+def _to_cpu(out):
+    return tuple(t.cpu() for t in out) if isinstance(out, tuple) else out.cpu()
+
+
+class Recorder:
+    """Wraps an infer function of a driver: keeps each call's input and
+    output (on the card) and the call's time (synchronized CUDA clock);
+    `replay()` is an infer function for the host run, which hands back the
+    kept outputs on the CPU after requiring its input to equal the kept one
+    bit for bit (the dataset's images, or the A2J crops, made on the CPU)."""
+
+    def __init__(self, fn, what: str):
+        self.fn, self.what = fn, what
+        self.inputs, self.outputs, self.seconds = [], [], 0.0
+
+    def __call__(self, x):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(x)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.inputs.append(x)
+        self.outputs.append(out)
+        return out
+
+    def replay(self):
+        import torch
+
+        calls = iter(zip(self.inputs, self.outputs))
+
+        def infer(x):
+            xin, out = next(calls)
+            require(torch.equal(x, xin.cpu()), f"{self.what}: the host's input differs from "
+                    "the card's")
+            return _to_cpu(out)
+
+        return infer
+
+
+def eval_family(tag: str, model: str, opts: dict, paths, dev, batch: int, weights: dict):
+    """One family's driver (cli.main.run_evaluation) on the card with the
+    committed weights (A2J from its seeded init), then on the host with the
+    same CNN outputs, through the plain versions of the kernels. Returns
+    (card JSON, host JSON, timing {seconds: the card run, cnn_seconds,
+    data_seconds: get_batch, load_seconds: the .npy loads of get_batch and
+    of A2J's frames, host_seconds: the host run}, the host's A2J vote inputs
+    or None)."""
+    import torch
+
+    from popnet_tpu_torch.cli.main import make_infers, run_evaluation
+    from popnet_tpu_torch.data.datasets import MPRealDataset
+
+    infer, infer_yolo = make_infers(model, weights.get(model), weights.get("yolo_for_a2j"),
+                                    seed=A2J_SEED, device=dev)
+    rec = Recorder(infer, f"{tag} {'crops' if model == 'a2j' else 'images'}")
+    rec_yolo = Recorder(infer_yolo, f"{tag} detector images") if infer_yolo else None
+    ds = MPRealDataset(*paths, device=dev)
+    get_batch, load, data_s, load_s = ds.get_batch, ds.load_composited, [0.0], [0.0]
+
+    def timed_get_batch(idx):
+        t0 = time.perf_counter()
+        out = get_batch(idx)
+        torch.cuda.synchronize()
+        data_s[0] += time.perf_counter() - t0
+        return out
+
+    def timed_load(i):
+        t0 = time.perf_counter()
+        out = load(i)
+        load_s[0] += time.perf_counter() - t0
+        return out
+
+    ds.get_batch, ds.load_composited = timed_get_batch, timed_load
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run_evaluation(model, rec, ds, batch, infer_yolo=rec_yolo, **opts)
+    seconds = time.perf_counter() - t0
+    cnn = rec.seconds + (rec_yolo.seconds if rec_yolo else 0.0)
+    host_ds = MPRealDataset(*paths, device="cpu")
+    t0 = time.perf_counter()
+    host = run_evaluation(model, rec.replay(), host_ds, batch,
+                          infer_yolo=rec_yolo.replay() if rec_yolo else None, **opts)
+    timing = {"seconds": seconds, "cnn_seconds": cnn, "data_seconds": data_s[0],
+              "load_seconds": load_s[0], "host_seconds": time.perf_counter() - t0}
+    a2j = None
+    if model == "a2j":
+        a2j = {"heads": rec.outputs, "yolo": rec_yolo, "host_ds": host_ds, "batch": batch}
+    return card, host, timing, a2j
+
+
+def a2j_bars(a2j: dict):
+    """The A2J JSON's bars, card against host, per box row in the JSON's
+    order: the vote's 64-ulp bar (2**-18 of the largest |(y, x)| and |z| of
+    the host's vote, `phase_a2j_slice`) carried through the uncrop to image
+    pixels (times the box's extent / 288) and through the back-projection.
+    Also requires the card's vote within that bar of the host's."""
+    import torch
+
+    from popnet_tpu_torch.cli.yolo_a2j import stage1_detect_boxes
+    from popnet_tpu_torch.data.a2j_crops import CROP
+    from popnet_tpu_torch.decode.a2j import a2j_post_process
+    from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
+
+    anchors = torch.as_tensor(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()),
+                              dtype=torch.float32)
+    kp_card = torch.cat([a2j_post_process(h, anchors.cuda()).cpu() for h in a2j["heads"]])
+    kp_host = torch.cat([a2j_post_process(_to_cpu(h), anchors) for h in a2j["heads"]])
+    bar_yx = 2.0 ** -18 * float(kp_host[..., :2].abs().max())
+    bar_z = 2.0 ** -18 * float(kp_host[..., 2].abs().max())
+    err_yx = _maxerr(kp_card[..., :2], kp_host[..., :2])
+    err_z = _maxerr(kp_card[..., 2], kp_host[..., 2])
+    require(err_yx <= bar_yx and err_z <= bar_z,
+            f"A2J vote, card against host: {err_yx:.4g} (bar {bar_yx:.4g}), {err_z:.4g} "
+            f"(bar {bar_z:.4g})")
+    idx, boxes = stage1_detect_boxes(a2j["yolo"].replay(), a2j["host_ds"], a2j["batch"])
+    ext = np.stack([boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]], 1) / CROP
+    rows = [[] for _ in range(int(idx.max()) + 1 if len(idx) else 0)]
+    for n, i in enumerate(idx):
+        rows[i].append(ext[n])
+    return rows, bar_yx, bar_z, err_yx, err_z
+
+
+def compare_eval_json(tag: str, card: dict, host: dict, a2j_rows=None) -> None:
+    """Card JSON against host JSON: the same keys, images and people; every
+    value equal bit for bit, but the A2J joints, within the bars of
+    `a2j_bars` (a2j_rows: (rows, bar_yx, bar_z, ...))."""
+    from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS as cam
+
+    require(set(card) == set(host), f"{tag}: keys differ")
+    for key in card:
+        require(len(card[key]) == len(host[key]), f"{tag} {key}: image count differs")
+        for i, (a, b) in enumerate(zip(card[key], host[key])):
+            require(len(a) == len(b), f"{tag} {key} image {i}: person count differs")
+            if a2j_rows is None or key not in ("human_pred_set_2d", "human_pred_set_3d"):
+                require(a == b, f"{tag} {key} image {i}: card and host differ")
+                continue
+            rows, bar_yx, bar_z = a2j_rows[:3]
+            for p, (ha, hb) in enumerate(zip(a, b)):
+                ha, hb = np.asarray(ha), np.asarray(hb)
+                dxy = bar_yx * rows[i][p][None, :] * (1 + 1e-9) + 1e-9
+                if key == "human_pred_set_2d":
+                    ok = np.all(np.abs(ha - hb) <= dxy)
+                else:
+                    z = np.abs(hb[:, 2])
+                    centre = np.stack([(hb[:, 0] / np.maximum(z, 1e-12)) * cam.fx,
+                                       (hb[:, 1] / np.maximum(z, 1e-12)) * cam.fy], 1)
+                    f = np.array([cam.fx, cam.fy])
+                    bound = dxy / f * (z[:, None] + bar_z) + np.abs(centre) / f * bar_z + 1e-9
+                    ok = (np.all(np.abs(ha[:, :2] - hb[:, :2]) <= bound)
+                          and np.all(np.abs(ha[:, 2] - hb[:, 2]) <= bar_z * (1 + 1e-9)))
+                require(bool(ok), f"{tag} {key} image {i} person {p}: card and host differ "
+                        "beyond the vote's bar")
+
+
+def check_batched_twin(tag: str, data: dict, dev) -> tuple[float, float]:
+    """The batched metrics (eval/batched.py) on the card against the NumPy
+    metrics on the same JSON: 2D PCKh and 3D PCK per joint within 1e-6, the
+    2D and 3D APs within 1e-6. Returns the largest errors (pck, AP)."""
+    from popnet_tpu_torch.eval import batched, map as np_map, pck as np_pck
+
+    al = "_aligned" if "human_pred_set_2d_aligned" in data else ""
+    p2l, p3l = data["human_pred_set_2d" + al], data["human_pred_set_3d" + al]
+    conf, g2l, g3l = data["human_pred_set_part_conf"], data["human_gt_set_2d"], data[
+        "human_gt_set_3d"]
+    g2, g3, _, gv = batched.pack_human_sets(g2l, g3l)
+    p2, p3, cf, pv = batched.pack_human_sets(p2l, p3l, conf=conf)
+    names = [str(k) for k in range(15)]
+    _, pckh = batched.eval_pckh2d_batched(g2, gv, p2, pv, device=dev)
+    _, pck3 = batched.eval_pck3d_batched(g2, g3, gv, p2, p3, pv, dist_th=0.1, device=dev)
+    hsz = 2.0 * np.sqrt(((g2[:, :, 0] - g2[:, :, 1]) ** 2).sum(-1))
+    gvis = np.ones(g2.shape[:3], np.float32)
+    ap2 = batched.eval_ap_batched(p2, cf, pv, g2, gvis, gv, hsz, thresh=0.5, device=dev)
+    ap3 = batched.eval_ap_batched(p3, cf, pv, g3, gvis, gv, np.ones(gv.shape, np.float32),
+                                  thresh=0.1, device=dev)
+    ref_pckh = np_pck.eval_human_dataset_2d_pckh(p2l, g2l, head_id=0, neck_id=1)[1]
+    ref_pck3 = np_pck.eval_human_dataset_3d(p2l, g2l, p3l, g3l, dist_th=0.1)[1]
+    ref_ap2 = np_map.eval_ap_mpii_v2(p2l, list(conf), g2l, [], 0, 1, names, verbose=False)
+    ref_ap3 = np_map.eval_ap_3d(p3l, list(conf), g3l, [], names, verbose=False)
+    e_pck = max(_maxerr_np(pckh, ref_pckh), _maxerr_np(pck3, ref_pck3))
+    e_ap = max(_maxerr_np(ap2, ref_ap2), _maxerr_np(ap3, ref_ap3))
+    require(e_pck <= 1e-6 and e_ap <= 1e-6,
+            f"{tag}: batched metrics on the card differ from NumPy's (pck {e_pck:.3g}, AP "
+            f"{e_ap:.3g})")
+    return e_pck, e_ap
+
+
+def _maxerr_np(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+def painted_oracle(paths, dev, batch: int, device_decode: bool) -> tuple[dict, dict]:
+    """The painted Open-Pose+ oracle (openpose_painted_maps from the set's
+    labels) fed to run_openpose_eval on `dev`: (metrics, ablation channels)."""
+    import torch
+
+    from popnet_tpu_torch.cli import evaluate as ev
+    from popnet_tpu_torch.data.datasets import MPRealDataset
+
+    ds = MPRealDataset(*paths, device=dev)
+    pos = {"i": 0}
+
+    def infer(images):
+        idx = range(pos["i"], pos["i"] + images.shape[0])
+        pos["i"] += images.shape[0]
+        heat, paf, z = openpose_painted_maps([ds.anno_dic[ds.ids[i]] for i in idx])
+        return tuple(torch.from_numpy(a).to(dev) for a in (paf, heat, z))
+
+    data = ev.run_openpose_eval(infer, ds, batch, device_decode=device_decode)
+    return ev.evaluate_eval_data(data, verbose=False), ev.evaluate_ablation_channels(data)
+
+
+def phase_eval(rng, dev, n: int = 256, batch: int = 64) -> dict:
+    """The MP-3DHP evaluation drivers on the card (the port's eval path):
+    two labelled sets of n frames, each family's driver with the committed
+    weights (A2J seeded) at `batch`, float32 CNNs; the same CNN outputs
+    through the drivers on the host (plain versions), JSON equal (A2J within
+    the vote's bar) and metrics equal; the batched metrics on the card
+    against NumPy's; the painted Open-Pose+ oracle over its bars; the
+    `evaluate` and `benchmark` subcommands once. Returns the eval path's
+    launch counts."""
+    import tempfile
+
+    import torch
+
+    from popnet_tpu_torch.cli import evaluate as ev
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.ops import kernels
+
+    weights = {"openpose": WEIGHTS, "popnet": WEIGHTS_POPNET, "yolo": WEIGHTS_YOLO,
+               "yolo_for_a2j": WEIGHTS_YOLO}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sets = eval_sets(rng, dev, n, tmp)
+        people = {}
+        for name, (_, labels) in sets.items():
+            with open(labels) as f:
+                people[name] = sum(len(v) for k, v in json.load(f).items() if k != "intrinsics")
+        say("eval", f"wrote two labelled sets of {n} frames (.npy and labels.json; GT people: "
+            f"{people}) in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        runs = {tag: eval_family(tag, model, opts, sets[s], dev, batch, weights)
+                for tag, model, s, opts in EVAL_FAMILIES}
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        fused = kernels.readouts.launches
+        say("eval", f"eval path launches per kernel: {launches}; of them, readouts (K4 and K5 "
+            f"together): {fused}")
+        for name in EVAL_PATH:
+            require(launches[name] >= 1, f"kernel {name} was not launched on the eval path")
+        require(fused >= 1, "the fused readouts were not launched on the eval path")
+
+        for tag, model, _, _ in EVAL_FAMILIES:
+            card, host, timing, a2j = runs[tag]
+            people = sum(len(h) for h in card["human_pred_set_2d"])
+            bars = None
+            if a2j is not None:
+                bars = a2j_bars(a2j)
+                say("eval", f"{tag}: A2J vote card vs host max|err| (y, x) {bars[3]:.4g} (bar "
+                    f"{bars[1]:.4g}), z {bars[4]:.4g} (bar {bars[2]:.4g})")
+            compare_eval_json(tag, card, host, bars)
+            m_card, m_host = ev.evaluate_eval_data(card, verbose=False), \
+                ev.evaluate_eval_data(host, verbose=False)
+            four = ("pck2d", "pck3d", "map2d", "map3d")
+            require(all(m_card[k] == m_host[k] or (np.isnan(m_card[k]) and np.isnan(m_host[k]))
+                        for k in four), f"{tag}: card and host metrics differ")
+            e_pck, e_ap = check_batched_twin(tag, card, dev)
+            s = timing["seconds"]
+            say("eval", f"{tag}: {n} frames in {s:.3f} s = {n / s:.1f} eval frames/s "
+                f"(batch {batch}, float32 CNN); CNN {timing['cnn_seconds']:.3f} s "
+                f"({timing['cnn_seconds'] / s:.1%}), .npy loads {timing['load_seconds']:.3f} s "
+                f"({timing['load_seconds'] / s:.1%}), batches made on the card (loads, copy, "
+                f"warp) {timing['data_seconds']:.3f} s, decode and host JSON the rest; the "
+                f"host run {timing['host_seconds']:.3f} s; {people} people predicted; metrics "
+                + json.dumps({k: m_card[k] for k in four}) + "; JSON card = host"
+                + (" (A2J joints within the vote's bar)" if a2j else " bit for bit")
+                + f", metrics equal; batched metrics on the card vs NumPy max|err| pck "
+                f"{e_pck:.3g}, AP {e_ap:.3g}")
+            if model == "openpose":
+                say("eval", f"{tag} ablation 3D-PCK channels: "
+                    + json.dumps(ev.evaluate_ablation_channels(card)))
+
+        say("eval", f"the five families, card and host runs, in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for dd in (False, True):
+            m, abl = painted_oracle(sets["zero"], dev, batch, dd)
+            say("eval", f"painted Open-Pose+ oracle on the card (device_decode={dd}): "
+                + json.dumps({k: m[k] for k in ORACLE_BARS}) + f", perfect_2d "
+                f"{abl['perfect_2d']:.4f}; bars {ORACLE_BARS}, perfect_2d > 0.95")
+            require(all(m[k] > bar for k, bar in ORACLE_BARS.items())
+                    and abl["perfect_2d"] > 0.95, "the painted oracle falls short of its bars")
+
+        say("eval", f"painted oracle, both decodes, in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "out")
+        root = os.path.dirname(sets["zero"][0])
+        res = cli_main(["evaluate", "--model", "openpose", "--data-root", root, "--out-dir", out,
+                        "--batch-size", str(batch), "--weights", WEIGHTS])
+        got = cli_main(["benchmark", "--gt", sets["zero"][1],
+                        "--pred", os.path.join(out, "openpose_results.json")])
+        require(all(res[k] == got[k] for k in ("pck2d", "pck3d", "map2d", "map3d")),
+                "benchmark's scores of evaluate's JSON differ from evaluate's")
+        say("eval", "python -m popnet_tpu_torch.cli.main evaluate --model openpose (on the card) "
+            "wrote openpose_results.json, and benchmark scores it as evaluate did, in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the frames and test inputs")
@@ -1912,6 +2342,10 @@ def main(argv=None) -> int:
         if r["name"] in coco:
             r["coco"] = {k: v for k, v in coco[r["name"]].items()
                          if k not in ("name", "route", "source", "replaces")}
+    rng_eval = np.random.default_rng([args.seed, 7])  # the eval phase's labelled frames
+    eval_launches = phase_eval(rng_eval, dev, EVAL_FRAMES, EVAL_BATCH)
+    for r in rows:                  # launches on the eval path, beside the serving path's
+        r["eval_launches"] = eval_launches[r["name"]]
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")
     require(all(r["launches"] >= 1 for r in rows), "a kernel was launched on no path")
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from popnet_tpu_torch.core.numerics import div_const
@@ -30,3 +31,13 @@ def back_project(x, y, z, cam: CameraIntrinsics):
     them (`numerics.div_const`), on the CPU and on the card alike."""
     return torch.stack([div_const(x - cam.cx, cam.fx) * z, div_const(y - cam.cy, cam.fy) * z, z],
                        dim=-1)
+
+
+def back_project_np(x, y, z, cam: CameraIntrinsics) -> np.ndarray:
+    """The host's back-projection, in float64 NumPy: (..., 3) stack of
+    ((x - cx) / fx * z, (y - cy) / fy * z, z), true divisions, as the
+    evaluation drivers of the JAX package back-project Python lists."""
+    x, y, z = (np.asarray(v, np.float64) for v in (x, y, z))
+    X = (x - cam.cx) / cam.fx * z
+    Y = (y - cam.cy) / cam.fy * z
+    return np.stack([np.broadcast_to(X, z.shape), np.broadcast_to(Y, z.shape), z], axis=-1)

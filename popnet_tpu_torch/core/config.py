@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics
 from popnet_tpu_torch.core.skeleton import NUM_JOINTS
 
 
@@ -65,3 +66,17 @@ class DecodeConfig:
     min_score: float = 0.2          # drop people with lower mean score
     conf_threshold: float = 0.5     # prior (anchor) decode: confidence
     nms_threshold: float = 0.5      # prior (anchor) decode: IoU of the NMS
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetConfig:
+    """A depth dataset's frame size, camera and depth statistics (the JAX
+    DatasetConfig's, same defaults: the MP-3DHP Kinect frames)."""
+
+    width: int = 480
+    height: int = 512
+    intrinsics: CameraIntrinsics = KDH3D_INTRINSICS
+    depth: DepthStats = KDH3D_DEPTH
+
+
+KDH3D_DATASET = DatasetConfig()

@@ -15,17 +15,16 @@ def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     return x * float(np.float32(1.0) / np.float32(c))
 
 
-
-def fma_f32(a: torch.Tensor, b: float, c) -> torch.Tensor:
-    """a * b + c for float32 a, a float32 constant b and float32 c (a tensor
-    that broadcasts against a, or a number), rounded once, as XLA's CPU
-    compiler contracts a multiply and an add into a fused multiply-add.
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """a * b + c for float32 a, a float32 b and float32 c (each of b and c a
+    tensor that broadcasts against a, or a number), rounded once, as XLA's
+    CPU compiler contracts a multiply and an add into a fused multiply-add.
 
     Computed in float64, where a * b is exact: the sum s = a * b + c is
     rounded to float64 with its error e kept (Knuth's two-sum), and s
     rounded to float32 is the fused result but where s lies exactly halfway
     between two float32 values and e breaks the tie."""
-    p = a.double() * float(np.float32(b))
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else float(np.float32(b)))
     c64 = c.double() if isinstance(c, torch.Tensor) else float(np.float32(c))
     s = p + c64
     bv = s - p

@@ -7,6 +7,7 @@ batch of boxes is one gather.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from popnet_tpu_torch.core.numerics import div_const
@@ -42,3 +43,14 @@ def crop_resize_batch(images: torch.Tensor, image_idx: torch.Tensor, boxes: torc
     crop = images[image_idx.long()[:, None, None], yi, xi]
     crop = torch.where(inside, crop, torch.zeros((), dtype=crop.dtype, device=dev))
     return (crop - mean) / std_t
+
+
+def uncrop_keypoints(pred_yxz, boxes, out_size: int = CROP) -> np.ndarray:
+    """Crop-space (N, K, 3) (y, x, z) -> image-space (N, K, 3) (x, y, z) in
+    float64 NumPy, the evaluation's host arithmetic (the JAX package's
+    `uncrop_keypoints`)."""
+    p = np.asarray(pred_yxz, dtype=np.float64)
+    b = np.asarray(boxes, dtype=np.float64)
+    x = p[..., 1] * (b[:, None, 2] - b[:, None, 0]) / out_size + b[:, None, 0]
+    y = p[..., 0] * (b[:, None, 3] - b[:, None, 1]) / out_size + b[:, None, 1]
+    return np.stack([x, y, p[..., 2]], axis=-1)

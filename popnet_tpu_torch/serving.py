@@ -18,6 +18,7 @@ import torch
 
 from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics, back_project
 from popnet_tpu_torch.core.config import KDH3D_DEPTH, DecodeConfig, DepthStats, EncoderConfig
+from popnet_tpu_torch.core.device import resolve_device
 from popnet_tpu_torch.core.numerics import div_const
 from popnet_tpu_torch.data.a2j_crops import CROP, crop_resize_batch
 from popnet_tpu_torch.decode.prior import decode_prior_maps
@@ -105,10 +106,7 @@ def unpack_outputs_q16(buf: np.ndarray, max_people: int, num_joints: int,
 def _check_build_args(device, pack: str) -> torch.device:
     if pack not in ("f32", "q16"):
         raise ValueError(f"unknown pack {pack!r}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return device
+    return resolve_device(device)
 
 
 def build_openpose_pipeline(weights: dict[str, np.ndarray],

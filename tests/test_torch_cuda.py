@@ -792,3 +792,84 @@ def test_rtpose_vgg_pipeline_buffer_on_the_card(cuda, trunk):
         ("find_peaks", "paf_score", "assemble_ids"), 1)
     with pytest.raises(ValueError, match="f32"):
         build_rtpose_vgg_pipeline(pack="q16")
+
+
+@pytest.fixture(scope="module")
+def eval_sets(tmp_path_factory):
+    """chip_smoke.py's two labelled sets (zero and depth backgrounds) at 16
+    frames, written from the CPU."""
+    import chip_smoke
+
+    root = str(tmp_path_factory.mktemp("cuda_eval"))
+    return chip_smoke.eval_sets(np.random.default_rng(31), "cpu", 16, root)
+
+
+@pytest.mark.parametrize("family", ["openpose", "openpose_device_decode", "popnet", "yolo",
+                                    "a2j"])
+def test_eval_driver_on_the_card_equals_the_host(cuda, eval_sets, family):
+    """Each MP-3DHP driver at 16 frames, batch 8, float32 CNNs with the
+    committed weights (A2J seeded): on the card, then on the host with the
+    same CNN outputs, whose images (and A2J crops) equal the card's bit for
+    bit; the JSON equal bit for bit (A2J joints within the vote's 64-ulp
+    bar), the four metrics equal; the Open-Pose+ and PoP-Net drivers launch
+    their kernels."""
+    import chip_smoke
+    from popnet_tpu_torch.cli import evaluate as ev
+
+    tag, model, frame_set, opts = [f for f in chip_smoke.EVAL_FAMILIES if f[0] == family][0]
+    weights = {"openpose": WEIGHTS, "popnet": WEIGHTS_POPNET, "yolo": WEIGHTS_YOLO,
+               "yolo_for_a2j": WEIGHTS_YOLO}
+    kernels.reset_launches()
+    card, host, timing, a2j = chip_smoke.eval_family(tag, model, opts, eval_sets[frame_set],
+                                                     cuda, 8, weights)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    on_path = {"openpose": {"find_peaks", "paf_score"},
+               "openpose_device_decode": {"find_peaks", "paf_score", "assemble_ids",
+                                          "window_readout", "point_readout"},
+               "popnet": {"peak_local_max"}}.get(family, set())
+    assert {n for n, c in launches.items() if c} == on_path, launches
+    assert len(card["human_pred_set_2d"]) == 16 and timing["seconds"] > 0
+    chip_smoke.compare_eval_json(tag, card, host, chip_smoke.a2j_bars(a2j) if a2j else None)
+    m_card, m_host = ev.evaluate_eval_data(card, verbose=False), \
+        ev.evaluate_eval_data(host, verbose=False)
+    for k in ("pck2d", "pck3d", "map2d", "map3d"):
+        assert m_card[k] == m_host[k] or (np.isnan(m_card[k]) and np.isnan(m_host[k])), k
+
+
+@pytest.mark.parametrize("family", ["openpose", "popnet", "yolo"])
+def test_batched_metrics_on_the_card_equal_numpy(cuda, eval_sets, family):
+    """eval/batched.py on the card against the NumPy metrics on an evaluation driver's
+    JSON: 2D PCKh and 3D PCK within 1e-6, 2D and 3D AP within 1e-6."""
+    import chip_smoke
+
+    tag, model, frame_set, opts = [f for f in chip_smoke.EVAL_FAMILIES if f[0] == family][0]
+    weights = {"openpose": WEIGHTS, "popnet": WEIGHTS_POPNET, "yolo": WEIGHTS_YOLO}
+    card = chip_smoke.eval_family(tag, model, opts, eval_sets[frame_set], cuda, 8, weights)[0]
+    e_pck, e_ap = chip_smoke.check_batched_twin(tag, card, cuda)
+    assert e_pck <= 1e-6 and e_ap <= 1e-6
+
+
+@pytest.mark.parametrize("device_decode", [False, True])
+def test_painted_openpose_oracle_on_the_card(cuda, eval_sets, device_decode):
+    """The painted Open-Pose+ oracle through run_openpose_eval on the card clears
+    pck2d 0.95, pck3d 0.9, map2d 0.9, map3d 0.85 and perfect_2d 0.95."""
+    import chip_smoke
+
+    m, abl = chip_smoke.painted_oracle(eval_sets["zero"], cuda, 8, device_decode)
+    assert all(m[k] > bar for k, bar in chip_smoke.ORACLE_BARS.items()), m
+    assert abl["perfect_2d"] > 0.95
+
+
+def test_evaluate_subcommand_on_the_card(cuda, eval_sets, tmp_path):
+    """python -m popnet_tpu_torch.cli.main evaluate on the card (its
+    default device) writes the JSON, and benchmark scores it as evaluate
+    did."""
+    from popnet_tpu_torch.cli.main import main
+
+    img_dir, labels = eval_sets["bg"]
+    res = main(["evaluate", "--model", "yolo", "--data-root", os.path.dirname(img_dir),
+                "--out-dir", str(tmp_path), "--batch-size", "8", "--weights", WEIGHTS_YOLO])
+    got = main(["benchmark", "--gt", labels, "--pred", str(tmp_path / "yolo_results.json")])
+    for k in ("pck2d", "pck3d", "map2d", "map3d"):
+        assert res[k] == got[k], k

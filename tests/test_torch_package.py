@@ -63,7 +63,9 @@ def test_port_imports_with_jax_and_reference_blocked():
         assert not leaked, leaked
         for m in ("models.popnet", "models.rtpose_align3d", "models.yolo_posenet", "decode.prior",
                   "decode.popnet_infer", "models.a2j", "decode.a2j", "data.a2j_crops",
-                  "core.numerics"):
+                  "core.numerics", "eval.pck", "eval.map", "eval.batched", "cli.evaluate",
+                  "cli.yolo_a2j", "cli.main", "data.datasets", "data.labels",
+                  "data.augment_device", "decode.readout", "decode.assemble", "core.device"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -275,3 +277,31 @@ def test_build_targets_are_content_hashed_in_an_ignored_directory():
     assert "build/" in open(os.path.join(ROOT, ".gitignore")).read().split()
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_evaluate_defaults_to_cuda_and_never_runs_on_cpu_unasked(tmp_path):
+    """The evaluate subcommand and the evaluation dataset default to the
+    card; without one they raise unless the CPU is asked for (--device cpu),
+    and the batched metrics likewise."""
+    from popnet_tpu_torch.cli.main import build_parser, main
+    from popnet_tpu_torch.data.datasets import MPRealDataset
+    from popnet_tpu_torch.eval import batched
+
+    args = build_parser().parse_args(["evaluate", "--data-root", str(tmp_path)])
+    assert args.device == "cuda" and args.model == "popnet" and not args.device_decode
+    assert inspect.signature(MPRealDataset).parameters["device"].default == "cuda"
+    assert inspect.signature(batched.eval_ap_batched).parameters["device"].default == "cuda"
+    assert {m for m in _port_modules() if m.startswith(("popnet_tpu_torch.eval",
+                                                        "popnet_tpu_torch.cli"))} >= {
+        "popnet_tpu_torch.eval.pck", "popnet_tpu_torch.eval.map", "popnet_tpu_torch.eval.batched",
+        "popnet_tpu_torch.cli.evaluate", "popnet_tpu_torch.cli.yolo_a2j",
+        "popnet_tpu_torch.cli.main"}
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["evaluate", "--data-root", str(tmp_path), "--model", "yolo"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batched.eval_pck2d_batched(np.zeros((1, 1, 15, 2)), np.ones((1, 1), bool),
+                                   np.zeros((1, 1, 15, 2)), np.ones((1, 1), bool))
+    with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
+        main(["evaluate", "--data-root", str(tmp_path), "--model", "yolo", "--device", "cpu"])
