@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (popnet_tpu_torch) on one NVIDIA card.
 
-Drives the port's five serving paths at the models' full width, and its
-MP-3DHP evaluation drivers for the four depth families: the four
+Drives the port's five serving paths at the models' full width, its
+MP-3DHP evaluation drivers for the four depth families, and the training
+of three of them (phase 7): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -87,6 +88,30 @@ Phases, one or more lines each:
    four metrics and eval frames/s; the painted Open-Pose+ oracle
    (openpose_painted_maps) over pck2d 0.95, pck3d 0.9, map2d 0.9, map3d
    0.85 and perfect_2d 0.95; the evaluate and benchmark subcommands once.
+
+7. train: the training path of Open-Pose+, PoP-Net and Yolo-Pose+
+   (popnet_tpu_torch.train, cli.main train) at full width, 224², float32:
+   a KDH3D-format set (write_train_set: 256 training and 64 validation
+   frames of person_frames' people, their masks, 8 backgrounds) in a
+   temporary directory; the prior encoder's "last person wins" on the card
+   (shared_prior_check); for each family (a) a batch of 32 made on the card
+   (bg_aug, augmented, f32 and u16mm transfer) against the CPU's (image,
+   z-maps and masks bit for bit, other maps within 2e-6); (b) one step from
+   the committed weights on 8 of its frames, card against CPU, in float64
+   at the step bars (loss 1e-5, updates 1e-3 of a tensor's largest,
+   BatchNorm statistics 1e-5) and in float32 (loss 1e-5, and the card's
+   float32 step no further from its float64 step, in whole-update norm,
+   than F32_GAP_FACTOR times the CPU's float32 step from the CPU's float64
+   one), TF32 off; (c) `train --bg-aug --batch-size 32 --epochs 2
+   --val-labels labels_val.json --lr 0.05`: each epoch's losses, e2e train
+   frames/s over the second epoch (8 steps, the pipeline's fill included)
+   and over 3 further epochs of the Trainer's loop (24 steps), the input
+   pipeline and its host stage alone over 3 epochs, the step's ms (CUDA
+   events), max_memory_allocated, and no kernel launched; (d) the loss falls over 5 steps on one batch; (e) 1 epoch and
+   `--resume` for 1 more equal 2 epochs in one call bit for bit (cuDNN
+   deterministic); then (f) `evaluate --ckpt` of each family's checkpoint
+   (Open-Pose+ with and without --device-decode) with the launch counts of
+   K1, K3, K6, the readouts and K7.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -1883,21 +1908,27 @@ def check_bf16(tag: str, q16: dict, f32: dict) -> None:
     require(abs(vq - vf) <= 0.10 * vf, "bf16 visible joints differ by over 10%")
 
 
-def write_eval_set(root: str, frames, people: dict) -> tuple[str, str]:
-    """Write (B, H, W) depth frames as root/depth_maps/<b>.npy and their
-    people as root/labels.json in the MP-3DHP label format: per frame a list
+def write_eval_set(root: str, frames, people: dict, labels_name: str = "labels.json",
+                   first: int = 0, seg: bool = False) -> tuple[str, str]:
+    """Write (B, H, W) depth frames as root/depth_maps/<first + b>.npy and their
+    people as root/<labels_name> in the MP-3DHP label format: per frame a list
     of {"2d_joints", "3d_joints" (back-projected with the KDH3D camera),
     "bbox" (the joints' box with a 20 px margin)}, and the camera under
-    "intrinsics". Returns (image directory, label path)."""
+    "intrinsics"; with `seg`, each frame's people mask (depth > 0) as
+    root/seg_maps/<first + b>.npy. Returns (image directory, label path)."""
     from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS as cam, back_project_np
 
     img_dir = os.path.join(root, "depth_maps")
     os.makedirs(img_dir, exist_ok=True)
+    if seg:
+        os.makedirs(os.path.join(root, "seg_maps"), exist_ok=True)
     labels = {"intrinsics": {"fx": cam.fx, "fy": cam.fy, "cx": cam.cx, "cy": cam.cy}}
     host = frames.cpu().numpy()
     for b in range(host.shape[0]):
-        name = f"frame_{b:04d}.npy"
+        name = f"frame_{first + b:04d}.npy"
         np.save(os.path.join(img_dir, name), host[b])
+        if seg:
+            np.save(os.path.join(root, "seg_maps", name), (host[b] > 0).astype(np.float32))
         anns = []
         for p in np.flatnonzero(people["present"][b]):
             j2, z = people["joints2d"][b, p], people["z"][b, p]
@@ -1906,7 +1937,7 @@ def write_eval_set(root: str, frames, people: dict) -> tuple[str, str]:
                          "bbox": [float(j2[:, 0].min() - 20), float(j2[:, 1].min() - 20),
                                   float(j2[:, 0].max() + 20), float(j2[:, 1].max() + 20)]})
         labels[name] = anns
-    path = os.path.join(root, "labels.json")
+    path = os.path.join(root, labels_name)
     with open(path, "w") as f:
         json.dump(labels, f)
     return img_dir, path
@@ -2293,6 +2324,441 @@ def phase_eval(rng, dev, n: int = 256, batch: int = 64) -> dict:
     return launches
 
 
+# -- phase 7: training ----------------------------------------------------------------------
+
+TRAIN_FRAMES = 256          # frames of the training set (512x480, 2-3 people each)
+VAL_FRAMES = 64             # frames of the validation set
+TRAIN_BATCH = 32            # the command line's batch
+TRAIN_INPUT = 224           # the network input, the command line's
+STEP_BATCH = 8              # the card-against-CPU step check's batch
+TRAIN_LR = 0.05             # the JAX step test's rate (the command line's 1.0 is the CPM recipe's)
+N_BACKGROUNDS = 8
+TRAIN_FAMILIES = ("openpose", "popnet", "yolo")
+TRAIN_TARGETS = {"openpose": (False, False), "popnet": (True, True), "yolo": (False, True)}
+TRAIN_WEIGHTS = {"openpose": WEIGHTS, "popnet": WEIGHTS_POPNET, "yolo": WEIGHTS_YOLO}
+TARGETS_EXACT = ("image", "zmaps", "fg_masks_z", "fg_masks_align", "prior_mask_conf",
+                 "prior_mask_coord", "prior_weight_map")
+TARGETS_BAR = 2e-6          # heat, PAF, align and prior maps (torch.exp differs by device)
+STEP_BARS = {"loss": 1e-5, "update": 1e-3, "stats": 1e-5}
+ZERO_UPDATE = 1e-6          # float64: a zero gradient's update, over the largest update
+UPDATE_FLOOR = 1e-6         # the least scale a tensor's update error is measured against
+F32_GAP_FACTOR = 4.0        # card's float32-vs-float64 update gap over the CPU's, at most
+                            # (read 1.0-1.14 on 8 frames, 2.45 on 4; a channels-last pool 658)
+LOOP_EPOCHS = 3             # epochs of the timed Trainer loop and input pipeline
+CKPT_EVAL = (("openpose", []), ("openpose", ["--device-decode"]), ("popnet", []),
+             ("yolo", []))
+
+
+def write_train_set(rng, dev, root: str, n_train: int, n_val: int) -> None:
+    """A KDH3D-format training set under root (the layout of
+    tests/synthetic_data.build): person_frames' people on a zero background
+    as depth_maps/*.npy, their masks as seg_maps/*.npy, N_BACKGROUNDS smooth
+    2.5-5.5 m backgrounds as bg_maps/*.npy with labels_bg.json, the first
+    n_train frames' people in labels.json and the next n_val's in
+    labels_val.json."""
+    frames, people = person_frames(rng, n_train + n_val, dev, people=True)
+    for name, lo, hi in (("labels.json", 0, n_train), ("labels_val.json", n_train,
+                                                      n_train + n_val)):
+        write_eval_set(root, frames[lo:hi], {k: v[lo:hi] for k, v in people.items()},
+                       labels_name=name, first=lo, seg=True)
+    os.makedirs(os.path.join(root, "bg_maps"), exist_ok=True)
+    ys, xs = np.mgrid[0:frames.shape[1], 0:frames.shape[2]]
+    index = {}
+    for i in range(N_BACKGROUNDS):
+        name = f"bg_{i:03d}.npy"
+        bg = (4.0 + 1.5 * np.sin(xs / 60.0 + rng.uniform(0, 2 * np.pi)) * np.cos(ys / 80.0))
+        np.save(os.path.join(root, "bg_maps", name), bg.astype(np.float32))
+        index[str(i)] = {"file_name": name}
+    with open(os.path.join(root, "labels_bg.json"), "w") as f:
+        json.dump(index, f)
+
+
+def train_dataset(root: str, family: str, dev, labels: str = "labels.json",
+                  transfer: str = "f32", augment: bool = True):
+    from popnet_tpu_torch.core.config import EncoderConfig
+    from popnet_tpu_torch.data.datasets import KDH3DDataset
+
+    align, prior = TRAIN_TARGETS[family]
+    return KDH3DDataset(os.path.join(root, "depth_maps"), os.path.join(root, labels),
+                        ecfg=EncoderConfig(input_x=TRAIN_INPUT, input_y=TRAIN_INPUT),
+                        bg_aug=True, bg_file=os.path.join(root, "labels_bg.json"),
+                        bg_dir=os.path.join(root, "bg_maps"),
+                        seg_dir=os.path.join(root, "seg_maps"), pose_align=align,
+                        with_prior=prior, augment=augment, seed=0, transfer=transfer,
+                        device=dev)
+
+
+def compare_batches(tag: str, card: dict, host: dict) -> float:
+    """A training batch made on the card against the CPU's from the same
+    seed: the image and the masks and z-maps equal, the other maps within
+    TARGETS_BAR. Returns the largest error of those."""
+    import torch
+
+    require(set(card) == set(host), f"{tag}: the batches' keys differ")
+    worst = 0.0
+    for k, h in host.items():
+        c = card[k].cpu()
+        require(c.shape == h.shape and c.dtype == h.dtype, f"{tag} {k}: shape or type differs")
+        if k in TARGETS_EXACT:
+            require(bool(torch.equal(c, h)), f"{tag} {k}: card and CPU differ")
+        else:
+            err = _maxerr(c, h)
+            require(err <= TARGETS_BAR, f"{tag} {k}: card and CPU {err:.3g} apart (bar "
+                    f"{TARGETS_BAR})")
+            worst = max(worst, err)
+    return worst
+
+
+def one_step(family: str, batch: dict, dev, dtype):
+    """One SGD-Nesterov step (TRAIN_LR) of the family from the committed
+    weights on `batch`, on `dev` in `dtype` with TF32 off and cuDNN
+    deterministic: (loss, state dict before, state dict after, the names of
+    the conv biases that feed a BatchNorm, whose gradient is zero in exact
+    arithmetic), the tensors on the CPU."""
+    import torch
+
+    from popnet_tpu_torch.interop.from_jax import load_into, load_npz
+    from popnet_tpu_torch.models import PopNet, RTPoseLight3D, YoloPoseNet
+    from popnet_tpu_torch.models.layers import ConvBN
+    from popnet_tpu_torch.train import steps
+    from popnet_tpu_torch.train.state import TrainState, make_optimizer
+
+    cls = {"openpose": RTPoseLight3D, "popnet": PopNet, "yolo": YoloPoseNet}[family]
+    step = {"openpose": steps.make_rtpose_train_step, "popnet": steps.make_popnet_train_step,
+            "yolo": steps.make_yolo_train_step}[family]()
+    model = load_into(cls(), load_npz(TRAIN_WEIGHTS[family])).to(dev, dtype)
+    zero = {f"{n}.Conv_0.bias" for n, m in model.named_modules()
+            if isinstance(m, ConvBN) and m.norm and m.Conv_0.bias is not None}
+    state = TrainState(model, make_optimizer(model, "sgd", TRAIN_LR))
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    b = {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev)) for k, v in batch.items()}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False, deterministic=True):
+        state, logs = step(state, b)
+    after = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return float(logs["loss"]), before, after, zero
+
+
+def step_errors(a, b) -> dict:
+    """Card step `a` against CPU step `b` (`one_step`'s tuples): the loss's
+    relative error; the largest per-tensor update error over the CPU's
+    largest update of that tensor, floored at UPDATE_FLOOR of the largest
+    update of any tensor (a tensor whose gradient nearly vanishes carries
+    the float64 rounding of the others at its own scale), with the tensor
+    it falls on; the whole update's relative norm error; the running
+    statistics' relative error; and how far the tensors with zero
+    gradients moved, over the CPU's largest update of any tensor."""
+    out = {"loss": abs(a[0] - b[0]) / abs(b[0]), "update": 0.0, "stats": 0.0, "zero": 0.0,
+           "worst": ""}
+    deltas = {}
+    for name, after in b[2].items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        got, ref = a[2][name].double(), after.double()
+        if name.endswith(("running_mean", "running_var")):
+            rel = ((got - ref).abs() / (ref.abs() + 1e-12)).max()
+            out["stats"] = max(out["stats"], float(rel))
+            continue
+        start = b[1][name].double()
+        deltas[name] = (got - start, ref - start)
+    top = max(float(dj.abs().max()) for n, (_, dj) in deltas.items() if n not in b[3])
+    num = den = 0.0
+    for name, (dp, dj) in deltas.items():
+        if name in b[3]:
+            out["zero"] = max(out["zero"], float(dp.abs().max()) / top,
+                              float(dj.abs().max()) / top)
+            continue
+        num += float(((dp - dj) ** 2).sum())
+        den += float((dj ** 2).sum())
+        scale = max(float(dj.abs().max()), UPDATE_FLOOR * top)
+        err = float((dp - dj).abs().max()) / scale
+        if err >= out["update"]:
+            out["update"], out["worst"] = err, f"{name} (its update {scale / top:.3g} of the top)"
+    out["norm"] = (num / den) ** 0.5
+    return out
+
+
+def train_step_checks(tag: str, family: str, batch_card: dict, batch_host: dict, dev) -> None:
+    """(b): one step from the committed weights on STEP_BATCH frames, card
+    against CPU. float64 on both: the step bars (loss 1e-5, each tensor's
+    update within 1e-3 of the CPU's largest, floored at 1e-6 of the largest
+    of any tensor, `step_errors`; BatchNorm statistics 1e-5; the conv
+    biases ahead of a BatchNorm, whose gradient is zero in exact
+    arithmetic, move by under ZERO_UPDATE of the largest update). float32
+    with TF32 off: the loss within the bar, and each device's float32 step
+    set against its own float64 step: the card's whole-update norm gap at
+    most F32_GAP_FACTOR times the CPU's, so that a fault of the card's
+    float32 backward (TF32, a less exact convolution algorithm) cannot
+    hide behind the float32 step's own sensitivity to rounding."""
+    import torch
+
+    t0 = time.perf_counter()
+    steps = {}
+    for dtype in (torch.float64, torch.float32):
+        card = steps["card", dtype] = one_step(family, batch_card, dev, dtype)
+        host = steps["cpu", dtype] = one_step(family, batch_host, "cpu", dtype)
+        e = step_errors(card, host)
+        name = str(dtype).split(".")[1]
+        say("train", f"{tag} step check, {name}, card vs CPU ({len(batch_host['image'])} frames, "
+            f"committed weights, TF32 off, cuDNN deterministic): loss {card[0]:.6f} vs {host[0]:.6f} "
+            f"(rel {e['loss']:.3g}), max per-tensor update error {e['update']:.3g} of the "
+            f"tensor's largest update ({e['worst']}), whole-update norm {e['norm']:.3g}, "
+            f"BatchNorm statistics rel {e['stats']:.3g}; the {len(host[3])} conv biases ahead of a "
+            f"BatchNorm moved up to {e['zero']:.3g} of the largest update")
+        require(e["loss"] <= STEP_BARS["loss"], f"{tag} {name}: the loss misses its bar")
+        if dtype == torch.float64:
+            require(e["update"] <= STEP_BARS["update"] and e["stats"] <= STEP_BARS["stats"]
+                    and e["zero"] < ZERO_UPDATE, f"{tag} float64: the step misses its bars")
+    gap = {where: step_errors(steps[where, torch.float32], steps[where, torch.float64])
+           for where in ("card", "cpu")}
+    say("train", f"{tag} float32 step against the same device's float64 step: " + "; ".join(
+        f"{where} loss rel {g['loss']:.3g}, whole-update norm {g['norm']:.3g}, max per-tensor "
+        f"update error {g['update']:.3g} ({g['worst']}), BatchNorm statistics rel "
+        f"{g['stats']:.3g}" for where, g in gap.items())
+        + f"; card's norm gap over the CPU's {gap['card']['norm'] / gap['cpu']['norm']:.3g} "
+        f"(bar {F32_GAP_FACTOR})")
+    require(gap["card"]["norm"] <= F32_GAP_FACTOR * gap["cpu"]["norm"],
+            f"{tag} float32: the card's step is further from float64 than the CPU's allows")
+    say("train", f"{tag} step checks in {time.perf_counter() - t0:.1f} s")
+
+
+def time_input(ds, batch: int) -> tuple[float, float]:
+    """(input pipeline alone, host stage alone) in frames/s: a warm pass of
+    iter_batches, then LOOP_EPOCHS timed ones that wait for each batch on
+    the card (as bench_train.py measures it), then get_batch_host alone
+    over as many passes."""
+    import torch
+
+    for _ in ds.iter_batches(batch):
+        pass
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 0
+    for _ in range(LOOP_EPOCHS):
+        for b in ds.iter_batches(batch):
+            torch.cuda.synchronize()
+            n += b["image"].shape[0]
+    pipe = n / (time.perf_counter() - t0)
+    order = np.arange(len(ds))
+    t0, nh = time.perf_counter(), 0
+    for _ in range(LOOP_EPOCHS):
+        for s in range(0, len(ds) - batch + 1, batch):
+            ds.get_batch_host(order[s:s + batch])
+            nh += batch
+    return pipe, nh / (time.perf_counter() - t0)
+
+
+def time_loop(trainer, ds, batch: int) -> float:
+    """e2e train frames/s of LOOP_EPOCHS more epochs of the Trainer's own
+    loop (`train_epoch`) on ds, host clock, TF32 off as `train` runs it;
+    each epoch's pipeline fill is in the window, as it is in every epoch of
+    a run."""
+    import torch
+
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for _ in range(LOOP_EPOCHS):
+            trainer.train_epoch(ds, batch)     # reads its losses at its end
+    return LOOP_EPOCHS * (len(ds) // batch) * batch / (time.perf_counter() - t0)
+
+
+def phase_train(rng, dev) -> dict:
+    """Phase 7, the training path of the three depth families (see the
+    module docstring). Returns {"train": launches of the training runs,
+    "ckpt_eval": launches of evaluate --ckpt}."""
+    import tempfile
+
+    import torch
+
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.models import PopNet, RTPoseLight3D, YoloPoseNet
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.train import checkpoint
+    from popnet_tpu_torch.train.state import TrainState, make_optimizer
+    from popnet_tpu_torch.train.steps import (make_popnet_train_step, make_rtpose_train_step,
+                                              make_yolo_train_step)
+
+    cls = {"openpose": RTPoseLight3D, "popnet": PopNet, "yolo": YoloPoseNet}
+    mk_step = {"openpose": make_rtpose_train_step, "popnet": make_popnet_train_step,
+               "yolo": make_yolo_train_step}
+    launches = {"train": {k.__name__: 0 for k in kernels.KERNELS}}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_train_set(rng, dev, root, TRAIN_FRAMES, VAL_FRAMES)
+        say("train", f"wrote a KDH3D-format set of {TRAIN_FRAMES} training and {VAL_FRAMES} "
+            f"validation frames (depth, masks, {N_BACKGROUNDS} backgrounds) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        shared_prior_check(dev)
+        cli = ["--data-root", root, "--device", str(dev), "--input-size", str(TRAIN_INPUT),
+               "--bg-aug",
+               "--batch-size", str(TRAIN_BATCH),
+               "--val-labels", "labels_val.json", "--lr", str(TRAIN_LR)]
+        for family in TRAIN_FAMILIES:
+            tag = f"{family}:"
+            # (a) the batch on the card against the CPU's
+            t0 = time.perf_counter()
+            idx = np.arange(TRAIN_BATCH)
+            for transfer in ("f32", "u16mm"):
+                card = train_dataset(root, family, dev, transfer=transfer).get_batch(idx)
+                host = train_dataset(root, family, "cpu", transfer=transfer).get_batch(idx)
+                err = compare_batches(f"{tag} {transfer} batch", card, host)
+            say("train", f"{tag} (a) a batch of {TRAIN_BATCH} made on the card equals the CPU's "
+                f"(f32 and u16mm transfer, bg_aug, augmented): image, z-maps and masks bit for "
+                f"bit, other maps within {err:.3g} (bar {TARGETS_BAR}); "
+                f"{time.perf_counter() - t0:.1f} s")
+            # (b) one step, card against CPU
+            sub = lambda b: {k: v[:STEP_BATCH] for k, v in b.items()}
+            train_step_checks(tag, family, sub(card), sub(host), dev)
+
+            # (c) the command line, 2 epochs
+            out = os.path.join(root, f"run_{family}")
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = cli_main(["train", "--model", family, "--out-dir", out, "--epochs", "2",
+                                *cli])
+            wall = time.perf_counter() - t0
+            mem = torch.cuda.max_memory_allocated() / 2**20
+            hist = trainer.history
+            require(len(hist) == 2 and all(np.isfinite([h["train_loss"], h["val_loss"]]).all()
+                                           for h in hist), f"{tag} non-finite losses")
+            for d in ("ckpt", "ckpt_best"):
+                require(bool(checkpoint.checkpoint_steps(os.path.join(out, d))),
+                        f"{tag} no {d}/")
+            require(os.path.exists(os.path.join(out, "history.jsonl")), f"{tag} no history")
+            ds = train_dataset(root, family, dev)
+            loop_fps = time_loop(trainer, ds, TRAIN_BATCH)
+            for k, v in kernels.launch_counts().items():
+                launches["train"][k] += v
+            pipe_fps, host_fps = time_input(ds, TRAIN_BATCH)
+            batch = ds.get_batch(idx)
+            state, step = trainer.state, mk_step[family]()
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                step_ms = time_ms(lambda: step(state, batch), reps=10, warm=2)
+            e2e = TRAIN_FRAMES // TRAIN_BATCH * TRAIN_BATCH / hist[1]["train_seconds"]
+            say("train", f"{tag} (c) train --bg-aug --batch-size {TRAIN_BATCH} --epochs 2 "
+                f"(float32, TF32 off): losses " + ", ".join(
+                    f"epoch {h['epoch']} train {h['train_loss']:.5f} val {h['val_loss']:.5f}"
+                    for h in hist)
+                + f"; e2e train {e2e:.1f} frames/s over epoch 1 (host clock, the whole loop, "
+                f"{TRAIN_FRAMES // TRAIN_BATCH} steps with the pipeline's fill; "
+                f"{hist[1]['train_seconds']:.3f} s), {loop_fps:.1f} frames/s over "
+                f"{LOOP_EPOCHS} further epochs of the Trainer's loop; input pipeline alone "
+                f"{pipe_fps:.1f} frames/s, host stage alone {host_fps:.1f} frames/s (over "
+                f"{LOOP_EPOCHS} epochs); step {step_ms:.3f} ms at "
+                f"batch {TRAIN_BATCH} (CUDA events, TF32 off) = "
+                f"{TRAIN_BATCH / step_ms * 1e3:.1f} frames/s; max_memory_allocated "
+                f"{mem:.1f} MiB; the command {wall:.1f} s; kernels launched: "
+                f"{sum(kernels.launch_counts().values())}")
+            # (d) the loss falls over 5 steps on a fixed batch
+            model = cls[family]().init_seeded(1).to(dev)
+            st = TrainState(model, make_optimizer(model, "sgd", TRAIN_LR))
+            losses = []
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                for _ in range(5):
+                    st, logs = step(st, batch)
+                    losses.append(float(logs["loss"]))
+            require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+                    f"{tag} the loss does not fall over 5 steps: {losses}")
+            say("train", f"{tag} (d) 5 steps on one batch from a seeded init: loss "
+                + " -> ".join(f"{x:.5f}" for x in losses))
+            # (e) 1 epoch + --resume 1 epoch against 2 epochs in one call
+            t0 = time.perf_counter()
+            runs = {}
+            with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+                for name, calls in (("whole", [["--epochs", "2"]]),
+                                    ("resumed", [["--epochs", "1"], ["--epochs", "1",
+                                                                     "--resume"]])):
+                    d = os.path.join(root, f"det_{family}_{name}")
+                    for extra in calls:
+                        kernels.reset_launches()
+                        cli_main(["train", "--model", family, "--out-dir", d, *extra, *cli])
+                        for k, v in kernels.launch_counts().items():
+                            launches["train"][k] += v
+                    runs[name] = d
+            a, _, sa = checkpoint.restore_checkpoint(os.path.join(runs["whole"], "ckpt"))
+            b, _, sb = checkpoint.restore_checkpoint(os.path.join(runs["resumed"], "ckpt"))
+            same = sa == sb == 1 and all(torch.equal(v, b["model"][k])
+                                         for k, v in a["model"].items())
+            same = same and all(torch.equal(s["momentum_buffer"],
+                                            b["optimizer"]["state"][i]["momentum_buffer"])
+                                for i, s in a["optimizer"]["state"].items())
+            hists = [[{k: v for k, v in json.loads(x).items() if k != "train_seconds"}
+                      for x in open(os.path.join(runs[n], "history.jsonl"))]
+                     for n in ("whole", "resumed")]
+            require(same and hists[0] == hists[1],
+                    f"{tag} 1 epoch + --resume 1 epoch differs from 2 epochs in one call")
+            say("train", f"{tag} (e) 1 epoch + --resume 1 epoch equals 2 epochs in one call "
+                f"bit for bit (parameters, BatchNorm statistics, momentum buffers, history; "
+                f"cuDNN deterministic, TF32 off) in {time.perf_counter() - t0:.1f} s")
+
+        # (f) evaluate --ckpt on the checkpoints of (c)
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        for family, extra in CKPT_EVAL:
+            ev_out = os.path.join(root, f"eval_{family}{'_dd' if extra else ''}")
+            m = cli_main(["evaluate", "--model", family, "--data-root", root, "--labels",
+                          "labels_val.json", "--ckpt", os.path.join(root, f"run_{family}", "ckpt"),
+                          "--out-dir", ev_out, "--batch-size", str(VAL_FRAMES),
+                          "--input-size", str(TRAIN_INPUT), "--device", str(dev), *extra])
+            require(os.path.exists(os.path.join(ev_out, f"{family}_results.json")),
+                    f"evaluate --ckpt {family}: no JSON")
+            say("train", f"(f) evaluate --model {' '.join([family, *extra])} --ckpt "
+                f"run_{family}/ckpt on the {VAL_FRAMES} validation frames: "
+                + json.dumps({k: m[k] for k in ("pck2d", "pck3d", "map2d", "map3d")}))
+        torch.cuda.synchronize()
+        launches["ckpt_eval"] = kernels.launch_counts()
+        fused = kernels.readouts.launches
+        say("train", f"(f) evaluate --ckpt launches per kernel: {launches['ckpt_eval']}; of "
+            f"them, readouts (K4 and K5 together): {fused}; {time.perf_counter() - t0:.1f} s")
+        for name in EVAL_PATH:
+            require(launches["ckpt_eval"][name] >= 1, f"evaluate --ckpt did not launch {name}")
+        require(fused >= 1, "evaluate --ckpt did not launch the fused readouts")
+    say("train", f"training path launches per kernel: {launches['train']} (none expected)")
+    require(not any(launches["train"].values()), "the training path launched a kernel")
+    return launches
+
+
+def shared_prior_check(dev) -> None:
+    """The prior encoder's "last person wins" on the card: TRAIN_BATCH frames
+    of 8 people at 224², where in every frame people 2 and 6 fall in one
+    (cell, anchor) of the 14x14 grid, with an invalid person (4) between
+    them and random people around (some of whom may land in the cell too,
+    earlier). Encoded on the card and on the CPU: the targets agree
+    (compare_batches' bars), and at the shared cell person 6's target and
+    pose weight stand."""
+    import torch
+
+    from popnet_tpu_torch.core.config import KDH3D_DEPTH, EncoderConfig
+    from popnet_tpu_torch.ops.encoders import encode_targets
+
+    B, P = TRAIN_BATCH, 8
+    r = np.random.default_rng(11)
+    j2 = r.uniform(-10, 234, (B, P, 15, 2)).astype(np.float32)
+    z = r.uniform(1, 6, (B, P, 15)).astype(np.float32)
+    j3 = np.stack([j2[..., 0] / 500 * z, j2[..., 1] / 500 * z, z], -1).astype(np.float32)
+    bb = np.concatenate([j2.min(2), j2.max(2)], -1).astype(np.float32)
+    bb[:, 2] = [80.0, 44.0, 120.0, 124.0]        # centre (100, 84): cell (5, 6), first anchor
+    bb[:, 6] = [80.0, 48.0, 116.0, 124.0]        # centre (98, 86): the same (cell, anchor)
+    pw = r.uniform(0.5, 2.0, (B, P)).astype(np.float32)
+    valid = np.ones((B, P), bool)
+    valid[:, 4] = valid[:, 7] = False
+    dr = r.uniform(0, 6, (B, 28, 28)).astype(np.float32)
+    ecfg = EncoderConfig()
+    out = {}
+    for where in (dev, "cpu"):
+        t = [torch.as_tensor(a, device=where) for a in (j2, j3, bb, pw, valid, dr)]
+        out[where] = encode_targets(*t, ecfg, KDH3D_DEPTH)
+    err = compare_batches("shared prior cell", out[dev], out["cpu"])
+    card = {k: v.cpu() for k, v in out[dev].items()}
+    prior = card["prior_map"].reshape(B, 14, 14, 2, -1)
+    require(bool((card["prior_weight_map"][:, 5, 6] == torch.from_numpy(pw[:, 6])[:, None]).all())
+            and bool((prior[:, 5, 6, 0, 0] == 0.125).all())
+            and bool((card["prior_mask_coord"][:, 5, 6, 0] == 1.0).all()),
+            "the later person does not win the shared prior cell")
+    say("train", f"prior encoder, {B} frames with two valid people in one (cell, anchor): the "
+        f"later one's target and pose weight stand on the card, and card and CPU agree "
+        f"(maps within {err:.3g})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the frames and test inputs")
@@ -2346,6 +2812,11 @@ def main(argv=None) -> int:
     eval_launches = phase_eval(rng_eval, dev, EVAL_FRAMES, EVAL_BATCH)
     for r in rows:                  # launches on the eval path, beside the serving path's
         r["eval_launches"] = eval_launches[r["name"]]
+    rng_train = np.random.default_rng([args.seed, 8])  # the training phase's frames
+    train_launches = phase_train(rng_train, dev)
+    for r in rows:                  # none on the training path; evaluate --ckpt's
+        r["train_launches"] = train_launches["train"][r["name"]]
+        r["ckpt_eval_launches"] = train_launches["ckpt_eval"][r["name"]]
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")
     require(all(r["launches"] >= 1 for r in rows), "a kernel was launched on no path")
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")

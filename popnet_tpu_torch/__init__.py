@@ -20,7 +20,9 @@ detector followed by A2J on its `max_crops` best boxes a frame.
 joints in 2D (RTPoseVGG from a seeded init: no COCO weights are committed).
 `python -m popnet_tpu_torch.cli.main evaluate` runs the MP-3DHP evaluation
 drivers of the four depth families (`cli/`), and `benchmark` scores their
-prediction JSON.
+prediction JSON. `train` trains Open-Pose+, PoP-Net and Yolo-Pose+ on a
+KDH3D-format dataset (`ops/encoders.py`, `data/datasets.py`, `losses/`,
+`train/`), writing checkpoints that `evaluate --ckpt` reads.
 """
 
 from popnet_tpu_torch.interop.from_jax import load_npz, state_dict_from_jax

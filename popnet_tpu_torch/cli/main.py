@@ -1,18 +1,39 @@
-"""The port's command line: the `evaluate` and `benchmark` subcommands.
+"""The port's command line: the `train`, `evaluate` and `benchmark` subcommands.
 
+    python -m popnet_tpu_torch.cli.main train --model openpose --data-root DATA \\
+        --bg-aug --val-labels labels_val.json --out-dir runs/op
     python -m popnet_tpu_torch.cli.main evaluate --model openpose \\
-        --data-root DATA --weights examples/results/bench_weights_openpose.npz
+        --data-root DATA --ckpt runs/op/ckpt
     python -m popnet_tpu_torch.cli.main benchmark --gt DATA/labels.json \\
         --pred runs/out/openpose_results.json
+
+`train` trains Open-Pose+, PoP-Net or Yolo-Pose+ (`--model openpose|popnet|
+yolo`) on a KDH3D-format dataset (DATA/depth_maps/*.npy and the label JSON
+`--labels`; with `--bg-aug`, composited over DATA/bg_maps by DATA/seg_maps
+and DATA/labels_bg.json), validating on `--val-labels` without
+augmentation, with the JAX command line's flags and defaults (SGD-Nesterov
+at lr 1.0 and a plateau controller, batch 32, 224² input): it writes
+`history.jsonl`, the periodic checkpoints `ckpt/` and the best-validation
+`ckpt_best/` to `--out-dir`, and `--resume` continues from `ckpt/`. The
+model starts from its seeded init (`init_seeded(--seed)`); convolutions run
+in float32 with TF32 off.
 
 `evaluate` runs a model over an MP-3DHP-format dataset (DATA/depth_maps/*.npy
 and the label JSON `--labels`) on the card, or on the CPU with
 `--device cpu`, writes `<model>_results.json` (the benchmark's prediction
 JSON) to `--out-dir` and prints the four metrics. `benchmark` scores a
 prediction JSON against a label file. The CNNs run in float32 (no TF32).
-Weights are npz files of Flax variables (`interop.load_npz`); without
-`--weights` a model starts from its seeded init (`torch.manual_seed(--seed)`;
-A2J's `init_seeded`), which predicts nothing but drives every stage.
+Weights are the port's checkpoints (`--ckpt`, `--yolo-ckpt`: a `ckpt/`
+directory that `train` wrote) or npz files of Flax variables (`--weights`,
+`--yolo-weights`, `interop.load_npz`); without either a model starts from
+its seeded init (`torch.manual_seed(--seed)`; A2J's `init_seeded`), which
+predicts nothing but drives every stage.
+
+Options and models of the JAX command line that the port lacks raise,
+naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): mp-aug
+training and its device banks (item 10b), `--pred-vis` (10c), A2J training
+(11b), COCO, MPII and ITOP training (11c), meshes (13), `--fold-bn` and
+`--quant` (12), `--spatial` (13), ITOP, COCO and MPII evaluation (9b).
 """
 
 from __future__ import annotations
@@ -27,9 +48,6 @@ from popnet_tpu_torch.core.config import KDH3D_DATASET, DecodeConfig, EncoderCon
 
 # what each option of the JAX command line that the port lacks waits for
 _NOT_PORTED = {
-    "ckpt": "orbax checkpoints (--ckpt) wait for ROADMAP Queue 1 item 11; pass --weights",
-    "yolo_ckpt": "orbax checkpoints (--yolo-ckpt) wait for ROADMAP Queue 1 item 11; "
-                 "pass --yolo-weights",
     "fold_bn": "--fold-bn waits for ROADMAP Queue 1 item 12",
     "quant": "--quant waits for ROADMAP Queue 1 item 12",
     "spatial": "--spatial waits for ROADMAP Queue 1 item 13",
@@ -43,23 +61,51 @@ _NOT_PORTED_MODELS = {
     "rtpose_vgg": "rtpose_vgg evaluates on COCO, which waits for ROADMAP Queue 1 item 9b",
     "popnet_rgb": "popnet_rgb evaluates on MPII, which waits for ROADMAP Queue 1 item 9b",
 }
+# the train subcommand's: options set away from their defaults, datasets, models
+_NOT_PORTED_TRAIN = {
+    "mp_aug": "mp-aug training (--mp-aug) waits for ROADMAP Queue 1 item 10b",
+    "device_bank": "--device-bank (the device-resident mp-aug bank) waits for ROADMAP "
+                   "Queue 1 item 10b",
+    "stream_bank": "--stream-bank (the streaming mp-aug bank) waits for ROADMAP Queue 1 "
+                   "item 10b",
+    "pred_vis": "--pred-vis waits for ROADMAP Queue 1 item 10c",
+    "mesh": "--mesh (sharded and pipelined training) waits for ROADMAP Queue 1 item 13",
+    "rotate_aug": "--rotate-aug (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
+    "scale_jitter": "--scale-jitter (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
+    "blur_aug": "--blur-aug (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
+}
+_NOT_PORTED_TRAIN_DATASETS = {
+    "itop": "ITOP training waits for ROADMAP Queue 1 item 11c",
+    "coco": "COCO training waits for ROADMAP Queue 1 item 11c",
+    "mpii": "MPII training waits for ROADMAP Queue 1 item 11c",
+}
+_NOT_PORTED_TRAIN_MODELS = {
+    "a2j": "A2J training waits for ROADMAP Queue 1 item 11b",
+    "rtpose_vgg": "rtpose_vgg trains on COCO, which waits for ROADMAP Queue 1 item 11c",
+    "popnet_rgb": "popnet_rgb trains on MPII, which waits for ROADMAP Queue 1 item 11c",
+}
 
 
-def _build_model(name: str, weights: str | None, seed: int, device: torch.device):
-    """The float32 model `name` in eval mode on `device`, from the npz
-    `weights` or from its seeded init."""
+def _build_model(name: str, weights: str | None, seed: int, device: torch.device,
+                 ckpt: str | None = None):
+    """The float32 model `name` in eval mode on `device`, from the port's
+    checkpoint directory `ckpt`, the npz `weights` or its seeded init."""
     from popnet_tpu_torch.interop.from_jax import load_into, load_npz
     from popnet_tpu_torch.models import A2J, PopNet, RTPoseLight3D, YoloPoseNet
+    from popnet_tpu_torch.train.checkpoint import restore_params
 
     torch.manual_seed(seed)
     if name == "a2j":
         # the depth head starts at the dataset's depth prior (3.0 m)
         model = A2J(depth_prior=3.0)
-        model = model.init_seeded(seed) if weights is None else load_into(model, load_npz(weights))
+        if weights is None and ckpt is None:
+            model = model.init_seeded(seed)
     else:
         model = {"openpose": RTPoseLight3D, "popnet": PopNet, "yolo": YoloPoseNet}[name]()
-        if weights is not None:
-            load_into(model, load_npz(weights))
+    if ckpt is not None:
+        model.load_state_dict(restore_params(ckpt)[0])
+    elif weights is not None:
+        load_into(model, load_npz(weights))
     return model.eval().to(device=device, dtype=torch.float32)
 
 
@@ -72,12 +118,15 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
 
 
 def make_infers(model: str, weights: str | None = None, yolo_weights: str | None = None,
-                seed: int = 0, device: str | torch.device = "cuda"):
+                seed: int = 0, device: str | torch.device = "cuda", ckpt: str | None = None,
+                yolo_ckpt: str | None = None):
     """(infer, infer_yolo) for `model`'s driver: infer(images NHWC) -> the
     model's NHWC maps as the evaluation driver takes them (for "a2j", its heads from
     crops); infer_yolo is the stage-1 detector of "a2j" where `yolo_weights`
-    are given, else None. The CNNs run in float32."""
-    net = _build_model(model, weights, seed, device)
+    or `yolo_ckpt` are given, else None. Weights come from the checkpoint
+    directories (`ckpt`, `yolo_ckpt`) before the npz files. The CNNs run in
+    float32."""
+    net = _build_model(model, weights, seed, device, ckpt)
     if model == "openpose":
         def infer(images):
             (paf, heat, z), _ = net(_nchw(images))
@@ -93,8 +142,9 @@ def make_infers(model: str, weights: str | None = None, yolo_weights: str | None
         def infer(crops):
             return net(_nchw(crops))
     infer_yolo = None
-    if model == "a2j" and yolo_weights:
-        infer_yolo = make_infers("yolo", yolo_weights, seed=seed, device=device)[0]
+    if model == "a2j" and (yolo_weights or yolo_ckpt):
+        infer_yolo = make_infers("yolo", yolo_weights, seed=seed, device=device,
+                                 ckpt=yolo_ckpt)[0]
     return infer, infer_yolo
 
 
@@ -119,10 +169,93 @@ def run_evaluation(model: str, infer, dataset, batch_size: int = 32,
                                  gt_boxes=gt_boxes)
 
 
+def _family(model: str, ecfg: EncoderConfig):
+    """(model, train step, eval loss, pose_align, with_prior) of a family."""
+    from popnet_tpu_torch.models import PopNet, RTPoseLight3D, YoloPoseNet
+    from popnet_tpu_torch.train import steps
+
+    if model == "popnet":
+        return (PopNet(), steps.make_popnet_train_step(ecfg.num_joints),
+                steps.make_popnet_eval_loss(ecfg.num_joints), True, True)
+    if model == "openpose":
+        return (RTPoseLight3D(), steps.make_rtpose_train_step(), steps.make_rtpose_eval_loss(),
+                False, False)
+    return (YoloPoseNet(), steps.make_yolo_train_step(ecfg.num_joints),
+            steps.make_yolo_eval_loss(ecfg.num_joints), False, True)
+
+
+def _train_dataset(args, labels: str, ecfg: EncoderConfig, pose_align: bool, with_prior: bool,
+                   device, augment: bool = True):
+    """The KDH3D training dataset of `labels` under --data-root."""
+    from popnet_tpu_torch.data.datasets import KDH3DDataset
+
+    root = args.data_root
+    bg = args.bg_aug
+    return KDH3DDataset(
+        os.path.join(root, "depth_maps"), os.path.join(root, labels), bg_aug=bg,
+        bg_file=os.path.join(root, "labels_bg.json") if bg else None,
+        bg_dir=os.path.join(root, "bg_maps") if bg else None,
+        seg_dir=os.path.join(root, "seg_maps") if bg else None,
+        ecfg=ecfg, dcfg=KDH3D_DATASET, pose_align=pose_align, with_prior=with_prior,
+        augment=augment, seed=args.seed, transfer=args.transfer,
+        cache_images=args.cache_images, device=device)
+
+
+def cmd_train(args):
+    """Train a depth family (`train --help`); returns the Trainer."""
+    from popnet_tpu_torch.core.device import resolve_device
+    from popnet_tpu_torch.train.loop import Trainer
+    from popnet_tpu_torch.train.schedule import WarmupCosine
+
+    for opt, why in _NOT_PORTED_TRAIN.items():
+        if getattr(args, opt):
+            raise SystemExit(f"train: {why}")
+    if args.stream_repeats != 1 or args.n_micro != 2:
+        raise SystemExit("train: --stream-repeats and --n-micro wait for ROADMAP Queue 1 "
+                         "items 10b and 13")
+    if args.trunk != "vgg19":
+        raise SystemExit(f"train: {_NOT_PORTED_TRAIN_MODELS['rtpose_vgg']}")
+    if args.dataset in _NOT_PORTED_TRAIN_DATASETS:
+        raise SystemExit(f"train: {_NOT_PORTED_TRAIN_DATASETS[args.dataset]}")
+    if args.model in _NOT_PORTED_TRAIN_MODELS:
+        raise SystemExit(f"train: {_NOT_PORTED_TRAIN_MODELS[args.model]}")
+
+    device = resolve_device(args.device)
+    ecfg = EncoderConfig(input_x=args.input_size, input_y=args.input_size)
+    model, step, eval_loss, pose_align, with_prior = _family(args.model, ecfg)
+    train_ds = _train_dataset(args, args.labels, ecfg, pose_align, with_prior, device)
+    val_ds = None
+    if args.val_labels:
+        val_ds = _train_dataset(args, args.val_labels, ecfg, pose_align, with_prior, device,
+                                augment=False)
+    scheduler = None
+    if args.schedule == "cosine":
+        scheduler = WarmupCosine(args.lr, total_epochs=args.total_epochs or args.epochs,
+                                 warmup_epochs=args.warmup_epochs)
+    trainer = Trainer(model, step, eval_loss, learning_rate=args.lr, momentum=args.momentum,
+                      weight_decay=args.weight_decay, out_dir=args.out_dir, seed=args.seed,
+                      optimizer=args.optimizer, scheduler=scheduler, device=device)
+    if args.lr_patience is not None and args.schedule == "plateau":
+        # patience past the epoch budget holds the rate constant
+        trainer.scheduler.patience = args.lr_patience
+    if args.resume:
+        trainer.resume()
+    print(f"train {args.model} on {device}: float32 convolutions, TF32 off", flush=True)
+    tf32 = torch.backends.cudnn.allow_tf32      # the other cuDNN flags stay as the caller set them
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        trainer.fit(train_ds, val_ds, epochs=args.epochs, batch_size=args.batch_size,
+                    checkpoint_every=args.ckpt_every, val_every=args.val_every)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return trainer
+
+
 def cmd_evaluate(args) -> dict:
     from popnet_tpu_torch.cli import evaluate as ev
     from popnet_tpu_torch.core.device import resolve_device
     from popnet_tpu_torch.data.datasets import MPRealDataset
+    from popnet_tpu_torch.train.checkpoint import checkpoint_steps
 
     for opt, why in _NOT_PORTED.items():
         if getattr(args, opt):
@@ -131,9 +264,15 @@ def cmd_evaluate(args) -> dict:
         raise SystemExit(f"evaluate: {_NOT_PORTED_DATASETS[args.dataset]}")
     if args.model in _NOT_PORTED_MODELS:
         raise SystemExit(f"evaluate: {_NOT_PORTED_MODELS[args.model]}")
-    if args.model == "a2j" and not args.yolo_weights and not args.gt_boxes:
-        raise SystemExit("evaluate --model a2j needs --yolo-weights (the stage-1 detector) "
-                         "or --gt-boxes (the label-box ablation)")
+    if args.model == "a2j" and not (args.yolo_weights or args.yolo_ckpt or args.gt_boxes):
+        raise SystemExit("evaluate --model a2j needs --yolo-ckpt or --yolo-weights (the "
+                         "stage-1 detector) or --gt-boxes (the label-box ablation)")
+
+    for opt in ("ckpt", "yolo_ckpt"):
+        d = getattr(args, opt)
+        if d is not None and not checkpoint_steps(d):
+            raise SystemExit(f"evaluate: no checkpoint of the port in {d!r} (train writes "
+                             "<out-dir>/ckpt; the JAX package's orbax checkpoints are not read)")
 
     device = resolve_device(args.device)
     ecfg = EncoderConfig(input_x=args.input_size, input_y=args.input_size)
@@ -143,7 +282,7 @@ def cmd_evaluate(args) -> dict:
         ecfg=ecfg, dcfg=KDH3D_DATASET, device=device,
     )
     infer, infer_yolo = make_infers(args.model, args.weights, args.yolo_weights, args.seed,
-                                    device)
+                                    device, ckpt=args.ckpt, yolo_ckpt=args.yolo_ckpt)
     data = run_evaluation(args.model, infer, dataset, args.batch_size, ecfg, decfg,
                           device_decode=args.device_decode, readout=args.readout,
                           gt_boxes=args.gt_boxes, infer_yolo=infer_yolo)
@@ -182,18 +321,74 @@ def build_parser():
     p = argparse.ArgumentParser(prog="popnet_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def common(sp):
+        sp.add_argument("--data-root", required=True)
+        sp.add_argument("--labels", default="labels.json")
+        sp.add_argument("--dataset", choices=["kdh3d", "itop", "coco", "mpii"],
+                        default="kdh3d")
+        sp.add_argument("--model", choices=["popnet", "openpose", "yolo", "a2j", "rtpose_vgg",
+                                            "popnet_rgb"], default="popnet")
+        sp.add_argument("--input-size", type=int, default=224)
+        sp.add_argument("--batch-size", type=int, default=32)
+        sp.add_argument("--out-dir", default="runs/out")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--device", default="cuda",
+                        help="torch device everything runs on (cuda or cpu)")
+
+    t = sub.add_parser("train")
+    common(t)
+    t.add_argument("--epochs", type=int, default=100)
+    t.add_argument("--lr", type=float, default=1.0)
+    t.add_argument("--momentum", type=float, default=0.9)
+    t.add_argument("--transfer", choices=["f32", "u16mm"], default="f32",
+                   help="host->device image transfer: f32 metres or uint16 millimetres "
+                        "(half the bytes; lossless for mm-native recordings)")
+    t.add_argument("--weight-decay", type=float, default=0.0)
+    t.add_argument("--optimizer", choices=["sgd", "adam"], default="sgd",
+                   help="sgd = SGD-Nesterov 0.9 (the CPM recipe); adam = Adam with L2")
+    t.add_argument("--schedule", choices=["plateau", "cosine"], default="plateau",
+                   help="plateau = ReduceLROnPlateau on the validation loss; cosine = "
+                        "warmup + cosine over --total-epochs")
+    t.add_argument("--warmup-epochs", type=int, default=0)
+    t.add_argument("--total-epochs", type=int, default=None,
+                   help="cosine horizon (defaults to --epochs; set it when training in "
+                        "resumed chunks)")
+    t.add_argument("--val-every", type=int, default=1,
+                   help="validate and update the best every N epochs (the last always)")
+    t.add_argument("--ckpt-every", type=int, default=None,
+                   help="save the periodic checkpoint every N epochs")
+    t.add_argument("--cache-images", action="store_true",
+                   help="keep decoded .npy frames in host RAM across epochs (~1 MB a frame)")
+    t.add_argument("--lr-patience", type=int, default=None,
+                   help="ReduceLROnPlateau patience (default 5; >= epochs holds the rate)")
+    t.add_argument("--bg-aug", action="store_true",
+                   help="composite each frame over a background (seg_maps, bg_maps)")
+    t.add_argument("--val-labels", default=None,
+                   help="label JSON under --data-root to validate on, without augmentation")
+    t.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint in --out-dir/ckpt")
+    # options of the JAX command line that the port does not have yet: they raise
+    t.add_argument("--trunk", choices=["vgg19", "mobilenet"], default="vgg19",
+                   help=argparse.SUPPRESS)
+    t.add_argument("--device-bank", action="store_true", help=argparse.SUPPRESS)
+    t.add_argument("--stream-bank", type=int, default=0, help=argparse.SUPPRESS)
+    t.add_argument("--stream-repeats", type=int, default=1, help=argparse.SUPPRESS)
+    t.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    t.add_argument("--n-micro", type=int, default=2, help=argparse.SUPPRESS)
+    t.add_argument("--rotate-aug", type=float, default=0.0, help=argparse.SUPPRESS)
+    t.add_argument("--scale-jitter", default=None, help=argparse.SUPPRESS)
+    t.add_argument("--blur-aug", type=float, default=0.0, help=argparse.SUPPRESS)
+    t.add_argument("--mp-aug", action="store_true", help=argparse.SUPPRESS)
+    t.add_argument("--mp-label-prefix", default="labels_loc", help=argparse.SUPPRESS)
+    t.add_argument("--pred-vis", action="store_true", help=argparse.SUPPRESS)
+    t.set_defaults(fn=cmd_train)
+
     e = sub.add_parser("evaluate")
-    e.add_argument("--data-root", required=True)
-    e.add_argument("--labels", default="labels.json")
-    e.add_argument("--dataset", choices=["kdh3d", "itop", "coco", "mpii"], default="kdh3d")
-    e.add_argument("--model", choices=["popnet", "openpose", "yolo", "a2j", "rtpose_vgg",
-                                       "popnet_rgb"], default="popnet")
-    e.add_argument("--input-size", type=int, default=224)
-    e.add_argument("--batch-size", type=int, default=32)
-    e.add_argument("--out-dir", default="runs/out")
-    e.add_argument("--seed", type=int, default=0)
-    e.add_argument("--device", default="cuda",
-                   help="torch device the models, decodes and batches run on (cuda or cpu)")
+    common(e)
+    e.add_argument("--ckpt", default=None,
+                   help="the model's checkpoint directory, as train writes it (<out>/ckpt)")
+    e.add_argument("--yolo-ckpt", default=None,
+                   help="the stage-1 detector's checkpoint directory for --model a2j")
     e.add_argument("--weights", default=None,
                    help="the model's Flax variables as an npz (interop.load_npz)")
     e.add_argument("--yolo-weights", default=None,
@@ -207,8 +402,6 @@ def build_parser():
                    help="run the whole Open-Pose+ decode (assembly, z readouts, "
                         "back-projection) on the device")
     # options of the JAX command line that the port does not have yet: they raise
-    e.add_argument("--ckpt", default=None, help=argparse.SUPPRESS)
-    e.add_argument("--yolo-ckpt", default=None, help=argparse.SUPPRESS)
     e.add_argument("--fold-bn", action="store_true", dest="fold_bn", help=argparse.SUPPRESS)
     e.add_argument("--quant", choices=["int8"], default=None, help=argparse.SUPPRESS)
     e.add_argument("--spatial", type=int, default=0, help=argparse.SUPPRESS)

@@ -5,7 +5,7 @@ from __future__ import annotations
 import dataclasses
 
 from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics
-from popnet_tpu_torch.core.skeleton import NUM_JOINTS
+from popnet_tpu_torch.core.skeleton import NUM_JOINTS, NUM_LIMBS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,17 +22,39 @@ KDH3D_DEPTH = DepthStats(mean=3.0, std=2.0, max=6.0)
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
-    """Network input size, grid strides, anchors and joint count (the
-    fields of the JAX EncoderConfig that the serving paths read, same
-    defaults)."""
+    """Network input size, grid strides, target widths, anchors and the cap
+    on people a frame (the JAX EncoderConfig's fields, same defaults)."""
 
     input_x: int = 224          # network input width
     input_y: int = 224          # network input height
+    stride: int = 8             # heatmap/PAF grid stride
+    stride_z: int = 8           # z-map grid stride
     stride_align: int = 8       # align-map grid stride
     stride_prior: int = 16      # prior (anchor) grid stride
+    sigma: float = 7.0          # heatmap Gaussian sigma (input pixels)
+    paf_width: float = 1.0      # PAF limb half-width (grid cells)
+    z_radius: int = 2           # z-map box radius (grid cells)
     align_radius: int = 2       # align-map box radius (grid cells)
     num_joints: int = NUM_JOINTS
+    num_limbs: int = NUM_LIMBS
     anchors: tuple[tuple[float, float], ...] = ((6.0, 3.0), (12.0, 6.0))
+    max_people: int = 8         # static cap on people per image
+
+    @property
+    def grid_w(self) -> int:
+        return self.input_x // self.stride
+
+    @property
+    def grid_h(self) -> int:
+        return self.input_y // self.stride
+
+    @property
+    def zgrid_w(self) -> int:
+        return self.input_x // self.stride_z
+
+    @property
+    def zgrid_h(self) -> int:
+        return self.input_y // self.stride_z
 
     @property
     def agrid_w(self) -> int:
@@ -49,6 +71,10 @@ class EncoderConfig:
     @property
     def prior_h(self) -> int:
         return self.input_y // self.stride_prior
+
+    @property
+    def num_anchors(self) -> int:
+        return len(self.anchors)
 
 
 @dataclasses.dataclass(frozen=True)

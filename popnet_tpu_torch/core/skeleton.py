@@ -1,6 +1,7 @@
-"""The 15-joint ITOP body model (joint order and the 14 limbs).
+"""The 15-joint ITOP body model (joint order, the 14 limbs and the flip's
+left/right swap).
 
-The port's own copy of `popnet_tpu/core/skeleton.py:12-60`: the limb order
+The port's own copy of `popnet_tpu/core/skeleton.py:12-82`: the limb order
 fixes the PAF channel order and the assembly order, so it must not drift.
 """
 
@@ -50,3 +51,24 @@ def _limbs() -> tuple[tuple[int, int], ...]:
 
 LIMBS: tuple[tuple[int, int], ...] = _limbs()
 NUM_LIMBS = len(LIMBS)  # 14
+
+# left/right joint swap of the horizontal flip augmentation
+_SWAP_PAIRS = (
+    ("right_shoulder", "left_shoulder"),
+    ("right_elbow", "left_elbow"),
+    ("right_wrist", "left_wrist"),
+    ("right_hip", "left_hip"),
+    ("right_knee", "left_knee"),
+    ("right_ankle", "left_ankle"),
+)
+
+
+def _swap_indices() -> tuple[int, ...]:
+    mapping = {}
+    for a, b in _SWAP_PAIRS:
+        mapping[a] = KEYPOINT_NAMES.index(b)
+        mapping[b] = KEYPOINT_NAMES.index(a)
+    return tuple(mapping.get(name, i) for i, name in enumerate(KEYPOINT_NAMES))
+
+
+SWAP_INDICES: tuple[int, ...] = _swap_indices()

@@ -5,7 +5,10 @@ The JAX package saves a model's variables as one .npz whose keys are
 `batch_stats/stem/BatchNorm_0/mean`, ...) with float16 values. The port's
 modules carry the Flax auto-names as attribute names, so the mapping is by
 name: conv `kernel` HWIO -> `weight` OIHW, BatchNorm scale/bias/mean/var ->
-weight/bias/running_mean/running_var.
+weight/bias/running_mean/running_var. `load_sgd_momentum` carries the
+trace of a JAX train state's SGD-Nesterov optimizer (optax `trace`, keyed
+by the same paths) into a torch SGD's momentum buffers, so a JAX run can
+continue in the port.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ def load_npz(path) -> dict[str, np.ndarray]:
 
 
 def state_dict_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Map '/'-joined Flax paths onto state-dict keys of the port's modules.
+    """Map '/'-joined Flax paths onto state-dict keys of the port's modules
+    (float32 tensors, float64 where the value is float64).
 
     Raises ValueError on any key it cannot map."""
     out: dict[str, torch.Tensor] = {}
@@ -38,7 +42,8 @@ def state_dict_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         leaf = _LEAF.get((parts[0], parts[-1]))
         if leaf is None or len(parts) < 3:
             raise ValueError(f"unmapped Flax variable {key!r}")
-        arr = np.asarray(value, np.float32)
+        arr = np.asarray(value)
+        arr = arr.astype(np.float64 if arr.dtype == np.float64 else np.float32, copy=False)
         if parts[-1] == "kernel":
             if arr.ndim != 4:
                 raise ValueError(f"{key!r}: expected an HWIO kernel, got {arr.shape}")
@@ -61,3 +66,20 @@ def load_into(module: torch.nn.Module, flat: dict[str, np.ndarray]) -> torch.nn.
                          f"unexpected {extra[:5]}")
     module.load_state_dict(sd, strict=False)
     return module
+
+
+def load_sgd_momentum(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                      flat_trace: dict[str, np.ndarray]) -> torch.optim.Optimizer:
+    """Set each parameter's `momentum_buffer` in `optimizer` (a torch SGD
+    over `module`'s parameters) from optax's trace, given as
+    {'params/<path>/kernel' | '.../bias' | '.../scale': array}; raises on a
+    parameter the trace leaves out or a trace key no parameter takes."""
+    bufs = state_dict_from_jax(flat_trace)
+    params = dict(module.named_parameters())
+    missing, extra = sorted(params.keys() - bufs.keys()), sorted(bufs.keys() - params.keys())
+    if missing or extra:
+        raise ValueError(f"trace does not fit the module: missing {missing[:5]}, "
+                         f"unexpected {extra[:5]}")
+    for name, p in params.items():
+        optimizer.state[p]["momentum_buffer"] = bufs[name].to(device=p.device, dtype=p.dtype)
+    return optimizer

@@ -1,0 +1,120 @@
+"""Training losses of the depth families (the JAX package's
+`popnet_tpu/losses/losses.py`, weighted-MSE family and the per-model
+composites).
+
+The models' outputs come NCHW and the targets channels-last (as
+`ops.encoders` makes them); each loss views the outputs channels-last, so
+every product lines up with the JAX package's NHWC computation, and the
+prior head's channel c = a * (5 + 3K) + f reads as anchor a, field f, as
+JAX's (H, W, A, naf) reshape reads it. Every loss returns (total, logs),
+logs a dict of 0-d tensors (the activation-range canaries too), left on
+the device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
+def weighted_mse(pred, target, weights):
+    """mean((pred - target)^2 * w) over all (broadcast) elements."""
+    return torch.mean((pred - target) ** 2 * weights)
+
+
+def _mse(pred, target):
+    return torch.mean((pred - target) ** 2)
+
+
+def rtpose_light3d_loss_fgweight(saved_for_loss, heat_gt, paf_gt, z_gt, fg_mask_z):
+    """Open-Pose+: per stage, PAF and heat MSE and the z MSE weighted
+    0.1 + 0.9 * fg. saved_for_loss: [paf1, heat1, z1, paf2, heat2, z2]
+    (NCHW)."""
+    saved = [_nhwc(t) for t in saved_for_loss]
+    logs = {}
+    total = 0.0
+    weight = 0.1 + fg_mask_z * 0.9
+    for j in range(len(saved) // 3):
+        paf, heat, z = saved[3 * j], saved[3 * j + 1], saved[3 * j + 2]
+        l1, l2 = _mse(paf, paf_gt), _mse(heat, heat_gt)
+        l3 = weighted_mse(z, z_gt, weight)
+        total = total + l1 + l2 + l3
+        logs[f"stage{j + 1}_paf"] = l1
+        logs[f"stage{j + 1}_heat"] = l2
+        logs[f"stage{j + 1}_z"] = l3
+    logs["max_ht"] = saved[-2][..., :-1].max()
+    logs["min_ht"] = saved[-2][..., :-1].min()
+    logs["max_paf"] = saved[-3].max()
+    logs["min_paf"] = saved[-3].min()
+    logs["max_z"] = saved[-1].max()
+    logs["min_z"] = saved[-1].min()
+    return total, logs
+
+
+def _prior_loss(prior_pred, prior_gt, mask_conf, mask_coord, weight_map, num_joints):
+    """The prior subnet's (coord, objectness, self-pose) losses, weighted by
+    the pose-rarity map: prior_pred (B, A*naf, H, W) NCHW, prior_gt
+    (B, H, W, A*naf), the masks and weight_map (B, H, W, A)."""
+    b, h, w, _ = prior_gt.shape
+    a = mask_conf.shape[-1]
+    pred = _nhwc(prior_pred).reshape(b, h, w, a, -1)
+    gt = prior_gt.reshape(b, h, w, a, -1)
+    mc = mask_coord[..., None]
+    wm = weight_map[..., None]
+    coords_pred, conf_pred, joints_pred = pred[..., :4], pred[..., 4], pred[..., 5:]
+    coords_gt, conf_gt, joints_gt = gt[..., :4], gt[..., 4], gt[..., 5:]
+    loss_coord = weighted_mse(coords_pred * mc, coords_gt * mc, wm) * 4
+    loss_obj = weighted_mse(conf_pred * mask_conf, conf_gt * mask_conf, weight_map)
+    loss_selfpose = weighted_mse(joints_pred * mc, joints_gt * mc, wm) * (3 * num_joints)
+    return loss_coord, loss_obj, loss_selfpose
+
+
+def yolo_loss(pred, prior_gt, mask_conf, mask_coord, weight_map, num_joints):
+    """Yolo-Pose+: the prior loss of its (B, A*naf, H, W) output."""
+    loss_coord, loss_obj, loss_selfpose = _prior_loss(pred, prior_gt, mask_conf, mask_coord,
+                                                      weight_map, num_joints)
+    total = loss_coord + loss_obj + loss_selfpose
+    logs = {"loss_prior": total, "loss_bbox": loss_coord, "loss_obj": loss_obj,
+            "loss_selfpose": loss_selfpose}
+    return total, logs
+
+
+def popnet_loss(saved_for_loss, heat_gt, zmap_gt, fg_mask_z, alignmap_gt, fg_mask_align,
+                prior_gt, prior_mask_conf, prior_mask_coord, prior_weight_map, num_joints):
+    """PoP-Net: per stage heat (weighted 0.1 + 0.9 * fg, background 1), z
+    (0.1 + 0.9 * fg) and align (fg) MSE, plus the pose-weighted prior loss.
+    saved_for_loss: [heat1, z1, align1, ..., heatS, zS, alignS, prior]
+    (NCHW)."""
+    saved = [_nhwc(t) for t in saved_for_loss[:-1]]
+    logs = {}
+    total = 0.0
+    weight_z = 0.1 + fg_mask_z * 0.9
+    weight_ht = torch.cat([weight_z, torch.ones_like(weight_z[..., :1])], -1)
+    for j in range(len(saved) // 3):
+        heat, z, align = saved[3 * j], saved[3 * j + 1], saved[3 * j + 2]
+        l1 = weighted_mse(heat, heat_gt, weight_ht)
+        l2 = weighted_mse(z, zmap_gt, weight_z)
+        l3 = weighted_mse(align, alignmap_gt, fg_mask_align)
+        total = total + l1 + l2 + l3
+        logs[f"stage{j + 1}_heat"] = l1
+        logs[f"stage{j + 1}_z"] = l2
+        logs[f"stage{j + 1}_align"] = l3
+    loss_coord, loss_obj, loss_selfpose = _prior_loss(
+        saved_for_loss[-1], prior_gt, prior_mask_conf, prior_mask_coord, prior_weight_map,
+        num_joints)
+    loss_prior = loss_coord + loss_obj + loss_selfpose
+    total = total + loss_prior
+    logs["loss_prior"] = loss_prior
+    logs["loss_bbox"] = loss_coord
+    logs["loss_obj"] = loss_obj
+    logs["loss_selfpose"] = loss_selfpose
+    logs["max_ht"] = saved[-3][..., :-1].max()
+    logs["min_ht"] = saved[-3][..., :-1].min()
+    logs["max_z"] = saved[-2].max()
+    logs["min_z"] = saved[-2].min()
+    logs["max_alignf"] = (saved[-1] * fg_mask_align).max()
+    logs["min_alignf"] = (saved[-1] * fg_mask_align).min()
+    return total, logs

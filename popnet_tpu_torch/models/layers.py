@@ -3,15 +3,72 @@
 Submodule attribute names mirror the Flax auto-names (`Conv_0`,
 `BatchNorm_0`, `ConvBN_1`, `BasicBlock_2`, ...), so a '/'-joined Flax
 variable path maps onto a state-dict key by name
-(`interop/from_jax.py`). BatchNorm eps is 1e-5 in both frameworks.
+(`interop/from_jax.py`). BatchNorm eps is 1e-5 in both frameworks, and in
+train mode `BatchNorm` keeps Flax's statistics (`BatchNorm`'s docstring).
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (eps 1e-5, the same state-dict keys) with Flax's
+    train-mode semantics: the batch is normalized by its own mean and
+    biased variance, and the running statistics move as Flax's do,
+    `ra = 0.99 * ra + 0.01 * batch`, the variance taken as
+    max(E[x^2] - E[x]^2, 0) in float32 at least. (`nn.BatchNorm2d` weighs the old
+    value by 0.9 and moves the running variance by the unbiased one.)
+    In eval mode it is `nn.BatchNorm2d` on the running statistics."""
+
+    MOMENTUM = 0.99     # Flax's: the weight of the old running value
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def init_flax_like(model: nn.Module, seed: int, kaiming_prefix: str = "stem.") -> nn.Module:
+    """Initialise `model` from a `torch.Generator` seeded with `seed`, with
+    the distributions of the Flax depth models' initialisers: the residual
+    stem's convs (names under `kaiming_prefix`) He-normal, truncated at two
+    standard deviations, fan-in (Flax's `kaiming_normal`); every other conv
+    normal(0.01); zero biases; unit BatchNorm with fresh statistics. The
+    values differ from a Flax init with any PRNG key."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, nn.Conv2d):
+                if name.startswith(kaiming_prefix):
+                    fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+                    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+                    nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                          generator=g)
+                else:
+                    m.weight.normal_(0.0, 0.01, generator=g)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.BatchNorm2d):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+                m.reset_running_stats()
+    return model
 
 
 def _same_pad(kernel: int) -> int:
@@ -36,7 +93,7 @@ class ConvBN(nn.Module):
         self.norm = norm
         self.act = act
         if norm:
-            self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
+            self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x):
         x = self.Conv_0(x)
@@ -73,13 +130,13 @@ class BasicBlock(nn.Module):
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_ch, features, 3, stride=stride, padding=1, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(features)
         self.Conv_1 = nn.Conv2d(features, features, 3, padding=1, bias=False)
-        self.BatchNorm_1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.BatchNorm_1 = BatchNorm(features)
         self.project = stride != 1 or in_ch != features
         if self.project:
             self.Conv_2 = nn.Conv2d(in_ch, features, 1, stride=stride, bias=False)
-            self.BatchNorm_2 = nn.BatchNorm2d(features, eps=1e-5)
+            self.BatchNorm_2 = BatchNorm(features)
 
     def forward(self, x):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -111,12 +168,12 @@ class ResPreprocessStem(nn.Module):
     def __init__(self, in_ch: int = 1):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_ch, 64, 7, stride=2, padding=3, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(64, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(64)
         self.BasicBlock_0 = BasicBlock(64, 64)
         self.BasicBlock_1 = BasicBlock(64, 64)
         self.BasicBlock_2 = BasicBlock(64, 128)
         self.Conv_1 = nn.Conv2d(128, 128, 1, bias=False)
-        self.BatchNorm_1 = nn.BatchNorm2d(128, eps=1e-5)
+        self.BatchNorm_1 = BatchNorm(128)
 
     def forward(self, x):
         x = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -133,7 +190,7 @@ class ResNet34Stem(nn.Module):
     def __init__(self, in_ch: int = 1):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_ch, 64, 7, stride=2, padding=3, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(64, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(64)
         chans = [(64, 64, 1)] * 3 + [(64, 128, 2)] + [(128, 128, 1)] * 3
         for n, (cin, cout, stride) in enumerate(chans):
             self.add_module(f"BasicBlock_{n}", BasicBlock(cin, cout, stride))

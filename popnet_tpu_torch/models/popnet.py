@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from popnet_tpu_torch.models.layers import ConvBN, CPMBranch, ResPreprocessStem, max_pool_2x2
+from popnet_tpu_torch.models.layers import (ConvBN, CPMBranch, ResPreprocessStem,
+                                            init_flax_like, max_pool_2x2)
 from popnet_tpu_torch.models.yolo_posenet import cast_prior_map
 
 _STAGE1 = {"heat": ((128, 3), (128, 3), (128, 3), (512, 1)),
@@ -71,3 +72,8 @@ class PopNet(nn.Module):
             inp = torch.cat([heat, z, align, stem], dim=1)
         saved.append(prior)
         return (heat, z, align, prior), saved
+
+    def init_seeded(self, seed: int) -> "PopNet":
+        """Initialise from a generator seeded with `seed`, with the Flax
+        initialisers' distributions (`layers.init_flax_like`)."""
+        return init_flax_like(self, seed)

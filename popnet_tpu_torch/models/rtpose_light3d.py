@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from popnet_tpu_torch.models.layers import CPMBranch, ResPreprocessStem
+from popnet_tpu_torch.models.layers import CPMBranch, ResPreprocessStem, init_flax_like
 
 
 class RTPoseLight3D(nn.Module):
@@ -48,3 +48,8 @@ class RTPoseLight3D(nn.Module):
             saved += [paf, heat, z]
             inp = torch.cat([paf, heat, z, stem], dim=1)
         return (paf, heat, z), saved
+
+    def init_seeded(self, seed: int) -> "RTPoseLight3D":
+        """Initialise from a generator seeded with `seed`, with the Flax
+        initialisers' distributions (`layers.init_flax_like`)."""
+        return init_flax_like(self, seed)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from popnet_tpu_torch.models.layers import ConvBN, ResNet34Stem, max_pool_2x2
+from popnet_tpu_torch.models.layers import ConvBN, ResNet34Stem, init_flax_like, max_pool_2x2
 
 
 def cast_prior_map(raw: torch.Tensor, num_anchors: int) -> torch.Tensor:
@@ -56,3 +56,8 @@ class YoloPoseNet(nn.Module):
         x = max_pool_2x2(self.head0(self.tower4(x)))
         x = self.head3(self.head2(self.head1(x)))
         return cast_prior_map(x, self.num_anchors)
+
+    def init_seeded(self, seed: int) -> "YoloPoseNet":
+        """Initialise from a generator seeded with `seed`, with the Flax
+        initialisers' distributions (`layers.init_flax_like`)."""
+        return init_flax_like(self, seed)

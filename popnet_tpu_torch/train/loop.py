@@ -1,0 +1,165 @@
+"""Epoch-driven trainer on one device (the JAX package's
+`popnet_tpu/train/loop.py`): per epoch, train, validate, step the
+learning-rate controller on the validation loss, append to
+`<out_dir>/history.jsonl`, keep the best-validation checkpoint in
+`<out_dir>/ckpt_best` (1 kept) and the periodic one in `<out_dir>/ckpt`
+(3 kept); `resume` continues from the latest.
+
+A checkpoint holds the model, the optimizer (momentum buffers included),
+the controller's attributes whole and the training dataset's generator, so
+a resumed run continues as the uninterrupted one would (the JAX package
+restores the rate, `best` and the epoch of its controller, and its data
+generator starts again from the seed). The losses of an epoch are read
+from the device once, at its end, as in the JAX package. Meshes and
+layouts other than one device wait for ROADMAP Queue 1 item 13.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import time
+
+import torch
+
+from popnet_tpu_torch.core.device import resolve_device
+from popnet_tpu_torch.train import checkpoint as ckpt
+from popnet_tpu_torch.train.schedule import ReduceLROnPlateau
+from popnet_tpu_torch.train.state import (TrainState, get_learning_rate, make_optimizer,
+                                          set_learning_rate)
+
+
+class AverageMeter:
+    """Running average."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = self.sum = self.count = self.avg = 0.0
+
+    def update(self, val, n=1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+
+class Trainer:
+    """Trains `model` (an `nn.Module` with `init_seeded(seed)`) with the
+    step `make_step` (`train.steps`) and scores validation with
+    `make_eval_loss`, on `device`."""
+
+    def __init__(self, model, make_step, make_eval_loss, learning_rate: float = 1.0,
+                 momentum: float = 0.9, weight_decay: float = 0.0, mesh=None,
+                 out_dir: str = "runs/default", print_freq: int = 20, seed: int = 0,
+                 optimizer: str = "sgd", scheduler=None, layout: str = "dp",
+                 device: str | torch.device = "cuda"):
+        if mesh is not None or layout != "dp":
+            raise NotImplementedError("training over a mesh or a layout other than one device "
+                                      "waits for ROADMAP Queue 1 item 13")
+        self.device = resolve_device(device)
+        self.out_dir = out_dir
+        os.makedirs(out_dir, exist_ok=True)
+        self.print_freq = print_freq
+        model = model.init_seeded(seed).to(self.device)
+        self.state = TrainState(model, make_optimizer(model, optimizer, learning_rate,
+                                                      momentum, weight_decay))
+        self.step_fn = make_step
+        self.eval_loss_fn = make_eval_loss
+        self.scheduler = scheduler or ReduceLROnPlateau(learning_rate)
+        # warmup schedules start below the nominal rate; honour epoch 0's
+        lr0 = getattr(self.scheduler, "initial_lr", None)
+        if lr0 is not None and abs(lr0 - learning_rate) > 1e-12:
+            set_learning_rate(self.state, lr0)
+        self.best_val = float("inf")
+        self.epoch = 0
+        self.history = []
+        self._data_rng_state = None     # a resumed run's training generator
+
+    def train_epoch(self, dataset, batch_size: int) -> float:
+        batch_time, data_time = AverageMeter(), AverageMeter()
+        device_losses = []  # read once an epoch, not once a step
+        end = time.time()
+        for i, batch in enumerate(dataset.iter_batches(batch_size)):
+            data_time.update(time.time() - end)
+            self.state, logs = self.step_fn(self.state, batch)
+            device_losses.append(logs["loss"])
+            batch_time.update(time.time() - end)
+            end = time.time()
+            if i % self.print_freq == 0:
+                # reading the loss waits for the step, here only
+                print(f"epoch {self.epoch} [{i}] loss {float(logs['loss']):.4f} "
+                      f"batch {batch_time.avg:.3f}s data {data_time.avg:.3f}s "
+                      f"lr {get_learning_rate(self.state):.4g}", flush=True)
+        if not device_losses:
+            return 0.0
+        return float(torch.stack(device_losses).double().mean())
+
+    def validate(self, dataset, batch_size: int) -> float:
+        losses = AverageMeter()
+        for batch in dataset.iter_batches(batch_size, shuffle=False, drop_last=False):
+            losses.update(float(self.eval_loss_fn(self.state, batch)), batch["image"].shape[0])
+        if losses.count == 0:
+            raise ValueError(f"validation set yielded no batches (len={len(dataset)}, "
+                             f"batch_size={batch_size})")
+        return losses.avg
+
+    def _payload(self, train_ds) -> dict:
+        return {**self.state.state_dict(), "scheduler": copy.deepcopy(vars(self.scheduler)),
+                "data_rng": train_ds.rng.bit_generator.state}
+
+    def fit(self, train_ds, val_ds, epochs: int, batch_size: int,
+            checkpoint_every: int | None = None, val_every: int = 1):
+        """`epochs` more epochs; `val_every` and `checkpoint_every` thin the
+        validation and the periodic checkpoint, and the last epoch always
+        validates and checkpoints. Each history record also holds
+        `train_seconds`, the host clock of the epoch's training loop."""
+        if self._data_rng_state is not None:
+            train_ds.rng.bit_generator.state = self._data_rng_state
+            self._data_rng_state = None
+        for k in range(epochs):
+            last = k == epochs - 1
+            t0 = time.perf_counter()
+            train_loss = self.train_epoch(train_ds, batch_size)
+            train_seconds = time.perf_counter() - t0
+
+            do_val = val_ds is not None and (last or (self.epoch + 1) % val_every == 0)
+            val_loss = self.validate(val_ds, batch_size) if do_val else train_loss
+            new_lr = self.scheduler.step(val_loss)
+            if abs(new_lr - get_learning_rate(self.state)) > 1e-12:
+                set_learning_rate(self.state, new_lr)
+
+            rec = {"epoch": self.epoch, "train_loss": train_loss, "val_loss": val_loss,
+                   "lr": new_lr, "train_seconds": train_seconds}
+            self.history.append(rec)
+            with open(os.path.join(self.out_dir, "history.jsonl"), "a") as f:
+                f.write(json.dumps(rec) + "\n")
+
+            meta = {"val_loss": val_loss, "epoch": self.epoch, "lr": new_lr,
+                    "scheduler_best": self.scheduler.best,
+                    "best_val": min(self.best_val, val_loss)}
+            if (do_val or val_ds is None) and val_loss < self.best_val:
+                self.best_val = val_loss
+                # its own directory, so periodic checkpoints never evict it
+                ckpt.save_checkpoint(os.path.join(self.out_dir, "ckpt_best"),
+                                     self._payload(train_ds), step=self.epoch, metadata=meta,
+                                     keep=1)
+            if last or checkpoint_every is None or (self.epoch + 1) % checkpoint_every == 0:
+                ckpt.save_checkpoint(os.path.join(self.out_dir, "ckpt"), self._payload(train_ds),
+                                     step=self.epoch, metadata=meta)
+            self.epoch += 1
+        return self.history
+
+    def resume(self):
+        """Continue from the latest checkpoint: the model, the optimizer, the
+        controller, the epoch, the best loss and the training generator
+        (applied when `fit` starts)."""
+        payload, meta, step = ckpt.restore_checkpoint(os.path.join(self.out_dir, "ckpt"))
+        self.state.load_state_dict(payload)
+        vars(self.scheduler).update(payload["scheduler"])
+        self._data_rng_state = payload["data_rng"]
+        self.epoch = meta.get("epoch", step) + 1
+        self.best_val = meta.get("best_val", meta.get("val_loss", float("inf")))
+        return self

@@ -1,0 +1,100 @@
+"""Train steps of the depth families, on one device.
+
+Each factory returns `step(state, batch) -> (state, logs)`, the JAX
+package's contract (`popnet_tpu/train/steps.py`): the forward in train mode
+(BatchNorm normalizes by the batch and moves its running statistics as
+Flax does, `models.layers.BatchNorm`), the loss, the backward, and the
+optimizer's update, in place. `logs` holds the loss's parts and `loss` as
+0-d tensors on the device: reading one waits for the step. The
+`make_*_eval_loss` factories score a batch in eval mode, as the JAX
+command line's validation does.
+
+The batch is `data.datasets.prepare_batch`'s dict: "image" (B, H, W, 1)
+and the channels-last targets.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from popnet_tpu_torch.losses.losses import popnet_loss, rtpose_light3d_loss_fgweight, yolo_loss
+
+
+def _nchw(image: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 1) -> (B, 1, H, W) with plain NCHW strides. A one-channel
+    image permuted from NHWC also reads as channels-last, cuDNN keeps that
+    layout through the stem, and the CUDA backward of the stem's
+    `F.avg_pool2d` is wrong on channels-last input (PyTorch 2.11, CUDA
+    12.8: the whole gradient off by its own size), so the batch is copied
+    to the plain layout."""
+    return image.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
+
+
+def _rtpose_loss(out, batch):
+    _, saved = out
+    return rtpose_light3d_loss_fgweight(saved, batch["heatmaps"], batch["pafs"], batch["zmaps"],
+                                        batch["fg_masks_z"])
+
+
+def _popnet_loss(out, batch, num_joints: int = 15):
+    _, saved = out
+    return popnet_loss(saved, batch["heatmaps"], batch["zmaps"], batch["fg_masks_z"],
+                       batch["align_maps"], batch["fg_masks_align"], batch["prior_map"],
+                       batch["prior_mask_conf"], batch["prior_mask_coord"],
+                       batch["prior_weight_map"], num_joints)
+
+
+def _yolo_loss(out, batch, num_joints: int = 15):
+    return yolo_loss(out, batch["prior_map"], batch["prior_mask_conf"],
+                     batch["prior_mask_coord"], batch["prior_weight_map"], num_joints)
+
+
+def _make_step(loss_fn):
+    def step(state, batch):
+        model, opt = state.model, state.optimizer
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        loss, logs = loss_fn(model(_nchw(batch["image"])), batch)
+        loss.backward()
+        opt.step()
+        logs = {k: v.detach() for k, v in logs.items()}
+        logs["loss"] = loss.detach()
+        return state, logs
+
+    return step
+
+
+def _make_eval_loss(loss_fn):
+    def eval_loss(state, batch) -> torch.Tensor:
+        state.model.eval()
+        with torch.no_grad():
+            return loss_fn(state.model(_nchw(batch["image"])), batch)[0]
+
+    return eval_loss
+
+
+def make_rtpose_train_step():
+    """Open-Pose+ with the fg-weighted loss."""
+    return _make_step(_rtpose_loss)
+
+
+def make_popnet_train_step(num_joints: int = 15):
+    """PoP-Net with the composite loss, pose-weighted."""
+    return _make_step(lambda out, batch: _popnet_loss(out, batch, num_joints))
+
+
+def make_yolo_train_step(num_joints: int = 15):
+    """Yolo-Pose+ with the prior loss, pose-weighted."""
+    return _make_step(lambda out, batch: _yolo_loss(out, batch, num_joints))
+
+
+def make_rtpose_eval_loss():
+    return _make_eval_loss(_rtpose_loss)
+
+
+def make_popnet_eval_loss(num_joints: int = 15):
+    return _make_eval_loss(lambda out, batch: _popnet_loss(out, batch, num_joints))
+
+
+def make_yolo_eval_loss(num_joints: int = 15):
+    return _make_eval_loss(lambda out, batch: _yolo_loss(out, batch, num_joints))

@@ -873,3 +873,72 @@ def test_evaluate_subcommand_on_the_card(cuda, eval_sets, tmp_path):
     got = main(["benchmark", "--gt", labels, "--pred", str(tmp_path / "yolo_results.json")])
     for k in ("pck2d", "pck3d", "map2d", "map3d"):
         assert res[k] == got[k], k
+
+
+# -- training (chip_smoke.py phase 7's checks at a small size) -----------------------
+
+
+@pytest.fixture(scope="module")
+def train_set(tmp_path_factory):
+    """chip_smoke.py's KDH3D-format training set at 8 + 4 frames, written
+    from the CPU."""
+    import chip_smoke
+
+    root = str(tmp_path_factory.mktemp("cuda_train"))
+    chip_smoke.write_train_set(np.random.default_rng(41), "cpu", root, 8, 4)
+    return root
+
+
+@pytest.mark.parametrize("family", ["openpose", "popnet", "yolo"])
+@pytest.mark.parametrize("transfer", ["f32", "u16mm"])
+def test_training_batch_on_the_card_equals_the_cpu(cuda, train_set, family, transfer):
+    """A batch of 8 augmented, bg_aug frames made on the card against the
+    CPU's from the same seed: image, z-maps and masks bit for bit, the
+    other maps within 2e-6."""
+    import chip_smoke
+
+    idx = np.arange(8)
+    card = chip_smoke.train_dataset(train_set, family, cuda, transfer=transfer).get_batch(idx)
+    host = chip_smoke.train_dataset(train_set, family, "cpu", transfer=transfer).get_batch(idx)
+    assert chip_smoke.compare_batches(family, card, host) <= chip_smoke.TARGETS_BAR
+
+
+def test_prior_encoder_last_person_wins_on_the_card(cuda):
+    import chip_smoke
+
+    chip_smoke.shared_prior_check(cuda)
+
+
+@pytest.mark.parametrize("family", ["openpose", "popnet", "yolo"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, train_set, family):
+    """One step from the committed weights on 4 frames, card against CPU,
+    TF32 off: in float64 at the step bars (loss 1e-5, each tensor's update
+    within 1e-3 of the CPU's largest, BatchNorm statistics 1e-5), in
+    float32 the loss within 1e-5 and the card's step no further from its
+    float64 step than chip_smoke.F32_GAP_FACTOR times the CPU's from its
+    own."""
+    import chip_smoke
+
+    idx = np.arange(4)
+    card = chip_smoke.train_dataset(train_set, family, cuda).get_batch(idx)
+    host = chip_smoke.train_dataset(train_set, family, "cpu").get_batch(idx)
+    chip_smoke.train_step_checks(family, family, card, host, cuda)
+
+
+def test_train_subcommand_on_the_card_writes_checkpoints_that_evaluate_reads(cuda, train_set,
+                                                                             tmp_path):
+    """`train` on the card (its default device), 2 epochs at batch 4, then
+    `evaluate --ckpt` of its checkpoint on the card."""
+    from popnet_tpu_torch.cli.main import main
+
+    out = str(tmp_path / "run")
+    trainer = main(["train", "--model", "yolo", "--data-root", train_set, "--bg-aug",
+                    "--batch-size", "4", "--epochs", "2", "--val-labels", "labels_val.json",
+                    "--lr", "0.05", "--out-dir", out])
+    assert trainer.device.type == "cuda" and len(trainer.history) == 2
+    assert all(np.isfinite(h["train_loss"]) for h in trainer.history)
+    assert os.listdir(os.path.join(out, "ckpt")) and os.listdir(os.path.join(out, "ckpt_best"))
+    res = main(["evaluate", "--model", "yolo", "--data-root", train_set, "--labels",
+                "labels_val.json", "--ckpt", os.path.join(out, "ckpt"), "--batch-size", "4",
+                "--out-dir", str(tmp_path / "ev")])
+    assert os.path.exists(tmp_path / "ev" / "yolo_results.json") and "pck2d" in res

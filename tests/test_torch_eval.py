@@ -561,7 +561,7 @@ def test_cli_evaluate_writes_the_json_and_benchmark_scores_it_as_jax_does(paths,
 
 @pytest.mark.parametrize("argv,match", [
     (["--fold-bn"], "item 12"), (["--quant", "int8"], "item 12"), (["--spatial", "2"], "item 13"),
-    (["--ckpt", "x"], "item 11"), (["--dataset", "itop"], "item 9b"),
+    (["--ckpt", "x"], "no checkpoint of the port"), (["--dataset", "itop"], "item 9b"),
     (["--dataset", "coco"], "item 9b"), (["--model", "rtpose_vgg"], "item 9b"),
     (["--model", "a2j"], "--yolo-weights"),
 ])

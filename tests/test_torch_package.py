@@ -51,21 +51,24 @@ def test_port_imports_with_jax_and_reference_blocked():
         class Block:
             def find_spec(self, name, path=None, target=None):
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "flax") or name == "popnet_tpu" \\
-                        or name.startswith("popnet_tpu."):
+                if top in ("jax", "jaxlib", "flax", "optax", "orbax") \\
+                        or name == "popnet_tpu" or name.startswith("popnet_tpu."):
                     raise ImportError("blocked: " + name)
                 return None
         sys.meta_path.insert(0, Block())
         sys.path.insert(0, {ROOT!r})
         for m in {_port_modules()!r} + ["chip_smoke"]:
             importlib.import_module(m)
-        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "popnet_tpu")]
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "popnet_tpu")]
         assert not leaked, leaked
         for m in ("models.popnet", "models.rtpose_align3d", "models.yolo_posenet", "decode.prior",
                   "decode.popnet_infer", "models.a2j", "decode.a2j", "data.a2j_crops",
                   "core.numerics", "eval.pck", "eval.map", "eval.batched", "cli.evaluate",
                   "cli.yolo_a2j", "cli.main", "data.datasets", "data.labels",
-                  "data.augment_device", "decode.readout", "decode.assemble", "core.device"):
+                  "data.augment_device", "decode.readout", "decode.assemble", "core.device",
+                  "ops.encoders", "losses.losses", "train.state", "train.schedule",
+                  "train.steps", "train.checkpoint", "train.loop"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -77,7 +80,7 @@ def test_port_imports_with_jax_and_reference_blocked():
 
 def test_no_source_names_the_reference_package():
     """Static check: no import statement of the port or chip_smoke.py names
-    jax, flax or popnet_tpu."""
+    jax, flax, optax, orbax or popnet_tpu."""
     files = [os.path.join(ROOT, m.replace(".", os.sep) + ".py") for m in _port_modules()]
     files = [f if os.path.exists(f) else f[:-3] + os.sep + "__init__.py" for f in files]
     files.append(os.path.join(ROOT, "chip_smoke.py"))
@@ -91,7 +94,7 @@ def test_no_source_names_the_reference_package():
                 names = [node.module or ""]
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "flax", "popnet_tpu"), (f, n)
+                assert top not in ("jax", "flax", "optax", "orbax", "popnet_tpu"), (f, n)
 
 
 def test_load_npz_maps_every_committed_key():
@@ -305,3 +308,33 @@ def test_evaluate_defaults_to_cuda_and_never_runs_on_cpu_unasked(tmp_path):
                                    np.zeros((1, 1, 15, 2)), np.ones((1, 1), bool))
     with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
         main(["evaluate", "--data-root", str(tmp_path), "--model", "yolo", "--device", "cpu"])
+
+
+def test_train_defaults_to_cuda_and_never_runs_on_cpu_unasked(tmp_path):
+    """The train subcommand, the training dataset and the Trainer default to
+    the card; without one they raise unless the CPU is asked for (--device
+    cpu); the training modules are in the package."""
+    from popnet_tpu_torch.cli.main import build_parser, main
+    from popnet_tpu_torch.data.datasets import KDH3DDataset
+    from popnet_tpu_torch.train.loop import Trainer
+
+    args = build_parser().parse_args(["train", "--data-root", str(tmp_path)])
+    assert args.device == "cuda" and args.model == "popnet" and args.batch_size == 32
+    assert args.epochs == 100 and args.lr == 1.0 and args.optimizer == "sgd"
+    assert inspect.signature(KDH3DDataset).parameters["device"].default == "cuda"
+    assert inspect.signature(Trainer).parameters["device"].default == "cuda"
+    assert {m for m in _port_modules() if m.startswith(("popnet_tpu_torch.train",
+                                                        "popnet_tpu_torch.losses",
+                                                        "popnet_tpu_torch.ops"))} >= {
+        "popnet_tpu_torch.train.state", "popnet_tpu_torch.train.schedule",
+        "popnet_tpu_torch.train.steps", "popnet_tpu_torch.train.checkpoint",
+        "popnet_tpu_torch.train.loop", "popnet_tpu_torch.losses.losses",
+        "popnet_tpu_torch.ops.encoders"}
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "--data-root", str(tmp_path), "--model", "yolo"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(YoloPoseNet(), None, None)
+    with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
+        main(["train", "--data-root", str(tmp_path), "--model", "yolo", "--device", "cpu"])
