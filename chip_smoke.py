@@ -3,7 +3,8 @@
 
 Drives the port's five serving paths at the models' full width, its
 MP-3DHP evaluation drivers for the four depth families, and the training
-of three of them (phase 7): the four
+of three of them on single-person frames (phase 7) and on mp-aug
+multi-person composites (phase 8): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -112,6 +113,34 @@ Phases, one or more lines each:
    deterministic); then (f) `evaluate --ckpt` of each family's checkpoint
    (Open-Pose+ with and without --device-decode) with the launch counts of
    K1, K3, K6, the readouts and K7.
+
+8. mpaug: mp-aug training (popnet_tpu_torch.data.datasets' mp-aug classes,
+   data.streaming, cli.main train --mp-aug) at full width, 224², float32:
+   (a) 5 location files of 256 single-person recordings (512x480 depth
+   and masks, write_mpaug_bank: 1280 layers, a 0.94 GB bank on the card)
+   beside phase 7's backgrounds and 64 validation frames; (b) for
+   KDH3DMPAugDataset (f32 and u16mm transfer), DeviceMPAugDataset,
+   KDH3DMPAugAdvDataset and a staged stream shard, a batch of 32 with
+   PoP-Net's targets and the visibility prior made on the card against the
+   CPU's from the same seed (image, z-maps, masks and visibility channels
+   bit for bit, other maps within TARGETS_BAR, the generators in
+   lockstep); (f) the PoP-Net --pred-vis step, card against CPU
+   (train_step_checks; the 130-channel prior head seeded); (c) the device
+   bank against the host path with uint16 mm transfer on the card (label
+   rows equal, image and z-maps within 2e-3, other maps within 1e-5, the
+   generators' next draws equal); (d) a streamed batch over a staged shard
+   against the full bank's bit for bit, one streamed epoch at 64 indices a
+   shard covering every index once with at most two shards resident, the
+   staging rate and, from it, a reckoning of the real split's epoch; (e)
+   `train --mp-aug` for each family on the host composite, --device-bank
+   and --stream-bank 64 --stream-repeats 2, and PoP-Net with --device-bank
+   --pred-vis, 2 epochs at batch 32 (--lr 0.05): the losses falling, e2e
+   train frames/s over the second epoch, the input pipeline and its host
+   stage alone over one epoch, the step's ms (CUDA events),
+   max_memory_allocated, and no kernel launched; (g) `evaluate --ckpt` of
+   the --device-bank checkpoints (Open-Pose+ both decodes, PoP-Net) with
+   their kernel launches (a "mpaug_ckpt_eval_launches" entry in each row
+   of the kernels line).
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -243,6 +272,54 @@ def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
     return ms
 
 
+def _skeleton(rng: np.random.Generator, x: float, y_lo: float, y_hi: float) -> np.ndarray:
+    """(15, 2) joints of the kinematic template (tests/synthetic_data.py
+    person_scene's layout), its torso at x and a y drawn in [y_lo, y_hi)."""
+    s = rng.uniform(0.85, 1.25)
+    lean = rng.normal(0.0, 0.12)
+
+    def rot(vx, vy, a):
+        return np.array([vx * np.cos(a) - vy * np.sin(a), vx * np.sin(a) + vy * np.cos(a)])
+
+    pts = np.zeros((15, 2))
+    torso = np.array([x, rng.uniform(y_lo, y_hi)]) + rng.normal(0, 8, 2)
+    neck = torso + rot(0, -62 * s, lean)
+    pts[8], pts[1] = torso, neck
+    pts[0] = neck + rot(0, -34 * s, lean + rng.normal(0, 0.1))
+    for side, sh_i, el_i, wr_i, hip_i, kn_i, an_i in (
+            (+1, 2, 4, 6, 9, 11, 13), (-1, 3, 5, 7, 10, 12, 14)):
+        sh = neck + rot(side * 30 * s, 6 * s, lean)
+        el = sh + rot(0, 42 * s, lean + rng.normal(0, 0.5))
+        wr = el + rot(0, 40 * s, lean + rng.normal(0, 0.7))
+        hip = torso + rot(side * 20 * s, 46 * s, lean)
+        kn = hip + rot(0, 50 * s, lean + rng.normal(0, 0.25))
+        an = kn + rot(0, 48 * s, lean + rng.normal(0, 0.25))
+        for i, q in ((sh_i, sh), (el_i, el), (wr_i, wr), (hip_i, hip), (kn_i, kn), (an_i, an)):
+            pts[i] = q
+    return pts
+
+
+def _draw_people(pts, z, present, device, H: int, W: int):
+    """(B, H, W) depth: each present person's joints (B, N, 15, 2) drawn as
+    36-px blocks at their depths z (B, N, 15), the later person over the
+    earlier, on a zero background."""
+    import torch
+
+    pts_t = torch.as_tensor(pts, dtype=torch.float32, device=device)
+    z_t = torch.as_tensor(z, dtype=torch.float32, device=device)
+    pres_t = torch.as_tensor(present, device=device)
+    ys = torch.arange(H, device=device, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(W, device=device, dtype=torch.float32)[None, None, :]
+    depth = torch.zeros((pts.shape[0], H, W), device=device)
+    for p in range(pts.shape[1]):
+        for k in range(15):
+            m = ((xs - pts_t[:, p, k, 0, None, None]).abs() < 18) \
+                & ((ys - pts_t[:, p, k, 1, None, None]).abs() < 18) \
+                & pres_t[:, p, None, None]
+            depth = torch.where(m, z_t[:, p, k, None, None], depth)
+    return depth
+
+
 def person_frames(rng: np.random.Generator, B: int, device, H: int = 512, W: int = 480,
                   background: bool = False, people: bool = False):
     """(B, H, W) depth frames in metres: 2-3 people per frame, each a
@@ -254,48 +331,16 @@ def person_frames(rng: np.random.Generator, B: int, device, H: int = 512, W: int
     import torch
 
     n_people = 3
-    pts = np.zeros((B, n_people, 15, 2))
-    for b in range(B):
-        for p in range(n_people):
-            s = rng.uniform(0.85, 1.25)
-            lean = rng.normal(0.0, 0.12)
-
-            def rot(vx, vy, a):
-                return np.array([vx * np.cos(a) - vy * np.sin(a), vx * np.sin(a) + vy * np.cos(a)])
-
-            torso = np.array([110 + 130 * p, rng.uniform(190, 260)]) + rng.normal(0, 8, 2)
-            neck = torso + rot(0, -62 * s, lean)
-            pts[b, p, 8], pts[b, p, 1] = torso, neck
-            pts[b, p, 0] = neck + rot(0, -34 * s, lean + rng.normal(0, 0.1))
-            for side, sh_i, el_i, wr_i, hip_i, kn_i, an_i in (
-                    (+1, 2, 4, 6, 9, 11, 13), (-1, 3, 5, 7, 10, 12, 14)):
-                sh = neck + rot(side * 30 * s, 6 * s, lean)
-                el = sh + rot(0, 42 * s, lean + rng.normal(0, 0.5))
-                wr = el + rot(0, 40 * s, lean + rng.normal(0, 0.7))
-                hip = torso + rot(side * 20 * s, 46 * s, lean)
-                kn = hip + rot(0, 50 * s, lean + rng.normal(0, 0.25))
-                an = kn + rot(0, 48 * s, lean + rng.normal(0, 0.25))
-                for i, q in ((sh_i, sh), (el_i, el), (wr_i, wr), (hip_i, hip),
-                             (kn_i, kn), (an_i, an)):
-                    pts[b, p, i] = q
+    pts = np.stack([np.stack([_skeleton(rng, 110 + 130 * p, 190, 260) for p in range(n_people)])
+                    for _ in range(B)])
     pts += rng.normal(0, 2.0, size=pts.shape)
     pts = np.clip(pts, 10, [W - 10, H - 10])
     present = np.arange(n_people)[None, :] < rng.integers(2, n_people + 1, size=B)[:, None]
     z = rng.uniform(2.5, 4.5, size=(B, n_people, 1)) + rng.normal(0, 0.05, size=(B, n_people, 15))
-
-    pts_t = torch.as_tensor(pts, dtype=torch.float32, device=device)
-    z_t = torch.as_tensor(z, dtype=torch.float32, device=device)
-    pres_t = torch.as_tensor(present, device=device)
-    ys = torch.arange(H, device=device, dtype=torch.float32)[None, :, None]
-    xs = torch.arange(W, device=device, dtype=torch.float32)[None, None, :]
-    depth = torch.zeros((B, H, W), device=device)
-    for p in range(n_people):
-        for k in range(15):
-            m = ((xs - pts_t[:, p, k, 0, None, None]).abs() < 18) \
-                & ((ys - pts_t[:, p, k, 1, None, None]).abs() < 18) \
-                & pres_t[:, p, None, None]
-            depth = torch.where(m, z_t[:, p, k, None, None], depth)
+    depth = _draw_people(pts, z, present, device, H, W)
     if background:
+        ys = torch.arange(H, device=device, dtype=torch.float32)[None, :, None]
+        xs = torch.arange(W, device=device, dtype=torch.float32)[None, None, :]
         phase = torch.as_tensor(rng.uniform(0, 2 * np.pi, (B, 1, 1)), dtype=torch.float32,
                                 device=device)
         bg = 4.0 + 1.5 * torch.sin(xs / 60.0 + phase) * torch.cos(ys / 80.0)
@@ -1909,13 +1954,14 @@ def check_bf16(tag: str, q16: dict, f32: dict) -> None:
 
 
 def write_eval_set(root: str, frames, people: dict, labels_name: str = "labels.json",
-                   first: int = 0, seg: bool = False) -> tuple[str, str]:
-    """Write (B, H, W) depth frames as root/depth_maps/<first + b>.npy and their
-    people as root/<labels_name> in the MP-3DHP label format: per frame a list
-    of {"2d_joints", "3d_joints" (back-projected with the KDH3D camera),
-    "bbox" (the joints' box with a 20 px margin)}, and the camera under
-    "intrinsics"; with `seg`, each frame's people mask (depth > 0) as
-    root/seg_maps/<first + b>.npy. Returns (image directory, label path)."""
+                   first: int = 0, seg: bool = False, prefix: str = "frame") -> tuple[str, str]:
+    """Write (B, H, W) depth frames as root/depth_maps/<prefix>_<first + b>.npy
+    and their people as root/<labels_name> in the MP-3DHP label format: per
+    frame a list of {"2d_joints", "3d_joints" (back-projected with the KDH3D
+    camera), "bbox" (the joints' box with a 20 px margin)}, and the camera
+    under "intrinsics"; with `seg`, each frame's people mask (depth > 0,
+    uint8) as root/seg_maps/<the same name>. Returns (image directory,
+    label path)."""
     from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS as cam, back_project_np
 
     img_dir = os.path.join(root, "depth_maps")
@@ -1925,10 +1971,10 @@ def write_eval_set(root: str, frames, people: dict, labels_name: str = "labels.j
     labels = {"intrinsics": {"fx": cam.fx, "fy": cam.fy, "cx": cam.cx, "cy": cam.cy}}
     host = frames.cpu().numpy()
     for b in range(host.shape[0]):
-        name = f"frame_{first + b:04d}.npy"
+        name = f"{prefix}_{first + b:04d}.npy"
         np.save(os.path.join(img_dir, name), host[b])
         if seg:
-            np.save(os.path.join(root, "seg_maps", name), (host[b] > 0).astype(np.float32))
+            np.save(os.path.join(root, "seg_maps", name), (host[b] > 0).astype(np.uint8))
         anns = []
         for p in np.flatnonzero(people["present"][b]):
             j2, z = people["joints2d"][b, p], people["z"][b, p]
@@ -2409,24 +2455,38 @@ def compare_batches(tag: str, card: dict, host: dict) -> float:
     return worst
 
 
-def one_step(family: str, batch: dict, dev, dtype):
+def one_step(family: str, batch: dict, dev, dtype, pred_vis: bool = False):
     """One SGD-Nesterov step (TRAIN_LR) of the family from the committed
     weights on `batch`, on `dev` in `dtype` with TF32 off and cuDNN
     deterministic: (loss, state dict before, state dict after, the names of
     the conv biases that feed a BatchNorm, whose gradient is zero in exact
-    arithmetic), the tensors on the CPU."""
+    arithmetic), the tensors on the CPU. With `pred_vis` (PoP-Net), the
+    130-channel prior head, which no committed weights fit, starts from
+    normal(0, 0.01) drawn from a generator seeded with 0."""
     import torch
 
-    from popnet_tpu_torch.interop.from_jax import load_into, load_npz
+    from popnet_tpu_torch.interop.from_jax import load_npz, state_dict_from_jax
     from popnet_tpu_torch.models import PopNet, RTPoseLight3D, YoloPoseNet
     from popnet_tpu_torch.models.layers import ConvBN
     from popnet_tpu_torch.train import steps
     from popnet_tpu_torch.train.state import TrainState, make_optimizer
 
-    cls = {"openpose": RTPoseLight3D, "popnet": PopNet, "yolo": YoloPoseNet}[family]
-    step = {"openpose": steps.make_rtpose_train_step, "popnet": steps.make_popnet_train_step,
-            "yolo": steps.make_yolo_train_step}[family]()
-    model = load_into(cls(), load_npz(TRAIN_WEIGHTS[family])).to(dev, dtype)
+    if pred_vis:
+        model = PopNet(pred_vis=True)
+        step = steps.make_popnet_train_step(pred_vis=True)
+    else:
+        model = {"openpose": RTPoseLight3D, "popnet": PopNet, "yolo": YoloPoseNet}[family]()
+        step = {"openpose": steps.make_rtpose_train_step, "popnet": steps.make_popnet_train_step,
+                "yolo": steps.make_yolo_train_step}[family]()
+    sd = state_dict_from_jax(load_npz(TRAIN_WEIGHTS[family]))
+    if pred_vis:
+        w = model.prior_out.weight
+        sd["prior_out.weight"] = torch.empty_like(w).normal_(
+            0.0, 0.01, generator=torch.Generator().manual_seed(0))
+    want = {k for k in model.state_dict() if not k.endswith("num_batches_tracked")}
+    require(want == set(sd), f"{family}: the committed weights do not fit the model")
+    model.load_state_dict(sd, strict=False)
+    model = model.to(dev, dtype)
     zero = {f"{n}.Conv_0.bias" for n, m in model.named_modules()
             if isinstance(m, ConvBN) and m.norm and m.Conv_0.bias is not None}
     state = TrainState(model, make_optimizer(model, "sgd", TRAIN_LR))
@@ -2477,7 +2537,8 @@ def step_errors(a, b) -> dict:
     return out
 
 
-def train_step_checks(tag: str, family: str, batch_card: dict, batch_host: dict, dev) -> None:
+def train_step_checks(tag: str, family: str, batch_card: dict, batch_host: dict, dev,
+                      pred_vis: bool = False) -> None:
     """(b): one step from the committed weights on STEP_BATCH frames, card
     against CPU. float64 on both: the step bars (loss 1e-5, each tensor's
     update within 1e-3 of the CPU's largest, floored at 1e-6 of the largest
@@ -2494,8 +2555,8 @@ def train_step_checks(tag: str, family: str, batch_card: dict, batch_host: dict,
     t0 = time.perf_counter()
     steps = {}
     for dtype in (torch.float64, torch.float32):
-        card = steps["card", dtype] = one_step(family, batch_card, dev, dtype)
-        host = steps["cpu", dtype] = one_step(family, batch_host, "cpu", dtype)
+        card = steps["card", dtype] = one_step(family, batch_card, dev, dtype, pred_vis)
+        host = steps["cpu", dtype] = one_step(family, batch_host, "cpu", dtype, pred_vis)
         e = step_errors(card, host)
         name = str(dtype).split(".")[1]
         say("train", f"{tag} step check, {name}, card vs CPU ({len(batch_host['image'])} frames, "
@@ -2759,6 +2820,314 @@ def shared_prior_check(dev) -> None:
         f"(maps within {err:.3g})")
 
 
+# -- phase 8: mp-aug training -------------------------------------------------------------
+
+MPAUG_CENTRES = ((140.0, 256.0), (340.0, 256.0), (140.0, 380.0), (340.0, 380.0),
+                 (240.0, 300.0))   # tests/synthetic_data.py's five person locations
+MPAUG_PER_LOCATION = 256    # single-person recordings a location file
+STREAM_SHARD = 64           # --stream-bank: sample indices a shard
+STREAM_REPEATS = 2          # --stream-repeats
+REAL_SPLIT_FRAMES = 176828  # the MP-3DHP training split, for the streaming reckoning
+REAL_STREAM_SHARD = 2048    # the JAX command line's suggested --stream-bank for it
+MPAUG_ROUTES = (("host", []), ("device bank", ["--device-bank"]),
+                ("stream", ["--stream-bank", str(STREAM_SHARD), "--stream-repeats",
+                            str(STREAM_REPEATS)]))
+MPAUG_RUNS = tuple((f, r, x) for f in TRAIN_FAMILIES for r, x in MPAUG_ROUTES) + (
+    ("popnet", "device bank, pred-vis", ["--device-bank", "--pred-vis"]),)
+MPAUG_CKPT_EVAL = (("openpose", []), ("openpose", ["--device-decode"]), ("popnet", []))
+
+
+def write_mpaug_bank(rng, dev, root: str, n: int) -> None:
+    """The per-location recordings of mp-aug under root: for each of the
+    five MPAUG_CENTRES, n single-person frames (a person of person_frames'
+    template there, 2.0-4.5 m away, on a zero background) as
+    depth_maps/loc<l>_*.npy, their masks as seg_maps/, and their people as
+    labels_loc<l>.json (write_eval_set)."""
+    for loc, (cx, cy) in enumerate(MPAUG_CENTRES):
+        pts = np.stack([_skeleton(rng, cx, cy - 30, cy + 30)[None] for _ in range(n)])
+        pts = np.clip(pts + rng.normal(0, 2.0, size=pts.shape), 10, [470, 502])
+        z = rng.uniform(2.0, 4.5, size=(n, 1, 1)) + rng.normal(0, 0.05, size=(n, 1, 15))
+        present = np.ones((n, 1), bool)
+        frames = _draw_people(pts, z, present, dev, 512, 480)
+        write_eval_set(root, frames, {"joints2d": pts, "z": z, "present": present},
+                       labels_name=f"labels_loc{loc}.json", seg=True, prefix=f"loc{loc}")
+
+
+def mpaug_dataset(cls, root: str, dev, family: str = "popnet", **kw):
+    """A dataset of popnet_tpu_torch's mp-aug classes over root's location
+    files at TRAIN_INPUT, the family's targets, seed 0."""
+    from popnet_tpu_torch.core.config import EncoderConfig
+
+    align, prior = TRAIN_TARGETS[family]
+    files = sorted(os.path.join(root, f) for f in os.listdir(root)
+                   if f.startswith("labels_loc") and f.endswith(".json"))
+    return cls(os.path.join(root, "depth_maps"), files,
+               bg_file=os.path.join(root, "labels_bg.json"), bg_dir=os.path.join(root, "bg_maps"),
+               seg_dir=os.path.join(root, "seg_maps"),
+               ecfg=EncoderConfig(input_x=TRAIN_INPUT, input_y=TRAIN_INPUT), pose_align=align,
+               with_prior=prior, seed=0, device=dev, **kw)
+
+
+def compare_vis(tag: str, card: dict, host: dict) -> float:
+    """compare_batches, and the prior's visibility channels (the last K of
+    each anchor's 5 + 4K) equal; returns the share of visible joints over
+    the anchors a person is assigned to."""
+    import torch
+
+    compare_batches(tag, card, host)
+    vis = lambda b: b["prior_map"].cpu().reshape(*b["prior_map"].shape[:3], 2, 65)[..., 50:]
+    require(bool(torch.equal(vis(card), vis(host))), f"{tag}: visibility channels differ")
+    return float(vis(card)[card["prior_mask_coord"].cpu() > 0].mean())
+
+
+def shard_batch(ds, shard, idx) -> dict:
+    ds._use(shard)
+    return ds._bank_batch(idx, shard.row_of, shard.bank_depth, shard.bank_seg)
+
+
+def set_family(ds, family: str, pred_vis: bool = False):
+    """ds with the family's targets and a fresh generator (seed 0)."""
+    ds.pose_align, ds.with_prior = TRAIN_TARGETS[family]
+    ds.pred_vis = pred_vis
+    ds.rng = np.random.default_rng(0)
+    return ds
+
+
+def time_mpaug_input(ds, batch: int, full_rows: dict) -> tuple[float, float]:
+    """(input pipeline alone over one epoch, each batch waited for on the
+    card; its host stage alone over as many frames: the loads, composite and
+    label algebra of get_batch_host, or a bank's draws, draw_batch) in
+    frames/s."""
+    import torch
+
+    t0, n = time.perf_counter(), 0
+    for b in ds.iter_batches(batch):
+        torch.cuda.synchronize()
+        n += b["image"].shape[0]
+    pipe = n / (time.perf_counter() - t0)
+    order = np.arange(len(ds))
+    host = ds.draw_batch if hasattr(ds, "draw_batch") else None
+    t0, nh = time.perf_counter(), 0
+    for s in range(0, len(ds) - batch + 1, batch):
+        if host is None:
+            ds.get_batch_host(order[s:s + batch])
+        else:
+            host(order[s:s + batch], full_rows)
+        nh += batch
+    return pipe, nh / (time.perf_counter() - t0)
+
+
+def phase_mpaug(rng, dev) -> dict:
+    """Phase 8, mp-aug training (see the module docstring). Returns
+    {"train": launches of the training runs, "ckpt_eval": launches of
+    evaluate --ckpt on their checkpoints}."""
+    import tempfile
+
+    import torch
+
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.data import datasets as pds
+    from popnet_tpu_torch.data.streaming import StreamingDeviceMPAugDataset
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.train.steps import (make_popnet_train_step, make_rtpose_train_step,
+                                              make_yolo_train_step)
+
+    t_phase = time.perf_counter()
+    launches = {"train": {k.__name__: 0 for k in kernels.KERNELS}}
+    idx = np.arange(TRAIN_BATCH)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_train_set(rng, dev, root, TRAIN_BATCH, VAL_FRAMES)
+        write_mpaug_bank(rng, dev, root, MPAUG_PER_LOCATION)
+        n_layers = len(MPAUG_CENTRES) * MPAUG_PER_LOCATION
+        say("mpaug", f"wrote {len(MPAUG_CENTRES)} location files of {MPAUG_PER_LOCATION} "
+            f"single-person recordings (512x480 depth and masks, {n_layers} layers), "
+            f"{N_BACKGROUNDS} backgrounds and {VAL_FRAMES} validation frames in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # (b) a batch on the card against the CPU's, PoP-Net targets with pred_vis
+        t0 = time.perf_counter()
+        card_bank = None
+        for name, cls, kw in (("host", pds.KDH3DMPAugDataset, {}),
+                              ("host u16mm", pds.KDH3DMPAugDataset, {"transfer": "u16mm"}),
+                              ("device bank", pds.DeviceMPAugDataset, {}),
+                              ("adv", pds.KDH3DMPAugAdvDataset, {})):
+            cds = mpaug_dataset(cls, root, dev, pred_vis=True, **kw)
+            hds = mpaug_dataset(cls, root, "cpu", pred_vis=True, **kw)
+            card, host = cds.get_batch(idx), hds.get_batch(idx)
+            vis = compare_vis(f"mp-aug {name}", card, host)
+            require(cds.rng.bit_generator.state == hds.rng.bit_generator.state,
+                    f"mp-aug {name}: the generators differ")
+            say("mpaug", f"(b) {name}: a batch of {TRAIN_BATCH} on the card equals the CPU's "
+                f"(image, z-maps, masks and the prior's visibility channels bit for bit, "
+                f"{vis:.3f} of the assigned joints visible; other maps within {TARGETS_BAR}); "
+                f"generators in lockstep")
+            if name == "device bank":
+                card_bank, host_bank, step_pair = cds, hds, (card, host)
+        streams = {}
+        for where in (dev, "cpu"):
+            streams[where] = mpaug_dataset(StreamingDeviceMPAugDataset, root, where,
+                                           pred_vis=True, shard_indices=STREAM_SHARD)
+            shard = streams[where]._stage(0)
+            streams[where, "batch"] = shard_batch(streams[where], shard, idx)
+            streams[where]._release(shard)
+        compare_vis("stream shard", streams[dev, "batch"], streams["cpu", "batch"])
+        say("mpaug", f"(b) a staged stream shard ({STREAM_SHARD} indices): the card's batch "
+            f"equals the CPU's likewise; (b) in {time.perf_counter() - t0:.1f} s, the CPU's "
+            f"banks and batches included")
+        del host_bank, streams
+        # (f) the PoP-Net --pred-vis step, card against CPU
+        sub = lambda b: {k: v[:STEP_BATCH] for k, v in b.items()}
+        train_step_checks("popnet --pred-vis:", "popnet", sub(step_pair[0]), sub(step_pair[1]),
+                          dev, pred_vis=True)
+        del step_pair
+
+        # (c) the bank against the host path on the card
+        bank = set_family(card_bank, "popnet")
+        host = set_family(mpaug_dataset(pds.KDH3DMPAugDataset, root, dev, transfer="u16mm"),
+                          "popnet")
+        hb, db = host.get_batch(idx), bank.get_batch(idx)
+        worst = {}
+        for k in hb:
+            bar = 2e-3 if k in ("image", "zmaps") else 1e-5
+            worst[k] = _maxerr(db[k], hb[k])
+            require(worst[k] <= bar, f"(c) {k}: bank and host {worst[k]:.3g} apart (bar {bar})")
+        require(int(host.rng.integers(0, 1 << 30)) == int(bank.rng.integers(0, 1 << 30)),
+                "(c) the generators' next draws differ")
+        set_family(bank, "popnet"), set_family(host, "popnet")
+        rows_h = host.get_batch_host(idx)[1]
+        rows_b = bank.draw_batch(idx, bank._row)[3]
+        require(all(np.array_equal(np.asarray(a), np.asarray(b))
+                    for ra, rb in zip(rows_h, rows_b) for a, b in zip(ra, rb)),
+                "(c) the label rows differ")
+        say("mpaug", "(c) DeviceMPAugDataset against KDH3DMPAugDataset(transfer=u16mm) on the "
+            f"card: label rows equal; image {worst['image']:.3g}, z-maps {worst['zmaps']:.3g} "
+            f"apart (bar 2e-3), other maps within "
+            f"{max(v for k, v in worst.items() if k not in ('image', 'zmaps')):.3g} (bar 1e-5); "
+            f"the generators' next draws equal")
+
+        # (d) the stream against the full bank; one streamed epoch
+        stream = mpaug_dataset(StreamingDeviceMPAugDataset, root, dev, shard_indices=STREAM_SHARD)
+        set_family(bank, "popnet", pred_vis=True), set_family(stream, "popnet", pred_vis=True)
+        shard = stream._stage(1)
+        sidx = np.arange(STREAM_SHARD, STREAM_SHARD + TRAIN_BATCH)
+        a, b = bank.get_batch(sidx), shard_batch(stream, shard, sidx)
+        stream._release(shard)
+        require(all(bool(torch.equal(a[k], b[k])) for k in a),
+                "(d) the streamed batch differs from the full bank's")
+        seen, staged = [], []
+        inner_batch, inner_stage = stream._bank_batch, stream._stage
+        stream._bank_batch = lambda i, *r: seen.append([int(x) for x in i]) or inner_batch(i, *r)
+        stream._stage = lambda sid: staged.append(inner_stage(sid)) or staged[-1]
+        set_family(stream, "popnet")
+        stream.max_live_shards = 0
+        t0 = time.perf_counter()
+        for _ in stream.iter_batches(TRAIN_BATCH):
+            torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        covered = sorted(sum(seen, [])) == list(range(len(stream)))
+        require(covered and all(len({i // STREAM_SHARD for i in s}) == 1 for s in seen),
+                "(d) a streamed epoch does not cover every index once within shards")
+        require(stream.max_live_shards <= 2 and stream._live_shards == 0,
+                f"(d) {stream.max_live_shards} shards resident at once")
+        rate = stream.shard_bytes() / np.mean([s.stage_seconds for s in staged]) / 1e9
+        real_bytes = REAL_STREAM_SHARD * len(MPAUG_CENTRES) * 512 * 480 * 3
+        real_shards = -(-REAL_SPLIT_FRAMES // REAL_STREAM_SHARD)
+        say("mpaug", f"(d) a streamed batch over staged shard 1 equals the full bank's bit for "
+            f"bit; one streamed epoch ({stream.n_shards} shards of {STREAM_SHARD} indices, "
+            f"{stream.shard_bytes() / 1e6:.1f} MB a shard) covers every index once in "
+            f"{epoch_s:.2f} s, at most {stream.max_live_shards} shards resident; staging "
+            f"(.npy loads, millimetres, pinned copy to the ready event) "
+            f"{rate:.3f} GB/s over {len(staged)} shards. Reckoning, not a measurement: the "
+            f"real split's {REAL_SPLIT_FRAMES} indices at --stream-bank {REAL_STREAM_SHARD} "
+            f"make {real_shards} shards of at most {real_bytes / 1e9:.2f} GB, "
+            f"{real_shards * real_bytes / 1e9 / rate:.0f} s of staging an epoch at this rate")
+
+        # (e) train through the command line
+        cli = ["--data-root", root, "--device", str(dev), "--input-size", str(TRAIN_INPUT),
+               "--mp-aug", "--bg-aug", "--batch-size", str(TRAIN_BATCH), "--val-labels",
+               "labels_val.json", "--lr", str(TRAIN_LR), "--epochs", "2"]
+        mk_step = {"openpose": make_rtpose_train_step, "popnet": make_popnet_train_step,
+                   "yolo": make_yolo_train_step}
+        stream.shard_repeats = STREAM_REPEATS
+        timing_ds = {"host": mpaug_dataset(pds.KDH3DMPAugDataset, root, dev),
+                     "device bank": bank, "stream": stream}
+        stream._bank_batch, stream._stage = inner_batch, inner_stage
+        step_ms, rows = {}, []
+        for family, route, extra in MPAUG_RUNS:
+            pred_vis = "--pred-vis" in extra
+            tag = f"{family} {route}:"
+            out = os.path.join(root, f"mp_{family}_{route.replace(' ', '_').replace(',', '')}")
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = cli_main(["train", "--model", family, "--out-dir", out, *extra, *cli])
+            wall = time.perf_counter() - t0
+            mem = torch.cuda.max_memory_allocated() / 2**20
+            for k, v in kernels.launch_counts().items():
+                launches["train"][k] += v
+            hist = trainer.history
+            losses = [h["train_loss"] for h in hist]
+            require(len(hist) == 2 and bool(np.isfinite(losses + [h["val_loss"] for h in hist])
+                                             .all()) and losses[1] < losses[0],
+                    f"{tag} the loss is not finite and falling: {hist}")
+            repeats = STREAM_REPEATS if route == "stream" else 1
+            frames = MPAUG_PER_LOCATION // TRAIN_BATCH * TRAIN_BATCH * repeats
+            e2e = frames / hist[1]["train_seconds"]
+            ds = set_family(timing_ds[route.split(",")[0]], family, pred_vis)
+            pipe_fps, host_fps = time_mpaug_input(ds, TRAIN_BATCH, bank._row)
+            key = (family, pred_vis)
+            if key not in step_ms:
+                batch = set_family(bank, family, pred_vis).get_batch(idx)
+                state = trainer.state
+                step = (make_popnet_train_step(pred_vis=True) if pred_vis
+                        else mk_step[family]())
+                with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                    step_ms[key] = time_ms(lambda: step(state, batch), reps=10, warm=2)
+            say("mpaug", f"{tag} (e) train --mp-aug {' '.join(extra)} --batch-size {TRAIN_BATCH} "
+                f"--epochs 2 (float32, TF32 off): train loss {losses[0]:.5f} -> "
+                f"{losses[1]:.5f}, val {hist[0]['val_loss']:.5f} -> {hist[1]['val_loss']:.5f}; "
+                f"e2e train {e2e:.1f} frames/s over epoch 2 ({frames} frames, "
+                f"{hist[1]['train_seconds']:.3f} s, host clock); input pipeline alone "
+                f"{pipe_fps:.1f} frames/s, host stage alone {host_fps:.1f} frames/s (1 epoch); "
+                f"step {step_ms[key]:.3f} ms at batch {TRAIN_BATCH} (CUDA events) = "
+                f"{TRAIN_BATCH / step_ms[key] * 1e3:.1f} frames/s; max_memory_allocated "
+                f"{mem:.1f} MiB; the command {wall:.1f} s; kernels launched: "
+                f"{sum(kernels.launch_counts().values())}")
+            rows.append((tag, e2e, pipe_fps, host_fps, step_ms[key], mem))
+        say("mpaug", "(e) summary, train / pipeline / host stage frames/s, step ms, MiB: "
+            + "; ".join(f"{t} {a:.1f} / {b:.1f} / {c:.1f}, {d:.3f}, {m:.0f}"
+                        for t, a, b, c, d, m in rows))
+        del timing_ds, bank, stream
+
+        # (g) evaluate --ckpt of the device-bank checkpoints
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        for family, extra in MPAUG_CKPT_EVAL:
+            ev_out = os.path.join(root, f"mp_eval_{family}{'_dd' if extra else ''}")
+            m = cli_main(["evaluate", "--model", family, "--data-root", root, "--labels",
+                          "labels_val.json", "--ckpt",
+                          os.path.join(root, f"mp_{family}_device_bank", "ckpt"),
+                          "--out-dir", ev_out, "--batch-size", str(VAL_FRAMES),
+                          "--input-size", str(TRAIN_INPUT), "--device", str(dev), *extra])
+            require(os.path.exists(os.path.join(ev_out, f"{family}_results.json")),
+                    f"evaluate --ckpt {family}: no JSON")
+            say("mpaug", f"(g) evaluate --model {' '.join([family, *extra])} --ckpt of the "
+                f"--mp-aug --device-bank run on the {VAL_FRAMES} validation frames: "
+                + json.dumps({k: m[k] for k in ("pck2d", "pck3d", "map2d", "map3d")}))
+        torch.cuda.synchronize()
+        launches["ckpt_eval"] = kernels.launch_counts()
+        say("mpaug", f"(g) evaluate --ckpt launches per kernel: {launches['ckpt_eval']}; of "
+            f"them, readouts (K4 and K5 together): {kernels.readouts.launches}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name in EVAL_PATH:
+            require(launches["ckpt_eval"][name] >= 1, f"evaluate --ckpt did not launch {name}")
+    say("mpaug", f"mp-aug training launches per kernel: {launches['train']} (none expected)")
+    require(not any(launches["train"].values()), "the mp-aug training path launched a kernel")
+    say("mpaug", f"phase 8 passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the frames and test inputs")
@@ -2817,6 +3186,11 @@ def main(argv=None) -> int:
     for r in rows:                  # none on the training path; evaluate --ckpt's
         r["train_launches"] = train_launches["train"][r["name"]]
         r["ckpt_eval_launches"] = train_launches["ckpt_eval"][r["name"]]
+    rng_mpaug = np.random.default_rng([args.seed, 9])  # the mp-aug phase's recordings
+    mpaug_launches = phase_mpaug(rng_mpaug, dev)
+    for r in rows:                  # none on the mp-aug training path; evaluate --ckpt's
+        r["mpaug_train_launches"] = mpaug_launches["train"][r["name"]]
+        r["mpaug_ckpt_eval_launches"] = mpaug_launches["ckpt_eval"][r["name"]]
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")
     require(all(r["launches"] >= 1 for r in rows), "a kernel was launched on no path")
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")

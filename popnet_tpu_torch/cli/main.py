@@ -10,8 +10,12 @@
 `train` trains Open-Pose+, PoP-Net or Yolo-Pose+ (`--model openpose|popnet|
 yolo`) on a KDH3D-format dataset (DATA/depth_maps/*.npy and the label JSON
 `--labels`; with `--bg-aug`, composited over DATA/bg_maps by DATA/seg_maps
-and DATA/labels_bg.json), validating on `--val-labels` without
-augmentation, with the JAX command line's flags and defaults (SGD-Nesterov
+and DATA/labels_bg.json; with `--mp-aug`, multi-person frames z-buffered
+from the per-location recordings of DATA/<--mp-label-prefix>*.json, on the
+host, or over a scene bank resident on the device with `--device-bank`, or
+streamed through it in shards of N indices with `--stream-bank N`),
+validating on `--val-labels` without augmentation (and without mp-aug),
+with the JAX command line's flags and defaults (SGD-Nesterov
 at lr 1.0 and a plateau controller, batch 32, 224² input): it writes
 `history.jsonl`, the periodic checkpoints `ckpt/` and the best-validation
 `ckpt_best/` to `--out-dir`, and `--resume` continues from `ckpt/`. The
@@ -29,11 +33,16 @@ directory that `train` wrote) or npz files of Flax variables (`--weights`,
 its seeded init (`torch.manual_seed(--seed)`; A2J's `init_seeded`), which
 predicts nothing but drives every stage.
 
+`--pred-vis` trains PoP-Net with the visibility-inferring prior targets
+(`PopNet(pred_vis=True)` and its step, as the JAX library composes them);
+Open-Pose+ encodes no prior, so the flag changes nothing there; Yolo-Pose+
+refuses it, as the JAX package has no visibility-aware Yolo loss.
+
 Options and models of the JAX command line that the port lacks raise,
-naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): mp-aug
-training and its device banks (item 10b), `--pred-vis` (10c), A2J training
-(11b), COCO, MPII and ITOP training (11c), meshes (13), `--fold-bn` and
-`--quant` (12), `--spatial` (13), ITOP, COCO and MPII evaluation (9b).
+naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): A2J
+training (11b), COCO, MPII and ITOP training (11c), meshes and `--n-micro`
+(13), `--fold-bn` and `--quant` (12), `--spatial` (13), ITOP, COCO and MPII
+evaluation (9b).
 """
 
 from __future__ import annotations
@@ -63,12 +72,6 @@ _NOT_PORTED_MODELS = {
 }
 # the train subcommand's: options set away from their defaults, datasets, models
 _NOT_PORTED_TRAIN = {
-    "mp_aug": "mp-aug training (--mp-aug) waits for ROADMAP Queue 1 item 10b",
-    "device_bank": "--device-bank (the device-resident mp-aug bank) waits for ROADMAP "
-                   "Queue 1 item 10b",
-    "stream_bank": "--stream-bank (the streaming mp-aug bank) waits for ROADMAP Queue 1 "
-                   "item 10b",
-    "pred_vis": "--pred-vis waits for ROADMAP Queue 1 item 10c",
     "mesh": "--mesh (sharded and pipelined training) waits for ROADMAP Queue 1 item 13",
     "rotate_aug": "--rotate-aug (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
     "scale_jitter": "--scale-jitter (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
@@ -169,14 +172,20 @@ def run_evaluation(model: str, infer, dataset, batch_size: int = 32,
                                  gt_boxes=gt_boxes)
 
 
-def _family(model: str, ecfg: EncoderConfig):
+_YOLO_PRED_VIS = ("train: --pred-vis encodes 2 x (5 + 4 x 15) = 130 prior channels, and "
+                  "YoloPoseNet's head has 2 x (5 + 3 x 15) = 100: the JAX package has no "
+                  "visibility-aware Yolo loss (yolo_loss takes no pred_vis); train PoP-Net with it")
+
+
+def _family(model: str, ecfg: EncoderConfig, pred_vis: bool = False):
     """(model, train step, eval loss, pose_align, with_prior) of a family."""
     from popnet_tpu_torch.models import PopNet, RTPoseLight3D, YoloPoseNet
     from popnet_tpu_torch.train import steps
 
     if model == "popnet":
-        return (PopNet(), steps.make_popnet_train_step(ecfg.num_joints),
-                steps.make_popnet_eval_loss(ecfg.num_joints), True, True)
+        return (PopNet(pred_vis=pred_vis),
+                steps.make_popnet_train_step(ecfg.num_joints, pred_vis),
+                steps.make_popnet_eval_loss(ecfg.num_joints, pred_vis), True, True)
     if model == "openpose":
         return (RTPoseLight3D(), steps.make_rtpose_train_step(), steps.make_rtpose_eval_loss(),
                 False, False)
@@ -185,20 +194,38 @@ def _family(model: str, ecfg: EncoderConfig):
 
 
 def _train_dataset(args, labels: str, ecfg: EncoderConfig, pose_align: bool, with_prior: bool,
-                   device, augment: bool = True):
-    """The KDH3D training dataset of `labels` under --data-root."""
-    from popnet_tpu_torch.data.datasets import KDH3DDataset
+                   device, augment: bool = True, mp_aug: bool = False):
+    """The training dataset under --data-root: with `mp_aug`, the mp-aug
+    dataset of the --mp-label-prefix location files (host, device bank or
+    streaming bank), else the KDH3D dataset of `labels`."""
+    from popnet_tpu_torch.data import datasets
 
     root = args.data_root
+    common = dict(ecfg=ecfg, dcfg=KDH3D_DATASET, pose_align=pose_align, with_prior=with_prior,
+                  pred_vis=args.pred_vis, augment=augment, seed=args.seed,
+                  transfer=args.transfer, cache_images=args.cache_images, device=device)
+    if mp_aug:
+        ann_files = sorted(os.path.join(root, f) for f in os.listdir(root)
+                           if f.startswith(args.mp_label_prefix) and f.endswith(".json"))
+        if not ann_files:
+            raise SystemExit(f"train --mp-aug: no {args.mp_label_prefix}*.json in {root}")
+        if args.stream_bank:
+            from popnet_tpu_torch.data.streaming import StreamingDeviceMPAugDataset
+
+            cls = StreamingDeviceMPAugDataset
+            common.update(shard_indices=args.stream_bank, shard_repeats=args.stream_repeats)
+        else:
+            cls = datasets.DeviceMPAugDataset if args.device_bank else datasets.KDH3DMPAugDataset
+        return cls(os.path.join(root, "depth_maps"), ann_files,
+                   bg_file=os.path.join(root, "labels_bg.json"),
+                   bg_dir=os.path.join(root, "bg_maps"), seg_dir=os.path.join(root, "seg_maps"),
+                   **common)
     bg = args.bg_aug
-    return KDH3DDataset(
+    return datasets.KDH3DDataset(
         os.path.join(root, "depth_maps"), os.path.join(root, labels), bg_aug=bg,
         bg_file=os.path.join(root, "labels_bg.json") if bg else None,
         bg_dir=os.path.join(root, "bg_maps") if bg else None,
-        seg_dir=os.path.join(root, "seg_maps") if bg else None,
-        ecfg=ecfg, dcfg=KDH3D_DATASET, pose_align=pose_align, with_prior=with_prior,
-        augment=augment, seed=args.seed, transfer=args.transfer,
-        cache_images=args.cache_images, device=device)
+        seg_dir=os.path.join(root, "seg_maps") if bg else None, **common)
 
 
 def cmd_train(args):
@@ -210,20 +237,23 @@ def cmd_train(args):
     for opt, why in _NOT_PORTED_TRAIN.items():
         if getattr(args, opt):
             raise SystemExit(f"train: {why}")
-    if args.stream_repeats != 1 or args.n_micro != 2:
-        raise SystemExit("train: --stream-repeats and --n-micro wait for ROADMAP Queue 1 "
-                         "items 10b and 13")
+    if args.n_micro != 2:
+        raise SystemExit("train: --n-micro (pipelined training) waits for ROADMAP Queue 1 "
+                         "item 13")
     if args.trunk != "vgg19":
         raise SystemExit(f"train: {_NOT_PORTED_TRAIN_MODELS['rtpose_vgg']}")
     if args.dataset in _NOT_PORTED_TRAIN_DATASETS:
         raise SystemExit(f"train: {_NOT_PORTED_TRAIN_DATASETS[args.dataset]}")
     if args.model in _NOT_PORTED_TRAIN_MODELS:
         raise SystemExit(f"train: {_NOT_PORTED_TRAIN_MODELS[args.model]}")
+    if args.model == "yolo" and args.pred_vis:
+        raise SystemExit(_YOLO_PRED_VIS)
 
     device = resolve_device(args.device)
     ecfg = EncoderConfig(input_x=args.input_size, input_y=args.input_size)
-    model, step, eval_loss, pose_align, with_prior = _family(args.model, ecfg)
-    train_ds = _train_dataset(args, args.labels, ecfg, pose_align, with_prior, device)
+    model, step, eval_loss, pose_align, with_prior = _family(args.model, ecfg, args.pred_vis)
+    train_ds = _train_dataset(args, args.labels, ecfg, pose_align, with_prior, device,
+                              mp_aug=args.mp_aug)
     val_ds = None
     if args.val_labels:
         val_ds = _train_dataset(args, args.val_labels, ecfg, pose_align, with_prior, device,
@@ -367,20 +397,31 @@ def build_parser():
                    help="label JSON under --data-root to validate on, without augmentation")
     t.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint in --out-dir/ckpt")
+    t.add_argument("--mp-aug", action="store_true",
+                   help="multi-person frames z-buffered from the per-location recordings "
+                        "(DATA/<--mp-label-prefix>*.json, seg_maps, bg_maps)")
+    t.add_argument("--mp-label-prefix", default="labels_loc",
+                   help="--mp-aug: the location label files' prefix")
+    t.add_argument("--device-bank", action="store_true",
+                   help="--mp-aug: keep the whole scene bank on the device (uint16 mm, "
+                        "~0.74 MB a recording) and composite there; per step only ids "
+                        "and labels cross to the device")
+    t.add_argument("--stream-bank", type=int, default=0, metavar="N",
+                   help="--mp-aug: stream the scene bank through the device in shards of N "
+                        "sample indices, two at most resident (data/streaming.py)")
+    t.add_argument("--stream-repeats", type=int, default=1,
+                   help="--stream-bank: passes over each resident shard an epoch")
+    t.add_argument("--pred-vis", action="store_true",
+                   help="popnet: the prior also predicts each joint's visibility, inferred "
+                        "from the z-buffered pose-depth map (PopNet(pred_vis=True))")
     # options of the JAX command line that the port does not have yet: they raise
     t.add_argument("--trunk", choices=["vgg19", "mobilenet"], default="vgg19",
                    help=argparse.SUPPRESS)
-    t.add_argument("--device-bank", action="store_true", help=argparse.SUPPRESS)
-    t.add_argument("--stream-bank", type=int, default=0, help=argparse.SUPPRESS)
-    t.add_argument("--stream-repeats", type=int, default=1, help=argparse.SUPPRESS)
     t.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     t.add_argument("--n-micro", type=int, default=2, help=argparse.SUPPRESS)
     t.add_argument("--rotate-aug", type=float, default=0.0, help=argparse.SUPPRESS)
     t.add_argument("--scale-jitter", default=None, help=argparse.SUPPRESS)
     t.add_argument("--blur-aug", type=float, default=0.0, help=argparse.SUPPRESS)
-    t.add_argument("--mp-aug", action="store_true", help=argparse.SUPPRESS)
-    t.add_argument("--mp-label-prefix", default="labels_loc", help=argparse.SUPPRESS)
-    t.add_argument("--pred-vis", action="store_true", help=argparse.SUPPRESS)
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("evaluate")

@@ -54,10 +54,13 @@ def rtpose_light3d_loss_fgweight(saved_for_loss, heat_gt, paf_gt, z_gt, fg_mask_
     return total, logs
 
 
-def _prior_loss(prior_pred, prior_gt, mask_conf, mask_coord, weight_map, num_joints):
+def _prior_loss(prior_pred, prior_gt, mask_conf, mask_coord, weight_map, num_joints,
+                pred_vis: bool = False):
     """The prior subnet's (coord, objectness, self-pose) losses, weighted by
     the pose-rarity map: prior_pred (B, A*naf, H, W) NCHW, prior_gt
-    (B, H, W, A*naf), the masks and weight_map (B, H, W, A)."""
+    (B, H, W, A*naf), the masks and weight_map (B, H, W, A). The self-pose
+    term is weighted by 3K, or 4K with the visibility channels
+    (`pred_vis`)."""
     b, h, w, _ = prior_gt.shape
     a = mask_conf.shape[-1]
     pred = _nhwc(prior_pred).reshape(b, h, w, a, -1)
@@ -68,7 +71,8 @@ def _prior_loss(prior_pred, prior_gt, mask_conf, mask_coord, weight_map, num_joi
     coords_gt, conf_gt, joints_gt = gt[..., :4], gt[..., 4], gt[..., 5:]
     loss_coord = weighted_mse(coords_pred * mc, coords_gt * mc, wm) * 4
     loss_obj = weighted_mse(conf_pred * mask_conf, conf_gt * mask_conf, weight_map)
-    loss_selfpose = weighted_mse(joints_pred * mc, joints_gt * mc, wm) * (3 * num_joints)
+    joint_factor = (4 if pred_vis else 3) * num_joints
+    loss_selfpose = weighted_mse(joints_pred * mc, joints_gt * mc, wm) * joint_factor
     return loss_coord, loss_obj, loss_selfpose
 
 
@@ -83,9 +87,11 @@ def yolo_loss(pred, prior_gt, mask_conf, mask_coord, weight_map, num_joints):
 
 
 def popnet_loss(saved_for_loss, heat_gt, zmap_gt, fg_mask_z, alignmap_gt, fg_mask_align,
-                prior_gt, prior_mask_conf, prior_mask_coord, prior_weight_map, num_joints):
+                prior_gt, prior_mask_conf, prior_mask_coord, prior_weight_map, num_joints,
+                pred_vis: bool = False):
     """PoP-Net: per stage heat (weighted 0.1 + 0.9 * fg, background 1), z
-    (0.1 + 0.9 * fg) and align (fg) MSE, plus the pose-weighted prior loss.
+    (0.1 + 0.9 * fg) and align (fg) MSE, plus the pose-weighted prior loss
+    (with `pred_vis`, of the prior with visibility channels).
     saved_for_loss: [heat1, z1, align1, ..., heatS, zS, alignS, prior]
     (NCHW)."""
     saved = [_nhwc(t) for t in saved_for_loss[:-1]]
@@ -104,7 +110,7 @@ def popnet_loss(saved_for_loss, heat_gt, zmap_gt, fg_mask_z, alignmap_gt, fg_mas
         logs[f"stage{j + 1}_align"] = l3
     loss_coord, loss_obj, loss_selfpose = _prior_loss(
         saved_for_loss[-1], prior_gt, prior_mask_conf, prior_mask_coord, prior_weight_map,
-        num_joints)
+        num_joints, pred_vis)
     loss_prior = loss_coord + loss_obj + loss_selfpose
     total = total + loss_prior
     logs["loss_prior"] = loss_prior

@@ -2,8 +2,9 @@
 
 - stem: ResPreprocessStem (stride 8, 128 ch), shared by all heads;
 - prior subnet: 3 x ConvBN 256 on the stem -> 2x2 max pool (stride 16) ->
-  ConvBN 256, ConvBN 128 -> 3x3 conv without bias to A * (5 + 3K) channels,
-  cast per anchor (`cast_prior_map`);
+  ConvBN 256, ConvBN 128 -> 3x3 conv without bias to A * (5 + 3K) channels
+  (A * (5 + 4K) with `pred_vis`: a visibility per joint too), cast per
+  anchor (`cast_prior_map`);
 - per stage: heat (no BatchNorm) -> K+1, z -> K, align -> 2K, all with a
   1x1 output conv; stage-2 input = cat(heat, z, align, stem) on channels;
 - head casting: heat sigmoid, z and align (sigmoid - 0.5) * 4.
@@ -31,7 +32,8 @@ _STAGE2 = {"heat": ((128, 3),) * 5 + ((128, 1),),
 
 class PopNet(nn.Module):
     def __init__(self, num_parts: int = 15, num_stages: int = 2,
-                 anchors: tuple[tuple[float, float], ...] = ((6.0, 3.0), (12.0, 6.0))):
+                 anchors: tuple[tuple[float, float], ...] = ((6.0, 3.0), (12.0, 6.0)),
+                 pred_vis: bool = False):
         super().__init__()
         self.num_stages = num_stages
         self.num_anchors = len(anchors)
@@ -43,7 +45,8 @@ class PopNet(nn.Module):
             in_ch = 256
         self.prior_head0 = ConvBN(256, 256, 3)
         self.prior_head1 = ConvBN(256, 128, 3)
-        self.prior_out = nn.Conv2d(128, self.num_anchors * (5 + 3 * num_parts), 3,
+        n_joint_feats = 4 if pred_vis else 3
+        self.prior_out = nn.Conv2d(128, self.num_anchors * (5 + n_joint_feats * num_parts), 3,
                                    padding=1, bias=False)
         outs = {"heat": num_parts + 1, "z": num_parts, "align": 2 * num_parts}
         for i in range(1, num_stages + 1):

@@ -15,7 +15,9 @@ are channels-last, as the JAX package makes them:
 - align_maps and fg_masks_align (B, H, W, 2K): truncated normalized offsets
   to the nearest joint of the type (the first person among equals);
 - prior_map (B, H, W, A*(5+3K)) and prior_mask_conf, prior_mask_coord,
-  prior_weight_map (B, H, W, A): the anchor targets of the prior subnet.
+  prior_weight_map (B, H, W, A): the anchor targets of the prior subnet;
+  with `pred_vis`, (B, H, W, A*(5+4K)), each joint's visibility inferred
+  from the encoded z-maps (`infer_joint_visibility`) appended per anchor.
 
 Conventions: a joint takes part iff 0 <= x < input_x and 0 <= y < input_y
 and its person is valid; heat cell (i, j) has pixel centre
@@ -175,15 +177,37 @@ def _wh_iou(wh: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     return inter / union
 
 
+def infer_joint_visibility(joints2d, joints_z, zmaps_norm, cfg: EncoderConfig,
+                           depth: DepthStats, depth_thresh: float = 0.03):
+    """(B, P, K) float32 visibility of each joint in the z-buffered pose-depth
+    map: 1 where the joint's z-grid cell (its coordinates over stride_z,
+    truncated) lies on the grid and the normalized z-map zmaps_norm
+    (B, zgrid_h, zgrid_w, K) there agrees with the joint's depth within
+    `depth_thresh` metres."""
+    H, W = cfg.zgrid_h, cfg.zgrid_w
+    xj = torch.trunc(div_const(joints2d[..., 0], cfg.stride_z)).long()       # (B, P, K)
+    yj = torch.trunc(div_const(joints2d[..., 1], cfg.stride_z)).long()
+    inb = (xj >= 0) & (xj < W) & (yj >= 0) & (yj < H)
+    B, P, K = xj.shape
+    b = torch.arange(B, device=xj.device)[:, None, None]
+    k = torch.arange(K, device=xj.device)[None, None, :]
+    zread = zmaps_norm[b, yj.clamp(0, H - 1), xj.clamp(0, W - 1), k]
+    zj_norm = div_const(joints_z - depth.mean, depth.std)
+    agree = (zread - zj_norm).abs() * depth.std <= depth_thresh
+    return (inb & agree).float()
+
+
 def encode_prior_targets(bboxes, joints2d, joints_z, pose_weights, person_valid,
                          cfg: EncoderConfig, depth: DepthStats, noobject_scale: float = 0.1,
-                         object_scale: float = 1.0):
-    """Anchor targets of the prior subnet: (prior_map (B, H, W, A*(5+3K)),
+                         object_scale: float = 1.0, visibility=None):
+    """Anchor targets of the prior subnet: (prior_map (B, H, W, A*naf),
     mask_conf, mask_coord, weight_map (B, H, W, A)). A valid person's
     target [dx, dy, w/aw, h/ah, 1, K x-offsets / (aw/2), K y-offsets /
-    (ah/2), K normalized z] goes to its box centre's cell and its best
-    anchor by IoU; people are written in order, the later standing."""
-    H, W, A, K = cfg.prior_h, cfg.prior_w, cfg.num_anchors, cfg.num_joints
+    (ah/2), K normalized z] (naf = 5 + 3K), followed by its K visibilities
+    where `visibility` (B, P, K) is given (naf = 5 + 4K), goes to its box
+    centre's cell and its best anchor by IoU; people are written in order,
+    the later standing."""
+    H, W, A = cfg.prior_h, cfg.prior_w, cfg.num_anchors
     dev = bboxes.device
     anchors = torch.as_tensor(cfg.anchors, dtype=torch.float32, device=dev)   # (A, 2)
     B, P = bboxes.shape[:2]
@@ -206,9 +230,10 @@ def encode_prior_targets(bboxes, joints2d, joints_z, pose_weights, person_valid,
         (jx - gif[..., None]) / div_const(aw, 2.0)[..., None],
         (jy - gjf[..., None]) / div_const(ah, 2.0)[..., None],
         jz,
-    ], -1)                                                                    # (B, P, 5+3K)
+    ] + ([] if visibility is None else [visibility]), -1)                     # (B, P, naf)
+    naf = target.shape[-1]
 
-    prior = torch.zeros((B, H, W, A, 5 + 3 * K), dtype=torch.float32, device=dev)
+    prior = torch.zeros((B, H, W, A, naf), dtype=torch.float32, device=dev)
     mconf = torch.full((B, H, W, A), noobject_scale, dtype=torch.float32, device=dev)
     mcoord = torch.zeros((B, H, W, A), dtype=torch.float32, device=dev)
     wmap = torch.ones((B, H, W, A), dtype=torch.float32, device=dev)
@@ -220,7 +245,7 @@ def encode_prior_targets(bboxes, joints2d, joints_z, pose_weights, person_valid,
         mconf[b, y, x, n] = object_scale
         mcoord[b, y, x, n] = 1.0
         wmap[b, y, x] = pose_weights[b, p, None]
-    return prior.reshape(B, H, W, A * (5 + 3 * K)), mconf, mcoord, wmap
+    return prior.reshape(B, H, W, A * naf), mconf, mcoord, wmap
 
 
 def encode_targets(joints2d, joints3d, bboxes, pose_weights, person_valid, depth_resize,
@@ -229,10 +254,9 @@ def encode_targets(joints2d, joints3d, bboxes, pose_weights, person_valid, depth
     """The full GT-target bundle of a batch: joints2d (B, P, K, 2),
     joints3d (B, P, K, 3), bboxes (B, P, 4), pose_weights (B, P),
     person_valid (B, P) bool, depth_resize (B, zgrid_h, zgrid_w) -> the
-    dict of channels-last targets named as the JAX package names them."""
-    if pred_vis:
-        raise NotImplementedError("the visibility-inferring prior targets (pred_vis) wait "
-                                  "for ROADMAP Queue 1 item 10c")
+    dict of channels-last targets named as the JAX package names them; with
+    `pred_vis`, the prior carries each joint's visibility inferred from the
+    encoded z-maps."""
     joints_z = joints3d[..., 2]
     out = {"heatmaps": encode_heatmaps(joints2d, person_valid, cfg),
            "pafs": encode_pafs(joints2d, person_valid, cfg)}
@@ -241,7 +265,9 @@ def encode_targets(joints2d, joints3d, bboxes, pose_weights, person_valid, depth
     if pose_align:
         out["align_maps"], out["fg_masks_align"] = encode_alignmaps(joints2d, person_valid, cfg)
     if with_prior:
+        vis = (infer_joint_visibility(joints2d, joints_z, out["zmaps"], cfg, depth)
+               if pred_vis else None)
         (out["prior_map"], out["prior_mask_conf"], out["prior_mask_coord"],
          out["prior_weight_map"]) = encode_prior_targets(
-            bboxes, joints2d, joints_z, pose_weights, person_valid, cfg, depth)
+            bboxes, joints2d, joints_z, pose_weights, person_valid, cfg, depth, visibility=vis)
     return out

@@ -36,12 +36,12 @@ def _rtpose_loss(out, batch):
                                         batch["fg_masks_z"])
 
 
-def _popnet_loss(out, batch, num_joints: int = 15):
+def _popnet_loss(out, batch, num_joints: int = 15, pred_vis: bool = False):
     _, saved = out
     return popnet_loss(saved, batch["heatmaps"], batch["zmaps"], batch["fg_masks_z"],
                        batch["align_maps"], batch["fg_masks_align"], batch["prior_map"],
                        batch["prior_mask_conf"], batch["prior_mask_coord"],
-                       batch["prior_weight_map"], num_joints)
+                       batch["prior_weight_map"], num_joints, pred_vis)
 
 
 def _yolo_loss(out, batch, num_joints: int = 15):
@@ -78,9 +78,10 @@ def make_rtpose_train_step():
     return _make_step(_rtpose_loss)
 
 
-def make_popnet_train_step(num_joints: int = 15):
-    """PoP-Net with the composite loss, pose-weighted."""
-    return _make_step(lambda out, batch: _popnet_loss(out, batch, num_joints))
+def make_popnet_train_step(num_joints: int = 15, pred_vis: bool = False):
+    """PoP-Net with the composite loss, pose-weighted; with `pred_vis`, for
+    `PopNet(pred_vis=True)` and targets with visibility channels."""
+    return _make_step(lambda out, batch: _popnet_loss(out, batch, num_joints, pred_vis))
 
 
 def make_yolo_train_step(num_joints: int = 15):
@@ -92,8 +93,8 @@ def make_rtpose_eval_loss():
     return _make_eval_loss(_rtpose_loss)
 
 
-def make_popnet_eval_loss(num_joints: int = 15):
-    return _make_eval_loss(lambda out, batch: _popnet_loss(out, batch, num_joints))
+def make_popnet_eval_loss(num_joints: int = 15, pred_vis: bool = False):
+    return _make_eval_loss(lambda out, batch: _popnet_loss(out, batch, num_joints, pred_vis))
 
 
 def make_yolo_eval_loss(num_joints: int = 15):

@@ -942,3 +942,94 @@ def test_train_subcommand_on_the_card_writes_checkpoints_that_evaluate_reads(cud
                 "labels_val.json", "--ckpt", os.path.join(out, "ckpt"), "--batch-size", "4",
                 "--out-dir", str(tmp_path / "ev")])
     assert os.path.exists(tmp_path / "ev" / "yolo_results.json") and "pck2d" in res
+
+
+# -- mp-aug training (chip_smoke.py phase 8's checks at a small size) ----------------------
+
+
+@pytest.fixture(scope="module")
+def mpaug_set(tmp_path_factory):
+    """chip_smoke.py's mp-aug set: 5 location files of 8 recordings, 8
+    backgrounds, 4 + 4 frames of labels.json and labels_val.json, written
+    from the CPU."""
+    import chip_smoke
+
+    root = str(tmp_path_factory.mktemp("cuda_mpaug"))
+    rng = np.random.default_rng(43)
+    chip_smoke.write_train_set(rng, "cpu", root, 4, 4)
+    chip_smoke.write_mpaug_bank(rng, "cpu", root, 8)
+    return root
+
+
+@pytest.mark.parametrize("name", ["KDH3DMPAugDataset", "DeviceMPAugDataset",
+                                  "KDH3DMPAugAdvDataset"])
+def test_mpaug_batch_on_the_card_equals_the_cpu(cuda, mpaug_set, name):
+    """A batch of 8 with PoP-Net's targets and the visibility prior, made on
+    the card and on the CPU from the same seed: image, z-maps, masks and
+    visibility channels bit for bit, the other maps within 2e-6; the
+    generators in lockstep."""
+    import chip_smoke
+    from popnet_tpu_torch.data import datasets
+
+    cls = getattr(datasets, name)
+    cds = chip_smoke.mpaug_dataset(cls, mpaug_set, cuda, pred_vis=True)
+    hds = chip_smoke.mpaug_dataset(cls, mpaug_set, "cpu", pred_vis=True)
+    idx = np.arange(8)
+    chip_smoke.compare_vis(name, cds.get_batch(idx), hds.get_batch(idx))
+    assert cds.rng.bit_generator.state == hds.rng.bit_generator.state
+
+
+def test_stream_on_the_card_equals_the_cpu_and_the_full_bank(cuda, mpaug_set):
+    """A staged shard's batch on the card equals the CPU's and the card's
+    full bank's bit for bit; a streamed epoch on the card covers every index
+    once with at most two shards resident, none after it."""
+    import torch
+
+    import chip_smoke
+    from popnet_tpu_torch.data.datasets import DeviceMPAugDataset
+    from popnet_tpu_torch.data.streaming import StreamingDeviceMPAugDataset
+
+    mk = lambda where: chip_smoke.mpaug_dataset(StreamingDeviceMPAugDataset, mpaug_set, where,
+                                                shard_indices=4)
+    card, host = mk(cuda), mk("cpu")
+    full = chip_smoke.mpaug_dataset(DeviceMPAugDataset, mpaug_set, cuda)
+    idx = np.arange(4, 8)
+    batches = []
+    for ds in (card, host):
+        shard = ds._stage(1)
+        batches.append(chip_smoke.shard_batch(ds, shard, idx))
+        ds._release(shard)
+    chip_smoke.compare_batches("stream", *batches)
+    ref = full.get_batch(idx)
+    assert all(torch.equal(ref[k], batches[0][k]) for k in ref)
+    stream = mk(cuda)
+    seen, inner = [], stream._bank_batch
+    stream._bank_batch = lambda i, *r: seen.append([int(x) for x in i]) or inner(i, *r)
+    for _ in stream.iter_batches(2):
+        pass
+    assert sorted(sum(seen, [])) == list(range(len(stream)))
+    assert stream.max_live_shards <= 2 and stream._live_shards == 0
+
+
+def test_pred_vis_step_on_the_card_matches_the_cpu(cuda, mpaug_set):
+    """PoP-Net --pred-vis, one step on 4 device-bank frames, card against
+    CPU at chip_smoke.train_step_checks' bars."""
+    import chip_smoke
+    from popnet_tpu_torch.data.datasets import DeviceMPAugDataset
+
+    idx = np.arange(4)
+    card, host = (chip_smoke.mpaug_dataset(DeviceMPAugDataset, mpaug_set, where, pred_vis=True)
+                  .get_batch(idx) for where in (cuda, "cpu"))
+    chip_smoke.train_step_checks("popnet --pred-vis", "popnet", card, host, cuda, pred_vis=True)
+
+
+@pytest.mark.parametrize("extra", [["--device-bank"], ["--stream-bank", "4", "--stream-repeats",
+                                                       "2"]])
+def test_train_mp_aug_on_the_card(cuda, mpaug_set, tmp_path, extra):
+    """`train --mp-aug` on the card, 1 epoch at batch 4, finite losses."""
+    from popnet_tpu_torch.cli.main import main
+
+    trainer = main(["train", "--model", "popnet", "--data-root", mpaug_set, "--mp-aug",
+                    "--batch-size", "4", "--epochs", "1", "--lr", "0.05", "--out-dir",
+                    str(tmp_path / "run"), *extra])
+    assert trainer.device.type == "cuda" and np.isfinite(trainer.history[0]["train_loss"])

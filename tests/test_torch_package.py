@@ -68,7 +68,8 @@ def test_port_imports_with_jax_and_reference_blocked():
                   "cli.yolo_a2j", "cli.main", "data.datasets", "data.labels",
                   "data.augment_device", "decode.readout", "decode.assemble", "core.device",
                   "ops.encoders", "losses.losses", "train.state", "train.schedule",
-                  "train.steps", "train.checkpoint", "train.loop"):
+                  "train.steps", "train.checkpoint", "train.loop", "data.compositing",
+                  "data.streaming"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)

@@ -223,6 +223,36 @@ def test_prior_encoder_last_person_wins_and_align_ties_take_the_first():
     assert dx == np.float32(-(2.5 - np.float32(17.0) / 8) / 2.5)            # person 0's side
 
 
+def test_paf_band_edge_cell_pinned_beside_both_jax_values():
+    """The PAF cell where a limb's band width is 1 in exact arithmetic
+    (random_labels(114), the even frames' joints snapped to quarter pixels;
+    frame 10, cell (5, 3), limb 9: person 3's unit vector rounds to (0.6,
+    0.8), its width 1.0000000019 exactly). Rounded once a product the width
+    is 0.99999994 and person 3 paints; as the fused multiply-add
+    fma(ba_x, u1, -(ba_y * u0)) it is 1.0 and it does not. The compiled
+    JAX encoder (per frame and batched alike) counts two painters but adds
+    person 2's vector alone, so no one paint mask gives its value: the port
+    keeps one mask, in plain float32, equal to JAX run op by op (both
+    people's vectors over 2)."""
+    labels = list(random_labels(114))
+    labels[0] = labels[0].copy()
+    labels[0][0::2] = np.round(labels[0][0::2] * 4) / 4
+    cell = (10, 5, 3, slice(18, 20))
+    got = port_targets(labels)["pafs"][cell].numpy()
+    frame = [jnp.asarray(a[10]) for a in labels]
+    with jax.disable_jit():
+        eager = np.asarray(jenc.encode_targets(*frame, JECFG, JAX_DEPTH)["pafs"])[cell[1:]]
+    per_frame = np.asarray(jenc.encode_targets(*frame, JECFG, JAX_DEPTH)["pafs"])[cell[1:]]
+    batched = np.asarray(jax_targets(labels)["pafs"])[cell]
+    u2 = np.float32([-0.5014238, -0.86520183])
+    np.testing.assert_allclose(got, (u2 + np.float32([0.6, 0.8])) / 2, rtol=0, atol=1e-8)
+    np.testing.assert_array_equal(got, eager)
+    np.testing.assert_array_equal(per_frame, u2 / np.float32(2))
+    np.testing.assert_array_equal(batched, per_frame)
+    np.testing.assert_array_equal(got, np.float32([0.049288124, -0.03260091]))
+    np.testing.assert_array_equal(batched, np.float32([-0.2507119, -0.43260092]))
+
+
 # -- the training dataset ----------------------------------------------------------
 
 
@@ -590,15 +620,11 @@ def test_train_subcommand_writes_history_and_checkpoints_that_evaluate_scores(
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    for extra, what in ((["--mp-aug"], "10b"), (["--pred-vis"], "10c"),
-                        (["--model", "a2j"], "11b"), (["--dataset", "coco"], "11c"),
-                        (["--mesh", "data=4"], "item 13")):
+    for extra, what in ((["--model", "a2j"], "11b"), (["--dataset", "coco"], "11c"),
+                        (["--mesh", "data=4"], "item 13"), (["--n-micro", "4"], "item 13")):
         with pytest.raises(SystemExit, match=what):
             port_main(["train", "--data-root", str(tmp_path), "--device", "cpu", *extra])
     state = TrainState(YoloPoseNet(), make_optimizer(YoloPoseNet()))
     assert set(state.state_dict()) == {"model", "optimizer"}
     with pytest.raises(NotImplementedError, match="item 13"):
         _trainer(tmp_path, layout="tp")
-    with pytest.raises(NotImplementedError, match="10c"):
-        penc.encode_targets(*map(torch.as_tensor, random_labels(0, B=1)), PECFG,
-                            config.KDH3D_DEPTH, pred_vis=True)
