@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (popnet_tpu_torch) on one NVIDIA card.
 
 Drives the port's five serving paths at the models' full width, its
-MP-3DHP evaluation drivers for the four depth families, and the training
+MP-3DHP evaluation drivers for the four depth families, the training
 of three of them on single-person frames (phase 7) and on mp-aug
-multi-person composites (phase 8): the four
+multi-person composites (phase 8), and A2J's training (phase 9): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -142,6 +142,30 @@ Phases, one or more lines each:
    their kernel launches (a "mpaug_ckpt_eval_launches" entry in each row
    of the kernels line).
 
+9. a2j: A2J training (popnet_tpu_torch.data.augment_host, the training
+   half of data.a2j_crops, cli.main train --model a2j) at full width, 288²
+   crops, float32: phase 8's writers again (5 location files of 256
+   recordings, 8 backgrounds, 64 validation frames); (a) an A2JCropDataset
+   batch of 32 over KDH3DMPAugDataset made on the card against the CPU's
+   from the same seed (the augmented frames, boxes, joints, crops and
+   labels bit for bit, the erasing bit for bit on the card's draws, both
+   generators' next draws equal); (b) the warps alone on 32 frames,
+   Rotate and RenderDepth + Resize, card against CPU bit for bit, with
+   their ms on the card; (c) one Adam-L2 step from the seeded init on 8
+   crops, card against CPU (train_step_checks), and the train-mode
+   BatchNorm statistics at Flax's momentum 0.99 (a2j_batchnorm_check); (d)
+   `train --model a2j --mp-aug --bg-aug --batch-size 32 --epochs 2
+   --val-labels labels_val.json` (cuDNN deterministic), `--resume` for one
+   more epoch against 3 epochs in one call, bit for bit: the losses, e2e
+   train crops/s over epoch 2, the input pipeline, its frames stage and
+   the host composite alone over an epoch, the step's ms and TFLOP/s,
+   max_memory_allocated, and no kernel launched; (e) `evaluate --model
+   a2j --ckpt` of that run with phase 7's Yolo-Pose+ checkpoint as the
+   detector, on phase 6's "bg" set, and the driver with those checkpoints
+   on the card against the host (compare_eval_json), with their kernel
+   launches (the "a2j_train_launches" and "a2j_ckpt_eval_launches"
+   entries of each row, 0 expected).
+
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
 from the root of a checkout: python3 chip_smoke.py
@@ -152,8 +176,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2100,9 +2126,11 @@ class Recorder:
         return infer
 
 
-def eval_family(tag: str, model: str, opts: dict, paths, dev, batch: int, weights: dict):
+def eval_family(tag: str, model: str, opts: dict, paths, dev, batch: int, weights: dict,
+                ckpts: dict | None = None):
     """One family's driver (cli.main.run_evaluation) on the card with the
-    committed weights (A2J from its seeded init), then on the host with the
+    committed weights (A2J from its seeded init) or the port's checkpoint
+    directories `ckpts` ({model: dir, "yolo_for_a2j": dir}), then on the host with the
     same CNN outputs, through the plain versions of the kernels. Returns
     (card JSON, host JSON, timing {seconds: the card run, cnn_seconds,
     data_seconds: get_batch, load_seconds: the .npy loads of get_batch and
@@ -2113,8 +2141,10 @@ def eval_family(tag: str, model: str, opts: dict, paths, dev, batch: int, weight
     from popnet_tpu_torch.cli.main import make_infers, run_evaluation
     from popnet_tpu_torch.data.datasets import MPRealDataset
 
+    ckpts = ckpts or {}
     infer, infer_yolo = make_infers(model, weights.get(model), weights.get("yolo_for_a2j"),
-                                    seed=A2J_SEED, device=dev)
+                                    seed=A2J_SEED, device=dev, ckpt=ckpts.get(model),
+                                    yolo_ckpt=ckpts.get("yolo_for_a2j"))
     rec = Recorder(infer, f"{tag} {'crops' if model == 'a2j' else 'images'}")
     rec_yolo = Recorder(infer_yolo, f"{tag} detector images") if infer_yolo else None
     ds = MPRealDataset(*paths, device=dev)
@@ -2272,7 +2302,7 @@ def painted_oracle(paths, dev, batch: int, device_decode: bool) -> tuple[dict, d
     return ev.evaluate_eval_data(data, verbose=False), ev.evaluate_ablation_channels(data)
 
 
-def phase_eval(rng, dev, n: int = 256, batch: int = 64) -> dict:
+def phase_eval(rng, dev, n: int = 256, batch: int = 64, keep: str | None = None) -> dict:
     """The MP-3DHP evaluation drivers on the card (the port's eval path):
     two labelled sets of n frames, each family's driver with the committed
     weights (A2J seeded) at `batch`, float32 CNNs; the same CNN outputs
@@ -2280,7 +2310,8 @@ def phase_eval(rng, dev, n: int = 256, batch: int = 64) -> dict:
     the vote's bar) and metrics equal; the batched metrics on the card
     against NumPy's; the painted Open-Pose+ oracle over its bars; the
     `evaluate` and `benchmark` subcommands once. Returns the eval path's
-    launch counts."""
+    launch counts; with `keep`, the "bg" set is copied to keep/eval_bg
+    (phase 9 evaluates A2J on it)."""
     import tempfile
 
     import torch
@@ -2367,6 +2398,8 @@ def phase_eval(rng, dev, n: int = 256, batch: int = 64) -> dict:
         say("eval", "python -m popnet_tpu_torch.cli.main evaluate --model openpose (on the card) "
             "wrote openpose_results.json, and benchmark scores it as evaluate did, in "
             f"{time.perf_counter() - t0:.1f} s")
+        if keep is not None:
+            shutil.copytree(os.path.dirname(sets["bg"][0]), os.path.join(keep, "eval_bg"))
     return launches
 
 
@@ -2471,6 +2504,8 @@ def one_step(family: str, batch: dict, dev, dtype, pred_vis: bool = False):
     from popnet_tpu_torch.train import steps
     from popnet_tpu_torch.train.state import TrainState, make_optimizer
 
+    if family == "a2j":
+        return a2j_one_step(batch, dev, dtype)
     if pred_vis:
         model = PopNet(pred_vis=True)
         step = steps.make_popnet_train_step(pred_vis=True)
@@ -2539,7 +2574,8 @@ def step_errors(a, b) -> dict:
 
 def train_step_checks(tag: str, family: str, batch_card: dict, batch_host: dict, dev,
                       pred_vis: bool = False) -> None:
-    """(b): one step from the committed weights on STEP_BATCH frames, card
+    """(b): one step from the committed weights (A2J: its seeded init and
+    the recipe's Adam-L2, `a2j_one_step`) on STEP_BATCH frames, card
     against CPU. float64 on both: the step bars (loss 1e-5, each tensor's
     update within 1e-3 of the CPU's largest, floored at 1e-6 of the largest
     of any tensor, `step_errors`; BatchNorm statistics 1e-5; the conv
@@ -2559,8 +2595,10 @@ def train_step_checks(tag: str, family: str, batch_card: dict, batch_host: dict,
         host = steps["cpu", dtype] = one_step(family, batch_host, "cpu", dtype, pred_vis)
         e = step_errors(card, host)
         name = str(dtype).split(".")[1]
-        say("train", f"{tag} step check, {name}, card vs CPU ({len(batch_host['image'])} frames, "
-            f"committed weights, TF32 off, cuDNN deterministic): loss {card[0]:.6f} vs {host[0]:.6f} "
+        n = len(next(iter(batch_host.values())))
+        init = "seeded init, Adam-L2" if family == "a2j" else "committed weights"
+        say("train", f"{tag} step check, {name}, card vs CPU ({n} frames, "
+            f"{init}, TF32 off, cuDNN deterministic): loss {card[0]:.6f} vs {host[0]:.6f} "
             f"(rel {e['loss']:.3g}), max per-tensor update error {e['update']:.3g} of the "
             f"tensor's largest update ({e['worst']}), whole-update norm {e['norm']:.3g}, "
             f"BatchNorm statistics rel {e['stats']:.3g}; the {len(host[3])} conv biases ahead of a "
@@ -2621,10 +2659,11 @@ def time_loop(trainer, ds, batch: int) -> float:
     return LOOP_EPOCHS * (len(ds) // batch) * batch / (time.perf_counter() - t0)
 
 
-def phase_train(rng, dev) -> dict:
+def phase_train(rng, dev, keep: str | None = None) -> dict:
     """Phase 7, the training path of the three depth families (see the
     module docstring). Returns {"train": launches of the training runs,
-    "ckpt_eval": launches of evaluate --ckpt}."""
+    "ckpt_eval": launches of evaluate --ckpt}; with `keep`, the Yolo-Pose+
+    run's checkpoint is copied to keep/yolo_ckpt (phase 9's detector)."""
     import tempfile
 
     import torch
@@ -2773,6 +2812,8 @@ def phase_train(rng, dev) -> dict:
         for name in EVAL_PATH:
             require(launches["ckpt_eval"][name] >= 1, f"evaluate --ckpt did not launch {name}")
         require(fused >= 1, "evaluate --ckpt did not launch the fused readouts")
+        if keep is not None:
+            shutil.copytree(os.path.join(root, "run_yolo", "ckpt"), os.path.join(keep, "yolo_ckpt"))
     say("train", f"training path launches per kernel: {launches['train']} (none expected)")
     require(not any(launches["train"].values()), "the training path launched a kernel")
     return launches
@@ -3128,6 +3169,293 @@ def phase_mpaug(rng, dev) -> dict:
     return launches
 
 
+# -- phase 9: A2J training --------------------------------------------------------------------
+
+A2J_LR, A2J_WD = 3.5e-4, 1e-4   # the recipe's Adam with L2 (the command line's A2J defaults)
+A2J_EPOCHS = 2              # the command line's run; --resume adds one, against 3 in one call
+# the head convs ahead of a BatchNorm, whose bias's gradient is zero in exact arithmetic
+A2J_ZERO_GRAD = {f"{h}.Conv_{n}.bias" for h in ("classification", "regression", "depth")
+                 for n in range(4)}
+A2J_BN_BAR = 1e-8           # float64: running statistics against 0.99 old + 0.01 batch, relative
+
+
+def a2j_one_step(batch: dict, dev, dtype):
+    """`one_step` for A2J: one Adam-L2 step (A2J_LR, A2J_WD) of
+    A2J(depth_prior=3.0) from its seeded init (A2J_SEED) on {"crops",
+    "labels"}, on `dev` in `dtype`, TF32 off and cuDNN deterministic."""
+    import torch
+
+    from popnet_tpu_torch.data.a2j_crops import CROP
+    from popnet_tpu_torch.models import A2J
+    from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
+    from popnet_tpu_torch.train.state import TrainState, make_optimizer
+    from popnet_tpu_torch.train.steps import make_a2j_train_step
+
+    model = A2J(depth_prior=3.0).init_seeded(A2J_SEED).to(dev, dtype)
+    state = TrainState(model, make_optimizer(model, "adam", A2J_LR, weight_decay=A2J_WD))
+    step = make_a2j_train_step(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()))
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    b = {k: v.to(dev, dtype) for k, v in batch.items()}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False, deterministic=True):
+        state, logs = step(state, b)
+    after = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return float(logs["loss"]), before, after, set(A2J_ZERO_GRAD)
+
+
+def a2j_dataset(root: str, dev, **kw):
+    """A2JCropDataset (seed 0) over KDH3DMPAugDataset of root's location
+    files, the inner built as `train --model a2j --mp-aug` builds it."""
+    from popnet_tpu_torch.data import datasets as pds
+    from popnet_tpu_torch.data.a2j_crops import A2JCropDataset
+
+    return A2JCropDataset(mpaug_dataset(pds.KDH3DMPAugDataset, root, dev, "openpose"), seed=0,
+                          **kw)
+
+
+def a2j_batchnorm_check(crops, dev) -> tuple[float, int]:
+    """One train-mode forward of the seeded A2J in float64 on the card:
+    each BatchNorm's running mean and variance become 0.99 x their start +
+    0.01 x the batch's mean and biased variance (Flax's momentum), within
+    A2J_BN_BAR relative. Returns (the largest error, the BatchNorms)."""
+    import torch
+
+    from popnet_tpu_torch.models import A2J
+    from popnet_tpu_torch.models.layers import BatchNorm
+    from popnet_tpu_torch.train.steps import _nchw
+
+    model = A2J(depth_prior=3.0).init_seeded(A2J_SEED).to(dev, torch.float64).train()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    seen = {}
+
+    def record(name):
+        def hook(_, args):
+            x = args[0]
+            seen[name] = (x.mean((0, 2, 3)), x.var((0, 2, 3), unbiased=False))
+        return hook
+
+    hooks = [m.register_forward_pre_hook(record(n)) for n, m in model.named_modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model(_nchw(crops.to(dev, torch.float64)))
+    finally:
+        for h in hooks:
+            h.remove()
+    got, worst = model.state_dict(), 0.0
+    for name, stats in seen.items():
+        for key, batch in zip(("running_mean", "running_var"), stats):
+            want = 0.99 * start[f"{name}.{key}"] + 0.01 * batch
+            err = (got[f"{name}.{key}"] - want).abs() / (want.abs() + 1e-12)
+            worst = max(worst, float(err.max()))
+    require(len(seen) == 65 and worst <= A2J_BN_BAR,
+            f"A2J BatchNorm statistics off Flax's momentum: {worst:.3g} (bar {A2J_BN_BAR})")
+    return worst, len(seen)
+
+
+def a2j_warp_checks(frames: list, rng, dev) -> dict:
+    """Rotate by uniform(+-10) degrees, and RenderDepth by uniform(0.7, 1.7)
+    then Resize back to 512x480, both about the KDH3D principal point, on
+    each of `frames` ((H, W) float32 CPU tensors): card against CPU bit for
+    bit. Returns each warp's card ms for the whole list (CUDA events)."""
+    from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS as cam
+    from popnet_tpu_torch.data import augment_host as ah
+
+    rots = rng.uniform(-10, 10, len(frames))
+    ratios = rng.uniform(0.7, 1.7, len(frames))
+    resize = ah.Resize(frames[0].shape[1], frames[0].shape[0])
+
+    def rotate(fs):
+        return [ah.Rotate.apply(f, [], r, cam.cx, cam.cy)[0] for f, r in zip(fs, rots)]
+
+    def render(fs):
+        return [resize(ah.RenderDepth.apply(f, [], a, cam.cx, cam.cy))[0]
+                for f, a in zip(fs, ratios)]
+
+    card = [f.to(dev) for f in frames]
+    ms = {}
+    for name, fn in (("Rotate", rotate), ("RenderDepth + Resize", render)):
+        got, ref = fn(card), fn(frames)
+        require(all(bool((g.cpu() == r).all()) and g.shape == r.shape for g, r in zip(got, ref)),
+                f"{name}: the card's warp differs from the CPU's")
+        ms[name] = time_ms(lambda: fn(card), reps=3, warm=1)
+    return ms
+
+
+def phase_a2j_train(rng, dev, keep: str) -> dict:
+    """Phase 9, A2J training (see the module docstring); `keep` holds phase
+    6's labelled "bg" set and phase 7's Yolo-Pose+ checkpoint. Returns
+    {"train": launches of the training runs, "ckpt_eval": launches of
+    evaluate --model a2j --ckpt}."""
+    import tempfile
+
+    import torch
+
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.data.a2j_crops import (CROP, apply_erasing, erasing_draws,
+                                                 erasing_rectangles)
+    from popnet_tpu_torch.models import A2J
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.train import checkpoint
+    from popnet_tpu_torch.train.steps import _nchw, make_a2j_train_step
+    from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
+
+    t_phase = time.perf_counter()
+    idx = np.arange(TRAIN_BATCH)
+    launches = {"train": {k.__name__: 0 for k in kernels.KERNELS}}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_train_set(rng, dev, root, TRAIN_BATCH, VAL_FRAMES)
+        write_mpaug_bank(rng, dev, root, MPAUG_PER_LOCATION)
+        say("a2j", f"wrote {len(MPAUG_CENTRES)} location files of {MPAUG_PER_LOCATION} "
+            f"single-person recordings, {N_BACKGROUNDS} backgrounds and {VAL_FRAMES} validation "
+            f"frames (phase 8's writers) in {time.perf_counter() - t0:.1f} s")
+
+        # (a) an A2JCropDataset batch on the card against the CPU's
+        t0 = time.perf_counter()
+        cds, hds = a2j_dataset(root, dev, erase=False), a2j_dataset(root, "cpu", erase=False)
+        fc, fh = cds.frames(idx), hds.frames(idx)
+        require(bool(torch.equal(fc[0].cpu(), fh[0])), "(a) the augmented frames differ")
+        require(all(np.array_equal(a, b) for a, b in zip(fc[1:], fh[1:])),
+                "(a) the boxes, joints or depths differ")
+        card, host = cds.crop_frames(*fc), hds.crop_frames(*fh)
+        require(all(bool(torch.equal(card[k].cpu(), host[k])) for k in host),
+                "(a) the crops or labels differ")
+        u, noise = erasing_draws(TRAIN_BATCH, CROP, cds.erase_generator)
+        rc, rh = erasing_rectangles(u, CROP), erasing_rectangles(u.cpu(), CROP)
+        require(all(bool(torch.equal(a.cpu(), b)) for a, b in zip(rc, rh)),
+                "(a) the erased rectangles differ")
+        ec = apply_erasing(card["crops"], rc, noise)
+        eh = apply_erasing(host["crops"], rh, noise.cpu())
+        require(bool(torch.equal(ec.cpu(), eh)), "(a) the erased crops differ")
+        require(int(cds.rng.integers(0, 1 << 30)) == int(hds.rng.integers(0, 1 << 30))
+                and int(cds.inner.rng.integers(0, 1 << 30))
+                == int(hds.inner.rng.integers(0, 1 << 30)), "(a) the generators' next draws differ")
+        say("a2j", f"(a) A2JCropDataset over KDH3DMPAugDataset, a batch of {TRAIN_BATCH} at "
+            f"{CROP}² made on the card equals the CPU's: augmented frames, boxes, joints, "
+            f"crops and labels bit for bit; erasing on the card's draws ({int(rc[0].sum())} of "
+            f"{TRAIN_BATCH} crops erased) bit for bit; both generators' next draws equal; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # (b) the warps alone
+        frames = [torch.from_numpy(hds.inner.load_composited(int(i))[0]) for i in idx]
+        warp_ms = a2j_warp_checks(frames, rng, dev)
+        say("a2j", f"(b) the warps on {len(frames)} frames of 512x480, card against CPU bit for "
+            "bit; card ms for the batch (CUDA events, eager): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in warp_ms.items()))
+
+        # (c) the step, card against CPU, and BatchNorm's momentum
+        sub = lambda b: {k: v[:STEP_BATCH] for k, v in b.items()}
+        train_step_checks("a2j:", "a2j", sub(card), sub(host), dev)
+        bn_err, n_bn = a2j_batchnorm_check(card["crops"][:STEP_BATCH], dev)
+        say("a2j", f"(c) one train-mode forward of the seeded A2J (float64, card): the running "
+            f"statistics of its {n_bn} BatchNorms are 0.99 x their start + 0.01 x the batch's "
+            f"mean and biased variance within {bn_err:.3g} relative (bar {A2J_BN_BAR})")
+
+        # (d) the command line: 2 epochs, --resume 1, against 3 in one call
+        cli = ["train", "--model", "a2j", "--data-root", root, "--device", str(dev), "--mp-aug",
+               "--bg-aug", "--batch-size", str(TRAIN_BATCH), "--val-labels", "labels_val.json"]
+        out, whole = os.path.join(root, "a2j_run"), os.path.join(root, "a2j_whole")
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+            trainer = cli_main([*cli, "--out-dir", out, "--epochs", str(A2J_EPOCHS)])
+            wall = time.perf_counter() - t0
+            mem = torch.cuda.max_memory_allocated() / 2**20
+            cli_main([*cli, "--out-dir", out, "--epochs", "1", "--resume"])
+            cli_main([*cli, "--out-dir", whole, "--epochs", str(A2J_EPOCHS + 1)])
+        for k, v in kernels.launch_counts().items():
+            launches["train"][k] += v
+        hist = trainer.history
+        losses = [h["train_loss"] for h in hist]
+        require(len(hist) == A2J_EPOCHS and bool(np.isfinite(losses + [h["val_loss"] for h in hist])
+                                                  .all()) and losses[-1] < losses[0],
+                f"train --model a2j: the loss is not finite and falling: {hist}")
+        a, _, sa = checkpoint.restore_checkpoint(os.path.join(out, "ckpt"))
+        b, _, sb = checkpoint.restore_checkpoint(os.path.join(whole, "ckpt"))
+        same = sa == sb == A2J_EPOCHS and all(torch.equal(v, b["model"][k])
+                                              for k, v in a["model"].items())
+        same = same and all(torch.equal(v, b["optimizer"]["state"][i][k])
+                            for i, st in a["optimizer"]["state"].items() for k, v in st.items())
+        hists = [[{k: v for k, v in json.loads(x).items() if k != "train_seconds"}
+                  for x in open(os.path.join(d, "history.jsonl"))] for d in (out, whole)]
+        require(same and hists[0] == hists[1],
+                f"train --model a2j: {A2J_EPOCHS} epochs + --resume 1 differ from "
+                f"{A2J_EPOCHS + 1} in one call")
+        n_train = MPAUG_PER_LOCATION // TRAIN_BATCH * TRAIN_BATCH
+        e2e = n_train / hist[1]["train_seconds"]
+        ds = a2j_dataset(root, dev)
+        t0, n = time.perf_counter(), 0
+        for bt in ds.iter_batches(TRAIN_BATCH):
+            torch.cuda.synchronize()
+            n += bt["crops"].shape[0]
+        pipe = n / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for s0 in range(0, n_train, TRAIN_BATCH):
+            ds.frames(np.arange(s0, s0 + TRAIN_BATCH))
+        torch.cuda.synchronize()
+        frames_rate = n_train / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for i in range(n_train):
+            ds.inner.load_composited(i)
+        composite_rate = n_train / (time.perf_counter() - t0)
+        batch = ds.get_batch(idx)
+        state = trainer.state
+        step = make_a2j_train_step(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()))
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            step_ms = time_ms(lambda: step(state, batch), reps=10, warm=2)
+        with torch.no_grad():
+            flops = 3.0 * conv_flops(A2J().to(dev).eval(), _nchw(batch["crops"]))
+        say("a2j", f"(d) train --model a2j --mp-aug --bg-aug --batch-size {TRAIN_BATCH} --epochs "
+            f"{A2J_EPOCHS} (288² crops, float32, TF32 off, cuDNN deterministic; Adam-L2 "
+            f"{A2J_LR}, StepLR): losses " + ", ".join(
+                f"epoch {h['epoch']} train {h['train_loss']:.5f} val {h['val_loss']:.5f}"
+                for h in hist)
+            + f"; e2e train {e2e:.1f} crops/s over epoch 2 ({n_train} crops, "
+            f"{hist[1]['train_seconds']:.3f} s, host clock); input pipeline alone {pipe:.1f} "
+            f"crops/s, its frames stage alone (composite, augmentation on the card, person "
+            f"draws) {frames_rate:.1f} frames/s, the host composite alone {composite_rate:.1f} "
+            f"frames/s (1 epoch each); step {step_ms:.3f} ms at batch {TRAIN_BATCH} (CUDA events) "
+            f"= {TRAIN_BATCH / step_ms * 1e3:.1f} crops/s, {flops / 1e12:.3f} TFLOP "
+            f"(3 x the convolutions' forward) = {flops / step_ms / 1e9:.1f} TFLOP/s; "
+            f"max_memory_allocated {mem:.1f} MiB; the command {wall:.1f} s; --resume for 1 "
+            f"epoch equals {A2J_EPOCHS + 1} epochs in one call bit for bit (parameters, "
+            f"BatchNorm statistics, Adam's moments and step, history); kernels launched: "
+            f"{sum(launches['train'].values())}")
+
+        # (e) evaluate --model a2j --ckpt on phase 6's labelled set
+        t0 = time.perf_counter()
+        eval_root = os.path.join(keep, "eval_bg")
+        ckpts = {"a2j": os.path.join(out, "ckpt"), "yolo_for_a2j": os.path.join(keep, "yolo_ckpt")}
+        kernels.reset_launches()
+        m = cli_main(["evaluate", "--model", "a2j", "--data-root", eval_root, "--ckpt",
+                      ckpts["a2j"], "--yolo-ckpt", ckpts["yolo_for_a2j"], "--device", str(dev),
+                      "--batch-size", str(EVAL_BATCH), "--out-dir", os.path.join(root, "a2j_eval")])
+        require(os.path.exists(os.path.join(root, "a2j_eval", "a2j_results.json")),
+                "evaluate --model a2j --ckpt: no JSON")
+        paths = (os.path.join(eval_root, "depth_maps"), os.path.join(eval_root, "labels.json"))
+        card_json, host_json, timing, a2j = eval_family("a2j --ckpt", "a2j", {}, paths, dev,
+                                                        EVAL_BATCH, {}, ckpts)
+        torch.cuda.synchronize()
+        launches["ckpt_eval"] = kernels.launch_counts()
+        bars = a2j_bars(a2j)
+        compare_eval_json("a2j --ckpt", card_json, host_json, bars)
+        people = sum(len(h) for h in card_json["human_pred_set_2d"])
+        say("a2j", f"(e) evaluate --model a2j --ckpt a2j_run/ckpt --yolo-ckpt (phase 7's "
+            f"Yolo-Pose+) on phase 6's {EVAL_FRAMES} labelled frames, on the card: "
+            + json.dumps({k: m[k] for k in ("pck2d", "pck3d", "map2d", "map3d")})
+            + f"; the driver with those checkpoints on the card and on the host with the same "
+            f"CNN outputs: JSON equal (A2J joints within the vote's bar: (y, x) {bars[3]:.4g} of "
+            f"{bars[1]:.4g}, z {bars[4]:.4g} of {bars[2]:.4g}), {people} people; launches "
+            f"{launches['ckpt_eval']}; {time.perf_counter() - t0:.1f} s")
+    say("a2j", f"A2J training launches per kernel: {launches['train']}, evaluate --ckpt's "
+        f"{launches['ckpt_eval']} (none expected)")
+    require(not any(launches["train"].values()) and not any(launches["ckpt_eval"].values()),
+            "the A2J training or evaluation path launched a kernel")
+    say("a2j", f"phase 9 passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the frames and test inputs")
@@ -3177,20 +3505,30 @@ def main(argv=None) -> int:
         if r["name"] in coco:
             r["coco"] = {k: v for k, v in coco[r["name"]].items()
                          if k not in ("name", "route", "source", "replaces")}
-    rng_eval = np.random.default_rng([args.seed, 7])  # the eval phase's labelled frames
-    eval_launches = phase_eval(rng_eval, dev, EVAL_FRAMES, EVAL_BATCH)
-    for r in rows:                  # launches on the eval path, beside the serving path's
-        r["eval_launches"] = eval_launches[r["name"]]
-    rng_train = np.random.default_rng([args.seed, 8])  # the training phase's frames
-    train_launches = phase_train(rng_train, dev)
-    for r in rows:                  # none on the training path; evaluate --ckpt's
-        r["train_launches"] = train_launches["train"][r["name"]]
-        r["ckpt_eval_launches"] = train_launches["ckpt_eval"][r["name"]]
-    rng_mpaug = np.random.default_rng([args.seed, 9])  # the mp-aug phase's recordings
-    mpaug_launches = phase_mpaug(rng_mpaug, dev)
-    for r in rows:                  # none on the mp-aug training path; evaluate --ckpt's
-        r["mpaug_train_launches"] = mpaug_launches["train"][r["name"]]
-        r["mpaug_ckpt_eval_launches"] = mpaug_launches["ckpt_eval"][r["name"]]
+    # phase 6's labelled set and phase 7's Yolo-Pose+ checkpoint, kept for phase 9
+    keep = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        rng_eval = np.random.default_rng([args.seed, 7])  # the eval phase's labelled frames
+        eval_launches = phase_eval(rng_eval, dev, EVAL_FRAMES, EVAL_BATCH, keep)
+        for r in rows:                  # launches on the eval path, beside the serving path's
+            r["eval_launches"] = eval_launches[r["name"]]
+        rng_train = np.random.default_rng([args.seed, 8])  # the training phase's frames
+        train_launches = phase_train(rng_train, dev, keep)
+        for r in rows:                  # none on the training path; evaluate --ckpt's
+            r["train_launches"] = train_launches["train"][r["name"]]
+            r["ckpt_eval_launches"] = train_launches["ckpt_eval"][r["name"]]
+        rng_mpaug = np.random.default_rng([args.seed, 9])  # the mp-aug phase's recordings
+        mpaug_launches = phase_mpaug(rng_mpaug, dev)
+        for r in rows:                  # none on the mp-aug training path; evaluate --ckpt's
+            r["mpaug_train_launches"] = mpaug_launches["train"][r["name"]]
+            r["mpaug_ckpt_eval_launches"] = mpaug_launches["ckpt_eval"][r["name"]]
+        rng_a2j = np.random.default_rng([args.seed, 10])  # the A2J training phase's recordings
+        a2j_launches = phase_a2j_train(rng_a2j, dev, keep)
+        for r in rows:                  # none on the A2J training or evaluate --ckpt paths
+            r["a2j_train_launches"] = a2j_launches["train"][r["name"]]
+            r["a2j_ckpt_eval_launches"] = a2j_launches["ckpt_eval"][r["name"]]
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")
     require(all(r["launches"] >= 1 for r in rows), "a kernel was launched on no path")
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -22,7 +22,8 @@ joints in 2D (RTPoseVGG from a seeded init: no COCO weights are committed).
 drivers of the four depth families (`cli/`), and `benchmark` scores their
 prediction JSON. `train` trains Open-Pose+, PoP-Net and Yolo-Pose+ on a
 KDH3D-format dataset (`ops/encoders.py`, `data/datasets.py`, `losses/`,
-`train/`), writing checkpoints that `evaluate --ckpt` reads.
+`train/`), and A2J on person crops of it (`data/augment_host.py`,
+`data/a2j_crops.py`), writing checkpoints that `evaluate --ckpt` reads.
 """
 
 from popnet_tpu_torch.interop.from_jax import load_npz, state_dict_from_jax

@@ -7,8 +7,8 @@
     python -m popnet_tpu_torch.cli.main benchmark --gt DATA/labels.json \\
         --pred runs/out/openpose_results.json
 
-`train` trains Open-Pose+, PoP-Net or Yolo-Pose+ (`--model openpose|popnet|
-yolo`) on a KDH3D-format dataset (DATA/depth_maps/*.npy and the label JSON
+`train` trains Open-Pose+, PoP-Net, Yolo-Pose+ or A2J (`--model openpose|
+popnet|yolo|a2j`) on a KDH3D-format dataset (DATA/depth_maps/*.npy and the label JSON
 `--labels`; with `--bg-aug`, composited over DATA/bg_maps by DATA/seg_maps
 and DATA/labels_bg.json; with `--mp-aug`, multi-person frames z-buffered
 from the per-location recordings of DATA/<--mp-label-prefix>*.json, on the
@@ -16,7 +16,9 @@ host, or over a scene bank resident on the device with `--device-bank`, or
 streamed through it in shards of N indices with `--stream-bank N`),
 validating on `--val-labels` without augmentation (and without mp-aug),
 with the JAX command line's flags and defaults (SGD-Nesterov
-at lr 1.0 and a plateau controller, batch 32, 224² input): it writes
+at lr 1.0 and a plateau controller, batch 32, 224² input; A2J with the
+JAX command line's A2J recipe: 288² person crops of those frames, Adam with
+L2 at 3.5e-4 and StepLR, `_a2j_trainer`): it writes
 `history.jsonl`, the periodic checkpoints `ckpt/` and the best-validation
 `ckpt_best/` to `--out-dir`, and `--resume` continues from `ckpt/`. The
 model starts from its seeded init (`init_seeded(--seed)`); convolutions run
@@ -39,8 +41,8 @@ Open-Pose+ encodes no prior, so the flag changes nothing there; Yolo-Pose+
 refuses it, as the JAX package has no visibility-aware Yolo loss.
 
 Options and models of the JAX command line that the port lacks raise,
-naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): A2J
-training (11b), COCO, MPII and ITOP training (11c), meshes and `--n-micro`
+naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): COCO,
+MPII and ITOP training (11c; ITOP's A2J crops too), meshes and `--n-micro`
 (13), `--fold-bn` and `--quant` (12), `--spatial` (13), ITOP, COCO and MPII
 evaluation (9b).
 """
@@ -78,12 +80,11 @@ _NOT_PORTED_TRAIN = {
     "blur_aug": "--blur-aug (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
 }
 _NOT_PORTED_TRAIN_DATASETS = {
-    "itop": "ITOP training waits for ROADMAP Queue 1 item 11c",
+    "itop": "ITOP training (and ITOP's A2J crops) waits for ROADMAP Queue 1 item 11c",
     "coco": "COCO training waits for ROADMAP Queue 1 item 11c",
     "mpii": "MPII training waits for ROADMAP Queue 1 item 11c",
 }
 _NOT_PORTED_TRAIN_MODELS = {
-    "a2j": "A2J training waits for ROADMAP Queue 1 item 11b",
     "rtpose_vgg": "rtpose_vgg trains on COCO, which waits for ROADMAP Queue 1 item 11c",
     "popnet_rgb": "popnet_rgb trains on MPII, which waits for ROADMAP Queue 1 item 11c",
 }
@@ -228,6 +229,39 @@ def _train_dataset(args, labels: str, ecfg: EncoderConfig, pose_align: bool, wit
         seg_dir=os.path.join(root, "seg_maps") if bg else None, **common)
 
 
+def _a2j_trainer(args, ecfg: EncoderConfig, device):
+    """The A2J recipe (the JAX command line's `_train_a2j`): person crops
+    of 288² from the training dataset that --mp-aug or --bg-aug pick
+    (`A2JCropDataset`, augmented, with random erasing), validation crops of
+    --val-labels without mp-aug, augmentation or erasing; Adam with L2 weight decay, at 3.5e-4
+    where --lr is left at 1.0 and 1e-4 where --weight-decay is left at 0;
+    StepLR(10 epochs, 0.2); loss = anchor + 3 * regression. Returns
+    (trainer, train set, validation set or None)."""
+    from popnet_tpu_torch.data.a2j_crops import CROP, A2JCropDataset
+    from popnet_tpu_torch.models import A2J
+    from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
+    from popnet_tpu_torch.train import steps
+    from popnet_tpu_torch.train.loop import Trainer
+    from popnet_tpu_torch.train.schedule import StepLR
+
+    anchors = torch.as_tensor(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()),
+                              dtype=torch.float32)
+    train_ds = A2JCropDataset(_train_dataset(args, args.labels, ecfg, False, False, device,
+                                             mp_aug=args.mp_aug), seed=args.seed)
+    val_ds = None
+    if args.val_labels:
+        inner = _train_dataset(args, args.val_labels, ecfg, False, False, device, augment=False)
+        val_ds = A2JCropDataset(inner, augment=False, seed=args.seed + 1)
+    lr = args.lr if args.lr != 1.0 else 3.5e-4
+    wd = args.weight_decay if args.weight_decay else 1e-4
+    # the depth head starts at the dataset's depth prior (3.0 m)
+    trainer = Trainer(A2J(depth_prior=3.0), steps.make_a2j_train_step(anchors),
+                      steps.make_a2j_eval_loss(anchors), learning_rate=lr, weight_decay=wd,
+                      out_dir=args.out_dir, seed=args.seed, optimizer="adam",
+                      scheduler=StepLR(lr, step_size=10, gamma=0.2), device=device)
+    return trainer, train_ds, val_ds
+
+
 def cmd_train(args):
     """Train a depth family (`train --help`); returns the Trainer."""
     from popnet_tpu_torch.core.device import resolve_device
@@ -251,23 +285,27 @@ def cmd_train(args):
 
     device = resolve_device(args.device)
     ecfg = EncoderConfig(input_x=args.input_size, input_y=args.input_size)
-    model, step, eval_loss, pose_align, with_prior = _family(args.model, ecfg, args.pred_vis)
-    train_ds = _train_dataset(args, args.labels, ecfg, pose_align, with_prior, device,
-                              mp_aug=args.mp_aug)
-    val_ds = None
-    if args.val_labels:
-        val_ds = _train_dataset(args, args.val_labels, ecfg, pose_align, with_prior, device,
-                                augment=False)
-    scheduler = None
-    if args.schedule == "cosine":
-        scheduler = WarmupCosine(args.lr, total_epochs=args.total_epochs or args.epochs,
-                                 warmup_epochs=args.warmup_epochs)
-    trainer = Trainer(model, step, eval_loss, learning_rate=args.lr, momentum=args.momentum,
-                      weight_decay=args.weight_decay, out_dir=args.out_dir, seed=args.seed,
-                      optimizer=args.optimizer, scheduler=scheduler, device=device)
-    if args.lr_patience is not None and args.schedule == "plateau":
-        # patience past the epoch budget holds the rate constant
-        trainer.scheduler.patience = args.lr_patience
+    if args.model == "a2j":
+        trainer, train_ds, val_ds = _a2j_trainer(args, ecfg, device)
+    else:
+        model, step, eval_loss, pose_align, with_prior = _family(args.model, ecfg,
+                                                                  args.pred_vis)
+        train_ds = _train_dataset(args, args.labels, ecfg, pose_align, with_prior, device,
+                                  mp_aug=args.mp_aug)
+        val_ds = None
+        if args.val_labels:
+            val_ds = _train_dataset(args, args.val_labels, ecfg, pose_align, with_prior, device,
+                                    augment=False)
+        scheduler = None
+        if args.schedule == "cosine":
+            scheduler = WarmupCosine(args.lr, total_epochs=args.total_epochs or args.epochs,
+                                     warmup_epochs=args.warmup_epochs)
+        trainer = Trainer(model, step, eval_loss, learning_rate=args.lr, momentum=args.momentum,
+                          weight_decay=args.weight_decay, out_dir=args.out_dir, seed=args.seed,
+                          optimizer=args.optimizer, scheduler=scheduler, device=device)
+        if args.lr_patience is not None and args.schedule == "plateau":
+            # patience past the epoch budget holds the rate constant
+            trainer.scheduler.patience = args.lr_patience
     if args.resume:
         trainer.resume()
     print(f"train {args.model} on {device}: float32 convolutions, TF32 off", flush=True)

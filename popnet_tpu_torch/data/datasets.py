@@ -217,6 +217,13 @@ class _TrainDataset:
     def __len__(self):
         return len(self.ids)
 
+    def rng_state(self):
+        """The generator's state, which a checkpoint keeps (`set_rng_state`)."""
+        return self.rng.bit_generator.state
+
+    def set_rng_state(self, state) -> None:
+        self.rng.bit_generator.state = state
+
     def _load_npy(self, path: str) -> np.ndarray:
         if not self.cache_images:
             return np.load(path).astype(np.float32)

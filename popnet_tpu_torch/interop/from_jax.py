@@ -7,8 +7,10 @@ modules carry the Flax auto-names as attribute names, so the mapping is by
 name: conv `kernel` HWIO -> `weight` OIHW, BatchNorm scale/bias/mean/var ->
 weight/bias/running_mean/running_var. `load_sgd_momentum` carries the
 trace of a JAX train state's SGD-Nesterov optimizer (optax `trace`, keyed
-by the same paths) into a torch SGD's momentum buffers, so a JAX run can
-continue in the port.
+by the same paths) into a torch SGD's momentum buffers, and
+`load_adam_state` the moments and count of its Adam (optax
+`scale_by_adam`) into a torch Adam's state, so a JAX run can continue in
+the port.
 """
 
 from __future__ import annotations
@@ -74,12 +76,39 @@ def load_sgd_momentum(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
     over `module`'s parameters) from optax's trace, given as
     {'params/<path>/kernel' | '.../bias' | '.../scale': array}; raises on a
     parameter the trace leaves out or a trace key no parameter takes."""
-    bufs = state_dict_from_jax(flat_trace)
-    params = dict(module.named_parameters())
-    missing, extra = sorted(params.keys() - bufs.keys()), sorted(bufs.keys() - params.keys())
-    if missing or extra:
-        raise ValueError(f"trace does not fit the module: missing {missing[:5]}, "
-                         f"unexpected {extra[:5]}")
-    for name, p in params.items():
+    bufs = _per_parameter(module, flat_trace, "trace")
+    for name, p in module.named_parameters():
         optimizer.state[p]["momentum_buffer"] = bufs[name].to(device=p.device, dtype=p.dtype)
+    return optimizer
+
+
+def _per_parameter(module: torch.nn.Module, flat: dict[str, np.ndarray], what: str) -> dict:
+    """{parameter name: tensor} from optax's per-parameter tree, given as
+    {'params/<path>/kernel' | '.../bias' | '.../scale': array}; raises on a
+    parameter it leaves out or a key no parameter takes."""
+    values = state_dict_from_jax(flat)
+    params = dict(module.named_parameters())
+    missing, extra = sorted(params.keys() - values.keys()), sorted(values.keys() - params.keys())
+    if missing or extra:
+        raise ValueError(f"{what} does not fit the module: missing {missing[:5]}, "
+                         f"unexpected {extra[:5]}")
+    return values
+
+
+def load_adam_state(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    flat_mu: dict[str, np.ndarray], flat_nu: dict[str, np.ndarray],
+                    count: int) -> torch.optim.Optimizer:
+    """Set `optimizer` (a torch Adam over `module`'s parameters) to the
+    state of optax's `scale_by_adam` after `count` steps: mu is torch's
+    `exp_avg`, nu its `exp_avg_sq` (both keyed as `load_sgd_momentum`'s
+    trace), and the count its `step`, so the next step's bias correction
+    is the same. Raises on a tree that does not fit the module."""
+    mu = _per_parameter(module, flat_mu, "mu")
+    nu = _per_parameter(module, flat_nu, "nu")
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(device=p.device, dtype=p.dtype),
+            "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype),
+        }
     return optimizer

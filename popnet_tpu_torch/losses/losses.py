@@ -8,7 +8,8 @@ every product lines up with the JAX package's NHWC computation, and the
 prior head's channel c = a * (5 + 3K) + f reads as anchor a, field f, as
 JAX's (H, W, A, naf) reshape reads it. Every loss returns (total, logs),
 logs a dict of 0-d tensors (the activation-range canaries too), left on
-the device.
+the device, but `a2j_loss`, which returns its two terms as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -124,3 +125,33 @@ def popnet_loss(saved_for_loss, heat_gt, zmap_gt, fg_mask_z, alignmap_gt, fg_mas
     logs["max_alignf"] = (saved[-1] * fg_mask_align).max()
     logs["min_alignf"] = (saved[-1] * fg_mask_align).min()
     return total, logs
+
+
+A2J_SPATIAL_FACTOR = 0.5   # the weight of A2J's in-plane regression term
+
+
+def _smooth_l1(diff):
+    """Smooth-L1 with beta 1 of non-negative differences."""
+    return torch.where(diff <= 1.0, 0.5 * diff ** 2, diff - 0.5)
+
+
+def a2j_loss(heads, annotations, all_anchors):
+    """A2J's anchor-weighted loss: heads (cls (B, N, K), reg (B, N, K, 2),
+    dep (B, N, K)) from `models.A2J`, annotations (B, K, 3) as (y, x, z),
+    all_anchors (N, 2) in (h, w) -> (anchor_loss, regression_loss), which
+    the caller combines as anchor + regression * factor. The softmax over
+    the anchors is written as the JAX package writes it, exp(cls - max) /
+    sum; the anchor and regression terms are smooth-L1 of the weighted
+    positions, the regression term times A2J_SPATIAL_FACTOR, plus the plain
+    L1 of the weighted depth."""
+    cls, reg, dep = heads
+    anchors = all_anchors[None, :, None, :]
+    w = torch.exp(cls - cls.amax(dim=1, keepdim=True))
+    w = w / w.sum(dim=1, keepdim=True)
+    gt_xy = annotations[..., :2]
+    anchor_pos = (w[..., None] * anchors).sum(dim=1)
+    anchor_loss = torch.mean(_smooth_l1((gt_xy - anchor_pos).abs()))
+    reg_pos = (w[..., None] * (anchors + reg)).sum(dim=1)
+    reg_loss = torch.mean(_smooth_l1((gt_xy - reg_pos).abs())) * A2J_SPATIAL_FACTOR
+    z_diff = (annotations[..., 2] - (w * dep).sum(dim=1)).abs()
+    return anchor_loss, reg_loss + torch.mean(z_diff)

@@ -15,7 +15,9 @@ Outputs:
 
 Submodule names are the Flax auto-names (`backbone/DilatedBottleneck_15`,
 `classification/Conv_4`, ...), so Flax variables load by name
-(`interop/from_jax.py`).
+(`interop/from_jax.py`). Every BatchNorm is `models.layers.BatchNorm`, so
+in train mode the running statistics move as Flax's (momentum 0.99, biased
+variance).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from popnet_tpu_torch.models.layers import max_pool_3x3_s2
+from popnet_tpu_torch.models.layers import BatchNorm, max_pool_3x3_s2
 
 
 class DilatedBottleneck(nn.Module):
@@ -39,16 +41,16 @@ class DilatedBottleneck(nn.Module):
         super().__init__()
         out = features * 4
         self.Conv_0 = nn.Conv2d(in_ch, features, 1, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(features)
         self.Conv_1 = nn.Conv2d(features, features, 3, stride=stride, padding=dilation,
                                 dilation=dilation, bias=False)
-        self.BatchNorm_1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.BatchNorm_1 = BatchNorm(features)
         self.Conv_2 = nn.Conv2d(features, out, 1, bias=False)
-        self.BatchNorm_2 = nn.BatchNorm2d(out, eps=1e-5)
+        self.BatchNorm_2 = BatchNorm(out)
         self.project = stride != 1 or in_ch != out
         if self.project:
             self.Conv_3 = nn.Conv2d(in_ch, out, 1, stride=stride, bias=False)
-            self.BatchNorm_3 = nn.BatchNorm2d(out, eps=1e-5)
+            self.BatchNorm_3 = BatchNorm(out)
 
     def forward(self, x):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -71,7 +73,7 @@ class ResNet50DepthBackbone(nn.Module):
     def __init__(self):
         super().__init__()
         self.Conv_0 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(64, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(64)
         in_ch = 64
         for n, (feats, stride, dilation) in enumerate(_BLOCKS):
             self.add_module(f"DilatedBottleneck_{n}",
@@ -97,7 +99,7 @@ class A2JHead(nn.Module):
         super().__init__()
         for n in range(4):
             self.add_module(f"Conv_{n}", nn.Conv2d(in_ch, feature_size, 3, padding=1))
-            self.add_module(f"BatchNorm_{n}", nn.BatchNorm2d(feature_size, eps=1e-5))
+            self.add_module(f"BatchNorm_{n}", BatchNorm(feature_size))
             in_ch = feature_size
         self.Conv_4 = nn.Conv2d(feature_size, out_channels, 3, padding=1)
 

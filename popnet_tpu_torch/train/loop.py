@@ -6,10 +6,11 @@ learning-rate controller on the validation loss, append to
 (3 kept); `resume` continues from the latest.
 
 A checkpoint holds the model, the optimizer (momentum buffers included),
-the controller's attributes whole and the training dataset's generator, so
-a resumed run continues as the uninterrupted one would (the JAX package
-restores the rate, `best` and the epoch of its controller, and its data
-generator starts again from the seed). The losses of an epoch are read
+the controller's attributes whole and the state of every generator of the
+training dataset (`rng_state`), so a resumed run continues as the
+uninterrupted one would (the JAX package restores the rate, `best` and the
+epoch of its controller, and its data generators start again from the
+seed). The losses of an epoch are read
 from the device once, at its end, as in the JAX package. Meshes and
 layouts other than one device wait for ROADMAP Queue 1 item 13.
 """
@@ -76,7 +77,7 @@ class Trainer:
         self.best_val = float("inf")
         self.epoch = 0
         self.history = []
-        self._data_rng_state = None     # a resumed run's training generator
+        self._data_rng_state = None     # a resumed run's training generators
 
     def train_epoch(self, dataset, batch_size: int) -> float:
         batch_time, data_time = AverageMeter(), AverageMeter()
@@ -100,7 +101,8 @@ class Trainer:
     def validate(self, dataset, batch_size: int) -> float:
         losses = AverageMeter()
         for batch in dataset.iter_batches(batch_size, shuffle=False, drop_last=False):
-            losses.update(float(self.eval_loss_fn(self.state, batch)), batch["image"].shape[0])
+            first = batch.get("image", next(iter(batch.values())))
+            losses.update(float(self.eval_loss_fn(self.state, batch)), first.shape[0])
         if losses.count == 0:
             raise ValueError(f"validation set yielded no batches (len={len(dataset)}, "
                              f"batch_size={batch_size})")
@@ -108,7 +110,7 @@ class Trainer:
 
     def _payload(self, train_ds) -> dict:
         return {**self.state.state_dict(), "scheduler": copy.deepcopy(vars(self.scheduler)),
-                "data_rng": train_ds.rng.bit_generator.state}
+                "data_rng": train_ds.rng_state()}
 
     def fit(self, train_ds, val_ds, epochs: int, batch_size: int,
             checkpoint_every: int | None = None, val_every: int = 1):
@@ -117,7 +119,7 @@ class Trainer:
         validates and checkpoints. Each history record also holds
         `train_seconds`, the host clock of the epoch's training loop."""
         if self._data_rng_state is not None:
-            train_ds.rng.bit_generator.state = self._data_rng_state
+            train_ds.set_rng_state(self._data_rng_state)
             self._data_rng_state = None
         for k in range(epochs):
             last = k == epochs - 1
@@ -154,8 +156,8 @@ class Trainer:
 
     def resume(self):
         """Continue from the latest checkpoint: the model, the optimizer, the
-        controller, the epoch, the best loss and the training generator
-        (applied when `fit` starts)."""
+        controller, the epoch, the best loss and the training dataset's
+        generators (applied when `fit` starts)."""
         payload, meta, step = ckpt.restore_checkpoint(os.path.join(self.out_dir, "ckpt"))
         self.state.load_state_dict(payload)
         vars(self.scheduler).update(payload["scheduler"])

@@ -10,14 +10,16 @@ optimizer's update, in place. `logs` holds the loss's parts and `loss` as
 command line's validation does.
 
 The batch is `data.datasets.prepare_batch`'s dict: "image" (B, H, W, 1)
-and the channels-last targets.
+and the channels-last targets; A2J's is `data.a2j_crops.A2JCropDataset`'s,
+"crops" (N, S, S, 1) and "labels".
 """
 
 from __future__ import annotations
 
 import torch
 
-from popnet_tpu_torch.losses.losses import popnet_loss, rtpose_light3d_loss_fgweight, yolo_loss
+from popnet_tpu_torch.losses.losses import (a2j_loss, popnet_loss, rtpose_light3d_loss_fgweight,
+                                            yolo_loss)
 
 
 def _nchw(image: torch.Tensor) -> torch.Tensor:
@@ -49,12 +51,12 @@ def _yolo_loss(out, batch, num_joints: int = 15):
                      batch["prior_mask_coord"], batch["prior_weight_map"], num_joints)
 
 
-def _make_step(loss_fn):
+def _make_step(loss_fn, image_key: str = "image"):
     def step(state, batch):
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
-        loss, logs = loss_fn(model(_nchw(batch["image"])), batch)
+        loss, logs = loss_fn(model(_nchw(batch[image_key])), batch)
         loss.backward()
         opt.step()
         logs = {k: v.detach() for k, v in logs.items()}
@@ -64,11 +66,11 @@ def _make_step(loss_fn):
     return step
 
 
-def _make_eval_loss(loss_fn):
+def _make_eval_loss(loss_fn, image_key: str = "image"):
     def eval_loss(state, batch) -> torch.Tensor:
         state.model.eval()
         with torch.no_grad():
-            return loss_fn(state.model(_nchw(batch["image"])), batch)[0]
+            return loss_fn(state.model(_nchw(batch[image_key])), batch)[0]
 
     return eval_loss
 
@@ -99,3 +101,32 @@ def make_popnet_eval_loss(num_joints: int = 15, pred_vis: bool = False):
 
 def make_yolo_eval_loss(num_joints: int = 15):
     return _make_eval_loss(lambda out, batch: _yolo_loss(out, batch, num_joints))
+
+
+A2J_REG_FACTOR = 3.0   # loss = anchor + regression * A2J_REG_FACTOR, A2J's recipe
+
+
+def _a2j_loss(all_anchors):
+    """(heads, batch) -> (anchor + regression * A2J_REG_FACTOR, logs), the
+    anchors moved once to each device and dtype the heads come in."""
+    moved = {}
+
+    def loss_fn(heads, batch):
+        key = (heads[0].device, heads[0].dtype)
+        if key not in moved:
+            moved[key] = torch.as_tensor(all_anchors).to(device=key[0], dtype=key[1])
+        anchor_l, reg_l = a2j_loss(heads, batch["labels"], moved[key])
+        return anchor_l + reg_l * A2J_REG_FACTOR, {"loss_cls": anchor_l, "loss_reg": reg_l}
+
+    return loss_fn
+
+
+def make_a2j_train_step(all_anchors):
+    """A2J on {"crops": (N, S, S, 1), "labels": (N, K, 3) (y, x, z) in crop
+    space}: loss = anchor + regression * A2J_REG_FACTOR (`a2j_loss`);
+    all_anchors (W*H*A, 2) of the crop's grid (`models.a2j.shift_anchors`)."""
+    return _make_step(_a2j_loss(all_anchors), image_key="crops")
+
+
+def make_a2j_eval_loss(all_anchors):
+    return _make_eval_loss(_a2j_loss(all_anchors), image_key="crops")

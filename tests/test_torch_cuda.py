@@ -1033,3 +1033,77 @@ def test_train_mp_aug_on_the_card(cuda, mpaug_set, tmp_path, extra):
                     "--batch-size", "4", "--epochs", "1", "--lr", "0.05", "--out-dir",
                     str(tmp_path / "run"), *extra])
     assert trainer.device.type == "cuda" and np.isfinite(trainer.history[0]["train_loss"])
+
+
+# -- A2J training (chip_smoke.py phase 9's checks at a small size) -------------------------
+
+
+def test_a2j_warps_on_the_card_equal_the_cpu(cuda, mpaug_set):
+    """Rotate, and RenderDepth then Resize, on 4 mp-aug composites of
+    512x480: card against CPU bit for bit."""
+    import torch
+
+    import chip_smoke
+
+    ds = chip_smoke.a2j_dataset(mpaug_set, "cpu")
+    frames = [torch.from_numpy(ds.inner.load_composited(i)[0]) for i in range(4)]
+    ms = chip_smoke.a2j_warp_checks(frames, np.random.default_rng(5), cuda)
+    assert set(ms) == {"Rotate", "RenderDepth + Resize"}
+
+
+def test_a2j_crop_batch_on_the_card_equals_the_cpu(cuda, mpaug_set):
+    """An A2JCropDataset batch of 8 at 288² (augmented, erasing on) made on
+    the card against the CPU's from the same seed: frames, boxes, crops
+    before erasing and labels bit for bit, the erasing bit for bit given
+    the card's draws, the generators' next draws equal."""
+    import torch
+
+    import chip_smoke
+    from popnet_tpu_torch.data.a2j_crops import CROP, apply_erasing, erasing_draws, \
+        erasing_rectangles
+
+    cds, hds = chip_smoke.a2j_dataset(mpaug_set, cuda), chip_smoke.a2j_dataset(mpaug_set, "cpu")
+    idx = np.arange(8)
+    fc, fh = cds.frames(idx), hds.frames(idx)
+    assert torch.equal(fc[0].cpu(), fh[0])
+    assert all(np.array_equal(a, b) for a, b in zip(fc[1:], fh[1:]))
+    cds.erase = hds.erase = False
+    card, host = cds.crop_frames(*fc), hds.crop_frames(*fh)
+    assert all(torch.equal(card[k].cpu(), host[k]) for k in host)
+    u, noise = erasing_draws(8, CROP, cds.erase_generator)
+    assert u.device.type == noise.device.type == "cuda"
+    erased = apply_erasing(card["crops"], erasing_rectangles(u, CROP), noise)
+    ref = apply_erasing(host["crops"], erasing_rectangles(u.cpu(), CROP), noise.cpu())
+    assert torch.equal(erased.cpu(), ref)
+    assert cds.rng.integers(0, 1 << 30) == hds.rng.integers(0, 1 << 30)
+
+
+def test_a2j_train_step_on_the_card_matches_the_cpu(cuda, mpaug_set):
+    """One A2J step (seeded init, Adam-L2) on 4 crops of 288², card against
+    CPU: float64 at the step bars, float32's gap to float64 within
+    chip_smoke.F32_GAP_FACTOR times the CPU's; one train-mode forward moves
+    every BatchNorm's statistics by Flax's momentum 0.99."""
+    import chip_smoke
+
+    cds, hds = chip_smoke.a2j_dataset(mpaug_set, cuda), chip_smoke.a2j_dataset(mpaug_set, "cpu")
+    cds.erase = hds.erase = False
+    card, host = cds.get_batch(np.arange(4)), hds.get_batch(np.arange(4))
+    chip_smoke.train_step_checks("a2j", "a2j", card, host, cuda)
+    chip_smoke.a2j_batchnorm_check(card["crops"], cuda)
+
+
+def test_train_a2j_subcommand_on_the_card(cuda, mpaug_set, tmp_path):
+    """`train --model a2j --mp-aug` on the card (its default device), 1
+    epoch at batch 4, then `evaluate --model a2j --ckpt --gt-boxes` of its
+    checkpoint on the card."""
+    from popnet_tpu_torch.cli.main import main
+
+    out = str(tmp_path / "run")
+    trainer = main(["train", "--model", "a2j", "--data-root", mpaug_set, "--mp-aug",
+                    "--batch-size", "4", "--epochs", "1", "--val-labels", "labels_val.json",
+                    "--out-dir", out])
+    assert trainer.device.type == "cuda" and np.isfinite(trainer.history[0]["train_loss"])
+    res = main(["evaluate", "--model", "a2j", "--data-root", mpaug_set, "--labels",
+                "labels_val.json", "--ckpt", os.path.join(out, "ckpt"), "--gt-boxes",
+                "--batch-size", "4", "--out-dir", str(tmp_path / "ev")])
+    assert os.path.exists(tmp_path / "ev" / "a2j_results.json") and "pck2d" in res

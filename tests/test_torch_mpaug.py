@@ -39,7 +39,8 @@ from popnet_tpu_torch.train import checkpoint, steps
 from tests import synthetic_data
 from tests.test_torch_model import _compare, fresh_init
 from tests.test_torch_train import random_labels
-from tests.test_torch_train_step import LR, assert_state_close, flat, port_state, variables_of
+from tests.test_torch_train_step import (LR32, SGD_BARS, SGD_LOSS_RTOL, assert_state_close, flat,
+                                         port_state, variables_of)
 
 P = 4
 SIZE = 64
@@ -389,17 +390,15 @@ def test_pred_vis_step_matches_jax_in_float64(pred_vis_batch):
     """The PoP-Net step with visibility (PopNet(pred_vis=True),
     make_popnet_train_step(pred_vis=True), the JAX library's composition)
     from one Flax init on a pred_vis batch of the JAX device bank, float64
-    on both sides, at tests/test_torch_train_step.py's bars (loss 1e-5
-    relative, each parameter's update within 1e-3 of JAX's largest of the
-    tensor, BatchNorm statistics 1e-5 relative): the first step, and JAX's
-    state after it carried across with its SGD trace and stepped on by the
-    port. (Two port steps in a row drift further: measured, the second
-    step's loss 6.8e-9 relative from JAX's and one running-mean element of
-    1.3e-5 at 2.0e-5 relative, 1.3e-8 of its tensor's largest.)"""
+    on both sides at one float32 rate, at tests/test_torch_train_step.py's
+    SGD bars (loss 1e-12 relative, each parameter's update within 1e-8 of
+    JAX's largest of the tensor, BatchNorm statistics 1e-10 relative): two
+    port steps in a row, and JAX's state after the first carried across
+    with its SGD trace and stepped on by the port."""
     flax_cls = functools.partial(FlaxPopNet, pred_vis=True)
     batch = pred_vis_batch
     f32 = create_train_state(flax_cls(), jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 1)),
-                             learning_rate=LR)
+                             learning_rate=LR32)
     with jax.enable_x64(True):
         up = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)
         jbatch = {k: jnp.asarray(v, jnp.float64) if v.dtype == np.float32 else jnp.asarray(v)
@@ -418,16 +417,18 @@ def test_pred_vis_step_matches_jax_in_float64(pred_vis_batch):
     tbatch = {k: torch.from_numpy(v.astype(np.float64) if v.dtype == np.float32 else v.copy())
               for k, v in batch.items()}
     init = variables_of(f32)
-    port, logs = step_p(port_state(model_cls, init, torch.float64), tbatch)
-    np.testing.assert_allclose(float(logs["loss"]), jlosses[0], rtol=1e-5)
-    assert assert_state_close(port, jstates[0], init, "step 1") > 0
+    port = port_state(model_cls, init, torch.float64)
+    for k in range(2):
+        port, logs = step_p(port, tbatch)
+        np.testing.assert_allclose(float(logs["loss"]), jlosses[k], rtol=SGD_LOSS_RTOL)
+        assert assert_state_close(port, jstates[k], init, f"step {k + 1}", **SGD_BARS) > 0
     after1 = variables_of(jstates[0])
     cont = port_state(model_cls, after1, torch.float64)
     load_sgd_momentum(cont.model, cont.optimizer,
                       flat(jstates[0].opt_state.inner_state[0].trace, "params"))
     cont, logs = step_p(cont, tbatch)
-    np.testing.assert_allclose(float(logs["loss"]), jlosses[1], rtol=1e-5)
-    assert_state_close(cont, jstates[1], after1, "continued step 2")
+    np.testing.assert_allclose(float(logs["loss"]), jlosses[1], rtol=SGD_LOSS_RTOL)
+    assert_state_close(cont, jstates[1], after1, "continued step 2", **SGD_BARS)
 
 
 # -- the command line ------------------------------------------------------------------------

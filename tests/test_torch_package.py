@@ -43,15 +43,15 @@ def _port_modules():
 
 
 def test_port_imports_with_jax_and_reference_blocked():
-    """Every module of the port (and chip_smoke.py) imports while jax, flax
-    and popnet_tpu are unimportable; popnet_tpu_torch itself must pass the
-    blocker (a bare prefix match would block it too)."""
+    """Every module of the port (and chip_smoke.py) imports while jax, flax,
+    popnet_tpu and cv2 are unimportable; popnet_tpu_torch itself must pass
+    the blocker (a bare prefix match would block it too)."""
     code = textwrap.dedent(f"""
         import importlib, sys
         class Block:
             def find_spec(self, name, path=None, target=None):
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "flax", "optax", "orbax") \\
+                if top in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2") \\
                         or name == "popnet_tpu" or name.startswith("popnet_tpu."):
                     raise ImportError("blocked: " + name)
                 return None
@@ -60,7 +60,7 @@ def test_port_imports_with_jax_and_reference_blocked():
         for m in {_port_modules()!r} + ["chip_smoke"]:
             importlib.import_module(m)
         leaked = [m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "popnet_tpu")]
+                  if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "popnet_tpu", "cv2")]
         assert not leaked, leaked
         for m in ("models.popnet", "models.rtpose_align3d", "models.yolo_posenet", "decode.prior",
                   "decode.popnet_infer", "models.a2j", "decode.a2j", "data.a2j_crops",
@@ -69,7 +69,7 @@ def test_port_imports_with_jax_and_reference_blocked():
                   "data.augment_device", "decode.readout", "decode.assemble", "core.device",
                   "ops.encoders", "losses.losses", "train.state", "train.schedule",
                   "train.steps", "train.checkpoint", "train.loop", "data.compositing",
-                  "data.streaming"):
+                  "data.streaming", "data.augment_host"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
