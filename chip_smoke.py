@@ -4,7 +4,8 @@
 Drives the port's five serving paths at the models' full width, its
 MP-3DHP evaluation drivers for the four depth families, the training
 of three of them on single-person frames (phase 7) and on mp-aug
-multi-person composites (phase 8), and A2J's training (phase 9): the four
+multi-person composites (phase 8), A2J's training (phase 9), and each
+serving path folded and in dynamic int8 (phase 10): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -165,6 +166,27 @@ Phases, one or more lines each:
    on the card against the host (compare_eval_json), with their kernel
    launches (the "a2j_train_launches" and "a2j_ckpt_eval_launches"
    entries of each row, 0 expected).
+
+10. deploy: the deployment transforms (popnet_tpu_torch.ops.fold_bn,
+    ops.quant; the builders' fold_bn and quant, evaluate --fold-bn and
+    --quant int8) on phase 5's frames and weights: (a) every int8 conv
+    shape of the five families (82 shapes; the int8 CNNs in bf16 on 8 of
+    the path's inputs, 2 for COCO) as the int32 product on the card
+    (im2col and torch._int_mm) against its plain version (F.conv2d in
+    float64) bit for bit, and one epilogue against its single rounding;
+    (b) the fused fold against the unfused one in float32 (TF32 off) at
+    tests/test_fold_bn.py's bars, COCO's MobileNet trunk too; (c) each
+    serving path exact, folded, int8 and both, bf16 with the q16 wire
+    (COCO f32), through serve_stream(queue_depth=3): frames/s, the CNNs'
+    ms (CUDA events), the output against the float32 slice (check_bf16
+    and its A2J and COCO twins; the int8 paths at INT8_BARS), and every
+    eligible conv run in int8 on the card; (d) each int8 conv alone on the
+    full batch: its GEMM's ms and TOPS against the int8 peak, the whole
+    int8 conv, and the bf16 cuDNN conv it replaces; (e) `evaluate` of
+    PoP-Net and Yolo-Pose+ on phase 6's "bg" set, float32, --fold-bn and
+    --quant int8, each metric against float32 at EVAL_DEPLOY_BARS (Yolo's
+    3D metrics under int8 at YOLO_INT8_3D_BAR), and the kernels' launches
+    over (c) and (e) (a "deploy_launches" entry in each row).
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -1280,14 +1302,15 @@ def readout_timing(stage, decode, ms: dict, dev) -> None:
         f"{device_ops(decode)}")
 
 
-def time_stream(tag: str, pipe, frames, iters: int, check, wire: str = "q16") -> None:
+def time_stream(tag: str, pipe, frames, iters: int, check, wire: str = "q16",
+                warm: int = 3) -> float:
     """frames/s of `pipe` through serve_stream(queue_depth=3), after a warm
-    window whose first batch goes to `check`."""
+    window of `warm` batches whose first goes to `check`; returns it."""
     import torch
 
     from popnet_tpu_torch import serve_stream
 
-    warm = list(serve_stream(pipe, (frames for _ in range(3)), queue_depth=3))
+    warm = list(serve_stream(pipe, (frames for _ in range(warm)), queue_depth=3))
     check(warm[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1300,6 +1323,7 @@ def time_stream(tag: str, pipe, frames, iters: int, check, wire: str = "q16") ->
         f"{frames.shape[0]} in {wall:.3f} s = {n / wall:.1f} frames/s "
         f"({wall / iters * 1e3:.2f} ms/batch); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return n / wall
 
 
 def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_out,
@@ -1917,7 +1941,7 @@ def bf16_heads(crops, heads, kp, anchors, valid) -> None:
             "the A2J vote of bf16 heads is off the float32 one")
 
 
-def check_a2j_bf16(q16: dict, f32: dict) -> None:
+def check_a2j_bf16(q16: dict, f32: dict, bars: tuple = (0.80, 0.10), what: str = "bf16") -> None:
     """The timed Yolo->A2J configuration against the float32 slice on the
     same frames: the flags are the detector's, so people per frame equal on
     at least 80% of the frames and people in all within 10% (as
@@ -1925,14 +1949,16 @@ def check_a2j_bf16(q16: dict, f32: dict) -> None:
     are not compared."""
     cq, cf = (o["counts"].astype(int).sum(axis=1) for o in (q16, f32))
     same = float((cq == cf).mean())
-    say("timing", f"Yolo->A2J bf16+q16 vs f32 on the same {len(cf)} frames: people per frame "
-        f"equal on {same:.1%} (bar 80%), people {cq.sum()} vs {cf.sum()}")
+    frac, rel = bars
+    say("timing", f"Yolo->A2J {what}+q16 vs f32 on the same {len(cf)} frames: people per frame "
+        f"equal on {same:.1%} (bar {frac:.0%}), people {cq.sum()} vs {cf.sum()} (bar {rel:.0%})")
     require(bool(np.isfinite(q16["joints3d"]).all()), "non-finite values in the q16 output")
-    require(same >= 0.80, "bf16 and f32 person counts differ on more than 20% of frames")
-    require(abs(int(cq.sum()) - int(cf.sum())) <= 0.10 * cf.sum(), "bf16 people differ by over 10%")
+    require(same >= frac, f"{what} and f32 person counts differ on too many frames")
+    require(abs(int(cq.sum()) - int(cf.sum())) <= rel * cf.sum(),
+            f"{what} people differ by over {rel:.0%}")
 
 
-def check_coco_bf16(b16: dict, f32: dict) -> None:
+def check_coco_bf16(b16: dict, f32: dict, rel: float = 0.10, what: str = "bf16") -> None:
     """The timed COCO RGB configuration (bf16 CNN, f32 wire) against the
     float32 slice on the same frames: people and visible joints within 10%,
     every value finite. The seeded init's maps are noise whose many peaks
@@ -1943,21 +1969,23 @@ def check_coco_bf16(b16: dict, f32: dict) -> None:
     COCO_BF16_MAP_BAR in phase_coco_timing."""
     cq, cf = (o["counts"].astype(int).sum(axis=1) for o in (b16, f32))
     vq, vf = (int((o["joints2d"][..., 0] >= 0).sum()) for o in (b16, f32))
-    say("timing", f"COCO RGB bf16+f32 vs f32 on the same {len(cf)} frames: people per frame "
+    say("timing", f"COCO RGB {what}+f32 vs f32 on the same {len(cf)} frames: people per frame "
         f"equal on {float((cq == cf).mean()):.1%} (within one on "
         f"{float((np.abs(cq - cf) <= 1).mean()):.1%}; no bar), people {cq.sum()} vs "
-        f"{cf.sum()}, visible joints {vq} vs {vf} (bar 10%)")
+        f"{cf.sum()}, visible joints {vq} vs {vf} (bar {rel:.0%})")
     require(bool(np.isfinite(b16["joints2d"]).all()), "non-finite values in the f32 output")
-    require(abs(int(cq.sum()) - int(cf.sum())) <= 0.10 * cf.sum(),
-            "bf16 people differ by over 10%")
-    require(abs(vq - vf) <= 0.10 * vf, "bf16 visible joints differ by over 10%")
+    require(abs(int(cq.sum()) - int(cf.sum())) <= rel * cf.sum(),
+            f"{what} people differ by over {rel:.0%}")
+    require(abs(vq - vf) <= rel * vf, f"{what} visible joints differ by over {rel:.0%}")
 
 
-def check_bf16(tag: str, q16: dict, f32: dict) -> None:
+def check_bf16(tag: str, q16: dict, f32: dict, bars: tuple = (0.80, 0.10),
+               what: str = "bf16") -> None:
     """The timed configuration (bf16 CNN, q16 wire) against the float32
     slice on the same frames: people per frame equal on at least 80% of the
     frames, and people and visible joints in all within 10% (bars wide of
-    bf16's rounding, tight enough to catch a broken bf16 path). Open-Pose+
+    bf16's rounding, tight enough to catch a broken bf16 path; phase 10's
+    int8 paths pass their own `bars`). Open-Pose+
     packs one count per frame and marks holes with -1; PoP-Net packs a flag
     per row, and its visible joints are those of flagged rows that lie
     inside the (480, 512) frame."""
@@ -1970,13 +1998,15 @@ def check_bf16(tag: str, q16: dict, f32: dict) -> None:
     cq, cf = (o["counts"].astype(int).sum(axis=1) for o in (q16, f32))
     vq, vf = int(visible(q16).sum()), int(visible(f32).sum())
     same = float((cq == cf).mean())
-    say("timing", f"{tag} bf16+q16 vs f32 on the same {len(cf)} frames: people per frame "
-        f"equal on {same:.1%} (bar 80%), people {cq.sum()} vs {cf.sum()}, visible joints "
-        f"{vq} vs {vf} (bar 10%)")
+    frac, rel = bars
+    say("timing", f"{tag} {what}+q16 vs f32 on the same {len(cf)} frames: people per frame "
+        f"equal on {same:.1%} (bar {frac:.0%}), people {cq.sum()} vs {cf.sum()}, visible "
+        f"joints {vq} vs {vf} (bar {rel:.0%})")
     require(bool(np.isfinite(q16["joints3d"]).all()), "non-finite values in the q16 output")
-    require(same >= 0.80, "bf16 and f32 person counts differ on more than 20% of frames")
-    require(abs(int(cq.sum()) - int(cf.sum())) <= 0.10 * cf.sum(), "bf16 people differ by over 10%")
-    require(abs(vq - vf) <= 0.10 * vf, "bf16 visible joints differ by over 10%")
+    require(same >= frac, f"{what} and f32 person counts differ on too many frames")
+    require(abs(int(cq.sum()) - int(cf.sum())) <= rel * cf.sum(),
+            f"{what} people differ by over {rel:.0%}")
+    require(abs(vq - vf) <= rel * vf, f"{what} visible joints differ by over {rel:.0%}")
 
 
 def write_eval_set(root: str, frames, people: dict, labels_name: str = "labels.json",
@@ -3456,6 +3486,377 @@ def phase_a2j_train(rng, dev, keep: str) -> dict:
     return launches
 
 
+# -- phase 10: the deployment transforms ----------------------------------------------------
+
+DEPLOY = (("exact", {}), ("fold", {"fold_bn": True}), ("int8", {"quant": "int8"}),
+          ("fold+int8", {"fold_bn": True, "quant": "int8"}))
+DEPLOY_BATCHES = 3          # timed batches of each phase-10 stream, after DEPLOY_WARM
+DEPLOY_WARM = 1             # warm batches of each phase-10 stream
+DEPLOY_CHECK = 8            # frames (A2J: crops; COCO: 2 frames) of the int8 and fold checks
+INT8_PEAK_OPS = 1979e12     # H100 SXM dense int8 tensor-core peak (data sheet)
+# the int8 paths (bf16 CNN but the int8 convs, q16 wire) against the float32 slice:
+# (people per frame equal on at least this share of frames, people and visible joints
+# within this fraction); COCO holds people and visible joints within its fraction
+# (the worst of two H100 runs, PR 12: Open-Pose+ 73.4%, 7.2%; PoP-Net 93.4%, 2.4%;
+# Yolo-Pose+ 93.4%, 0.9%; Yolo->A2J 94.1%, 0.8%; COCO's seeded noise maps 11.6%, int8
+# finding more people than float32 in both runs)
+INT8_BARS = {"Open-Pose+": (0.60, 0.12), "PoP-Net": (0.85, 0.05), "Yolo-Pose+": (0.85, 0.03),
+             "Yolo->A2J": (0.85, 0.03), "COCO RGB": 0.20}
+# evaluate's metrics against the float32 run: folded within 0.005, int8 within 0.02
+# (tests/test_quant_int8.py's bar), but for Yolo-Pose+'s pck3d and map3d under int8,
+# which the JAX package's own int8 moves by 0.028-0.055 on such frames
+# (tests/test_torch_quant.py::test_int8_moves_yolo_3d_metrics_in_both_packages): 0.06
+EVAL_DEPLOY_BARS = {"--fold-bn": 0.005, "--quant int8": 0.02}
+YOLO_INT8_3D_BAR = 0.06
+DEPLOY_PATH = ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout",
+               "peak_local_max")
+
+
+def deploy_families(dev, frames, weights, frames_pn, weights_pn, frames_y, weights_yolo,
+                    weights_a2j, frames_c, weights_c) -> dict:
+    """{family: (a fresh float32 model on the host, the CNN's float32 input
+    on the card for the full batch of the path)}: Open-Pose+, PoP-Net,
+    Yolo-Pose+ on their 256 frames, A2J (`weights_a2j`, its seeded init as
+    Flax-named variables) on the 1024 crops the float32 detector gives
+    those Yolo frames, COCO (VGG19) on its 64 frames, and
+    COCO's MobileNet trunk (seeded), whose BatchNorms the fold exercises, on
+    the same frames."""
+    import torch
+
+    from popnet_tpu_torch.core.config import KDH3D_DEPTH
+    from popnet_tpu_torch.data.a2j_crops import crop_resize_batch
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import A2J, PopNet, RTPoseLight3D, RTPoseVGG, YoloPoseNet
+    from popnet_tpu_torch.serving import a2j_boxes, preproc_depth, preproc_rgb, yolo_decode
+
+    def depth_in(f):
+        return preproc_depth(f).permute(0, 3, 1, 2).contiguous()
+
+    (B, H, W), C = frames_y.shape, MAX_CROPS
+    yolo = load_into(YoloPoseNet(), weights_yolo).eval().to(dev)
+    with torch.inference_mode():
+        det = yolo_decode(yolo(depth_in(frames_y)).permute(0, 2, 3, 1), W, H)
+        idx = torch.arange(B, device=dev).repeat_interleave(C)
+        crops = crop_resize_batch(frames_y, idx, a2j_boxes(det["dets"], C, W, H),
+                                  KDH3D_DEPTH.mean, KDH3D_DEPTH.std)[:, None]
+        coco_in = preproc_rgb(frames_c)
+        inputs = {"Open-Pose+": depth_in(frames), "PoP-Net": depth_in(frames_pn),
+                  "Yolo-Pose+": depth_in(frames_y), "A2J": crops}
+    del yolo
+    return {
+        "Open-Pose+": (lambda: load_into(RTPoseLight3D(), weights), inputs["Open-Pose+"]),
+        "PoP-Net": (lambda: load_into(PopNet(), weights_pn), inputs["PoP-Net"]),
+        "Yolo-Pose+": (lambda: load_into(YoloPoseNet(), weights_yolo), inputs["Yolo-Pose+"]),
+        "A2J": (lambda: load_into(A2J(), weights_a2j), inputs["A2J"]),
+        "COCO": (lambda: load_into(RTPoseVGG(), weights_c), coco_in),
+        "COCO MobileNet": (lambda: RTPoseVGG(trunk="mobilenet").init_seeded(0), coco_in),
+    }
+
+
+def int8_exact(tag: str, model, x) -> tuple[int, int]:
+    """Each int8 conv of `model` (bf16, as served) on the path's real
+    activations `x`: for every conv shape (geometry and input size), once,
+    the int32 product on the card (`quant.int8_conv`: im2col and
+    `torch._int_mm`) against its plain version (F.conv2d in float64 on the
+    card, exact) bit for bit; on the first conv with a bias, the whole
+    conv's float32 epilogue (`quant.epilogue`, `torch.addcmul` on the card)
+    against the epilogue rounded once (`fma_f32`, as XLA contracts it), bit
+    for bit. Returns (shapes, int8 convs called)."""
+    import torch
+
+    from popnet_tpu_torch.core.numerics import fma_f32
+    from popnet_tpu_torch.ops.quant import Int8Conv2d, int8_conv, int8_conv_plain
+    from popnet_tpu_torch.ops.quant import epilogue as epilogue_f32
+    from popnet_tpu_torch.ops.quant import quantize_activation
+
+    seen, calls, epilogue = set(), [0], []
+
+    def check(m, args):
+        inp = args[0]
+        key = (tuple(m.weight.shape), m.stride, m.padding, m.dilation, tuple(inp.shape[2:]))
+        if key in seen:
+            calls[0] += 1
+            return None
+        seen.add(key)
+        calls[0] += 1
+        x_q, s_x = quantize_activation(inp, m.rounding)
+        card = int8_conv(x_q, m.weight_mat, m.weight_q, m.stride, m.padding, m.dilation)
+        plain = int8_conv_plain(x_q, m.weight_q, m.stride, m.padding, m.dilation)
+        require(torch.equal(card, plain.permute(0, 2, 3, 1)),
+                f"{tag}: the int8 conv {key} differs from its plain version")
+        if m.bias is not None and not epilogue:
+            scale = s_x * m.weight_scale
+            got = epilogue_f32(card, scale, m.bias, m.rounding)
+            epilogue.append(int((got != fma_f32(card.float(), scale, m.bias)).sum()))
+        return None
+
+    mods = [m for m in model.modules() if isinstance(m, Int8Conv2d)]
+    hooks = [m.register_forward_pre_hook(check) for m in mods]
+    try:
+        with torch.inference_mode():
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    require(calls[0] == len(mods), f"{tag}: {calls[0]} int8 conv calls for {len(mods)} convs")
+    require(epilogue == [0] or not epilogue, f"{tag}: the epilogue on the card rounds apart "
+            f"from one fused multiply-add on {epilogue} values")
+    return len(seen), calls[0]
+
+
+def fold_check(tag: str, make, x) -> tuple[int, float]:
+    """The fused fold against the unfused one (its folded BatchNorms kept as
+    x + bias) in float32 on the card, TF32 off, on `x`: every output within
+    tests/test_fold_bn.py's bars (rtol 1e-3, atol 1e-4 of max(1, 0.1 x the
+    largest magnitude)). Returns (pairs folded, the largest error over its
+    atol)."""
+    import torch
+
+    from popnet_tpu_torch.interop.from_jax import flat_from_module, load_into
+    from popnet_tpu_torch.ops.fold_bn import fold_batchnorm, fuse_folded
+
+    folded, paths = fold_batchnorm(flat_from_module(make()))
+    unfused = load_into(make(), folded).eval().to(x.device)
+    fused = fuse_folded(load_into(make(), folded).eval(), paths).to(x.device)
+    def tensors(out):
+        if isinstance(out, (tuple, list)):
+            return [t for o in out for t in tensors(o)]
+        return [out]
+
+    worst = 0.0
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for ta, tb in zip(tensors(unfused(x)), tensors(fused(x))):
+            atol = 1e-4 * max(1.0, float(ta.abs().max()) * 0.1)
+            err = float(((tb - ta).abs() - 1e-3 * ta.abs()).max())
+            worst = max(worst, err / atol)
+    require(worst <= 1.0, f"{tag}: the fused fold is off the unfused one ({worst:.3g} of the bar)")
+    return len(paths), worst
+
+
+def gemm_breakdown(tag: str, model, x) -> dict:
+    """One forward of the int8 `model` (bf16) on the full batch `x`, each
+    int8 conv timed alone (CUDA events, 2 calls after 1): its GEMM
+    (`quant.gemm` on its im2col), the whole int8 conv (quantize, im2col,
+    GEMM, epilogue) and the bf16 cuDNN conv it replaces on the same input.
+    Returns the sums (ms) and the GEMMs' operations (2 a multiply-add of
+    the unpadded K and C_out)."""
+    import torch
+    import torch.nn.functional as F
+
+    from popnet_tpu_torch.ops.quant import Int8Conv2d, gemm, im2col, quantize_activation
+
+    acc = {"gemm_ms": 0.0, "int8_ms": 0.0, "bf16_ms": 0.0, "ops": 0.0, "convs": 0}
+
+    def timed(m, args):
+        inp = args[0]
+        O, Cin, kh, kw = m.weight.shape
+        x_q, _ = quantize_activation(inp, m.rounding)
+        cols, Ho, Wo = im2col(x_q, kh, kw, m.stride, m.padding, m.dilation,
+                              m.weight_mat.shape[1])
+        acc["gemm_ms"] += time_ms(lambda: gemm(cols, m.weight_mat), reps=2, warm=1)
+        del cols, x_q
+        acc["int8_ms"] += time_ms(lambda: m.forward(inp), reps=2, warm=1)
+        wb = m.weight.to(inp.dtype)
+        bb = None if m.bias is None else m.bias.to(inp.dtype)
+        acc["bf16_ms"] += time_ms(lambda: F.conv2d(inp, wb, bb, m.stride, m.padding, m.dilation),
+                                  reps=2, warm=1)
+        acc["ops"] += 2.0 * inp.shape[0] * Ho * Wo * kh * kw * Cin * O
+        acc["convs"] += 1
+        return None
+
+    hooks = [m.register_forward_pre_hook(timed) for m in model.modules()
+             if isinstance(m, Int8Conv2d)]
+    try:
+        with torch.inference_mode():
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    acc["tops"] = acc["ops"] / acc["gemm_ms"] / 1e9
+    say("deploy", f"{tag} int8 convs ({acc['convs']}) one at a time on the full batch: GEMMs "
+        f"(_int_mm) {acc['gemm_ms']:.3f} ms, {acc['ops'] / 1e12:.2f} TOP = {acc['tops']:.1f} "
+        f"TOPS ({acc['tops'] * 1e12 / INT8_PEAK_OPS:.1%} of the {INT8_PEAK_OPS / 1e12:.0f} TOPS "
+        f"int8 peak); the whole int8 convs (quantize, im2col, GEMM, epilogue) "
+        f"{acc['int8_ms']:.3f} ms; the bf16 cuDNN convs they replace {acc['bf16_ms']:.3f} ms")
+    return acc
+
+
+def deploy_eval(root: str) -> None:
+    """The metric-level gate on phase 6's labelled "bg" set: `evaluate` of
+    PoP-Net and Yolo-Pose+ with the committed weights, float32, then with
+    --fold-bn and with --quant int8, on the card at batch 64: each of
+    pck2d, pck3d, map2d and map3d within EVAL_DEPLOY_BARS of the float32
+    run's; the int8 runs through int8 convs."""
+    import tempfile
+
+    import torch
+
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.ops import quant
+
+    four = ("pck2d", "pck3d", "map2d", "map3d")
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, w in (("popnet", WEIGHTS_POPNET), ("yolo", WEIGHTS_YOLO)):
+            res = {}
+            for flags in ((), ("--fold-bn",), ("--quant", "int8")):
+                quant.int8_conv.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[flags] = cli_main(["evaluate", "--model", model, "--data-root", root,
+                                       "--out-dir", os.path.join(tmp, model), "--batch-size",
+                                       str(EVAL_BATCH), "--weights", w, *flags])
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                name = " ".join(flags) or "float32"
+                say("deploy", f"evaluate --model {model} {name}: " + json.dumps(
+                    {k: res[flags][k] for k in four}) + f" in {sec:.3f} s; int8 convs run "
+                    f"{quant.int8_conv.launches}")
+                require(("--quant" in flags) == (quant.int8_conv.launches > 0),
+                        f"evaluate --model {model} {name}: {quant.int8_conv.launches} int8 convs")
+                if flags:
+                    for keys in (("pck2d", "map2d"), ("pck3d", "map3d")):
+                        bar = EVAL_DEPLOY_BARS[name]
+                        if model == "yolo" and "--quant" in flags and keys[0] == "pck3d":
+                            bar = YOLO_INT8_3D_BAR
+                        gap = max(abs(res[flags][k] - res[()][k]) for k in keys)
+                        say("deploy", f"evaluate --model {model} {name} against float32: "
+                            f"{' and '.join(keys)} within {gap:.4g} (bar {bar})")
+                        require(gap <= bar, f"evaluate --model {model} {name} moves "
+                                f"{' or '.join(keys)} by {gap:.4g}")
+            require(res[()]["pck2d"] > 0.5, f"evaluate --model {model}: pck2d "
+                    f"{res[()]['pck2d']} leaves the gate nothing to hold")
+
+
+def phase_deploy(dev, paths: dict, keep: str) -> dict:
+    """Phase 10: the deployment transforms (ops/fold_bn.py, ops/quant.py).
+    `paths`: phase 5's frames, weights and float32 outputs of each path.
+    (a) every int8 conv shape of the five families against its plain
+    version; (b) the fused fold against the unfused one; (c) each serving
+    path exact, folded, int8 and both: frames/s, the CNN's ms, its output
+    against the float32 slice, the int8 convs it ran; (d) the int8 GEMMs
+    alone beside the bf16 convs they replace; (e) `evaluate --fold-bn` and
+    `--quant int8` at the metric level. Returns the kernels' launches over
+    (c) and (e)."""
+    import torch
+
+    from popnet_tpu_torch import (build_openpose_pipeline, build_popnet_pipeline,
+                                  build_rtpose_vgg_pipeline, build_yolo_a2j_pipeline,
+                                  build_yolo_pipeline)
+    from popnet_tpu_torch.interop.from_jax import flat_from_module
+    from popnet_tpu_torch.models import A2J
+    from popnet_tpu_torch.ops import kernels, quant
+    from popnet_tpu_torch.ops.quant import eligible
+    from popnet_tpu_torch.serving import deploy_model, unpack_outputs_2d, unpack_outputs_q16
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    weights_a2j = flat_from_module(A2J().init_seeded(A2J_SEED))    # built once, loaded after
+    fam = deploy_families(dev, *(paths[k] for k in ("frames", "weights", "frames_pn",
+                                                     "weights_pn", "frames_y", "weights_yolo")),
+                          weights_a2j, paths["frames_c"], paths["weights_c"])
+    # (a), (b)
+    for tag, (make, x) in fam.items():
+        small = x[:2] if tag.startswith("COCO") else x[:DEPLOY_CHECK]
+        pairs, worst = fold_check(tag, make, small)
+        msg = f"{tag}: fused fold vs unfused fold in float32 on {len(small)} inputs: {pairs} " \
+              f"Conv->BatchNorm pairs, the largest error {worst:.3g} of the bar"
+        if tag != "COCO MobileNet":
+            model = deploy_model(make(), dev, bf16, quant="int8")
+            shapes, calls = int8_exact(tag, model, small.to(bf16))
+            msg += f"; {calls} int8 convs, {shapes} shapes, each int32 product equal to its " \
+                   f"plain version bit for bit"
+            del model
+        say("deploy", msg)
+    torch.cuda.empty_cache()
+
+    # (c)
+    C = MAX_CROPS
+    q16 = lambda n: (lambda buf: unpack_outputs_q16(buf, n, 15))   # noqa: E731
+    streams = {
+        "Open-Pose+": (lambda **kw: build_openpose_pipeline(paths["weights"], pack="q16", **kw),
+                       paths["frames"], lambda out, bars, what: check_bf16(
+                           f"Open-Pose+ {what}", q16(16)(out), paths["f32_out"], bars, what)),
+        "PoP-Net": (lambda **kw: build_popnet_pipeline(paths["weights_pn"], pack="q16", **kw),
+                    paths["frames_pn"], lambda out, bars, what: check_bf16(
+                        f"PoP-Net {what}", q16(16)(out), paths["f32_out_pn"], bars, what)),
+        "Yolo-Pose+": (lambda **kw: build_yolo_pipeline(paths["weights_yolo"], pack="q16", **kw),
+                       paths["frames_y"], lambda out, bars, what: check_bf16(
+                           f"Yolo-Pose+ {what}", q16(16)(out), paths["f32_out_y"], bars, what)),
+        "Yolo->A2J": (lambda **kw: build_yolo_a2j_pipeline(paths["weights_yolo"], weights_a2j,
+                                                           pack="q16", max_crops=C, **kw),
+                      paths["frames_y"], lambda out, bars, what: check_a2j_bf16(
+                          q16(C)(out), paths["f32_out_a2j"], bars, what)),
+        "COCO RGB": (lambda **kw: build_rtpose_vgg_pipeline(paths["weights_c"], **kw),
+                     paths["frames_c"], lambda out, rel, what: check_coco_bf16(
+                         unpack_outputs_2d(out, 16, 18), paths["f32_out_c"], rel, what)),
+    }
+    cnn = {"Open-Pose+": ("Open-Pose+",), "PoP-Net": ("PoP-Net",), "Yolo-Pose+": ("Yolo-Pose+",),
+           "Yolo->A2J": ("Yolo-Pose+", "A2J"), "COCO RGB": ("COCO",)}
+    n_int8 = {f: sum(eligible(m) for m in fam[f][0]().modules()) for f in
+              ("Open-Pose+", "PoP-Net", "Yolo-Pose+", "A2J", "COCO")}
+    table = {}
+    say("deploy", f"checks (a) and (b) in {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for path, (build, frames, check) in streams.items():
+        for name, kw in DEPLOY:
+            int8 = "quant" in kw
+            bars = INT8_BARS[path] if int8 else ((0.10 if path == "COCO RGB" else (0.80, 0.10)))
+            what = "bf16" if name == "exact" else f"{name} bf16"
+            pipe = build(**kw)
+            want = sum(n_int8[f] for f in cnn[path]) if int8 else 0
+            quant.int8_conv.launches = 0
+            fps = time_stream(f"{path} {name}", pipe, frames, DEPLOY_BATCHES,
+                              lambda buf: check(buf, bars, what),
+                              wire="f32" if path == "COCO RGB" else "q16", warm=DEPLOY_WARM)
+            torch.cuda.synchronize()
+            require(quant.int8_conv.launches == want * (DEPLOY_WARM + DEPLOY_BATCHES),
+                    f"{path} {name}: {quant.int8_conv.launches} int8 convs run, {want} a batch expected")
+            del pipe
+            ms = []
+            for f in cnn[path]:
+                model = deploy_model(fam[f][0](), dev, bf16, **kw)
+                x = fam[f][1].to(bf16)
+                with torch.inference_mode():
+                    ms.append(time_ms(lambda: model(x), reps=2, warm=1))
+                del model, x
+            torch.cuda.empty_cache()
+            table[(path, name)] = (fps, ms)
+            say("deploy", f"{path} {name}: {fps:.1f} frames/s; CNN ms a batch (CUDA events) "
+                + ", ".join(f"{f} {m:.3f}" for f, m in zip(cnn[path], ms))
+                + (f"; {want} int8 convs a batch, all run on the card" if int8 else ""))
+
+    # (e), launches counted with (c)
+    say("deploy", f"(c) done at {time.perf_counter() - t_phase:.1f} s")
+    deploy_eval(os.path.join(keep, "eval_bg"))
+    say("deploy", f"(e) done at {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say("deploy", f"launches per kernel over the transformed serving paths and evaluate: "
+        f"{launches}")
+    for name in DEPLOY_PATH:
+        require(launches[name] >= 1, f"kernel {name} was not launched in phase 10")
+
+    # (d)
+    for tag in ("Open-Pose+", "PoP-Net", "Yolo-Pose+", "A2J", "COCO"):
+        make, x = fam[tag]
+        gemm_breakdown(tag, deploy_model(make(), dev, bf16, quant="int8"), x.to(bf16))
+        torch.cuda.empty_cache()
+
+    for path in streams:
+        base = table[(path, "exact")]
+        say("deploy", f"{path} frames/s exact / fold / int8 / fold+int8: "
+            + " / ".join(f"{table[(path, n)][0]:.1f}" for n, _ in DEPLOY)
+            + "; CNN ms: " + " / ".join("+".join(f"{m:.3f}" for m in table[(path, n)][1])
+                                        for n, _ in DEPLOY)
+            + f"; against exact: " + " / ".join(f"{table[(path, n)][0] / base[0]:.3f}x"
+                                                for n, _ in DEPLOY[1:]))
+    say("deploy", f"(d) done; phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the frames and test inputs")
@@ -3527,6 +3928,13 @@ def main(argv=None) -> int:
         for r in rows:                  # none on the A2J training or evaluate --ckpt paths
             r["a2j_train_launches"] = a2j_launches["train"][r["name"]]
             r["a2j_ckpt_eval_launches"] = a2j_launches["ckpt_eval"][r["name"]]
+        deploy_launches = phase_deploy(dev, {
+            "frames": frames, "weights": weights, "f32_out": f32_out, "frames_pn": frames_pn,
+            "weights_pn": weights_pn, "f32_out_pn": f32_out_pn, "frames_y": frames_y,
+            "weights_yolo": weights_yolo, "f32_out_y": f32_out_y, "f32_out_a2j": f32_out_a2j,
+            "frames_c": frames_c, "weights_c": weights_c, "f32_out_c": f32_out_c}, keep)
+        for r in rows:                  # the folded and int8 serving paths, evaluate's flags
+            r["deploy_launches"] = deploy_launches[r["name"]]
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")

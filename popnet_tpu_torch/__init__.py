@@ -18,6 +18,9 @@ Yolo-Pose+, and `build_yolo_a2j_pipeline(<the same>, a2j_weights)` the
 detector followed by A2J on its `max_crops` best boxes a frame.
 `build_rtpose_vgg_pipeline()` serves (B, H, W, 3) BGR frames with COCO's 18
 joints in 2D (RTPoseVGG from a seeded init: no COCO weights are committed).
+Every builder also takes `fold_bn=True` (BatchNorm folded into the convs,
+`ops/fold_bn.py`) and `quant="int8"` (dynamic int8 convs, `ops/quant.py`),
+as the JAX builders do.
 `python -m popnet_tpu_torch.cli.main evaluate` runs the MP-3DHP evaluation
 drivers of the four depth families (`cli/`), and `benchmark` scores their
 prediction JSON. `train` trains Open-Pose+, PoP-Net and Yolo-Pose+ on a

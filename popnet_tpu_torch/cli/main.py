@@ -40,11 +40,17 @@ predicts nothing but drives every stage.
 Open-Pose+ encodes no prior, so the flag changes nothing there; Yolo-Pose+
 refuses it, as the JAX package has no visibility-aware Yolo loss.
 
+`evaluate --fold-bn` folds each Conv -> BatchNorm pair of the CNN into
+the conv (`ops/fold_bn.py`; with `--model a2j`, of both stages), and
+`--quant int8` runs the CNN's eligible convs in dynamic int8 (`ops/quant.py`),
+rounded as the JAX command line's op-by-op call of the model rounds them
+(`rounding="eager"`). As in the JAX command line, `--model a2j` ignores
+`--quant`, and says so.
+
 Options and models of the JAX command line that the port lacks raise,
 naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): COCO,
 MPII and ITOP training (11c; ITOP's A2J crops too), meshes and `--n-micro`
-(13), `--fold-bn` and `--quant` (12), `--spatial` (13), ITOP, COCO and MPII
-evaluation (9b).
+(13), `--spatial` (13), ITOP, COCO and MPII evaluation (9b).
 """
 
 from __future__ import annotations
@@ -59,8 +65,6 @@ from popnet_tpu_torch.core.config import KDH3D_DATASET, DecodeConfig, EncoderCon
 
 # what each option of the JAX command line that the port lacks waits for
 _NOT_PORTED = {
-    "fold_bn": "--fold-bn waits for ROADMAP Queue 1 item 12",
-    "quant": "--quant waits for ROADMAP Queue 1 item 12",
     "spatial": "--spatial waits for ROADMAP Queue 1 item 13",
 }
 _NOT_PORTED_DATASETS = {
@@ -123,14 +127,19 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
 
 def make_infers(model: str, weights: str | None = None, yolo_weights: str | None = None,
                 seed: int = 0, device: str | torch.device = "cuda", ckpt: str | None = None,
-                yolo_ckpt: str | None = None):
+                yolo_ckpt: str | None = None, fold_bn: bool = False, quant: str | None = None):
     """(infer, infer_yolo) for `model`'s driver: infer(images NHWC) -> the
     model's NHWC maps as the evaluation driver takes them (for "a2j", its heads from
     crops); infer_yolo is the stage-1 detector of "a2j" where `yolo_weights`
     or `yolo_ckpt` are given, else None. Weights come from the checkpoint
     directories (`ckpt`, `yolo_ckpt`) before the npz files. The CNNs run in
-    float32."""
-    net = _build_model(model, weights, seed, device, ckpt)
+    float32, with their BatchNorms folded (`fold_bn`, both stages of "a2j")
+    and their eligible convs in int8 (`quant="int8"`), rounded as the JAX
+    command line's op-by-op call (`serving.deploy_model`)."""
+    from popnet_tpu_torch.serving import deploy_model
+
+    net = deploy_model(_build_model(model, weights, seed, device, ckpt), device, torch.float32,
+                       fold_bn, quant, rounding="eager")
     if model == "openpose":
         def infer(images):
             (paf, heat, z), _ = net(_nchw(images))
@@ -148,7 +157,7 @@ def make_infers(model: str, weights: str | None = None, yolo_weights: str | None
     infer_yolo = None
     if model == "a2j" and (yolo_weights or yolo_ckpt):
         infer_yolo = make_infers("yolo", yolo_weights, seed=seed, device=device,
-                                 ckpt=yolo_ckpt)[0]
+                                 ckpt=yolo_ckpt, fold_bn=fold_bn, quant=quant)[0]
     return infer, infer_yolo
 
 
@@ -349,8 +358,14 @@ def cmd_evaluate(args) -> dict:
         os.path.join(args.data_root, "depth_maps"), os.path.join(args.data_root, args.labels),
         ecfg=ecfg, dcfg=KDH3D_DATASET, device=device,
     )
+    quant = args.quant
+    if args.model == "a2j" and quant:
+        print("evaluate --model a2j: --quant is ignored, as the JAX command line ignores it "
+              "(both stages run float32 convs)")
+        quant = None
     infer, infer_yolo = make_infers(args.model, args.weights, args.yolo_weights, args.seed,
-                                    device, ckpt=args.ckpt, yolo_ckpt=args.yolo_ckpt)
+                                    device, ckpt=args.ckpt, yolo_ckpt=args.yolo_ckpt,
+                                    fold_bn=args.fold_bn, quant=quant)
     data = run_evaluation(args.model, infer, dataset, args.batch_size, ecfg, decfg,
                           device_decode=args.device_decode, readout=args.readout,
                           gt_boxes=args.gt_boxes, infer_yolo=infer_yolo)
@@ -480,9 +495,13 @@ def build_parser():
     e.add_argument("--device-decode", action="store_true",
                    help="run the whole Open-Pose+ decode (assembly, z readouts, "
                         "back-projection) on the device")
-    # options of the JAX command line that the port does not have yet: they raise
-    e.add_argument("--fold-bn", action="store_true", dest="fold_bn", help=argparse.SUPPRESS)
-    e.add_argument("--quant", choices=["int8"], default=None, help=argparse.SUPPRESS)
+    e.add_argument("--fold-bn", action="store_true", dest="fold_bn",
+                   help="fold each Conv -> BatchNorm pair into the conv (exact; both stages "
+                        "of --model a2j)")
+    e.add_argument("--quant", choices=["int8"], default=None,
+                   help="int8: dynamic int8 for the CNN's eligible convs (ignored by --model "
+                        "a2j, as in the JAX command line)")
+    # an option of the JAX command line that the port does not have yet: it raises
     e.add_argument("--spatial", type=int, default=0, help=argparse.SUPPRESS)
     e.set_defaults(fn=cmd_evaluate)
 

@@ -70,6 +70,29 @@ def load_into(module: torch.nn.Module, flat: dict[str, np.ndarray]) -> torch.nn.
     return module
 
 
+def flat_from_module(module: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The inverse of `state_dict_from_jax` on a module of the port: its
+    convs' and BatchNorms' tensors as '/'-joined Flax paths (kernels HWIO),
+    float32 numpy arrays, in the module's order."""
+    flat: dict[str, np.ndarray] = {}
+    for name, m in module.named_modules():
+        scope = name.replace(".", "/")
+        if isinstance(m, torch.nn.Conv2d):
+            leaves = (("params", "kernel", m.weight), ("params", "bias", m.bias))
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            leaves = (("params", "scale", m.weight), ("params", "bias", m.bias),
+                      ("batch_stats", "mean", m.running_mean),
+                      ("batch_stats", "var", m.running_var))
+        else:
+            continue
+        for collection, leaf, t in leaves:
+            if t is not None:
+                arr = t.detach().float().cpu().numpy()
+                flat[f"{collection}/{scope}/{leaf}"] = (arr.transpose(2, 3, 1, 0)
+                                                        if leaf == "kernel" else arr)
+    return flat
+
+
 def load_sgd_momentum(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
                       flat_trace: dict[str, np.ndarray]) -> torch.optim.Optimizer:
     """Set each parameter's `momentum_buffer` in `optimizer` (a torch SGD

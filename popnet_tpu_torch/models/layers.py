@@ -206,7 +206,10 @@ class ResNet34Stem(nn.Module):
 def keep_batchnorm_float32(module: nn.Module) -> nn.Module:
     """After `module.to(bfloat16)`: BatchNorm parameters and statistics go
     back to float32 while activations stay in the low type, as Flax keeps
-    them."""
+    them. A folded BatchNorm that was fused (`ops.fold_bn.fuse_folded`) is
+    an `nn.Identity` by then: its bias is the conv's and is added in the
+    conv's type. An `ops.quant.Int8Conv2d` is never cast: its weight,
+    scales and bias stay float32 and its epilogue runs in float32."""
     for m in module.modules():
         if isinstance(m, nn.BatchNorm2d):
             m.float()

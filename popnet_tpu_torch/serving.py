@@ -103,16 +103,43 @@ def unpack_outputs_q16(buf: np.ndarray, max_people: int, num_joints: int,
     }
 
 
+_QUANT_MODES = (None, "none", "", "int8")
+
+
 def _check_build_args(device, pack: str) -> torch.device:
     if pack not in ("f32", "q16"):
         raise ValueError(f"unknown pack {pack!r}")
     return resolve_device(device)
 
 
+def deploy_model(model: torch.nn.Module, device, dtype: torch.dtype, fold_bn: bool = False,
+                 quant: str | None = None, rounding: str = "compiled") -> torch.nn.Module:
+    """A float32 `model` as it serves, changed in place: in eval mode, its
+    Conv -> BatchNorm pairs folded and fused with `fold_bn`
+    (`ops.fold_bn.fold_module`), then with `quant="int8"` its eligible
+    convs dynamic-int8 (`ops.quant.quantize_convs`, with `rounding`), in
+    that order, as the JAX builders fold before they quantize; then in
+    `dtype` on `device` with float32 BatchNorm (int8 convs keep float32
+    weights and scales)."""
+    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
+    from popnet_tpu_torch.ops.fold_bn import fold_module
+    from popnet_tpu_torch.ops.quant import quantize_convs
+
+    if quant not in _QUANT_MODES:
+        raise ValueError(f"unknown quant mode {quant!r}")
+    model.eval()
+    if fold_bn:
+        fold_module(model)
+    if quant == "int8":
+        quantize_convs(model, rounding=rounding)
+    return keep_batchnorm_float32(model.to(device=device, dtype=dtype))
+
+
 def build_openpose_pipeline(weights: dict[str, np.ndarray],
                             dtype: torch.dtype = torch.bfloat16,
                             device: str | torch.device = "cuda",
-                            stage: str = "full", pack: str = "f32"):
+                            stage: str = "full", pack: str = "f32",
+                            quant: str | None = None, fold_bn: bool = False):
     """Open-Pose+ serving fn: (B, H, W) raw depth -> (B, L) packed buffer.
 
     weights: the model's Flax variables as {'/'-joined path: array}
@@ -120,17 +147,18 @@ def build_openpose_pipeline(weights: dict[str, np.ndarray],
     the decode runs in float32. stage="cnn" stops after the CNN and packs
     per-image reductions (to attribute time between CNN and decode).
     pack="q16" emits the uint16 wire buffer instead of f32. Geometry,
-    thresholds, depth statistics and camera are the KDH3D defaults."""
+    thresholds, depth statistics and camera are the KDH3D defaults.
+    fold_bn=True folds the BatchNorms into the convs, and quant="int8" runs
+    the eligible convs in dynamic int8 (`deploy_model`), as the JAX
+    builders do; quant is None, "none", "" or "int8"."""
     from popnet_tpu_torch.decode.openpose_infer import openpose_decode
     from popnet_tpu_torch.interop.from_jax import load_into
     from popnet_tpu_torch.models import RTPoseLight3D
-    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
 
     if stage not in ("full", "cnn"):
         raise ValueError(f"unknown stage {stage!r}")
     device = _check_build_args(device, pack)
-    model = load_into(RTPoseLight3D(), weights).eval().to(device=device, dtype=dtype)
-    keep_batchnorm_float32(model)
+    model = deploy_model(load_into(RTPoseLight3D(), weights), device, dtype, fold_bn, quant)
 
     @torch.inference_mode()
     def pipeline(raw_depth) -> torch.Tensor:
@@ -153,24 +181,24 @@ def build_openpose_pipeline(weights: dict[str, np.ndarray],
 def build_popnet_pipeline(weights: dict[str, np.ndarray],
                           dtype: torch.dtype = torch.bfloat16,
                           device: str | torch.device = "cuda",
-                          readout: str = "universe", pack: str = "f32"):
+                          readout: str = "universe", pack: str = "f32",
+                          quant: str | None = None, fold_bn: bool = False):
     """PoP-Net serving fn: (B, H, W) raw depth -> (B, L) packed buffer of
     (joints2d, joints3d, conf, valid), or the q16 wire of (joints2d, z,
     conf, valid); `unpack_outputs` / `unpack_outputs_q16` read both.
 
     weights: the model's Flax variables as {'/'-joined path: array}
     (`interop.load_npz`). The CNN runs in `dtype` with float32 BatchNorm;
-    the decode runs in float32. readout: see `popnet_decode`."""
+    the decode runs in float32. readout: see `popnet_decode`. fold_bn and
+    quant: see `build_openpose_pipeline`."""
     from popnet_tpu_torch.decode.popnet_infer import popnet_decode
     from popnet_tpu_torch.interop.from_jax import load_into
     from popnet_tpu_torch.models import PopNet
-    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
 
     if readout not in ("universe", "gated"):
         raise ValueError(f"unknown readout {readout!r}")
     device = _check_build_args(device, pack)
-    model = load_into(PopNet(), weights).eval().to(device=device, dtype=dtype)
-    keep_batchnorm_float32(model)
+    model = deploy_model(load_into(PopNet(), weights), device, dtype, fold_bn, quant)
 
     @torch.inference_mode()
     def pipeline(raw_depth) -> torch.Tensor:
@@ -217,7 +245,8 @@ def yolo_decode(prior: torch.Tensor, w_out: float, h_out: float) -> dict[str, to
 
 def build_yolo_pipeline(weights: dict[str, np.ndarray],
                         dtype: torch.dtype = torch.bfloat16,
-                        device: str | torch.device = "cuda", pack: str = "f32"):
+                        device: str | torch.device = "cuda", pack: str = "f32",
+                        quant: str | None = None, fold_bn: bool = False):
     """Yolo-Pose+ serving fn: (B, H, W) raw depth -> (B, L) packed buffer of
     (joints2d, joints3d, conf, valid), or the q16 wire of (joints2d, z,
     conf, valid); `unpack_outputs` / `unpack_outputs_q16` read both.
@@ -225,14 +254,13 @@ def build_yolo_pipeline(weights: dict[str, np.ndarray],
     weights: YoloPoseNet's Flax variables as {'/'-joined path: array}
     (`interop.load_npz`). The CNN runs in `dtype` with float32 BatchNorm;
     the decode (`yolo_decode`) runs in float32. The committed weights
-    expect people over a depth background: on an empty one they find none."""
+    expect people over a depth background: on an empty one they find none.
+    fold_bn and quant: see `build_openpose_pipeline`."""
     from popnet_tpu_torch.interop.from_jax import load_into
     from popnet_tpu_torch.models import YoloPoseNet
-    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
 
     device = _check_build_args(device, pack)
-    model = load_into(YoloPoseNet(), weights).eval().to(device=device, dtype=dtype)
-    keep_batchnorm_float32(model)
+    model = deploy_model(load_into(YoloPoseNet(), weights), device, dtype, fold_bn, quant)
 
     @torch.inference_mode()
     def pipeline(raw_depth) -> torch.Tensor:
@@ -272,7 +300,8 @@ def build_yolo_a2j_pipeline(yolo_weights: dict[str, np.ndarray],
                             a2j_weights: dict[str, np.ndarray] | None = None,
                             dtype: torch.dtype = torch.bfloat16,
                             device: str | torch.device = "cuda", pack: str = "f32",
-                            max_crops: int = 4, seed: int = 0):
+                            max_crops: int = 4, seed: int = 0, quant: str | None = None,
+                            fold_bn: bool = False):
     """Two-stage Yolo->A2J serving fn: (B, H, W) raw depth -> (B, L) packed
     buffer with `max_crops` rows a frame: (joints2d, joints3d, conf, valid),
     or the q16 wire; `unpack_outputs(buf, max_crops, K)` reads it.
@@ -287,19 +316,17 @@ def build_yolo_a2j_pipeline(yolo_weights: dict[str, np.ndarray],
     Without `a2j_weights`, A2J is initialised from a `torch.Generator`
     seeded with `seed` (`A2J.init_seeded`); those values differ from the
     JAX builder's Flax init at PRNGKey(0). Both CNNs run in `dtype` with
-    float32 BatchNorm; crops, decode and vote run in float32."""
+    float32 BatchNorm; crops, decode and vote run in float32. fold_bn and
+    quant apply to both stages (see `build_openpose_pipeline`)."""
     from popnet_tpu_torch.decode.a2j import a2j_post_process
     from popnet_tpu_torch.interop.from_jax import load_into
     from popnet_tpu_torch.models import A2J, YoloPoseNet
     from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
-    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
 
     device = _check_build_args(device, pack)
-    yolo = load_into(YoloPoseNet(), yolo_weights).eval().to(device=device, dtype=dtype)
+    yolo = deploy_model(load_into(YoloPoseNet(), yolo_weights), device, dtype, fold_bn, quant)
     a2j = A2J().init_seeded(seed) if a2j_weights is None else load_into(A2J(), a2j_weights)
-    a2j = a2j.eval().to(device=device, dtype=dtype)
-    keep_batchnorm_float32(yolo)
-    keep_batchnorm_float32(a2j)
+    a2j = deploy_model(a2j, device, dtype, fold_bn, quant)
     all_anchors = torch.as_tensor(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()),
                                   dtype=torch.float32, device=device)
     C = max_crops
@@ -362,7 +389,8 @@ def build_rtpose_vgg_pipeline(weights: dict[str, np.ndarray] | None = None,
                               dtype: torch.dtype = torch.bfloat16,
                               device: str | torch.device = "cuda", trunk: str = "vgg19",
                               input_size: int = 368, preprocess: str = "rtpose",
-                              pack: str = "f32"):
+                              pack: str = "f32", quant: str | None = None,
+                              fold_bn: bool = False):
     """COCO RGB serving fn: (B, H, W, 3) BGR frames -> (B, L) f32 buffer of
     (joints2d, conf, counts); `unpack_outputs_2d(buf, 16, 18)` reads it.
 
@@ -376,12 +404,12 @@ def build_rtpose_vgg_pipeline(weights: dict[str, np.ndarray] | None = None,
     (`interop.load_npz`). Without them the CNN is initialised from a
     `torch.Generator` seeded with 0 (`RTPoseVGG.init_seeded`); no COCO
     weights are committed. The RGB path has no depth channel, so only the
-    f32 wire is defined."""
+    f32 wire is defined. fold_bn and quant: see `build_openpose_pipeline`
+    (the VGG19 trunk has no BatchNorm to fold)."""
     from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS
     from popnet_tpu_torch.decode.openpose_infer import paf_decode_2d
     from popnet_tpu_torch.interop.from_jax import load_into
     from popnet_tpu_torch.models import RTPoseVGG
-    from popnet_tpu_torch.models.layers import keep_batchnorm_float32
 
     if pack != "f32":
         raise ValueError("the RGB pipeline has no depth channel; only the f32 wire is defined")
@@ -390,7 +418,7 @@ def build_rtpose_vgg_pipeline(weights: dict[str, np.ndarray] | None = None,
     device = _check_build_args(device, pack)
     model = RTPoseVGG(trunk=trunk)
     model = model.init_seeded(0) if weights is None else load_into(model, weights)
-    model = keep_batchnorm_float32(model.eval().to(device=device, dtype=dtype))
+    model = deploy_model(model, device, dtype, fold_bn, quant)
 
     @torch.inference_mode()
     def pipeline(frames) -> torch.Tensor:

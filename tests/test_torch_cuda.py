@@ -6,6 +6,7 @@ the JAX package, so it runs where only PyTorch is installed:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import json
 import os
 
 import numpy as np
@@ -1107,3 +1108,232 @@ def test_train_a2j_subcommand_on_the_card(cuda, mpaug_set, tmp_path):
                 "labels_val.json", "--ckpt", os.path.join(out, "ckpt"), "--gt-boxes",
                 "--batch-size", "4", "--out-dir", str(tmp_path / "ev")])
     assert os.path.exists(tmp_path / "ev" / "a2j_results.json") and "pck2d" in res
+
+
+# -- the deployment transforms: exact BatchNorm folding and dynamic int8 ----------------------
+
+# (C_in, C_out, kernel, stride, pad, dilation, H, W)
+INT8_SHAPES = [
+    (64, 32, 3, 2, 1, 1, 56, 56),      # stride 2
+    (512, 512, 3, 1, 2, 2, 18, 18),    # dilated by 2 (A2J's layer4)
+    (3, 64, 7, 2, 3, 1, 72, 72),       # K = 147 padded to 152 (A2J's stem)
+    (128, 100, 3, 1, 1, 1, 14, 14),    # C_out = 100 padded to 104 (PoP-Net's prior head)
+    (128, 38, 1, 1, 0, 1, 46, 46),     # a 1x1 head of 38 padded to 40 (RTPoseVGG's PAF)
+    (256, 1024, 1, 1, 0, 1, 18, 18),   # 1x1 at stride 1: the input in NHWC is the im2col
+    (64, 64, 3, 1, 1, 1, 2, 2),        # 8 rows, padded to the 17 _int_mm takes
+]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=[
+    "stride2", "dilated", "padded-K", "padded-N", "1x1-padded-N", "1x1-direct", "few-rows"])
+def test_int8_conv_on_the_card_equals_the_plain_version(cuda, shape):
+    """The int32 product on the card (im2col and torch._int_mm, counted in
+    quant.int8_conv.launches) equals its plain version on the CPU bit for bit; the
+    whole Int8Conv2d on float32 input equals the CPU's, both roundings (the
+    card's epilogue is one fused multiply-add, torch.addcmul, as fma_f32
+    rounds it on the CPU), and in bf16."""
+    from popnet_tpu_torch.ops import quant
+
+    cin, cout, k, s, p, d, H, W = shape
+    rng = np.random.default_rng(cin + cout)
+    x_q = torch.as_tensor(rng.integers(-127, 128, (2, cin, H, W)), dtype=torch.int8)
+    w_q = torch.as_tensor(rng.integers(-127, 128, (cout, cin, k, k)), dtype=torch.int8)
+    quant.int8_conv.launches = 0
+    got = quant.int8_conv(x_q.to(cuda), quant.weight_matrix(w_q).to(cuda), w_q.to(cuda),
+                          (s, s), (p, p), (d, d))
+    torch.cuda.synchronize()
+    assert quant.int8_conv.launches == 1 and got.dtype == torch.int32
+    ref = quant.int8_conv_plain(x_q, w_q, (s, s), (p, p), (d, d)).permute(0, 2, 3, 1)
+    assert torch.equal(got.cpu(), ref)
+
+    conv = torch.nn.Conv2d(cin, cout, k, stride=s, padding=p, dilation=d)
+    x = torch.as_tensor(rng.normal(0, 2, (2, cin, H, W)), dtype=torch.float32)
+    with torch.inference_mode():
+        for rounding in ("compiled", "eager"):
+            host = quant.Int8Conv2d(conv, rounding)
+            card = quant.Int8Conv2d(conv, rounding).to(cuda)
+            assert torch.equal(card(x.to(cuda)).cpu(), host(x)), rounding
+        card = quant.Int8Conv2d(conv).to(cuda, torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        assert torch.equal(card(xb.to(cuda)).cpu(), quant.Int8Conv2d(conv)(xb))
+
+
+def _deploy_frames(background):
+    return figure_frames(31, 4, background=background)
+
+
+DEPLOY_PATHS = {"openpose": (build_openpose_pipeline, WEIGHTS, False),
+                "popnet": (build_popnet_pipeline, WEIGHTS_POPNET, True),
+                "yolo": (build_yolo_pipeline, WEIGHTS_YOLO, True)}
+DEPLOY_CASES = [(m, t) for m in DEPLOY_PATHS for t in ("fold", "int8", "fold+int8")]
+
+
+@pytest.mark.parametrize("path,transform", DEPLOY_CASES,
+                         ids=[f"{m}-{t}" for m, t in DEPLOY_CASES])
+def test_deploy_transforms_on_the_card_match_the_cpu(cuda, path, transform):
+    """A depth builder with fold_bn and/or quant="int8", float32 (cuDNN
+    without TF32), on the card against the CPU on the same 4 frames. Folded:
+    people equal, joints2d within 2.3 px and depth within 1e-3 m, as the
+    exact path's test holds them. int8: the float convs between the int8
+    convs round apart on the two devices, and an ulp across a rounding
+    boundary of x / s_x moves a quantized value a step: people per frame
+    equal and 95% of the joints both see within 2.3 px (Open-Pose+, whose
+    committed weights localize little, within one and 80%: measured 88.6%
+    on an H100). Every eligible conv ran in int8 on the card, once a
+    batch."""
+    from popnet_tpu_torch.ops import quant
+
+    build, w, background = DEPLOY_PATHS[path]
+    kw = {"fold_bn": "fold" in transform}
+    if "int8" in transform:
+        kw["quant"] = "int8"
+    frames = _deploy_frames(background)
+    weights = load_npz(w)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        quant.int8_conv.launches = 0
+        gpu = build(weights, dtype=torch.float32, **kw)(frames)
+        torch.cuda.synchronize()
+        assert quant.int8_conv.launches == ({"openpose": 32, "popnet": 38, "yolo": 24}[path]
+                                  if "quant" in kw else 0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu = build(weights, dtype=torch.float32, device="cpu", **kw)(frames)
+    a, b = unpack_outputs(gpu.cpu().numpy(), 16, 15), unpack_outputs(cpu.numpy(), 16, 15)
+    assert np.isfinite(a["joints3d"]).all()
+    va, vb = a["joints2d"][..., 0] >= 0, b["joints2d"][..., 0] >= 0
+    if path != "openpose":
+        va, vb = va & (a["counts"] > 0)[..., None], vb & (b["counts"] > 0)[..., None]
+    if "quant" not in kw:
+        np.testing.assert_array_equal(a["counts"], b["counts"])
+        np.testing.assert_array_equal(va, vb)
+        np.testing.assert_allclose(a["joints2d"][va], b["joints2d"][va], atol=2.3)
+        np.testing.assert_allclose(a["joints3d"][va][..., 2], b["joints3d"][va][..., 2], atol=1e-3)
+        return
+    ca, cb = a["counts"].sum(axis=1), b["counts"].sum(axis=1)
+    assert np.abs(ca - cb).max() <= (1 if path == "openpose" else 0), (ca, cb)
+    both = va & vb
+    assert both.sum() >= 9
+    d = np.linalg.norm(a["joints2d"] - b["joints2d"], axis=-1)[both]
+    assert (d <= 2.3).mean() >= (0.8 if path == "openpose" else 0.95)
+
+
+@pytest.mark.parametrize("transform", ["fold", "fold+int8"])
+def test_yolo_a2j_deploy_transforms_on_the_card_match_the_cpu(cuda, transform):
+    """Yolo->A2J (A2J seeded) in float32 with fold_bn, and with int8 too,
+    on both stages, card (cuDNN without TF32) against CPU on 2 frames, 2
+    crops a frame: the detector's flags and confidences equal, every value
+    finite, every eligible conv int8 on the card (24 + 68 a batch).
+    Folded, the joints lie within 1% of each output's largest magnitude
+    (the exact path's bar against JAX: an ulp in a box flips a
+    nearest-neighbour tap of the crop); with int8 a quantization step moves
+    the seeded init's sharp vote by whole anchors, so the joints are not
+    compared."""
+    from popnet_tpu_torch.ops import quant
+
+    kw = {"fold_bn": True, **({"quant": "int8"} if "int8" in transform else {})}
+    frames = figure_frames(34, 2)
+    weights = load_npz(WEIGHTS_YOLO)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        quant.int8_conv.launches = 0
+        gpu = build_yolo_a2j_pipeline(weights, dtype=torch.float32, max_crops=2, **kw)(frames)
+        torch.cuda.synchronize()
+        assert quant.int8_conv.launches == (24 + 68 if "quant" in kw else 0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu = build_yolo_a2j_pipeline(weights, dtype=torch.float32, device="cpu", max_crops=2,
+                                  **kw)(frames)
+    a, b = unpack_outputs(gpu.cpu().numpy(), 2, 15), unpack_outputs(cpu.numpy(), 2, 15)
+    assert np.isfinite(a["joints3d"]).all() and a["counts"].any()
+    np.testing.assert_array_equal(a["counts"], b["counts"])
+    np.testing.assert_array_equal(a["conf"], b["conf"])
+    if "quant" not in kw:
+        for k in ("joints2d", "joints3d"):
+            np.testing.assert_allclose(a[k], b[k], atol=1e-2 * np.abs(b[k]).max(), err_msg=k)
+
+
+def test_coco_deploy_transforms_on_the_card_match_the_cpu(cuda):
+    """COCO RGB in float32 with fold_bn and int8, card against CPU on 2
+    frames at input_size 184: RTPoseVGG's MobileNet trunk from its seeded
+    init (9 BatchNorms fold; maps near zero, nobody found) within 1e-4 of
+    the CPU's buffer; the VGG19 trunk with chip_smoke's scaled heads
+    (`coco_weights`, people found): its int8 CNN's maps on the card closer
+    to the CPU's int8 maps on average than those lie to the CPU's float32
+    maps, and within twice that gap at most (a float ulp moves a quantized
+    value a step here and there, and the step spreads), and the builder's
+    people within 30% of the CPU's (its seeded maps are noise near the
+    decode's thresholds: an H100 read 10 against 13); every value finite;
+    79 and 85 int8 convs a batch on the card, K1, K3, K6 once."""
+    from chip_smoke import coco_weights
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import RTPoseVGG
+    from popnet_tpu_torch.ops import quant
+    from popnet_tpu_torch.serving import deploy_model, preproc_rgb
+
+    rgb = np.random.default_rng(33).uniform(0, 255, (2, 240, 320, 3)).astype(np.float32)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for weights, trunk, n_int8 in ((None, "mobilenet", 79), (coco_weights(), "vgg19", 85)):
+            kw = dict(dtype=torch.float32, trunk=trunk, input_size=184, fold_bn=True,
+                      quant="int8")
+            kernels.reset_launches()
+            quant.int8_conv.launches = 0
+            gpu = build_rtpose_vgg_pipeline(weights, **kw)(rgb)
+            torch.cuda.synchronize()
+            assert quant.int8_conv.launches == n_int8
+            assert all(kernels.launch_counts()[n] == 1 for n in ("find_peaks", "paf_score",
+                                                                  "assemble_ids"))
+            cpu = build_rtpose_vgg_pipeline(weights, device="cpu", **kw)(rgb).numpy()
+            got = gpu.cpu().numpy()
+            assert np.isfinite(got).all()
+            if trunk == "mobilenet":
+                np.testing.assert_allclose(got, cpu, atol=1e-4)
+                continue
+            ca, cb = (unpack_outputs_2d(o, 16, COCO_NUM_JOINTS)["counts"].sum()
+                      for o in (got, cpu))
+            assert cb > 0 and abs(ca - cb) <= 0.3 * cb, (ca, cb)
+            x = preproc_rgb(torch.as_tensor(rgb), 184)
+            card, host, exact = (
+                deploy_model(load_into(RTPoseVGG(), weights), dev, torch.float32,
+                             quant=q)(x.to(dev))[0] for dev, q in ((cuda, "int8"),
+                                                                   ("cpu", "int8"), ("cpu", None)))
+            for a, b, e in zip(card, host, exact):
+                d, gap = (a.cpu() - b).abs(), (b - e).abs()
+                print("COCO int8 map, card vs CPU mean and max |err|:", float(d.mean()),
+                      float(d.max()), "; int8 vs float32 on the CPU:", float(gap.mean()),
+                      float(gap.max()))
+                assert d.mean() < gap.mean() and d.max() <= 2 * gap.max()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_evaluate_deploy_flags_on_the_card(cuda, eval_sets, tmp_path):
+    """`evaluate --fold-bn` and `--quant int8` of PoP-Net (the committed
+    weights, chip_smoke's 16 frames over the background) on the card
+    against the same command on the CPU: the int8 run goes through int8
+    convs on the card; folded, the four metrics equal the CPU's within
+    1e-6 (the card's float32 convs sum in other orders); int8, each frame's
+    people equal and the metrics within 0.02 (an ulp of a float layer
+    moves a quantized value a step here and there)."""
+    from popnet_tpu_torch.cli.main import main
+    from popnet_tpu_torch.ops import quant
+
+    root = os.path.dirname(eval_sets["bg"][0])
+    for flags, bar in ((("--fold-bn",), 1e-6), (("--quant", "int8"), 0.02)):
+        res, people = {}, {}
+        for dev in ("cuda", "cpu"):
+            quant.int8_conv.launches = 0
+            out = str(tmp_path / dev)
+            res[dev] = main(["evaluate", "--model", "popnet", "--data-root", root,
+                             "--out-dir", out, "--batch-size", "8", "--device", dev,
+                             "--weights", WEIGHTS_POPNET, *flags])
+            assert (quant.int8_conv.launches > 0) == ("--quant" in flags and dev == "cuda")
+            with open(os.path.join(out, "popnet_results.json")) as f:
+                people[dev] = [len(p) for p in json.load(f)["human_pred_set_2d"]]
+        assert people["cuda"] == people["cpu"], (flags, people)
+        for k in ("pck2d", "pck3d", "map2d", "map3d"):
+            assert abs(res["cuda"][k] - res["cpu"][k]) <= bar, (flags, k, res)

@@ -69,7 +69,7 @@ def test_port_imports_with_jax_and_reference_blocked():
                   "data.augment_device", "decode.readout", "decode.assemble", "core.device",
                   "ops.encoders", "losses.losses", "train.state", "train.schedule",
                   "train.steps", "train.checkpoint", "train.loop", "data.compositing",
-                  "data.streaming", "data.augment_host"):
+                  "data.streaming", "data.augment_host", "ops.fold_bn", "ops.quant"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -339,3 +339,19 @@ def test_train_defaults_to_cuda_and_never_runs_on_cpu_unasked(tmp_path):
         Trainer(YoloPoseNet(), None, None)
     with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
         main(["train", "--data-root", str(tmp_path), "--model", "yolo", "--device", "cpu"])
+
+
+def test_int8_conv_takes_the_plain_version_on_the_cpu_and_refuses_other_devices():
+    """int8_conv on CPU tensors is the plain version and counts no launch;
+    on a device that is neither CPU nor CUDA it raises."""
+    from popnet_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(-127, 128, (1, 8, 5, 5)), dtype=torch.int8)
+    w = torch.as_tensor(rng.integers(-127, 128, (16, 8, 3, 3)), dtype=torch.int8)
+    quant.int8_conv.launches = 0
+    got = quant.int8_conv(x, quant.weight_matrix(w), w, (1, 1), (1, 1), (1, 1))
+    assert quant.int8_conv.launches == 0
+    assert torch.equal(got, quant.int8_conv_plain(x, w, 1, 1, 1).permute(0, 2, 3, 1))
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        quant.int8_conv(x.to("meta"), quant.weight_matrix(w), w, (1, 1), (1, 1), (1, 1))
