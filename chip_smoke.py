@@ -4,8 +4,9 @@
 Drives the port's five serving paths at the models' full width, its
 MP-3DHP evaluation drivers for the four depth families, the training
 of three of them on single-person frames (phase 7) and on mp-aug
-multi-person composites (phase 8), A2J's training (phase 9), and each
-serving path folded and in dynamic int8 (phase 10): the four
+multi-person composites (phase 8), A2J's training (phase 9), each
+serving path folded and in dynamic int8 (phase 10), and ITOP's training,
+evaluation and table with the exact host decode (phase 11): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -187,6 +188,35 @@ Phases, one or more lines each:
     --quant int8, each metric against float32 at EVAL_DEPLOY_BARS (Yolo's
     3D metrics under int8 at YOLO_INT8_3D_BAR), and the kernels' launches
     over (c) and (e) (a "deploy_launches" entry in each row).
+
+11. itop: ITOP (popnet_tpu_torch.data.itop_a2j, ITOPA2JCropDataset,
+    cli.itop_eval, cli.main --dataset itop, cli.itop_table, the exact host
+    decode): (a) the synthetic ITOP sets (cli.itop_table.build_itop, 320x240
+    at the ITOP camera: 64 training frames of seed 0, 64 validation frames
+    of seed 777); (b) an ITOPA2JCropDataset batch of 32 with its box shifts
+    made on the card against the CPU's bit for bit (crops, labels, the
+    erasing on the card's draws, the generator's next draw), and
+    itop_relative_stats card against CPU within 1e-12; (c) the A2J and
+    Open-Pose+ oracle drivers (itop_a2j_oracle, itop_openpose_oracle) on
+    the card over acc@10cm 0.995 and 0.9, the A2J predictions within the
+    vote's 64-ulp bar of the host's and the Open-Pose+ JSON equal to the
+    host's, and the painted Open-Pose+ oracle through the exact host decode
+    (fast=False) on 32 KDH3D frames over the eval phase's bars; (d) `train --model a2j
+    --dataset itop` and `train --model openpose --dataset itop`, 2 epochs
+    at batch 32 validating on the validation frames: finite, falling
+    losses, e2e train crops/s and frames/s, no kernel launched; (e) the
+    Open-Pose+ (both decodes) and PoP-Net drivers at ITOP geometry with the
+    committed weights, card against host bit for bit, eval frames/s, and
+    `evaluate --dataset itop` on the card against --device cpu on the 64
+    validation frames: Open-Pose+ with the committed weights (the same
+    people, the joints within ITOP_OP_CLI_BARS), and A2J with --gt-boxes
+    and (d)'s checkpoint, whose diverged heads magnify float32 rounding
+    (itop_a2j_gaps: the joints within ITOP_A2J_F32_BARS in float32 and
+    ITOP_A2J_F64_BARS in float64, the 3D ones as a share of the largest
+    |joint|, and the card's float32 joints at most ITOP_A2J_F32_RATIO times
+    as far from the CPU's float64 ones as the CPU's float32 joints are); (f) `python -m
+    popnet_tpu_torch.cli.itop_table` at a tiny budget; and the kernels'
+    launches over (c), (e) and (f) (an "itop_launches" entry in each row).
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -2157,11 +2187,12 @@ class Recorder:
 
 
 def eval_family(tag: str, model: str, opts: dict, paths, dev, batch: int, weights: dict,
-                ckpts: dict | None = None):
+                ckpts: dict | None = None, dcfg=None):
     """One family's driver (cli.main.run_evaluation) on the card with the
     committed weights (A2J from its seeded init) or the port's checkpoint
     directories `ckpts` ({model: dir, "yolo_for_a2j": dir}), then on the host with the
-    same CNN outputs, through the plain versions of the kernels. Returns
+    same CNN outputs, through the plain versions of the kernels; the frames
+    at `dcfg`'s geometry (KDH3D's by default). Returns
     (card JSON, host JSON, timing {seconds: the card run, cnn_seconds,
     data_seconds: get_batch, load_seconds: the .npy loads of get_batch and
     of A2J's frames, host_seconds: the host run}, the host's A2J vote inputs
@@ -2177,7 +2208,10 @@ def eval_family(tag: str, model: str, opts: dict, paths, dev, batch: int, weight
                                     yolo_ckpt=ckpts.get("yolo_for_a2j"))
     rec = Recorder(infer, f"{tag} {'crops' if model == 'a2j' else 'images'}")
     rec_yolo = Recorder(infer_yolo, f"{tag} detector images") if infer_yolo else None
-    ds = MPRealDataset(*paths, device=dev)
+    from popnet_tpu_torch.core.config import KDH3D_DATASET
+
+    dcfg = dcfg or KDH3D_DATASET
+    ds = MPRealDataset(*paths, dcfg=dcfg, device=dev)
     get_batch, load, data_s, load_s = ds.get_batch, ds.load_composited, [0.0], [0.0]
 
     def timed_get_batch(idx):
@@ -2199,7 +2233,7 @@ def eval_family(tag: str, model: str, opts: dict, paths, dev, batch: int, weight
     card = run_evaluation(model, rec, ds, batch, infer_yolo=rec_yolo, **opts)
     seconds = time.perf_counter() - t0
     cnn = rec.seconds + (rec_yolo.seconds if rec_yolo else 0.0)
-    host_ds = MPRealDataset(*paths, device="cpu")
+    host_ds = MPRealDataset(*paths, dcfg=dcfg, device="cpu")
     t0 = time.perf_counter()
     host = run_evaluation(model, rec.replay(), host_ds, batch,
                           infer_yolo=rec_yolo.replay() if rec_yolo else None, **opts)
@@ -2311,9 +2345,11 @@ def _maxerr_np(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
 
 
-def painted_oracle(paths, dev, batch: int, device_decode: bool) -> tuple[dict, dict]:
+def painted_oracle(paths, dev, batch: int, device_decode: bool,
+                   fast: bool = True) -> tuple[dict, dict]:
     """The painted Open-Pose+ oracle (openpose_painted_maps from the set's
-    labels) fed to run_openpose_eval on `dev`: (metrics, ablation channels)."""
+    labels) fed to run_openpose_eval on `dev` (with `fast=False`, the exact
+    host decode): (metrics, ablation channels)."""
     import torch
 
     from popnet_tpu_torch.cli import evaluate as ev
@@ -2328,7 +2364,7 @@ def painted_oracle(paths, dev, batch: int, device_decode: bool) -> tuple[dict, d
         heat, paf, z = openpose_painted_maps([ds.anno_dic[ds.ids[i]] for i in idx])
         return tuple(torch.from_numpy(a).to(dev) for a in (paf, heat, z))
 
-    data = ev.run_openpose_eval(infer, ds, batch, device_decode=device_decode)
+    data = ev.run_openpose_eval(infer, ds, batch, device_decode=device_decode, fast=fast)
     return ev.evaluate_eval_data(data, verbose=False), ev.evaluate_ablation_channels(data)
 
 
@@ -3857,6 +3893,410 @@ def phase_deploy(dev, paths: dict, keep: str) -> dict:
     return launches
 
 
+# -- phase 11: ITOP ---------------------------------------------------------------------------
+
+ITOP_FRAMES = 64            # frames of the synthetic ITOP training set, and of its validation set
+ITOP_BATCH = 32             # the ITOP crop dataset's and the command line's batch
+ITOP_EVAL_BATCH = 16        # the ITOP drivers' batch, the ITOP table's
+ITOP_EPOCHS = 2             # epochs of each `train --dataset itop` run
+ITOP_PAINTED_FRAMES = 32    # KDH3D frames of the painted oracle through the exact decode
+ITOP_ORACLE_BARS = {"a2j": 0.995, "openpose": 0.9}   # acc@10cm of the oracle drivers
+# `evaluate --dataset itop`, card against --device cpu, the largest joint gaps: Open-Pose+
+# (the committed weights) in px and m, read as 0 and 5.96e-6; A2J ((d)'s checkpoint) in
+# px and as a share of the largest |3D joint| of the CPU's float64 run, read in float32
+# as 0.104 px and 2.28e-5 (of 94593 m: the depth head diverges) and in float64 as 2.2e-10
+# px and 4.2e-14; and the card's float32 joints' distance from the CPU's float64 ones
+# over the CPU's float32 joints' distance, read as 4.01 (cuDNN's float32 convolutions
+# round further than the CPU's)
+ITOP_OP_CLI_BARS = (1e-3, 1e-4)
+ITOP_A2J_F32_BARS = (0.5, 2e-4)
+ITOP_A2J_F64_BARS = (1e-6, 1e-9)
+ITOP_A2J_F32_RATIO = 16.0
+
+
+def itop_a2j_oracle(dataset):
+    """infer_a2j for run_itop_a2j_eval over `dataset`, frames in order:
+    heads that put the vote's whole weight on anchor 0 (its class logit 60,
+    every other 0) and decode to each frame's ground-truth crop labels at
+    the driver's crop geometry, returned on the crops' device."""
+    import torch
+
+    from popnet_tpu_torch.cli.itop_eval import _gt_uvz
+    from popnet_tpu_torch.core.camera import ITOP_INTRINSICS
+    from popnet_tpu_torch.data.itop_a2j import CROP, boxes_from_centers, itop_crop_labels
+    from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
+
+    anchors = shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()).astype(np.float32)
+    gt = _gt_uvz(dataset)
+    centers = gt[:, 8]
+    boxes = boxes_from_centers(centers, dataset.intrinsics or ITOP_INTRINSICS,
+                               img_h=dataset.dcfg.height, img_w=dataset.dcfg.width)
+    labels = itop_crop_labels(gt, boxes, centers[:, 2].astype(np.float32))
+    pos = {"i": 0}
+
+    def infer(crops):
+        b = crops.shape[0]
+        lab = labels[pos["i"]:pos["i"] + b]
+        pos["i"] += b
+        cls = np.zeros((b, len(anchors), lab.shape[1]), np.float32)
+        cls[:, 0] = 60.0
+        reg = np.zeros(cls.shape + (2,), np.float32)
+        reg[:, 0] = lab[..., :2] - anchors[0]
+        dep = np.zeros_like(cls)
+        dep[:, 0] = lab[..., 2]
+        return tuple(torch.from_numpy(a).to(crops.device) for a in (cls, reg, dep))
+
+    return infer
+
+
+def itop_openpose_oracle(dataset, dev):
+    """infer for run_itop_openpose_eval over `dataset`, frames in order:
+    each frame's ground-truth maps at the network's input geometry, encoded
+    on `dev` by the port's encoders (heat, PAF, and z normalized over a 4.5
+    m background), returned as (paf, heat, z) NHWC."""
+    import torch
+
+    from popnet_tpu_torch.core.config import EncoderConfig
+    from popnet_tpu_torch.data.labels import OOB, pack_annotations
+    from popnet_tpu_torch.ops.encoders import encode_targets
+
+    ecfg = EncoderConfig()
+    sx, sy = ecfg.input_x / dataset.dcfg.width, ecfg.input_y / dataset.dcfg.height
+    pos = {"i": 0}
+
+    def infer(images):
+        idx = range(pos["i"], pos["i"] + images.shape[0])
+        pos["i"] += images.shape[0]
+        rows = []
+        for i in idx:
+            pk = pack_annotations(dataset.anno_dic[dataset.ids[i]], ecfg.max_people,
+                                  ecfg.num_joints)
+            j2, bb = pk.joints2d.copy(), pk.bboxes.copy()
+            j2[pk.valid, :, 0] *= sx
+            j2[pk.valid, :, 1] *= sy
+            j2[~pk.valid] = OOB
+            bb[:, 0::2] *= sx
+            bb[:, 1::2] *= sy
+            rows.append((j2, pk.joints3d, bb, pk.pose_weights, pk.valid))
+        j2, j3, bb, w, v = (torch.from_numpy(np.stack(c)).to(dev) for c in zip(*rows))
+        far = torch.full((len(rows), ecfg.zgrid_h, ecfg.zgrid_w), 4.5, device=dev)
+        t = encode_targets(j2, j3, bb, w, v, far, ecfg, dataset.dcfg.depth, pose_align=False,
+                           with_prior=False)
+        return t["pafs"], t["heatmaps"], t["zmaps"]
+
+    return infer
+
+
+def write_itop_sets(root: str) -> tuple[float, int]:
+    """The synthetic ITOP sets under root (cli.itop_table.build_itop, 320x240
+    at the ITOP camera): ITOP_FRAMES training frames of seed 0 with
+    labels.json, and ITOP_FRAMES validation frames of seed 777, the ITOP
+    table's, beside them as val_*.npy with labels_val.json. Returns
+    (seconds, frames)."""
+    from popnet_tpu_torch.cli.itop_table import build_itop
+
+    t0 = time.perf_counter()
+    build_itop(root, ITOP_FRAMES, seed=0)
+    val = build_itop(os.path.join(root, "val_set"), ITOP_FRAMES, seed=777)
+    with open(val["labels"]) as f:
+        labels = json.load(f)
+    renamed = {"intrinsics": labels.pop("intrinsics")}
+    for name, anns in labels.items():
+        shutil.move(os.path.join(val["img_dir"], name), os.path.join(root, "depth_maps",
+                                                                      "val_" + name))
+        renamed["val_" + name] = anns
+    with open(os.path.join(root, "labels_val.json"), "w") as f:
+        json.dump(renamed, f)
+    shutil.rmtree(os.path.join(root, "val_set"))
+    return time.perf_counter() - t0, 2 * ITOP_FRAMES
+
+
+def itop_datasets(root: str, dev, labels: str = "labels.json"):
+    """(KDH3DDataset, MPRealDataset) of a set of write_itop_sets at ITOP
+    geometry on `dev`, as the ITOP table builds them."""
+    from popnet_tpu_torch.core.config import ITOP_DATASET, EncoderConfig
+    from popnet_tpu_torch.data.datasets import KDH3DDataset, MPRealDataset
+
+    paths = (os.path.join(root, "depth_maps"), os.path.join(root, labels))
+    return (KDH3DDataset(*paths, ecfg=EncoderConfig(max_people=2), dcfg=ITOP_DATASET, seed=1,
+                         device=dev),
+            MPRealDataset(*paths, dcfg=ITOP_DATASET, device=dev))
+
+
+def _pred_joints(data: dict) -> tuple:
+    """(2D (P, K, 2), 3D (P, K, 3)) float64 of an eval JSON's people, in order."""
+    return tuple(np.asarray([p for img in data[k] for p in img], np.float64)
+                 for k in ("human_pred_set_2d", "human_pred_set_3d"))
+
+
+def itop_a2j_gaps(root: str, ckpt: str, dev, card32: dict, cpu32: dict) -> dict:
+    """A2J's joints from the checkpoint `ckpt` on the validation frames of
+    write_itop_sets: the float32 JSONs of `evaluate --dataset itop
+    --gt-boxes` on the card and the CPU (card32, cpu32), and the same
+    driver with the same checkpoint in float64 on both (the crops as
+    float32 makes them, the CNN and the vote in float64). Returns the
+    scale (the largest |3D joint| of the CPU's float64 run), the largest
+    2D (px) and 3D (share of the scale) gaps card against CPU in float32
+    and in float64, and each device's float32 3D joints' distance (norm)
+    from the CPU's float64 ones."""
+    import torch
+
+    from popnet_tpu_torch.cli.main import _build_model, _nchw
+    from popnet_tpu_torch.cli.yolo_a2j import run_yolo_a2j_eval
+
+    f64 = {}
+    for where in (dev, "cpu"):
+        _, ds = itop_datasets(root, where, "labels_val.json")
+        net = _build_model("a2j", None, 0, torch.device(where), ckpt).double()
+        with torch.inference_mode():
+            f64[where] = _pred_joints(run_yolo_a2j_eval(
+                None, lambda crops: net(_nchw(crops).double()), ds, ITOP_EVAL_BATCH,
+                gt_boxes=True))
+    c32, h32, c64, h64 = _pred_joints(card32), _pred_joints(cpu32), f64[dev], f64["cpu"]
+    scale = float(np.abs(h64[1]).max())
+
+    def gap(a, b):
+        return _maxerr_np(a[0], b[0]), _maxerr_np(a[1], b[1]) / scale
+
+    return {"scale": scale, "f32": gap(c32, h32), "f64": gap(c64, h64),
+            "card32_to_f64": float(np.linalg.norm(c32[1] - h64[1])),
+            "cpu32_to_f64": float(np.linalg.norm(h32[1] - h64[1]))}
+
+
+def phase_itop(rng, dev) -> dict:
+    """Phase 11, ITOP (see the module docstring); `rng` draws the painted
+    oracle's frames. Returns the kernels' launches over (c), (e) and (f)."""
+    import tempfile
+
+    import torch
+
+    from popnet_tpu_torch.cli import itop_table
+    from popnet_tpu_torch.cli.itop_eval import run_itop_a2j_eval, run_itop_openpose_eval
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.core.config import ITOP_DATASET
+    from popnet_tpu_torch.data.a2j_crops import (CROP, ITOPA2JCropDataset, apply_erasing,
+                                                 erasing_draws, erasing_rectangles)
+    from popnet_tpu_torch.data.itop_a2j import itop_relative_stats
+    from popnet_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the sets
+        secs, n = write_itop_sets(root)
+        say("itop", f"(a) wrote {n} synthetic ITOP frames (320x240, the ITOP camera; "
+            f"{ITOP_FRAMES} training of seed 0, {ITOP_FRAMES} validation of seed 777) in "
+            f"{secs:.1f} s")
+
+        # (b) the crop dataset and the relative statistics, card against CPU
+        t0 = time.perf_counter()
+        kc, _ = itop_datasets(root, dev)
+        kh, _ = itop_datasets(root, "cpu")
+        mean_c, std_c = itop_relative_stats(kc)
+        mean_h, std_h = itop_relative_stats(kh)
+        rel = max(abs(mean_c - mean_h) / abs(mean_h), abs(std_c - std_h) / std_h)
+        require(rel <= 1e-12, f"(b) itop_relative_stats card {mean_c!r}, {std_c!r} against "
+                f"CPU {mean_h!r}, {std_h!r}: {rel:.3g} relative")
+        idx = np.arange(ITOP_BATCH)
+        cds = ITOPA2JCropDataset(kc, seed=0, erase=False, mean=mean_c, std=std_c)
+        hds = ITOPA2JCropDataset(kh, seed=0, erase=False, mean=mean_c, std=std_c)
+        card, host = cds.get_batch(idx), hds.get_batch(idx)
+        require(all(bool(torch.equal(card[k].cpu(), host[k])) for k in host),
+                "(b) the ITOP crops or labels differ")
+        u, noise = erasing_draws(ITOP_BATCH, CROP, cds.erase_generator)
+        rc, rh = erasing_rectangles(u, CROP), erasing_rectangles(u.cpu(), CROP)
+        ec = apply_erasing(card["crops"], rc, noise)
+        eh = apply_erasing(host["crops"], rh, noise.cpu())
+        require(bool(torch.equal(ec.cpu(), eh)), "(b) the erased ITOP crops differ")
+        require(int(cds.rng.integers(0, 1 << 30)) == int(hds.rng.integers(0, 1 << 30)),
+                "(b) the generators' next draws differ")
+        crops = card["crops"]
+        say("itop", f"(b) ITOPA2JCropDataset, a batch of {ITOP_BATCH} at {CROP}² with the box "
+            f"shifts, made on the card equals the CPU's bit for bit (crops and labels; erasing "
+            f"on the card's draws, {int(rc[0].sum())} crops erased); the generators' next "
+            f"draws equal; itop_relative_stats card = CPU within {rel:.3g} relative (mean "
+            f"{mean_c:.6f}, std {std_c:.6f}); the crops' mean {float(crops.mean()):.4f}, std "
+            f"{float(crops.std()):.4f}; {time.perf_counter() - t0:.1f} s")
+
+        # (c) the oracle drivers, card against host, and the exact decode
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        kv, mv = itop_datasets(root, dev, "labels_val.json")
+        kvh, mvh = itop_datasets(root, "cpu", "labels_val.json")
+        a2j_card = run_itop_a2j_eval(itop_a2j_oracle(kv), kv, ITOP_EVAL_BATCH)
+        a2j_host = run_itop_a2j_eval(itop_a2j_oracle(kvh), kvh, ITOP_EVAL_BATCH)
+        pc, ph = np.asarray(a2j_card["pred_uvz"]), np.asarray(a2j_host["pred_uvz"])
+        err_a2j = _maxerr_np(pc, ph)
+        require(err_a2j <= 2.0 ** -18 * float(np.abs(ph).max()),
+                f"(c) the A2J oracle's predictions, card against host: {err_a2j:.3g}")
+        rec = Recorder(itop_openpose_oracle(mv, dev), "ITOP Open-Pose+ oracle images")
+        op_card = run_itop_openpose_eval(rec, mv, ITOP_EVAL_BATCH)
+        op_host = run_itop_openpose_eval(rec.replay(), mvh, ITOP_EVAL_BATCH)
+        require(op_card == op_host, "(c) the Open-Pose+ oracle's JSON, card against host")
+        for name, out in (("a2j", a2j_card), ("openpose", op_card)):
+            require(out["acc_10cm"] > ITOP_ORACLE_BARS[name],
+                    f"(c) the {name} oracle driver: acc@10cm {out['acc_10cm']}")
+        frames, people = person_frames(rng, ITOP_PAINTED_FRAMES, dev, people=True)
+        painted = write_eval_set(os.path.join(root, "painted"), frames, people)
+        m, abl = painted_oracle(painted, dev, ITOP_EVAL_BATCH, False, fast=False)
+        require(all(m[k] > bar for k, bar in ORACLE_BARS.items()) and abl["perfect_2d"] > 0.95,
+                f"(c) the painted oracle through the exact decode falls short: {m}, {abl}")
+        say("itop", f"(c) oracle drivers on {ITOP_FRAMES} validation frames: A2J acc@10cm "
+            f"{a2j_card['acc_10cm']:.4f} (bar {ITOP_ORACLE_BARS['a2j']}), predictions card vs "
+            f"host max|err| {err_a2j:.3g}; Open-Pose+ acc@10cm {op_card['acc_10cm']:.4f} (bar "
+            f"{ITOP_ORACLE_BARS['openpose']}), JSON card = host bit for bit; the painted "
+            f"Open-Pose+ oracle through the exact host decode (fast=False) on "
+            f"{ITOP_PAINTED_FRAMES} KDH3D frames: " + json.dumps({k: m[k] for k in ORACLE_BARS})
+            + f", perfect_2d {abl['perfect_2d']:.4f}; {time.perf_counter() - t0:.1f} s")
+        launches = kernels.launch_counts()
+
+        # (d) train --dataset itop
+        train_launches = {}
+        for model, extra in (("a2j", []), ("openpose", ["--lr", str(TRAIN_LR)])):
+            out = os.path.join(root, f"run_{model}")
+            cli = ["train", "--model", model, "--dataset", "itop", "--data-root", root,
+                   "--device", str(dev), "--batch-size", str(ITOP_BATCH), "--epochs",
+                   str(ITOP_EPOCHS), "--val-labels", "labels_val.json", "--out-dir", out, *extra]
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            trainer = cli_main(cli)
+            wall = time.perf_counter() - t0
+            train_launches[model] = sum(kernels.launch_counts().values())
+            hist = trainer.history
+            losses = [h["train_loss"] for h in hist]
+            require(train_launches[model] == 0, f"(d) train {model} --dataset itop launched "
+                    f"kernels: {kernels.launch_counts()}")
+            require(bool(np.isfinite(losses + [h["val_loss"] for h in hist]).all())
+                    and losses[-1] < losses[0],
+                    f"(d) train --model {model} --dataset itop: the loss is not finite and "
+                    f"falling: {hist}")
+            what = "crops" if model == "a2j" else "frames"
+            say("itop", f"(d) train --model {model} --dataset itop, {ITOP_EPOCHS} epochs of "
+                f"{ITOP_FRAMES} frames at batch {ITOP_BATCH}: train losses "
+                + ", ".join(f"{x:.4f}" for x in losses) + ", val losses "
+                + ", ".join(f"{h['val_loss']:.4f}" for h in hist)
+                + f"; e2e train {what}/s over epoch 2 "
+                f"{ITOP_FRAMES // ITOP_BATCH * ITOP_BATCH / hist[-1]['train_seconds']:.1f}, "
+                f"the call {wall:.1f} s; no kernel launched")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+
+        # (e) evaluate --dataset itop: the drivers card against host, the command line
+        # card against the CPU
+        t0 = time.perf_counter()
+        weights = {"openpose": WEIGHTS, "popnet": WEIGHTS_POPNET}
+        vpaths = (os.path.join(root, "depth_maps"), os.path.join(root, "labels_val.json"))
+        for tag, model, opts in (("openpose", "openpose", {"device_decode": False}),
+                                 ("openpose_device_decode", "openpose", {"device_decode": True}),
+                                 ("popnet", "popnet", {"readout": "universe"})):
+            card, host, timing, _ = eval_family(f"itop {tag}", model, opts, vpaths, dev,
+                                                ITOP_EVAL_BATCH, weights, dcfg=ITOP_DATASET)
+            compare_eval_json(f"itop {tag}", card, host)
+            say("itop", f"(e) the {tag} driver at ITOP geometry (committed weights): "
+                f"{ITOP_FRAMES} frames = {ITOP_FRAMES / timing['seconds']:.1f} eval frames/s "
+                f"(batch {ITOP_EVAL_BATCH}); "
+                f"{sum(len(h) for h in card['human_pred_set_2d'])} people; JSON card = host "
+                "bit for bit")
+        ev = ["evaluate", "--dataset", "itop", "--data-root", root, "--batch-size",
+              str(ITOP_EVAL_BATCH)]
+
+        def evaluate(model, flags, labels, device, out):
+            m = cli_main([*ev, "--model", model, *flags, "--labels", labels, "--device", device,
+                          "--out-dir", os.path.join(root, out)])
+            with open(os.path.join(root, out, f"{model}_results.json")) as f:
+                return m, json.load(f)
+
+        def json_gap(card, cpu):
+            """(the same people in each of the CPU's frames, the largest 2D and
+            3D gaps over the people of both)."""
+            n = len(cpu["human_gt_set_2d"])
+            require(card["human_gt_set_2d"][:n] == cpu["human_gt_set_2d"],
+                    "(e) evaluate --dataset itop: the GT lists differ")
+            same = [len(h) for h in card["human_pred_set_2d"][:n]] == [
+                len(h) for h in cpu["human_pred_set_2d"]]
+            return (same, *(max((_maxerr_np(a, b) for ia, ib in zip(card[k], cpu[k])
+                                 for a, b in zip(ia, ib)), default=0.0)
+                            for k in ("human_pred_set_2d", "human_pred_set_3d")))
+
+        four = tuple(ORACLE_BARS)
+        t1 = time.perf_counter()
+        m_card, j_card = evaluate("openpose", ["--weights", WEIGHTS], "labels_val.json", str(dev),
+                                  "ev_op")
+        secs = time.perf_counter() - t1
+        m_cpu, j_cpu = evaluate("openpose", ["--weights", WEIGHTS], "labels_val.json", "cpu",
+                                "evc_op")
+        same, e2, e3 = json_gap(j_card, j_cpu)
+        say("itop", f"(e) python -m popnet_tpu_torch.cli.main evaluate --dataset itop --model "
+            f"openpose --weights: {ITOP_FRAMES} frames on the card in {secs:.2f} s = "
+            f"{ITOP_FRAMES / secs:.1f} eval frames/s (the call), metrics "
+            + json.dumps({k: m_card[k] for k in four}) + f"; with --device cpu: "
+            f"{'the same' if same else 'other'} people, the people in common within {e2:.3g} "
+            f"px and {e3:.3g} m (bars {ITOP_OP_CLI_BARS}), metrics "
+            + json.dumps({k: m_cpu[k] for k in four}))
+        require(same and e2 <= ITOP_OP_CLI_BARS[0] and e3 <= ITOP_OP_CLI_BARS[1],
+                "(e) evaluate --model openpose --dataset itop, card against CPU")
+        ckpt = os.path.join(root, "run_a2j", "ckpt")
+        t1 = time.perf_counter()
+        m_card, j_card = evaluate("a2j", ["--gt-boxes", "--ckpt", ckpt], "labels_val.json",
+                                  str(dev), "ev_a2j")
+        secs = time.perf_counter() - t1
+        m_cpu, j_cpu = evaluate("a2j", ["--gt-boxes", "--ckpt", ckpt], "labels_val.json", "cpu",
+                                "evc_a2j")
+        same = json_gap(j_card, j_cpu)[0]
+        g = itop_a2j_gaps(root, ckpt, dev, j_card, j_cpu)
+        ratio = g["card32_to_f64"] / max(g["cpu32_to_f64"], 1e-300)
+        say("itop", f"(e) python -m popnet_tpu_torch.cli.main evaluate --dataset itop --model a2j "
+            f"--gt-boxes --ckpt (d)'s run: {ITOP_FRAMES} frames on the card in {secs:.2f} s = "
+            f"{ITOP_FRAMES / secs:.1f} eval frames/s (the call), metrics "
+            + json.dumps({k: m_card[k] for k in four}) + "; with --device cpu: "
+            f"{'the same' if same else 'other'} people, metrics "
+            + json.dumps({k: m_cpu[k] for k in four}) + f"; largest |3D joint| {g['scale']:.6g} "
+            f"m (CPU, float64); card against CPU, float32 {g['f32'][0]:.6g} px and "
+            f"{g['f32'][1]:.6g} of it (bars {ITOP_A2J_F32_BARS}), float64 {g['f64'][0]:.6g} px "
+            f"and {g['f64'][1]:.6g} of it (bars {ITOP_A2J_F64_BARS}); the float32 3D joints' "
+            f"distance from the CPU's float64 ones, card {g['card32_to_f64']:.6g}, CPU "
+            f"{g['cpu32_to_f64']:.6g} m (ratio {ratio:.3g}, bar {ITOP_A2J_F32_RATIO})")
+        require(same and all(g[k][i] <= bars[i] for k, bars in
+                             (("f32", ITOP_A2J_F32_BARS), ("f64", ITOP_A2J_F64_BARS))
+                             for i in (0, 1)) and ratio <= ITOP_A2J_F32_RATIO,
+                "(e) evaluate --model a2j --dataset itop --ckpt, card against CPU")
+        say("itop", f"(e) in {time.perf_counter() - t0:.1f} s")
+
+        # (f) the ITOP table at a tiny budget
+        t0 = time.perf_counter()
+        env = {"ITOP_TRAIN": "32", "ITOP_VAL": "16", "ITOP_EPOCHS": "2", "ITOP_A2J_EPOCHS": "2",
+               "ITOP_CHUNK": "1", "ITOP_BATCH": "16", "ITOP_WARMUP": "1",
+               "ITOP_DIR": os.path.join(root, "table"),
+               "ITOP_OUT": os.path.join(root, "table.json")}
+        saved = {k: os.environ.get(k) for k in [*env, "ITOP_CPU", "ITOP_METHODS"]}
+        os.environ.update(env)
+        os.environ.pop("ITOP_CPU", None)
+        os.environ.pop("ITOP_METHODS", None)
+        try:
+            table = itop_table.main()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        require(all(table["methods"][m].get("done") for m in ("a2j", "openpose"))
+                and table["device"]["platform"] == "gpu",
+                f"(f) the ITOP table did not finish: {table}")
+        say("itop", "(f) python -m popnet_tpu_torch.cli.itop_table at a tiny budget (32 training "
+            "and 16 validation frames, 2 epochs a row, batch 16): acc@10cm "
+            + json.dumps({m: table["methods"][m]["final"]["acc_10cm"] for m in table["methods"]})
+            + f", device {table['device']}; {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = {k: v + launches[k] for k, v in kernels.launch_counts().items()}
+    say("itop", f"launches per kernel over (c), (e) and (f): {launches}")
+    for name in EVAL_PATH:          # the eval path's kernels, at ITOP geometry
+        require(launches[name] >= 1, f"kernel {name} was not launched in phase 11")
+    say("itop", f"phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the frames and test inputs")
@@ -3935,6 +4375,10 @@ def main(argv=None) -> int:
             "frames_c": frames_c, "weights_c": weights_c, "f32_out_c": f32_out_c}, keep)
         for r in rows:                  # the folded and int8 serving paths, evaluate's flags
             r["deploy_launches"] = deploy_launches[r["name"]]
+        rng_itop = np.random.default_rng([args.seed, 11])  # phase 11's painted frames
+        itop_launches = phase_itop(rng_itop, dev)
+        for r in rows:                  # the ITOP drivers, evaluate --dataset itop, the table
+            r["itop_launches"] = itop_launches[r["name"]]
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")

@@ -6,7 +6,10 @@ The port's counterpart of the JAX package's `popnet_tpu/cli/evaluate.py`:
   the device, greedy assembly on the host (`decode/assemble.py`), the
   heat-weighted z readout and back-projection on the host; or, with
   `device_decode=True`, the whole decode on the device (`openpose_decode`:
-  K1, K3, K6 and the fused readouts). Both emit the raw-depth and
+  K1, K3, K6 and the fused readouts); or, with `fast=False`, the exact
+  decode on the host in float64 (`decode/paf_np.py`: scipy's maximum
+  filter, cv2's bicubic upsample rebuilt in NumPy, the per-pair PAF
+  integrals and the reference's greedy merge). All emit the raw-depth and
   perfect-2D ablation channels.
 - run_yolo_eval: prior decode and NMS -> scale -> back-projection.
 - run_popnet_eval: prior decode + alignment and z refinement (K7) ->
@@ -33,9 +36,10 @@ import torch
 from popnet_tpu_torch.core.camera import CameraIntrinsics, back_project_np
 from popnet_tpu_torch.core.config import DecodeConfig, DepthStats, EncoderConfig
 from popnet_tpu_torch.core.skeleton import KEYPOINT_NAMES
-from popnet_tpu_torch.decode import prior as prior_decode, readout
+from popnet_tpu_torch.decode import paf_np, prior as prior_decode, readout
 from popnet_tpu_torch.decode.assemble import assemble_batch
 from popnet_tpu_torch.decode.device import find_peaks_batched, score_limb_pairs_batched
+from popnet_tpu_torch.decode.human_list import paf_to_human_list
 from popnet_tpu_torch.decode.openpose_infer import openpose_decode
 from popnet_tpu_torch.decode.popnet_infer import popnet_decode
 from popnet_tpu_torch.eval import map as eval_map, pck as eval_pck
@@ -75,11 +79,9 @@ def run_openpose_eval(
     The default host path finds peaks and scores PAF pairs on the device
     and assembles, reads z and back-projects on the host in float64;
     `device_decode=True` runs the whole decode on the device
-    (decode/openpose_infer.py). `fast=False`, the exact host decode of the
-    JAX package, is not ported."""
-    if not fast:
-        raise NotImplementedError(
-            "fast=False (the exact host decode) is not ported yet: ROADMAP Queue 1 item 9b")
+    (decode/openpose_infer.py); `fast=False` (without `device_decode`)
+    decodes each frame's maps on the host in float64, the JAX package's
+    exact decode (`paf_np.paf_to_pose`)."""
     cam = dataset.intrinsics or dataset.dcfg.intrinsics
     depth: DepthStats = dataset.dcfg.depth
     w_org, h_org = dataset.dcfg.width, dataset.dcfg.height
@@ -122,18 +124,29 @@ def run_openpose_eval(
                 pred3d_p2d_raw_set.append(p2dr)
             continue
 
-        peaks, valid = find_peaks_batched(
-            heat, max_peaks=dcfg.max_peaks, thresh=dcfg.thresh_heatmap,
-            factor=dcfg.downsample, num_joints=ecfg.num_joints,
-        )
-        scores, ok = score_limb_pairs_batched(
-            paf, peaks, valid, num_intermed_pts=dcfg.num_intermed_pts,
-            thresh_paf=dcfg.thresh_paf, factor=dcfg.downsample,
-        )
-        assembled = assemble_batch(
-            peaks.cpu().numpy(), valid.cpu().numpy(), scores.cpu().numpy(), ok.cpu().numpy(),
-            min_parts=dcfg.min_parts, min_score=dcfg.min_score,
-        )
+        if fast:
+            peaks, valid = find_peaks_batched(
+                heat, max_peaks=dcfg.max_peaks, thresh=dcfg.thresh_heatmap,
+                factor=dcfg.downsample, num_joints=ecfg.num_joints,
+            )
+            scores, ok = score_limb_pairs_batched(
+                paf, peaks, valid, num_intermed_pts=dcfg.num_intermed_pts,
+                thresh_paf=dcfg.thresh_paf, factor=dcfg.downsample,
+            )
+            assembled = assemble_batch(
+                peaks.cpu().numpy(), valid.cpu().numpy(), scores.cpu().numpy(),
+                ok.cpu().numpy(), min_parts=dcfg.min_parts, min_score=dcfg.min_score,
+            )
+        else:
+            paf_h = _host(paf)
+            assembled = []
+            for b in range(len(idx)):
+                jl, people = paf_np.paf_to_pose(
+                    heat_h[b].astype(np.float64), paf_h[b].astype(np.float64),
+                    downsample=dcfg.downsample, thresh_heatmap=dcfg.thresh_heatmap,
+                    thresh_paf=dcfg.thresh_paf,
+                )
+                assembled.append(paf_to_human_list(jl, people))
 
         for b in range(len(idx)):
             humans_2d, visibility, conf_vec = assembled[b]

@@ -8,8 +8,9 @@
         --pred runs/out/openpose_results.json
 
 `train` trains Open-Pose+, PoP-Net, Yolo-Pose+ or A2J (`--model openpose|
-popnet|yolo|a2j`) on a KDH3D-format dataset (DATA/depth_maps/*.npy and the label JSON
-`--labels`; with `--bg-aug`, composited over DATA/bg_maps by DATA/seg_maps
+popnet|yolo|a2j`) on a KDH3D-format dataset (DATA/depth_maps/*.npy and the
+label JSON `--labels`, 480x512 frames, or ITOP's 320x240 frames, camera and
+5 m clip with `--dataset itop`; with `--bg-aug`, composited over DATA/bg_maps by DATA/seg_maps
 and DATA/labels_bg.json; with `--mp-aug`, multi-person frames z-buffered
 from the per-location recordings of DATA/<--mp-label-prefix>*.json, on the
 host, or over a scene bank resident on the device with `--device-bank`, or
@@ -17,15 +18,18 @@ streamed through it in shards of N indices with `--stream-bank N`),
 validating on `--val-labels` without augmentation (and without mp-aug),
 with the JAX command line's flags and defaults (SGD-Nesterov
 at lr 1.0 and a plateau controller, batch 32, 224² input; A2J with the
-JAX command line's A2J recipe: 288² person crops of those frames, Adam with
-L2 at 3.5e-4 and StepLR, `_a2j_trainer`): it writes
+JAX command line's A2J recipe: 288² person crops of those frames, or at
+ITOP the torso-centred crops of torso-relative depth (`ITOPA2JCropDataset`,
+normalized by the absolute depth statistics, as the JAX command line
+leaves them), Adam with L2 at 3.5e-4 and StepLR, `_a2j_trainer`): it writes
 `history.jsonl`, the periodic checkpoints `ckpt/` and the best-validation
 `ckpt_best/` to `--out-dir`, and `--resume` continues from `ckpt/`. The
 model starts from its seeded init (`init_seeded(--seed)`); convolutions run
 in float32 with TF32 off.
 
 `evaluate` runs a model over an MP-3DHP-format dataset (DATA/depth_maps/*.npy
-and the label JSON `--labels`) on the card, or on the CPU with
+and the label JSON `--labels`; at ITOP geometry with `--dataset itop`, the
+same MP-3DHP drivers, as the JAX command line runs them) on the card, or on the CPU with
 `--device cpu`, writes `<model>_results.json` (the benchmark's prediction
 JSON) to `--out-dir` and prints the four metrics. `benchmark` scores a
 prediction JSON against a label file. The CNNs run in float32 (no TF32).
@@ -48,9 +52,10 @@ rounded as the JAX command line's op-by-op call of the model rounds them
 `--quant`, and says so.
 
 Options and models of the JAX command line that the port lacks raise,
-naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): COCO,
-MPII and ITOP training (11c; ITOP's A2J crops too), meshes and `--n-micro`
-(13), `--spatial` (13), ITOP, COCO and MPII evaluation (9b).
+naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): COCO and
+MPII training (11c) and evaluation (9b), which first need a JPEG reader,
+meshes and `--n-micro` (13), `--spatial` (13). ITOP's single-person 10-cm
+table has its own entry point, `python -m popnet_tpu_torch.cli.itop_table`.
 """
 
 from __future__ import annotations
@@ -61,16 +66,18 @@ import os
 
 import torch
 
-from popnet_tpu_torch.core.config import KDH3D_DATASET, DecodeConfig, EncoderConfig
+from popnet_tpu_torch.core.config import (ITOP_DATASET, KDH3D_DATASET, DatasetConfig,
+                                          DecodeConfig, EncoderConfig)
+
+_JPEG = "a JPEG reader first: the card's machine has no cv2 or PIL"
 
 # what each option of the JAX command line that the port lacks waits for
 _NOT_PORTED = {
     "spatial": "--spatial waits for ROADMAP Queue 1 item 13",
 }
 _NOT_PORTED_DATASETS = {
-    "itop": "ITOP evaluation waits for ROADMAP Queue 1 item 9b",
-    "coco": "COCO evaluation waits for ROADMAP Queue 1 item 9b",
-    "mpii": "MPII evaluation waits for ROADMAP Queue 1 item 9b",
+    "coco": f"COCO evaluation waits for ROADMAP Queue 1 item 9b ({_JPEG})",
+    "mpii": f"MPII evaluation waits for ROADMAP Queue 1 item 9b ({_JPEG})",
 }
 _NOT_PORTED_MODELS = {
     "rtpose_vgg": "rtpose_vgg evaluates on COCO, which waits for ROADMAP Queue 1 item 9b",
@@ -84,14 +91,18 @@ _NOT_PORTED_TRAIN = {
     "blur_aug": "--blur-aug (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
 }
 _NOT_PORTED_TRAIN_DATASETS = {
-    "itop": "ITOP training (and ITOP's A2J crops) waits for ROADMAP Queue 1 item 11c",
-    "coco": "COCO training waits for ROADMAP Queue 1 item 11c",
-    "mpii": "MPII training waits for ROADMAP Queue 1 item 11c",
+    "coco": f"COCO training waits for ROADMAP Queue 1 item 11c ({_JPEG})",
+    "mpii": f"MPII training waits for ROADMAP Queue 1 item 11c ({_JPEG})",
 }
 _NOT_PORTED_TRAIN_MODELS = {
     "rtpose_vgg": "rtpose_vgg trains on COCO, which waits for ROADMAP Queue 1 item 11c",
     "popnet_rgb": "popnet_rgb trains on MPII, which waits for ROADMAP Queue 1 item 11c",
 }
+
+
+def _dataset_cfg(name: str) -> DatasetConfig:
+    """The frame geometry, camera and depth statistics of `--dataset`."""
+    return ITOP_DATASET if name == "itop" else KDH3D_DATASET
 
 
 def _build_model(name: str, weights: str | None, seed: int, device: torch.device,
@@ -211,8 +222,8 @@ def _train_dataset(args, labels: str, ecfg: EncoderConfig, pose_align: bool, wit
     from popnet_tpu_torch.data import datasets
 
     root = args.data_root
-    common = dict(ecfg=ecfg, dcfg=KDH3D_DATASET, pose_align=pose_align, with_prior=with_prior,
-                  pred_vis=args.pred_vis, augment=augment, seed=args.seed,
+    common = dict(ecfg=ecfg, dcfg=_dataset_cfg(args.dataset), pose_align=pose_align,
+                  with_prior=with_prior, pred_vis=args.pred_vis, augment=augment, seed=args.seed,
                   transfer=args.transfer, cache_images=args.cache_images, device=device)
     if mp_aug:
         ann_files = sorted(os.path.join(root, f) for f in os.listdir(root)
@@ -241,12 +252,14 @@ def _train_dataset(args, labels: str, ecfg: EncoderConfig, pose_align: bool, wit
 def _a2j_trainer(args, ecfg: EncoderConfig, device):
     """The A2J recipe (the JAX command line's `_train_a2j`): person crops
     of 288² from the training dataset that --mp-aug or --bg-aug pick
-    (`A2JCropDataset`, augmented, with random erasing), validation crops of
-    --val-labels without mp-aug, augmentation or erasing; Adam with L2 weight decay, at 3.5e-4
-    where --lr is left at 1.0 and 1e-4 where --weight-decay is left at 0;
-    StepLR(10 epochs, 0.2); loss = anchor + 3 * regression. Returns
-    (trainer, train set, validation set or None)."""
-    from popnet_tpu_torch.data.a2j_crops import CROP, A2JCropDataset
+    (`A2JCropDataset`, augmented, with random erasing; with --dataset itop,
+    `ITOPA2JCropDataset`'s torso crops with their box shifts and erasing,
+    normalized by the absolute depth statistics as in the JAX command line),
+    validation crops of --val-labels without mp-aug, augmentation or erasing;
+    Adam with L2 weight decay, at 3.5e-4 where --lr is left at 1.0 and 1e-4
+    where --weight-decay is left at 0; StepLR(10 epochs, 0.2); loss = anchor
+    + 3 * regression. Returns (trainer, train set, validation set or None)."""
+    from popnet_tpu_torch.data.a2j_crops import CROP, A2JCropDataset, ITOPA2JCropDataset
     from popnet_tpu_torch.models import A2J
     from popnet_tpu_torch.models.a2j import generate_anchors, shift_anchors
     from popnet_tpu_torch.train import steps
@@ -255,15 +268,17 @@ def _a2j_trainer(args, ecfg: EncoderConfig, device):
 
     anchors = torch.as_tensor(shift_anchors((CROP // 16, CROP // 16), 16, generate_anchors()),
                               dtype=torch.float32)
-    train_ds = A2JCropDataset(_train_dataset(args, args.labels, ecfg, False, False, device,
-                                             mp_aug=args.mp_aug), seed=args.seed)
+    wrap = ITOPA2JCropDataset if args.dataset == "itop" else A2JCropDataset
+    train_ds = wrap(_train_dataset(args, args.labels, ecfg, False, False, device,
+                                   mp_aug=args.mp_aug), seed=args.seed)
     val_ds = None
     if args.val_labels:
         inner = _train_dataset(args, args.val_labels, ecfg, False, False, device, augment=False)
-        val_ds = A2JCropDataset(inner, augment=False, seed=args.seed + 1)
+        val_ds = wrap(inner, augment=False, seed=args.seed + 1)
     lr = args.lr if args.lr != 1.0 else 3.5e-4
     wd = args.weight_decay if args.weight_decay else 1e-4
-    # the depth head starts at the dataset's depth prior (3.0 m)
+    # the depth head starts at the dataset's depth prior (3.0 m), at ITOP too, as in the
+    # JAX command line, though ITOP's labels carry torso-relative depths near 0
     trainer = Trainer(A2J(depth_prior=3.0), steps.make_a2j_train_step(anchors),
                       steps.make_a2j_eval_loss(anchors), learning_rate=lr, weight_decay=wd,
                       out_dir=args.out_dir, seed=args.seed, optimizer="adam",
@@ -356,7 +371,7 @@ def cmd_evaluate(args) -> dict:
     decfg = DecodeConfig()
     dataset = MPRealDataset(
         os.path.join(args.data_root, "depth_maps"), os.path.join(args.data_root, args.labels),
-        ecfg=ecfg, dcfg=KDH3D_DATASET, device=device,
+        ecfg=ecfg, dcfg=_dataset_cfg(args.dataset), device=device,
     )
     quant = args.quant
     if args.model == "a2j" and quant:

@@ -1,4 +1,5 @@
-"""Pinhole camera intrinsics (the port's copy of the Kinect Azure rig)."""
+"""Pinhole camera intrinsics (the port's copies of the Kinect Azure rig and
+of the ITOP camera)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ class CameraIntrinsics:
 KDH3D_INTRINSICS = CameraIntrinsics(
     fx=504.1189880371094, fy=504.042724609375, cx=231.7421875, cy=320.62640380859375
 )
+
+# The ITOP camera: 320x240 frames, f = 1 / 0.0035.
+ITOP_INTRINSICS = CameraIntrinsics(fx=1.0 / 0.0035, fy=1.0 / 0.0035, cx=160.0, cy=120.0)
 
 
 def back_project(x, y, z, cam: CameraIntrinsics):

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from popnet_tpu_torch.core.camera import KDH3D_INTRINSICS, CameraIntrinsics
+from popnet_tpu_torch.core.camera import ITOP_INTRINSICS, KDH3D_INTRINSICS, CameraIntrinsics
 from popnet_tpu_torch.core.skeleton import NUM_JOINTS, NUM_LIMBS
 
 
@@ -18,6 +18,8 @@ class DepthStats:
 
 
 KDH3D_DEPTH = DepthStats(mean=3.0, std=2.0, max=6.0)
+# ITOP clips at 5 m
+ITOP_DEPTH = DepthStats(mean=3.0, std=2.0, max=5.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +99,8 @@ class DecodeConfig:
 @dataclasses.dataclass(frozen=True)
 class DatasetConfig:
     """A depth dataset's frame size, camera and depth statistics (the JAX
-    DatasetConfig's, same defaults: the MP-3DHP Kinect frames)."""
+    DatasetConfig's, same defaults: the MP-3DHP Kinect frames; ITOP_DATASET
+    for ITOP's 320x240 frames)."""
 
     width: int = 480
     height: int = 512
@@ -106,3 +109,4 @@ class DatasetConfig:
 
 
 KDH3D_DATASET = DatasetConfig()
+ITOP_DATASET = DatasetConfig(width=320, height=240, intrinsics=ITOP_INTRINSICS, depth=ITOP_DEPTH)

@@ -12,6 +12,9 @@ device, one of its people is drawn, its box is cropped, the labels move to
 crop space as (y, x, z) (`crop_labels`), and with probability 0.5 unit
 Gaussian noise is added over a random rectangle of the crop
 (`erasing_draws`, `erasing_rectangles`, `apply_erasing`).
+
+ITOP's training set (`ITOPA2JCropDataset`) crops torso-centred world boxes
+of torso-relative depth instead (`data.itop_a2j`), with the same erasing.
 """
 
 from __future__ import annotations
@@ -21,8 +24,7 @@ import torch
 
 from popnet_tpu_torch.core.numerics import div_const
 from popnet_tpu_torch.data.datasets import PREFETCH, _pipeline_iter
-
-CROP = 288
+from popnet_tpu_torch.data.itop_a2j import CROP, itop_crop_labels, torso_crops
 
 
 def crop_resize_batch(images: torch.Tensor, image_idx: torch.Tensor, boxes: torch.Tensor,
@@ -133,7 +135,49 @@ def apply_erasing(crops: torch.Tensor, rects, noise: torch.Tensor) -> torch.Tens
     return crops + torch.where(inpatch[..., None], noise, zero)
 
 
-class A2JCropDataset:
+class _CropDataset:
+    """What the two A2J crop datasets share: the inner dataset, the host
+    generator, the erasing's generator on the device, their states and the
+    batch iterator. Subclasses set `inner`, `device`, `is_train`,
+    `augment`, `erase`, `out_size`, `rng` and `erase_generator`, and give
+    `get_batch`."""
+
+    def __len__(self):
+        return len(self.inner)
+
+    def rng_state(self) -> dict:
+        """Every generator's state: this dataset's, the inner's and the
+        erasing's (restored by `set_rng_state`, so a resumed run draws as
+        the uninterrupted one would)."""
+        return {"rng": self.rng.bit_generator.state, "inner": self.inner.rng_state(),
+                "erase": self.erase_generator.get_state()}
+
+    def set_rng_state(self, state: dict) -> None:
+        self.rng.bit_generator.state = state["rng"]
+        self.inner.set_rng_state(state["inner"])
+        self.erase_generator.set_state(state["erase"])
+
+    def _erased(self, crops: torch.Tensor) -> torch.Tensor:
+        """crops (N, S, S, 1), erased where `augment` and `erase` ask."""
+        if not (self.augment and self.erase):
+            return crops
+        u, noise = erasing_draws(len(crops), self.out_size, self.erase_generator)
+        return apply_erasing(crops, erasing_rectangles(u, self.out_size), noise)
+
+    def iter_batches(self, batch_size: int, shuffle: bool | None = None,
+                     drop_last: bool = True):
+        """Device batches made on one thread PREFETCH batches ahead of the
+        consumer; the order is shuffled by the dataset's generator when
+        `shuffle` (by default when `is_train`), as the JAX package's."""
+        order = np.arange(len(self))
+        if self.is_train if shuffle is None else shuffle:
+            self.rng.shuffle(order)
+        stop = len(order) - (len(order) % batch_size if drop_last else 0)
+        yield from _pipeline_iter((order[s:s + batch_size] for s in range(0, stop, batch_size)),
+                                  [self.get_batch], PREFETCH)
+
+
+class A2JCropDataset(_CropDataset):
     """Person-crop training set for A2J over a composited depth dataset
     `inner` (one with `load_composited(i) -> (depth (H, W) float32, the
     frame's annotations)`, `rng_state` and a `device`: the port's KDH3D and
@@ -175,21 +219,6 @@ class A2JCropDataset:
         ])
         self._ident = ah.Compose([cvt, ah.Resize(w, h)])
 
-    def __len__(self):
-        return len(self.inner)
-
-    def rng_state(self) -> dict:
-        """Every generator's state: this dataset's, the inner's and the
-        erasing's (restored by `set_rng_state`, so a resumed run draws as
-        the uninterrupted one would)."""
-        return {"rng": self.rng.bit_generator.state, "inner": self.inner.rng_state(),
-                "erase": self.erase_generator.get_state()}
-
-    def set_rng_state(self, state: dict) -> None:
-        self.rng.bit_generator.state = state["rng"]
-        self.inner.set_rng_state(state["inner"])
-        self.erase_generator.set_state(state["erase"])
-
     def frames(self, indices):
         """The host stage of `get_batch`: (images (N, H, W) float32 on the
         device, boxes (N, 4) float64, joints (N, K, 2) float64, depths (N,
@@ -218,20 +247,52 @@ class A2JCropDataset:
             images, torch.arange(n, device=self.device),
             torch.from_numpy(boxes).float().to(self.device),
             mean=self.depth.mean, std=self.depth.std, out_size=self.out_size)[..., None]
-        if self.augment and self.erase:
-            u, noise = erasing_draws(n, self.out_size, self.erase_generator)
-            crops = apply_erasing(crops, erasing_rectangles(u, self.out_size), noise)
         labels = crop_labels(j2s, zs, boxes, self.out_size)
-        return {"crops": crops, "labels": torch.from_numpy(labels).to(self.device)}
+        return {"crops": self._erased(crops), "labels": torch.from_numpy(labels).to(self.device)}
 
-    def iter_batches(self, batch_size: int, shuffle: bool | None = None,
-                     drop_last: bool = True):
-        """Device batches made on one thread PREFETCH batches ahead of the
-        consumer; the order is shuffled by the dataset's generator when
-        `shuffle` (by default when `is_train`), as the JAX package's."""
-        order = np.arange(len(self))
-        if self.is_train if shuffle is None else shuffle:
-            self.rng.shuffle(order)
-        stop = len(order) - (len(order) % batch_size if drop_last else 0)
-        yield from _pipeline_iter((order[s:s + batch_size] for s in range(0, stop, batch_size)),
-                                  [self.get_batch], PREFETCH)
+
+class ITOPA2JCropDataset(_CropDataset):
+    """ITOP's A2J training set over a single-person depth dataset `inner`
+    (one with `load_composited(i)`, `intrinsics`, `dcfg`, `rng_state` and a
+    `device`: the port's KDH3DDataset at ITOP_DATASET): for each index,
+    person 0's torso joint (`center_joint`) centres a world box of
+    half-extent `xy_thres` (`itop_a2j.boxes_from_centers`; with `augment`,
+    each side shifted by an integer in [-rand_shift, rand_shift)), the
+    frame is cropped to out_size² of torso-relative depth clamped at
+    +-depth_thres (`itop_a2j.itop_crop_batch`) on the inner's device,
+    normalized by `mean` and `std` (by default the inner's absolute depth
+    statistics, as the JAX command line leaves them; `itop_relative_stats`
+    measures the relative ones that the ITOP table uses), and with
+    `augment` and `erase`, randomly erased. The labels are (y, x, z - cz)
+    in crop space (`itop_a2j.itop_crop_labels`). The shifts come from the
+    dataset's `np.random.Generator(seed)` in the JAX package's order, the
+    erasing's draws from a `torch.Generator` on the device seeded with
+    seed + 1.
+
+    `get_batch(indices)` -> {"crops": (N, S, S, 1), "labels": (N, K, 3)} on
+    the inner's device."""
+
+    def __init__(self, inner, xy_thres: float = 120.0, depth_thres: float = 0.4,
+                 rand_shift: int = 5, center_joint: int = 8, augment: bool = True,
+                 erase: bool = True, out_size: int = CROP, seed: int = 0,
+                 mean: float | None = None, std: float | None = None):
+        self.inner = inner
+        self.is_train = getattr(inner, "is_train", True)
+        self.augment = augment and self.is_train
+        self.erase = erase
+        self.out_size = out_size
+        self.device = inner.device
+        self.rng = np.random.default_rng(seed)
+        self.erase_generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.xy_thres, self.depth_thres = xy_thres, depth_thres
+        self.rand_shift, self.center_joint = rand_shift, center_joint
+        self.mean = inner.dcfg.depth.mean if mean is None else float(mean)
+        self.std = inner.dcfg.depth.std if std is None else float(std)
+
+    def get_batch(self, indices) -> dict:
+        crops, boxes, cz, uvd = torso_crops(
+            self.inner, indices, self.mean, self.std, self.xy_thres, self.depth_thres,
+            self.center_joint, self.out_size,
+            rand_shift=self.rand_shift if self.augment else 0, rng=self.rng)
+        labels = itop_crop_labels(uvd, boxes, cz, self.out_size)
+        return {"crops": self._erased(crops), "labels": torch.from_numpy(labels).to(self.device)}

@@ -482,9 +482,3 @@ def test_train_a2j_subcommand_and_resume(small_data, tmp_path):
     for i, s in a["optimizer"]["state"].items():
         assert all(torch.equal(v, b["optimizer"]["state"][i][k]) for k, v in s.items())
     assert set(a["data_rng"]) == {"rng", "inner", "erase"}
-
-
-def test_train_a2j_on_itop_waits_for_item_11c(tmp_path):
-    with pytest.raises(SystemExit, match="11c"):
-        port_main(["train", "--model", "a2j", "--dataset", "itop", "--data-root",
-                   str(tmp_path), "--device", "cpu"])

@@ -1337,3 +1337,121 @@ def test_evaluate_deploy_flags_on_the_card(cuda, eval_sets, tmp_path):
         assert people["cuda"] == people["cpu"], (flags, people)
         for k in ("pck2d", "pck3d", "map2d", "map3d"):
             assert abs(res["cuda"][k] - res["cpu"][k]) <= bar, (flags, k, res)
+
+
+# -- ITOP and the exact host decode (chip_smoke.py phase 11's checks at a small size) -------
+
+@pytest.fixture(scope="module")
+def itop_root(tmp_path_factory):
+    """chip_smoke.py's synthetic ITOP sets: 64 training frames (labels.json)
+    and 64 validation frames (labels_val.json), 320x240."""
+    import chip_smoke
+
+    root = str(tmp_path_factory.mktemp("cuda_itop"))
+    chip_smoke.write_itop_sets(root)
+    return root
+
+
+@pytest.mark.parametrize("stats", ["absolute", "relative"])
+def test_itop_crops_on_the_card_equal_the_cpu(cuda, itop_root, stats):
+    """itop_relative_stats on the card within 1e-12 of the CPU's; an
+    ITOPA2JCropDataset batch of 16 with its box shifts made on the card
+    equals the CPU's bit for bit (crops, labels, the erasing on the card's
+    draws), at the absolute and at the relative statistics."""
+    import chip_smoke
+    from popnet_tpu_torch.data.a2j_crops import (CROP, ITOPA2JCropDataset, apply_erasing,
+                                                 erasing_draws, erasing_rectangles)
+    from popnet_tpu_torch.data.itop_a2j import itop_relative_stats
+
+    kc, _ = chip_smoke.itop_datasets(itop_root, cuda)
+    kh, _ = chip_smoke.itop_datasets(itop_root, "cpu")
+    mean, std = itop_relative_stats(kc)
+    ref = itop_relative_stats(kh)
+    assert abs(mean - ref[0]) <= 1e-12 * abs(ref[0]) and abs(std - ref[1]) <= 1e-12 * ref[1]
+    kw = {"mean": mean, "std": std} if stats == "relative" else {}
+    cds = ITOPA2JCropDataset(kc, seed=2, erase=False, **kw)
+    hds = ITOPA2JCropDataset(kh, seed=2, erase=False, **kw)
+    idx = np.arange(16)
+    card, host = cds.get_batch(idx), hds.get_batch(idx)
+    for k in host:
+        assert torch.equal(card[k].cpu(), host[k]), k
+    u, noise = erasing_draws(16, CROP, cds.erase_generator)
+    ec = apply_erasing(card["crops"], erasing_rectangles(u, CROP), noise)
+    eh = apply_erasing(host["crops"], erasing_rectangles(u.cpu(), CROP), noise.cpu())
+    assert torch.equal(ec.cpu(), eh)
+    assert cds.rng.integers(0, 1 << 30) == hds.rng.integers(0, 1 << 30)
+
+
+def test_itop_drivers_on_the_card_equal_the_host(cuda, itop_root):
+    """The two ITOP drivers on the validation frames with oracle heads and
+    maps, on the card and on the host: acc@10cm over 0.995 (A2J) and 0.9
+    (Open-Pose+); the A2J predictions within the vote's 64-ulp bar of the
+    host's, the Open-Pose+ output equal (the host's images equal the card's
+    bit for bit)."""
+    import chip_smoke
+    from popnet_tpu_torch.cli.itop_eval import run_itop_a2j_eval, run_itop_openpose_eval
+
+    kc, mc = chip_smoke.itop_datasets(itop_root, cuda, "labels_val.json")
+    kh, mh = chip_smoke.itop_datasets(itop_root, "cpu", "labels_val.json")
+    a_card = run_itop_a2j_eval(chip_smoke.itop_a2j_oracle(kc), kc, 16)
+    a_host = run_itop_a2j_eval(chip_smoke.itop_a2j_oracle(kh), kh, 16)
+    pc, ph = np.asarray(a_card["pred_uvz"]), np.asarray(a_host["pred_uvz"])
+    assert np.abs(pc - ph).max() <= 2.0 ** -18 * np.abs(ph).max()
+    kernels.reset_launches()
+    rec = chip_smoke.Recorder(chip_smoke.itop_openpose_oracle(mc, cuda), "itop images")
+    o_card = run_itop_openpose_eval(rec, mc, 16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["find_peaks"] > 0 and kernels.launch_counts()["paf_score"] > 0
+    o_host = run_itop_openpose_eval(rec.replay(), mh, 16)
+    assert o_card == o_host
+    assert a_card["acc_10cm"] > 0.995 and o_card["acc_10cm"] > 0.9
+
+
+def test_exact_decode_on_the_cards_maps(cuda, eval_sets):
+    """run_openpose_eval(fast=False) with the painted oracle's maps on the
+    card clears the oracle's bars, and its output equals the same decode of
+    the same maps handed over on the CPU."""
+    import chip_smoke
+    from popnet_tpu_torch.cli import evaluate as ev
+    from popnet_tpu_torch.data.datasets import MPRealDataset
+
+    m, abl = chip_smoke.painted_oracle(eval_sets["zero"], cuda, 8, False, fast=False)
+    assert all(m[k] > bar for k, bar in chip_smoke.ORACLE_BARS.items()), m
+    assert abl["perfect_2d"] > 0.95
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ds = MPRealDataset(*eval_sets["zero"], device=dev)
+        pos = {"i": 0}
+
+        def infer(images, ds=ds, pos=pos, dev=dev):
+            idx = range(pos["i"], pos["i"] + images.shape[0])
+            pos["i"] += images.shape[0]
+            maps = chip_smoke.openpose_painted_maps([ds.anno_dic[ds.ids[i]] for i in idx])
+            heat, paf, z = (torch.from_numpy(a).to(dev) for a in maps)
+            return paf, heat, z
+
+        out[dev.type] = ev.run_openpose_eval(infer, ds, 8, fast=False)
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("model", ["a2j", "openpose"])
+def test_train_and_evaluate_itop_on_the_card(cuda, itop_root, tmp_path, model):
+    """`train --model a2j|openpose --dataset itop` on the card (its default
+    device), one epoch at batch 16 validating on the validation frames:
+    finite losses and a checkpoint; then `evaluate --dataset itop` of that
+    checkpoint (A2J with --gt-boxes) writes its JSON for all 64 frames."""
+    from popnet_tpu_torch.cli.main import main
+
+    out = str(tmp_path / "run")
+    trainer = main(["train", "--model", model, "--dataset", "itop", "--data-root", itop_root,
+                    "--batch-size", "16", "--epochs", "1", "--val-labels", "labels_val.json",
+                    "--out-dir", out, *(["--lr", "0.05"] if model == "openpose" else [])])
+    h = trainer.history
+    assert len(h) == 1 and np.isfinite([h[0]["train_loss"], h[0]["val_loss"]]).all()
+    ev = ["evaluate", "--model", model, "--dataset", "itop", "--data-root", itop_root,
+          "--labels", "labels_val.json", "--ckpt", os.path.join(out, "ckpt"), "--batch-size",
+          "16", "--out-dir", str(tmp_path / "ev"), *(["--gt-boxes"] if model == "a2j" else [])]
+    main(ev)
+    with open(tmp_path / "ev" / f"{model}_results.json") as f:
+        data = json.load(f)
+    assert len(data["human_pred_set_2d"]) == 64

@@ -51,6 +51,13 @@ def agree(got: dict, ref: dict, people: int, share: float):
 
 
 @pytest.fixture(scope="module")
+def weights():
+    """Each family's committed weights, read once: {model: (Flax variables,
+    the port's flat dict)}."""
+    return {m: (jax_serving.variables_from_npz(p), load_npz(p)) for m, p in WEIGHTS.items()}
+
+
+@pytest.fixture(scope="module")
 def depth_frames():
     return {"openpose": person_frames(4, n_frames=2, people=(2, 3)),
             "bg": with_background(person_frames(6, n_frames=2, people=(3, 2)))}
@@ -65,7 +72,7 @@ CASES = [(m, t) for m in ("openpose", "popnet", "yolo") for t in ("fold", "fold+
 
 
 @pytest.mark.parametrize("model,transform", CASES, ids=[f"{m}-{t}" for m, t in CASES])
-def test_depth_builders_match_the_jitted_jax_builders(depth_frames, model, transform):
+def test_depth_builders_match_the_jitted_jax_builders(depth_frames, weights, model, transform):
     """The port's builder (float32, CPU) with the transform against JAX's
     jitted builder on the same frames, the committed weights. Folded: the
     exact path's bars (counts equal, joints2d within 2.3 px, z within 1e-3
@@ -79,11 +86,11 @@ def test_depth_builders_match_the_jitted_jax_builders(depth_frames, model, trans
     jax_build, build, frames_key = DENSE[model]
     frames = depth_frames[frames_key]
     kw = TRANSFORMS[transform]
-    ref = jax_serving.unpack_outputs(np.asarray(jax_build(
-        jax_serving.variables_from_npz(WEIGHTS[model]), dtype=jnp.float32, **kw)(
+    jax_vars, flat = weights[model]
+    ref = jax_serving.unpack_outputs(np.asarray(jax_build(jax_vars, dtype=jnp.float32, **kw)(
         jnp.asarray(frames))), P, K)
-    got = serving.unpack_outputs(build(load_npz(WEIGHTS[model]), dtype=torch.float32,
-                                       device="cpu", **kw)(torch.from_numpy(frames)).numpy(), P, K)
+    got = serving.unpack_outputs(build(flat, dtype=torch.float32, device="cpu", **kw)(
+        torch.from_numpy(frames)).numpy(), P, K)
     if "quant" not in kw:
         np.testing.assert_array_equal(got["counts"], ref["counts"])
         np.testing.assert_allclose(got["joints2d"], ref["joints2d"], atol=2.3)
@@ -93,7 +100,7 @@ def test_depth_builders_match_the_jitted_jax_builders(depth_frames, model, trans
               share=0.95 if model == "openpose" else 0.98)
 
 
-def test_yolo_a2j_builder_matches_jax_folded(depth_frames):
+def test_yolo_a2j_builder_matches_jax_folded(depth_frames, weights):
     """Yolo->A2J with fold_bn on both stages, B = 2, two crops a frame,
     from A2J's seeded init, against JAX's jitted builder: the detector's
     flags exact, every value finite, A2J's joints within 1% of each
@@ -105,9 +112,9 @@ def test_yolo_a2j_builder_matches_jax_folded(depth_frames):
     a2j_flat = flat_from_module(pm.A2J().init_seeded(0))
     frames = depth_frames["bg"]
     ref = jax_serving.unpack_outputs(np.asarray(jax_serving.build_yolo_a2j_pipeline(
-        jax_serving.variables_from_npz(WEIGHTS["yolo"]), to_jax(a2j_flat), dtype=jnp.float32,
-        max_crops=2, fold_bn=True)(jnp.asarray(frames))), 2, K)
-    buf = serving.build_yolo_a2j_pipeline(load_npz(WEIGHTS["yolo"]), a2j_flat,
+        weights["yolo"][0], to_jax(a2j_flat), dtype=jnp.float32, max_crops=2, fold_bn=True)(
+        jnp.asarray(frames))), 2, K)
+    buf = serving.build_yolo_a2j_pipeline(weights["yolo"][1], a2j_flat,
                                           dtype=torch.float32, device="cpu", max_crops=2,
                                           fold_bn=True)(torch.from_numpy(frames))
     assert torch.isfinite(buf).all()
@@ -154,7 +161,7 @@ def test_evaluate_int8_metric_parity(frozen_set, tmp_path):
         assert abs(res["exact"][k] - res["int8"][k]) <= 0.02, (k, res)
 
 
-def test_int8_moves_yolo_3d_metrics_in_both_packages(tmp_path):
+def test_int8_moves_yolo_3d_metrics_in_both_packages(tmp_path, weights):
     """Found in the reference: on 64 frames of chip_smoke's "bg" set (people
     over the depth background, the committed Yolo weights), JAX's own
     dynamic int8 (quantized_apply, jitted) moves Yolo-Pose+'s pck3d and
@@ -172,7 +179,7 @@ def test_int8_moves_yolo_3d_metrics_in_both_packages(tmp_path):
     sets = chip_smoke.eval_sets(np.random.default_rng([0, 7]), "cpu", 64, str(tmp_path))
     data = os.path.dirname(sets["bg"][0])
     ds = JaxDataset(sets["bg"][0], sets["bg"][1], ecfg=EncoderConfig())
-    variables = jax_serving.variables_from_npz(WEIGHTS["yolo"])
+    variables = weights["yolo"][0]
     four = ("pck2d", "pck3d", "map2d", "map3d")
     res = {}
     for name, apply in (("exact", jm.YoloPoseNet().apply),

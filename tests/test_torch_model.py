@@ -100,8 +100,10 @@ def test_cnn_matches_flax_with_committed_weights():
 def fresh_init(flax_model, rng, head_scale=5.0):
     """A fresh Flax init at 64x64, its BatchNorm statistics randomized and
     its head kernels scaled up so the outputs are not flat. Returns the
-    variables as a tree and as {'/'-joined path: array}."""
-    variables = flax_model().init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 1)), train=False)
+    variables as a tree and as {'/'-joined path: array}. The init runs as
+    one jitted program (op by op, a Flax init compiles each of its ops)."""
+    variables = jax.jit(lambda key: flax_model().init(key, jnp.zeros((1, 64, 64, 1)),
+                                                      train=False))(jax.random.PRNGKey(0))
     flat = {"/".join(getattr(k, "key", str(k)) for k in kp): np.asarray(v, np.float32)
             for kp, v in jax.tree_util.tree_flatten_with_path(variables)[0]}
     for k, v in flat.items():

@@ -40,7 +40,7 @@ from tests import synthetic_data
 from tests.test_torch_model import _compare, fresh_init
 from tests.test_torch_train import random_labels
 from tests.test_torch_train_step import (LR32, SGD_BARS, SGD_LOSS_RTOL, assert_state_close, flat,
-                                         port_state, variables_of)
+                                         jitted_init, port_state, variables_of)
 
 P = 4
 SIZE = 64
@@ -397,8 +397,8 @@ def test_pred_vis_step_matches_jax_in_float64(pred_vis_batch):
     with its SGD trace and stepped on by the port."""
     flax_cls = functools.partial(FlaxPopNet, pred_vis=True)
     batch = pred_vis_batch
-    f32 = create_train_state(flax_cls(), jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 1)),
-                             learning_rate=LR32)
+    f32 = create_train_state(jitted_init(flax_cls()), jax.random.PRNGKey(0),
+                             jnp.zeros((1, SIZE, SIZE, 1)), learning_rate=LR32)
     with jax.enable_x64(True):
         up = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)
         jbatch = {k: jnp.asarray(v, jnp.float64) if v.dtype == np.float32 else jnp.asarray(v)

@@ -32,6 +32,15 @@ WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet
 WEIGHTS_YOLO = os.path.join(ROOT, "examples", "results", "bench_weights_yolo.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_modules():
     mods = []
     for dirpath, _, files in os.walk(PKG):
@@ -44,14 +53,14 @@ def _port_modules():
 
 def test_port_imports_with_jax_and_reference_blocked():
     """Every module of the port (and chip_smoke.py) imports while jax, flax,
-    popnet_tpu and cv2 are unimportable; popnet_tpu_torch itself must pass
-    the blocker (a bare prefix match would block it too)."""
+    popnet_tpu, cv2 and PIL are unimportable; popnet_tpu_torch itself must
+    pass the blocker (a bare prefix match would block it too)."""
     code = textwrap.dedent(f"""
         import importlib, sys
         class Block:
             def find_spec(self, name, path=None, target=None):
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2") \\
+                if top in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL") \\
                         or name == "popnet_tpu" or name.startswith("popnet_tpu."):
                     raise ImportError("blocked: " + name)
                 return None
@@ -60,7 +69,8 @@ def test_port_imports_with_jax_and_reference_blocked():
         for m in {_port_modules()!r} + ["chip_smoke"]:
             importlib.import_module(m)
         leaked = [m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "popnet_tpu", "cv2")]
+                  if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "popnet_tpu", "cv2",
+                                         "PIL")]
         assert not leaked, leaked
         for m in ("models.popnet", "models.rtpose_align3d", "models.yolo_posenet", "decode.prior",
                   "decode.popnet_infer", "models.a2j", "decode.a2j", "data.a2j_crops",
@@ -69,7 +79,9 @@ def test_port_imports_with_jax_and_reference_blocked():
                   "data.augment_device", "decode.readout", "decode.assemble", "core.device",
                   "ops.encoders", "losses.losses", "train.state", "train.schedule",
                   "train.steps", "train.checkpoint", "train.loop", "data.compositing",
-                  "data.streaming", "data.augment_host", "ops.fold_bn", "ops.quant"):
+                  "data.streaming", "data.augment_host", "ops.fold_bn", "ops.quant",
+                  "eval.single", "data.itop_a2j", "cli.itop_eval", "cli.itop_table",
+                  "decode.peaks_np", "decode.paf_np", "decode.human_list", "decode.align"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -339,6 +351,36 @@ def test_train_defaults_to_cuda_and_never_runs_on_cpu_unasked(tmp_path):
         Trainer(YoloPoseNet(), None, None)
     with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
         main(["train", "--data-root", str(tmp_path), "--model", "yolo", "--device", "cpu"])
+
+
+def test_itop_entry_points_default_to_cuda_and_never_run_on_cpu_unasked(tmp_path, monkeypatch):
+    """`train --dataset itop` (each depth model), `evaluate --dataset itop`
+    and the ITOP table default to the card; without one they raise unless
+    the CPU is asked for (--device cpu, ITOP_CPU); the exact host decode
+    (`run_openpose_eval(fast=False)`) takes the dataset's device, which
+    defaults to the card."""
+    from popnet_tpu_torch.cli import evaluate, itop_table
+    from popnet_tpu_torch.cli.main import build_parser, main
+
+    for cmd in ("train", "evaluate"):
+        args = build_parser().parse_args([cmd, "--dataset", "itop", "--data-root", str(tmp_path)])
+        assert args.device == "cuda" and args.dataset == "itop"
+    assert inspect.signature(evaluate.run_openpose_eval).parameters["fast"].default is True
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    for model in ("openpose", "popnet", "yolo", "a2j"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["train", "--dataset", "itop", "--model", model, "--data-root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["evaluate", "--dataset", "itop", "--model", "openpose", "--data-root",
+              str(tmp_path)])
+    monkeypatch.delenv("ITOP_CPU", raising=False)
+    monkeypatch.setenv("ITOP_DIR", str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        itop_table.main()
+    with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
+        main(["train", "--dataset", "itop", "--model", "a2j", "--data-root", str(tmp_path),
+              "--device", "cpu"])
 
 
 def test_int8_conv_takes_the_plain_version_on_the_cpu_and_refuses_other_devices():

@@ -191,10 +191,14 @@ def test_int8_conv_counts_equal_jax(family):
 
 @pytest.fixture(scope="module")
 def popnet_case():
-    """PopNet with the committed weights, its Flax variables and a frame of
-    normal noise at 64x64."""
+    """PopNet with the committed weights, its Flax variables, a frame of
+    normal noise at 64x64 and JAX's float forward of it, op by op (made
+    once: both roundings of test_int8_model_matches_jax measure against
+    it)."""
     x = np.random.default_rng(1).standard_normal((1, 64, 64, 1)).astype(np.float32)
-    return load_npz(WEIGHTS["popnet"]), jax_serving.variables_from_npz(WEIGHTS["popnet"]), x
+    variables = jax_serving.variables_from_npz(WEIGHTS["popnet"])
+    exact = jm.PopNet().apply(variables, jnp.asarray(x), train=False)[0]
+    return load_npz(WEIGHTS["popnet"]), variables, x, exact
 
 
 def test_fallthrough_is_exact_and_int8_stays_near_exact():
@@ -233,7 +237,7 @@ def test_int8_model_matches_jax(popnet_case, rounding):
     the layers after it. So each map of the port's int8 lies closer to
     JAX's int8 on average than JAX's int8 lies to JAX's float forward, and
     within twice that gap at most."""
-    flat, variables, x = popnet_case
+    flat, variables, x, exact = popnet_case
     net = load_into(pm.PopNet(), flat).eval()
     quantize_convs(net, rounding=rounding)
     with torch.no_grad():
@@ -243,7 +247,6 @@ def test_int8_model_matches_jax(popnet_case, rounding):
         return quantized_apply(jm.PopNet(), variables, a, train=False)[0]
 
     ref = (jax.jit(apply) if rounding == "compiled" else apply)(jnp.asarray(x))
-    exact = jm.PopNet().apply(variables, jnp.asarray(x), train=False)[0]
     for g, r, e in zip(got, ref, exact):
         d = np.abs(g.permute(0, 2, 3, 1).numpy() - np.asarray(r))
         gap = np.abs(np.asarray(r) - np.asarray(e))

@@ -16,6 +16,7 @@ apart in loss after two. So in float32 the test holds the first step's
 loss and the loss's fall."""
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -124,11 +125,17 @@ def _few_threads():
 @functools.lru_cache(maxsize=None)
 def flax_state(family: str):
     """The JAX train state of the family's Flax init (PRNGKey 0, float32),
-    made once a file (Flax inits run op by op), at the float32 rate the
-    port steps at (optax re-initialised under `jax.enable_x64` would keep a
-    float64 0.05)."""
-    return create_train_state(FAMILIES[family][0](), jax.random.PRNGKey(0),
+    made once a file, the init jitted (op by op, a Flax init compiles each
+    of its ops), at the float32 rate the port steps at (optax re-initialised
+    under `jax.enable_x64` would keep a float64 0.05)."""
+    return create_train_state(jitted_init(FAMILIES[family][0]()), jax.random.PRNGKey(0),
                               jnp.zeros((1, 64, 64, 1)), learning_rate=LR32)
+
+
+def jitted_init(model):
+    """`model` for create_train_state, its init run as one jitted program."""
+    return types.SimpleNamespace(init=jax.jit(model.init, static_argnames="train"),
+                                 apply=model.apply)
 
 
 def family_batch(family: str) -> dict:
