@@ -5,8 +5,9 @@ Drives the port's five serving paths at the models' full width, its
 MP-3DHP evaluation drivers for the four depth families, the training
 of three of them on single-person frames (phase 7) and on mp-aug
 multi-person composites (phase 8), A2J's training (phase 9), each
-serving path folded and in dynamic int8 (phase 10), and ITOP's training,
-evaluation and table with the exact host decode (phase 11): the four
+serving path folded and in dynamic int8 (phase 10), ITOP's training,
+evaluation and table with the exact host decode (phase 11), and COCO and
+MPII RGB training from JPEG files (phase 12): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -217,6 +218,30 @@ Phases, one or more lines each:
     as far from the CPU's float64 ones as the CPU's float32 joints are); (f) `python -m
     popnet_tpu_torch.cli.itop_table` at a tiny budget; and the kernels'
     launches over (c), (e) and (f) (an "itop_launches" entry in each row).
+
+12. rgb: COCO and MPII RGB training (popnet_tpu_torch.data.image_io, the
+    uint8 transforms of data.augment_host, data.coco_dataset, data.mpii,
+    PopNetRGB, cli.main train --dataset coco|mpii) at full width, 368²,
+    float32: (a) the JPEG reader on the committed fixtures
+    (tests/fixtures/jpeg, written by cv2) against the sha256 of cv2.imread's
+    output recorded beside them, the progressive fixture refused; (b)
+    64 training and 16 validation frames of 640x480 BGR with 1-3 painted
+    people each (rgb_frames), written as baseline JPEG by the phase's NumPy
+    writer (jpeg_baseline) with COCO and MPII labels, and the host
+    transforms' ms an image (decode, rotation, blur, resize); then for COCO
+    (RTPoseVGG, VGG19 trunk) and MPII (PopNetRGB, 16 parts): a batch of 32
+    made on the card against the CPU's (COCO with rotation, scale jitter,
+    blur and flips; the image, scales, masks and prior targets bit for bit,
+    the maps within TARGETS_BAR, the generators equal), one step from the
+    seeded init on 4 frames at 64², card against CPU (train_step_checks),
+    `train --dataset coco --model rtpose_vgg --trunk vgg19` (and `--dataset
+    mpii --model popnet_rgb`) --input-size 368 --batch-size 32 --epochs 2
+    --lr 0.05 (cuDNN deterministic): the losses falling, and 1 epoch +
+    --resume 1 against 2 in one call bit for bit; (d) e2e train frames/s
+    over the second epoch, the input pipeline and its host stage alone,
+    the step's ms (CUDA events) and TFLOP/s from its conv shapes,
+    max_memory_allocated, and no kernel launched (a "rgb_train_launches"
+    entry in each row of the kernels line).
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -2572,6 +2597,8 @@ def one_step(family: str, batch: dict, dev, dtype, pred_vis: bool = False):
 
     if family == "a2j":
         return a2j_one_step(batch, dev, dtype)
+    if family in ("rtpose_vgg", "popnet_rgb"):
+        return rgb_one_step(family, batch, dev, dtype)
     if pred_vis:
         model = PopNet(pred_vis=True)
         step = steps.make_popnet_train_step(pred_vis=True)
@@ -2662,7 +2689,8 @@ def train_step_checks(tag: str, family: str, batch_card: dict, batch_host: dict,
         e = step_errors(card, host)
         name = str(dtype).split(".")[1]
         n = len(next(iter(batch_host.values())))
-        init = "seeded init, Adam-L2" if family == "a2j" else "committed weights"
+        init = {"a2j": "seeded init, Adam-L2", "rtpose_vgg": "seeded init",
+                "popnet_rgb": "seeded init"}.get(family, "committed weights")
         say("train", f"{tag} step check, {name}, card vs CPU ({n} frames, "
             f"{init}, TF32 off, cuDNN deterministic): loss {card[0]:.6f} vs {host[0]:.6f} "
             f"(rel {e['loss']:.3g}), max per-tensor update error {e['update']:.3g} of the "
@@ -4297,6 +4325,522 @@ def phase_itop(rng, dev) -> dict:
     return launches
 
 
+# -- phase 12: COCO and MPII RGB training ---------------------------------------------------------
+
+RGB_FRAME = (480, 640)      # the RGB sets' BGR frames, (H, W)
+RGB_TRAIN_FRAMES = 64       # frames of each training set, and of each validation set:
+RGB_VAL_FRAMES = 16
+RGB_INPUT = 368             # the command lines' --input-size, the models' full width
+RGB_BATCH = 32              # the command lines' batch
+RGB_EPOCHS = 2
+RGB_STEP_INPUT = 64         # the card-against-CPU step check's input and frames
+RGB_STEP_BATCH = 4
+RGB_SEED = 0                # the seeded RTPoseVGG and PopNetRGB of the step check
+RGB_QUALITY = 90            # the JPEG writer's IJG quality
+RGB_TIMED = 16              # frames of each host-stage timing
+COCO_AUG_FLAGS = ["--rotate-aug", "30", "--scale-jitter", "0.6,1.0", "--blur-aug", "1.5"]
+COCO_AUG = {"rotate_max_deg": 30.0, "scale_jitter": (0.6, 1.0), "blur_max_sigma": 1.5}
+RGB_FAMILIES = {"coco": "rtpose_vgg", "mpii": "popnet_rgb"}
+FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
+RGB_MAPS_EXACT = ("image", "scale", "valid", "prior_mask_conf", "prior_mask_coord",
+                  "prior_weight_map", "fg_masks_align")
+
+# the standard (Annex K) Huffman tables, as DHT payloads: DC and AC luminance, DC and AC
+# chrominance
+JPEG_DHT = tuple(bytes.fromhex(h) for h in (
+    "0000010501010101010100000000000000000102030405060708090a0b",
+    "100002010303020403050504040000017d01020300041105122131410613516107227114328191a1082342b1c1"
+    "1552d1f02433627282090a161718191a25262728292a3435363738393a434445464748494a535455565758595a"
+    "636465666768696a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+    "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa",
+    "0100030101010101010101010000000000000102030405060708090a0b",
+    "1100020102040403040705040400010277000102031104052131061241510761711322328108144291a1b1c109"
+    "233352f0156272d10a162434e125f11718191a262728292a35363738393a434445464748494a535455565758595a"
+    "636465666768696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3"
+    "b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))
+# the standard quantization tables (natural order), luminance and chrominance
+JPEG_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40,
+              57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35,
+              55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
+              100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99,
+              99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32))
+JPEG_ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40,
+                        48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
+                        29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60,
+                        61, 54, 47, 55, 62, 63])
+
+
+def _huffman_codes(payload: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """A DHT payload -> (code, length) of each of the 256 symbols."""
+    counts, values = payload[1:17], payload[17:]
+    codes, lengths = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code = k = 0
+    for n in range(16):
+        for _ in range(counts[n]):
+            codes[values[k]], lengths[values[k]] = code, n + 1
+            code += 1
+            k += 1
+        code <<= 1
+    return codes, lengths
+
+
+def _bit_size(v: np.ndarray) -> np.ndarray:
+    """The JPEG magnitude category of each integer: its bit length (0 for 0)."""
+    a = np.abs(v)
+    return np.where(a == 0, 0, np.floor(np.log2(np.maximum(a, 1))).astype(np.int64) + 1)
+
+
+def jpeg_baseline(bgr: np.ndarray, quality: int = RGB_QUALITY) -> bytes:
+    """A baseline JFIF JPEG (SOF0, 4:4:4 YCbCr, the standard Huffman tables,
+    IJG-scaled standard quantization at `quality`) of an (H, W, 3) uint8 BGR
+    frame, in NumPy: the phase's writer, since the card's machine has no
+    cv2 or PIL (the package itself only reads JPEG). Checked on the CPU
+    against cv2's decoder (tests/test_torch_jpeg.py)."""
+    h, w = bgr.shape[:2]
+    hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
+    img = np.pad(bgr.astype(np.float64), ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    planes = (0.299 * r + 0.587 * g + 0.114 * b,
+              -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
+              0.5 * r - 0.418688 * g - 0.081312 * b + 128.0)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    quant = [np.clip((q * scale + 50) // 100, 1, 255) for q in JPEG_QUANT]
+    u = np.arange(8)
+    dct = np.sqrt(2.0 / 8) * np.cos((2 * u[None, :] + 1) * u[:, None] * np.pi / 16)
+    dct[0] /= np.sqrt(2.0)
+    coefs = []
+    for ci, plane in enumerate(planes):
+        blocks = (plane - 128.0).reshape(hp // 8, 8, wp // 8, 8).transpose(0, 2, 1, 3)
+        d = np.einsum("ux,byxv->byuv", dct, np.einsum("byxw,vw->byxv", blocks, dct))
+        q = np.round(d / quant[min(ci, 1)].reshape(8, 8)).astype(np.int64)
+        coefs.append(q.reshape(-1, 64)[:, JPEG_ZIGZAG])
+    nb = coefs[0].shape[0]
+    blk = np.stack(coefs, 1).reshape(3 * nb, 64)         # the scan's order: Y, Cb, Cr a block
+    table = np.tile([0, 1, 1], nb)
+    dc = blk[:, 0].copy()
+    for c in range(3):
+        dc[c::3] = np.diff(blk[c::3, 0], prepend=0)
+    huff = [_huffman_codes(p) for p in JPEG_DHT]         # DC0, AC0, DC1, AC1
+    dcc = np.where(table == 0, 0, 2)
+    acc = dcc + 1
+
+    def codes_of(tab, sym):
+        code = np.where(tab == 0, huff[0][0][sym], huff[2][0][sym])
+        length = np.where(tab == 0, huff[0][1][sym], huff[2][1][sym])
+        return code, length
+
+    def ac_codes_of(tab, sym):
+        code = np.where(tab == 0, huff[1][0][sym], huff[3][0][sym])
+        length = np.where(tab == 0, huff[1][1][sym], huff[3][1][sym])
+        return code, length
+
+    def extra_bits(v, s):
+        return np.where(v >= 0, v, v + (1 << s) - 1)
+
+    events = []                                          # (block, position, order, code, length)
+    s = _bit_size(dc)
+    c, l = codes_of(table, s)
+    events.append((np.arange(3 * nb), np.zeros(3 * nb, np.int64), np.zeros(3 * nb, np.int64),
+                   (c << s) | extra_bits(dc, s), l + s))
+    bi, k = np.nonzero(blk[:, 1:])
+    k = k + 1
+    v = blk[bi, k]
+    prev = np.where(np.r_[True, bi[1:] != bi[:-1]], 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    zrl, rr = run // 16, run % 16
+    s = _bit_size(v)
+    c, l = ac_codes_of(table[bi], (rr << 4) | s)
+    events.append((bi, k, zrl, (c << s) | extra_bits(v, s), l + s))
+    if zrl.any():                                        # runs of 16 zeros (ZRL) first
+        rep = np.repeat(np.arange(len(bi)), zrl)
+        order = np.arange(len(rep)) - np.repeat(np.cumsum(zrl) - zrl, zrl)
+        c, l = ac_codes_of(table[bi[rep]], np.full(len(rep), 0xF0))
+        events.append((bi[rep], k[rep], order, c, l))
+    last = np.zeros(3 * nb, np.int64)
+    np.maximum.at(last, bi, k)
+    eob = np.nonzero(last < 63)[0]
+    c, l = ac_codes_of(table[eob], np.zeros(len(eob), np.int64))
+    events.append((eob, np.full(len(eob), 64), np.zeros(len(eob), np.int64), c, l))
+    bi, k, o, code, length = (np.concatenate(x) for x in zip(*events))
+    order = np.lexsort((o, k, bi))
+    code, length = code[order], length[order]
+    word = (code << (32 - length)).astype(">u4")
+    bits = np.unpackbits(word.view(np.uint8)).reshape(-1, 32)
+    bits = bits[np.arange(32)[None, :] < length[:, None]]
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    data = np.packbits(bits)
+    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0)   # byte stuffing
+
+    def seg(marker: int, payload: bytes) -> bytes:
+        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
+
+    out = [b"\xff\xd8", seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    out.append(seg(0xDB, b"".join(bytes([t]) + bytes(q[JPEG_ZIGZAG].astype(np.uint8))
+                                  for t, q in enumerate(quant))))
+    out.append(seg(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+                   + bytes([3, 1, 0x11, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    out.append(seg(0xC4, b"".join(JPEG_DHT)))
+    out.append(seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    return b"".join(out) + data.tobytes() + b"\xff\xd9"
+
+
+# a person's 17 COCO keypoints in units of its height, feet at (0, 0), facing the camera
+RGB_PERSON = np.array([[0.0, -0.92], [0.03, -0.95], [-0.03, -0.95], [0.06, -0.93], [-0.06, -0.93],
+                       [0.12, -0.80], [-0.12, -0.80], [0.18, -0.62], [-0.18, -0.62],
+                       [0.20, -0.45], [-0.20, -0.45], [0.08, -0.48], [-0.08, -0.48],
+                       [0.09, -0.25], [-0.09, -0.25], [0.09, -0.02], [-0.09, -0.02]])
+RGB_BONES = ((5, 7), (7, 9), (6, 8), (8, 10), (5, 6), (11, 12), (5, 11), (6, 12), (11, 13),
+             (13, 15), (12, 14), (14, 16), (0, 5), (0, 6), (1, 3), (2, 4))
+
+
+def rgb_frames(rng, n: int, H: int = RGB_FRAME[0], W: int = RGB_FRAME[1]):
+    """n BGR frames of 1-3 painted people over smooth colour, with the
+    people's COCO-17 keypoints (x, y, v): per frame an (P, 17, 3) array,
+    v = 2 inside the frame (a few 1 or 0 at random), 0 outside."""
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    frames, people = [], []
+    for _ in range(n):
+        ph = rng.uniform(0, 2 * np.pi, 3)
+        bg = np.stack([96 + 60 * np.sin(xs / rng.uniform(40, 120) + ph[c])
+                       * np.cos(ys / rng.uniform(50, 150) + ph[c] / 2) for c in range(3)], -1)
+        img = bg + rng.normal(0, 6, (H, W, 3))
+        kps = []
+        for _ in range(rng.integers(1, 4)):
+            height = rng.uniform(150, 380)
+            foot = np.array([rng.uniform(40, W - 40), rng.uniform(0.45 * H, H + 20)])
+            pts = foot + height * (RGB_PERSON + rng.normal(0, 0.015, RGB_PERSON.shape))
+            colour = rng.uniform(20, 235, 3)
+            for a, b in RGB_BONES:
+                (x0, y0), (x1, y1) = pts[a], pts[b]
+                r = 0.03 * height
+                lo_x, hi_x = int(max(min(x0, x1) - r, 0)), int(min(max(x0, x1) + r + 1, W))
+                lo_y, hi_y = int(max(min(y0, y1) - r, 0)), int(min(max(y0, y1) + r + 1, H))
+                if lo_x >= hi_x or lo_y >= hi_y:
+                    continue
+                px, py = xs[lo_y:hi_y, lo_x:hi_x], ys[lo_y:hi_y, lo_x:hi_x]
+                dx, dy = x1 - x0, y1 - y0
+                t = np.clip(((px - x0) * dx + (py - y0) * dy) / max(dx * dx + dy * dy, 1e-6), 0, 1)
+                near = (px - x0 - t * dx) ** 2 + (py - y0 - t * dy) ** 2 <= r * r
+                img[lo_y:hi_y, lo_x:hi_x][near] = colour
+            inside = (pts[:, 0] >= 0) & (pts[:, 0] < W) & (pts[:, 1] >= 0) & (pts[:, 1] < H)
+            v = np.where(inside, rng.choice([2, 2, 2, 2, 1, 0], 17), 0)
+            kps.append(np.concatenate([pts, v[:, None]], 1))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+        people.append(np.stack(kps))
+    return frames, people
+
+
+def _mpii_joints(kp17: np.ndarray) -> tuple[list, list]:
+    """COCO-17 keypoints -> the 16 MPII joints (pelvis, thorax, neck and head
+    top from their neighbours) and their visibility flags."""
+    p, v = kp17[:, :2], kp17[:, 2] > 0
+    pelvis, thorax = (p[11] + p[12]) / 2, (p[5] + p[6]) / 2
+    rows = [(p[16], v[16]), (p[14], v[14]), (p[12], v[12]), (p[11], v[11]), (p[13], v[13]),
+            (p[15], v[15]), (pelvis, v[11] & v[12]), (thorax, v[5] & v[6]),
+            (thorax + 0.35 * (p[0] - thorax), v[0]), (p[0] + 1.2 * (p[0] - thorax) * 0.3, v[0]),
+            (p[10], v[10]), (p[8], v[8]), (p[6], v[6]), (p[5], v[5]), (p[7], v[7]), (p[9], v[9])]
+    return [list(map(float, j)) for j, _ in rows], [int(f) for _, f in rows]
+
+
+def write_rgb_sets(rng, root: str, n_train: int = RGB_TRAIN_FRAMES,
+                   n_val: int = RGB_VAL_FRAMES) -> float:
+    """n_train + n_val painted frames as JPEG (jpeg_baseline) under
+    root/images, their people as COCO person_keypoints JSONs (coco_train.json,
+    coco_val.json) and MPII JSON releases (mpii_train.json, mpii_val.json).
+    Returns the writer's ms a frame."""
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    frames, people = rgb_frames(rng, n_train + n_val)
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        with open(os.path.join(root, "images", f"{i:06d}.jpg"), "wb") as fh:
+            fh.write(jpeg_baseline(f))
+    write_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    H, W = RGB_FRAME
+    for split, lo, hi in (("train", 0, n_train), ("val", n_train, n_train + n_val)):
+        images, anns, mpii = [], [], []
+        for i in range(lo, hi):
+            name = f"{i:06d}.jpg"
+            images.append({"id": i, "file_name": name, "height": H, "width": W})
+            for kp in people[i]:
+                x0, y0 = kp[:, :2].min(0)
+                x1, y1 = kp[:, :2].max(0)
+                anns.append({"id": len(anns), "image_id": i, "iscrowd": 0,
+                             "keypoints": [float(x) for x in kp.ravel()],
+                             "num_keypoints": int((kp[:, 2] > 0).sum()),
+                             "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)]})
+                joints, vis = _mpii_joints(kp)
+                mpii.append({"image": name, "joints": joints, "joints_vis": vis})
+        with open(os.path.join(root, f"coco_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns}, f)
+        with open(os.path.join(root, f"mpii_{split}.json"), "w") as f:
+            json.dump(mpii, f)
+    return write_ms
+
+
+def rgb_dataset(root: str, dataset: str, dev, size: int = RGB_INPUT,
+                labels: str | None = None, is_train: bool = True):
+    """The command line's training dataset of `dataset` ("coco" with
+    COCO_AUG and flips, "mpii" with flips) on `dev`, seed 0."""
+    labels = labels or f"{dataset}_train.json"
+    images, ann = os.path.join(root, "images"), os.path.join(root, labels)
+    if dataset == "coco":
+        from popnet_tpu_torch.data.coco_dataset import CocoKeypointsDataset
+
+        return CocoKeypointsDataset(images, ann, input_y=size, input_x=size, is_train=is_train,
+                                    seed=0, device=dev, **COCO_AUG)
+    from popnet_tpu_torch.data.mpii import MPIIKeypointsDataset
+
+    return MPIIKeypointsDataset(images, ann, input_y=size, input_x=size, is_train=is_train,
+                                seed=0, device=dev)
+
+
+def compare_rgb_batches(tag: str, card: dict, host: dict) -> float:
+    """An RGB batch made on the card against the CPU's: the image, scales,
+    valid flags, masks and prior targets bit for bit, the heat, PAF and
+    align maps within TARGETS_BAR (torch.exp rounds apart by device).
+    Returns the largest error of those."""
+    import torch
+
+    require(set(card) == set(host), f"{tag}: the batches' keys differ")
+    worst = 0.0
+    for k, h in host.items():
+        c = card[k].cpu()
+        require(c.shape == h.shape and c.dtype == h.dtype, f"{tag} {k}: shape or type differs")
+        if k in RGB_MAPS_EXACT or k == "prior_map":
+            require(bool(torch.equal(c, h)), f"{tag} {k}: card and CPU differ")
+        else:
+            err = _maxerr(c, h)
+            require(err <= TARGETS_BAR, f"{tag} {k}: card and CPU {err:.3g} apart")
+            worst = max(worst, err)
+    return worst
+
+
+def rgb_one_step(family: str, batch: dict, dev, dtype):
+    """`one_step` for the RGB families: one SGD-Nesterov step (TRAIN_LR) of
+    RTPoseVGG (VGG19 trunk) or PopNetRGB from its seeded init (RGB_SEED),
+    on `dev` in `dtype`, TF32 off and cuDNN deterministic."""
+    import torch
+
+    from popnet_tpu_torch.models import PopNetRGB, RTPoseVGG
+    from popnet_tpu_torch.models.layers import ConvBN
+    from popnet_tpu_torch.train import steps
+    from popnet_tpu_torch.train.state import TrainState, make_optimizer
+
+    model = (RTPoseVGG() if family == "rtpose_vgg" else PopNetRGB()).init_seeded(RGB_SEED)
+    model = model.to(dev, dtype)
+    step = (steps.make_rtpose_vgg_train_step() if family == "rtpose_vgg"
+            else steps.make_popnet_rgb_train_step())
+    zero = {f"{n}.Conv_0.bias" for n, m in model.named_modules()
+            if isinstance(m, ConvBN) and m.norm and m.Conv_0.bias is not None}
+    state = TrainState(model, make_optimizer(model, "sgd", TRAIN_LR))
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    b = {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev)) for k, v in batch.items()}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False, deterministic=True):
+        state, logs = step(state, b)
+    after = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return float(logs["loss"]), before, after, zero
+
+
+def check_jpeg_fixtures() -> tuple[int, int]:
+    """(a): each committed fixture decoded by the port's reader to the sha256
+    cv2.imread's output had (tests/fixtures/jpeg/hashes.json), the
+    progressive ones refused. Returns (decoded, refused)."""
+    import hashlib
+
+    from popnet_tpu_torch.data.image_io import imread_bgr
+
+    with open(os.path.join(FIXTURES, "hashes.json")) as f:
+        recorded = json.load(f)
+    for name, digest in recorded["decoded"].items():
+        got = hashlib.sha256(imread_bgr(os.path.join(FIXTURES, name)).tobytes()).hexdigest()
+        require(got == digest, f"(a) the reader's {name} differs from cv2.imread's")
+    for name in recorded["refused"]:
+        try:
+            imread_bgr(os.path.join(FIXTURES, name))
+        except ValueError as e:
+            require("progressive" in str(e) and name in str(e), f"(a) {name}: {e}")
+        else:
+            raise AssertionError(f"(a) the reader decoded {name}")
+    return len(recorded["decoded"]), len(recorded["refused"])
+
+
+def host_stage_ms(root: str, n: int = RGB_TIMED) -> dict:
+    """ms an image of each host transform on the set's first n frames, one
+    thread, after a warm call of each: the JPEG read, the rotation (30
+    degrees, cubic), the blur (sigma 1.5) and the letterbox resize to
+    RGB_INPUT."""
+    from popnet_tpu_torch.data.augment_host import resize_linear_u8
+    from popnet_tpu_torch.data.coco_dataset import blur_image, rotate_bound
+    from popnet_tpu_torch.data.image_io import imread_bgr
+
+    paths = [os.path.join(root, "images", f"{i:06d}.jpg") for i in range(n)]
+    warm = imread_bgr(paths[0])             # the first calls build, load and import
+    blur_image(rotate_bound(warm, 30.0)[0], 1.5)
+    resize_linear_u8(warm, 64, 48)
+    t0 = time.perf_counter()
+    imgs = [imread_bgr(p) for p in paths]
+    out = {"decode": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    rot = [rotate_bound(im, 30.0)[0] for im in imgs]
+    out["rotate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for im in rot:
+        blur_image(im, 1.5)
+    out["blur"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for im in imgs:
+        h, w = im.shape[:2]
+        s = min(RGB_INPUT / h, RGB_INPUT / w)
+        resize_linear_u8(im, int(round(w * s)), int(round(h * s)))
+    out["resize"] = time.perf_counter() - t0
+    return {k: v * 1e3 / n for k, v in out.items()}
+
+
+def phase_rgb(rng, dev) -> dict:
+    """Phase 12, COCO and MPII RGB training (see the module docstring).
+    Returns the kernels' launches over the training runs (none expected)."""
+    import tempfile
+
+    import torch
+
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.data.coco_dataset import HOST_WORKERS
+    from popnet_tpu_torch.models import PopNetRGB, RTPoseVGG
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.train import checkpoint, steps
+    from popnet_tpu_torch.train.steps import _nchw
+
+    t_phase = time.perf_counter()
+    host_threads = min(HOST_WORKERS, os.cpu_count() or 1)
+    torch.cuda.empty_cache()                 # the earlier phases' cached blocks
+    n_ok, n_refused = check_jpeg_fixtures()
+    say("rgb", f"(a) the JPEG reader (csrc/jpeg_decode.cpp, built with the host C++ compiler) on "
+        f"the {n_ok + n_refused} committed fixtures: {n_ok} decode to cv2.imread's recorded "
+        f"sha256 (4:4:4, 4:2:2, 4:2:0 with restart markers, 4:4:0, 4:1:1 with optimized tables, "
+        f"grey, 1x1, an EXIF orientation 6), {n_refused} progressive refused by name")
+    launches = {k.__name__: 0 for k in kernels.KERNELS}
+    with tempfile.TemporaryDirectory() as root:
+        write_ms = write_rgb_sets(rng, root)
+        ms = host_stage_ms(root)
+        say("rgb", f"(b) wrote {RGB_TRAIN_FRAMES} + {RGB_VAL_FRAMES} frames of "
+            f"{RGB_FRAME[1]}x{RGB_FRAME[0]} BGR with painted people as baseline JPEG (the "
+            f"phase's NumPy writer, quality {RGB_QUALITY}, {write_ms:.1f} ms a frame) and their "
+            f"COCO and MPII labels; host transforms, ms an image over {RGB_TIMED} frames, one "
+            "thread: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+        idx = np.arange(RGB_BATCH)
+        for dataset, family in RGB_FAMILIES.items():
+            t0 = time.perf_counter()
+            cds, hds = rgb_dataset(root, dataset, dev), rgb_dataset(root, dataset, "cpu")
+            card, host = cds.get_batch(idx), hds.get_batch(idx)
+            err = compare_rgb_batches(dataset, card, host)
+            require(cds.rng.bit_generator.state == hds.rng.bit_generator.state,
+                    f"{dataset}: the generators differ after a batch")
+            people = int(host["valid"].sum()) if "valid" in host else int(
+                host["prior_mask_coord"].sum())
+            say("rgb", f"({'b' if dataset == 'coco' else 'c'}) {type(cds).__name__}, a batch of "
+                f"{RGB_BATCH} at {RGB_INPUT}² "
+                + ("(rotation, scale jitter, blur and flips) " if dataset == "coco" else
+                   "(flips) ")
+                + f"made on the card equals the CPU's: image, scales, masks and prior targets "
+                f"bit for bit, maps within {err:.3g} (bar {TARGETS_BAR}); the generators equal; "
+                f"{people} people; {time.perf_counter() - t0:.1f} s")
+            del card, host
+
+            # the step, card against CPU, on a small input
+            sc, sh = (rgb_dataset(root, dataset, d, RGB_STEP_INPUT) for d in (dev, "cpu"))
+            sidx = np.arange(RGB_STEP_BATCH)
+            train_step_checks(f"{dataset} {family}", family, sc.get_batch(sidx),
+                              sh.get_batch(sidx), dev)
+
+            # the command line: 2 epochs, and 1 epoch + --resume 1 against it
+            cli = ["train", "--dataset", dataset, "--model", family, "--data-root", root,
+                   "--labels", f"{dataset}_train.json", "--val-labels", f"{dataset}_val.json",
+                   "--device", str(dev), "--input-size", str(RGB_INPUT), "--batch-size",
+                   str(RGB_BATCH), "--lr", str(TRAIN_LR)]
+            if dataset == "coco":
+                cli += ["--trunk", "vgg19", *COCO_AUG_FLAGS]
+            whole, split = os.path.join(root, f"{dataset}_whole"), os.path.join(root, f"{dataset}_split")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+                trainer = cli_main([*cli, "--epochs", str(RGB_EPOCHS), "--out-dir", whole])
+                wall = time.perf_counter() - t0
+                mem = torch.cuda.max_memory_allocated() / 2**20
+                cli_main([*cli, "--epochs", "1", "--out-dir", split])
+                cli_main([*cli, "--epochs", "1", "--out-dir", split, "--resume"])
+            torch.cuda.synchronize()
+            for k, v in kernels.launch_counts().items():
+                launches[k] += v
+            hist = trainer.history
+            losses = [h["train_loss"] for h in hist]
+            require(len(hist) == RGB_EPOCHS
+                    and bool(np.isfinite(losses + [h["val_loss"] for h in hist]).all())
+                    and losses[-1] < losses[0],
+                    f"train --dataset {dataset}: the loss is not finite and falling: {hist}")
+            a, _, sa = checkpoint.restore_checkpoint(os.path.join(whole, "ckpt"))
+            b, _, sb = checkpoint.restore_checkpoint(os.path.join(split, "ckpt"))
+            same = sa == sb == RGB_EPOCHS - 1 and all(torch.equal(v, b["model"][k])
+                                                      for k, v in a["model"].items())
+            same = same and all(torch.equal(v, b["optimizer"]["state"][i][k])
+                                for i, st in a["optimizer"]["state"].items()
+                                for k, v in st.items())
+            hists = [[{k: v for k, v in json.loads(x).items() if k != "train_seconds"}
+                      for x in open(os.path.join(d, "history.jsonl"))] for d in (whole, split)]
+            require(same and hists[0] == hists[1], f"train --dataset {dataset}: 1 epoch + "
+                    f"--resume 1 differs from {RGB_EPOCHS} epochs in one call")
+            shutil.rmtree(whole)
+            shutil.rmtree(split)
+            n_train = RGB_TRAIN_FRAMES // RGB_BATCH * RGB_BATCH
+            e2e = n_train / hist[-1]["train_seconds"]
+
+            # the input pipeline and its host stage alone, the step alone
+            ds = rgb_dataset(root, dataset, dev)
+            t0, n = time.perf_counter(), 0
+            for bt in ds.iter_batches(RGB_BATCH):
+                torch.cuda.synchronize()
+                n += bt["image"].shape[0]
+            pipe = n / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for s0 in range(0, n_train, RGB_BATCH):
+                ds.get_batch_host(np.arange(s0, s0 + RGB_BATCH))
+            host_rate = n_train / (time.perf_counter() - t0)
+            batch = ds.get_batch(idx)
+            state = trainer.state
+            step = (steps.make_rtpose_vgg_train_step() if family == "rtpose_vgg"
+                    else steps.make_popnet_rgb_train_step())
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                step_ms = time_ms(lambda: step(state, batch), reps=5, warm=2)
+            net = (RTPoseVGG() if family == "rtpose_vgg" else PopNetRGB()).to(dev).eval()
+            with torch.no_grad():
+                flops = 3.0 * conv_flops(net, _nchw(batch["image"]))
+            del batch, state, trainer, net
+            torch.cuda.empty_cache()
+            say("rgb", f"({'b' if dataset == 'coco' else 'c'}) python -m popnet_tpu_torch.cli.main "
+                f"train --dataset {dataset} --model {family}"
+                + (" --trunk vgg19 " + " ".join(COCO_AUG_FLAGS) if dataset == "coco" else "")
+                + f" --input-size {RGB_INPUT} --batch-size {RGB_BATCH} --epochs {RGB_EPOCHS} "
+                f"--lr {TRAIN_LR} (float32, TF32 off, cuDNN deterministic): losses " + ", ".join(
+                    f"epoch {h['epoch']} train {h['train_loss']:.5f} val {h['val_loss']:.5f}"
+                    for h in hist)
+                + f"; (d) e2e train {e2e:.1f} frames/s over epoch {RGB_EPOCHS} ({n_train} frames, "
+                f"{hist[-1]['train_seconds']:.3f} s, host clock); input pipeline alone {pipe:.1f} "
+                f"frames/s, its host stage alone {host_rate:.1f} frames/s (1 epoch each, "
+                f"{host_threads} host threads); step {step_ms:.3f} ms at batch {RGB_BATCH} (CUDA "
+                f"events) = {RGB_BATCH / step_ms * 1e3:.1f} frames/s, {flops / 1e12:.3f} TFLOP (3 x "
+                f"the convolutions' forward) = {flops / step_ms / 1e9:.1f} TFLOP/s; "
+                f"max_memory_allocated {mem:.1f} MiB; the command {wall:.1f} s; 1 epoch + "
+                f"--resume 1 equals {RGB_EPOCHS} in one call bit for bit (parameters, momentum, "
+                f"history)")
+    say("rgb", f"launches per kernel over the RGB training runs: {launches} (none expected)")
+    require(not any(launches.values()), "the RGB training path launched a kernel")
+    say("rgb", f"phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the frames and test inputs")
@@ -4379,6 +4923,10 @@ def main(argv=None) -> int:
         itop_launches = phase_itop(rng_itop, dev)
         for r in rows:                  # the ITOP drivers, evaluate --dataset itop, the table
             r["itop_launches"] = itop_launches[r["name"]]
+        rng_rgb = np.random.default_rng([args.seed, 12])  # phase 12's painted RGB frames
+        rgb_launches = phase_rgb(rng_rgb, dev)
+        for r in rows:                  # none on the COCO and MPII training paths
+            r["rgb_train_launches"] = rgb_launches[r["name"]]
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")

@@ -39,6 +39,17 @@ directory that `train` wrote) or npz files of Flax variables (`--weights`,
 its seeded init (`torch.manual_seed(--seed)`; A2J's `init_seeded`), which
 predicts nothing but drives every stage.
 
+`train --dataset coco --model rtpose_vgg` trains RTPoseVGG (`--trunk
+vgg19|mobilenet`) on COCO keypoints: DATA/images/*.jpg and the
+person_keypoints JSON `--labels` (and `--val-labels`), letterboxed to
+`--input-size`, with `--rotate-aug DEG`, `--scale-jitter LO,HI` and
+`--blur-aug SIGMA` (`data.coco_dataset`); `train --dataset mpii --model
+popnet_rgb` trains PopNetRGB on MPII: DATA/images/*.jpg and an MPII JSON
+release `--labels` (`data.mpii`). As in the JAX command line, these two run
+SGD-Nesterov at --lr with the plateau controller, validate and checkpoint
+every epoch, and leave --optimizer, --schedule and the other depth-only
+options aside; each dataset trains its one model and refuses the others.
+
 `--pred-vis` trains PoP-Net with the visibility-inferring prior targets
 (`PopNet(pred_vis=True)` and its step, as the JAX library composes them);
 Open-Pose+ encodes no prior, so the flag changes nothing there; Yolo-Pose+
@@ -53,8 +64,7 @@ rounded as the JAX command line's op-by-op call of the model rounds them
 
 Options and models of the JAX command line that the port lacks raise,
 naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): COCO and
-MPII training (11c) and evaluation (9b), which first need a JPEG reader,
-meshes and `--n-micro` (13), `--spatial` (13). ITOP's single-person 10-cm
+MPII evaluation (9b), meshes and `--n-micro` (13), `--spatial` (13). ITOP's single-person 10-cm
 table has its own entry point, `python -m popnet_tpu_torch.cli.itop_table`.
 """
 
@@ -69,35 +79,24 @@ import torch
 from popnet_tpu_torch.core.config import (ITOP_DATASET, KDH3D_DATASET, DatasetConfig,
                                           DecodeConfig, EncoderConfig)
 
-_JPEG = "a JPEG reader first: the card's machine has no cv2 or PIL"
-
 # what each option of the JAX command line that the port lacks waits for
 _NOT_PORTED = {
     "spatial": "--spatial waits for ROADMAP Queue 1 item 13",
 }
 _NOT_PORTED_DATASETS = {
-    "coco": f"COCO evaluation waits for ROADMAP Queue 1 item 9b ({_JPEG})",
-    "mpii": f"MPII evaluation waits for ROADMAP Queue 1 item 9b ({_JPEG})",
+    "coco": "COCO evaluation waits for ROADMAP Queue 1 item 9b",
+    "mpii": "MPII evaluation waits for ROADMAP Queue 1 item 9b",
 }
 _NOT_PORTED_MODELS = {
     "rtpose_vgg": "rtpose_vgg evaluates on COCO, which waits for ROADMAP Queue 1 item 9b",
     "popnet_rgb": "popnet_rgb evaluates on MPII, which waits for ROADMAP Queue 1 item 9b",
 }
-# the train subcommand's: options set away from their defaults, datasets, models
+# the train subcommand's: options set away from their defaults
 _NOT_PORTED_TRAIN = {
     "mesh": "--mesh (sharded and pipelined training) waits for ROADMAP Queue 1 item 13",
-    "rotate_aug": "--rotate-aug (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
-    "scale_jitter": "--scale-jitter (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
-    "blur_aug": "--blur-aug (COCO RGB training) waits for ROADMAP Queue 1 item 11c",
 }
-_NOT_PORTED_TRAIN_DATASETS = {
-    "coco": f"COCO training waits for ROADMAP Queue 1 item 11c ({_JPEG})",
-    "mpii": f"MPII training waits for ROADMAP Queue 1 item 11c ({_JPEG})",
-}
-_NOT_PORTED_TRAIN_MODELS = {
-    "rtpose_vgg": "rtpose_vgg trains on COCO, which waits for ROADMAP Queue 1 item 11c",
-    "popnet_rgb": "popnet_rgb trains on MPII, which waits for ROADMAP Queue 1 item 11c",
-}
+# the one model each RGB dataset trains, and the refusal of the others (the JAX command line's)
+_RGB_MODELS = {"coco": "rtpose_vgg", "mpii": "popnet_rgb"}
 
 
 def _dataset_cfg(name: str) -> DatasetConfig:
@@ -286,8 +285,56 @@ def _a2j_trainer(args, ecfg: EncoderConfig, device):
     return trainer, train_ds, val_ds
 
 
+def _rgb_trainer(args, device):
+    """The RGB recipes (the JAX command line's `_train_coco` and
+    `_train_mpii`): RTPoseVGG on COCO or PopNetRGB on MPII under
+    --data-root/images, the training set of --labels (augmented) and the
+    validation set of --val-labels, SGD-Nesterov at --lr with the plateau
+    controller. Returns (trainer, train set, validation set or None)."""
+    from popnet_tpu_torch.train import steps
+    from popnet_tpu_torch.train.loop import Trainer
+
+    images = os.path.join(args.data_root, "images")
+    if args.dataset == "coco":
+        from popnet_tpu_torch.data.coco_dataset import CocoKeypointsDataset
+        from popnet_tpu_torch.models import RTPoseVGG
+
+        jitter = None
+        if args.scale_jitter:
+            lo, hi = (float(v) for v in args.scale_jitter.split(","))
+            jitter = (lo, hi)
+
+        def make_ds(ann, is_train):
+            return CocoKeypointsDataset(images, os.path.join(args.data_root, ann),
+                                        input_y=args.input_size, input_x=args.input_size,
+                                        is_train=is_train, seed=args.seed,
+                                        rotate_max_deg=args.rotate_aug, scale_jitter=jitter,
+                                        blur_max_sigma=args.blur_aug, device=device)
+
+        model, step, eval_loss = (RTPoseVGG(trunk=args.trunk), steps.make_rtpose_vgg_train_step(),
+                                  steps.make_rtpose_vgg_eval_loss())
+    else:
+        from popnet_tpu_torch.data.mpii import MPII_NUM_JOINTS, MPIIKeypointsDataset
+        from popnet_tpu_torch.models import PopNetRGB
+
+        def make_ds(ann, is_train):
+            return MPIIKeypointsDataset(images, os.path.join(args.data_root, ann),
+                                        input_y=args.input_size, input_x=args.input_size,
+                                        is_train=is_train, seed=args.seed, device=device)
+
+        model = PopNetRGB(num_parts=MPII_NUM_JOINTS)
+        step = steps.make_popnet_rgb_train_step(MPII_NUM_JOINTS)
+        eval_loss = steps.make_popnet_rgb_eval_loss(MPII_NUM_JOINTS)
+    train_ds = make_ds(args.labels, True)
+    val_ds = make_ds(args.val_labels, False) if args.val_labels else None
+    trainer = Trainer(model, step, eval_loss, learning_rate=args.lr, momentum=args.momentum,
+                      weight_decay=args.weight_decay, out_dir=args.out_dir, seed=args.seed,
+                      device=device)
+    return trainer, train_ds, val_ds
+
+
 def cmd_train(args):
-    """Train a depth family (`train --help`); returns the Trainer."""
+    """Train a depth or RGB family (`train --help`); returns the Trainer."""
     from popnet_tpu_torch.core.device import resolve_device
     from popnet_tpu_torch.train.loop import Trainer
     from popnet_tpu_torch.train.schedule import WarmupCosine
@@ -298,18 +345,20 @@ def cmd_train(args):
     if args.n_micro != 2:
         raise SystemExit("train: --n-micro (pipelined training) waits for ROADMAP Queue 1 "
                          "item 13")
-    if args.trunk != "vgg19":
-        raise SystemExit(f"train: {_NOT_PORTED_TRAIN_MODELS['rtpose_vgg']}")
-    if args.dataset in _NOT_PORTED_TRAIN_DATASETS:
-        raise SystemExit(f"train: {_NOT_PORTED_TRAIN_DATASETS[args.dataset]}")
-    if args.model in _NOT_PORTED_TRAIN_MODELS:
-        raise SystemExit(f"train: {_NOT_PORTED_TRAIN_MODELS[args.model]}")
+    rgb = args.dataset in _RGB_MODELS
+    if rgb and args.model != _RGB_MODELS[args.dataset]:
+        raise SystemExit(f"--dataset {args.dataset} trains --model {_RGB_MODELS[args.dataset]}")
+    if not rgb and args.model in _RGB_MODELS.values():
+        dataset = next(d for d, m in _RGB_MODELS.items() if m == args.model)
+        raise SystemExit(f"train: {args.model} trains with --dataset {dataset}")
     if args.model == "yolo" and args.pred_vis:
         raise SystemExit(_YOLO_PRED_VIS)
 
     device = resolve_device(args.device)
     ecfg = EncoderConfig(input_x=args.input_size, input_y=args.input_size)
-    if args.model == "a2j":
+    if rgb:
+        trainer, train_ds, val_ds = _rgb_trainer(args, device)
+    elif args.model == "a2j":
         trainer, train_ds, val_ds = _a2j_trainer(args, ecfg, device)
     else:
         model, step, eval_loss, pose_align, with_prior = _family(args.model, ecfg,
@@ -335,9 +384,10 @@ def cmd_train(args):
     print(f"train {args.model} on {device}: float32 convolutions, TF32 off", flush=True)
     tf32 = torch.backends.cudnn.allow_tf32      # the other cuDNN flags stay as the caller set them
     torch.backends.cudnn.allow_tf32 = False
+    # the RGB recipes validate and checkpoint every epoch, as the JAX command line's do
+    every = {} if rgb else {"checkpoint_every": args.ckpt_every, "val_every": args.val_every}
     try:
-        trainer.fit(train_ds, val_ds, epochs=args.epochs, batch_size=args.batch_size,
-                    checkpoint_every=args.ckpt_every, val_every=args.val_every)
+        trainer.fit(train_ds, val_ds, epochs=args.epochs, batch_size=args.batch_size, **every)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     return trainer
@@ -482,14 +532,19 @@ def build_parser():
     t.add_argument("--pred-vis", action="store_true",
                    help="popnet: the prior also predicts each joint's visibility, inferred "
                         "from the z-buffered pose-depth map (PopNet(pred_vis=True))")
-    # options of the JAX command line that the port does not have yet: they raise
     t.add_argument("--trunk", choices=["vgg19", "mobilenet"], default="vgg19",
-                   help=argparse.SUPPRESS)
+                   help="rtpose_vgg's trunk (--dataset coco)")
+    t.add_argument("--rotate-aug", type=float, default=0.0, metavar="DEG",
+                   help="--dataset coco: a random rotation a frame, uniform in +-DEG, the "
+                        "canvas expanded")
+    t.add_argument("--scale-jitter", default=None, metavar="LO,HI",
+                   help="--dataset coco: a uniform scale factor in [LO, HI] folded into the "
+                        "letterbox, e.g. 0.5,1.0")
+    t.add_argument("--blur-aug", type=float, default=0.0, metavar="SIGMA",
+                   help="--dataset coco: a Gaussian blur a frame, sigma uniform in [0, SIGMA]")
+    # options of the JAX command line that the port does not have yet: they raise
     t.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     t.add_argument("--n-micro", type=int, default=2, help=argparse.SUPPRESS)
-    t.add_argument("--rotate-aug", type=float, default=0.0, help=argparse.SUPPRESS)
-    t.add_argument("--scale-jitter", default=None, help=argparse.SUPPRESS)
-    t.add_argument("--blur-aug", type=float, default=0.0, help=argparse.SUPPRESS)
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("evaluate")

@@ -29,17 +29,26 @@ Each fused multiply-add rounds once (`core.numerics.fma_f32`, separate
 torch operations, none that a compiler could contract), so the two devices
 agree. `get_rotation_matrix_2d` builds cv2's matrix in float64 as cv2 does
 (the centre rounded to float32, the angle times pi / 180 as one constant).
+
+cv2 computes both on uint8 images by other code; `resize_linear_u8` and
+`warp_affine_cubic_u8` (the RGB datasets' letterbox and rotation) are
+those, on NumPy arrays on the host, in host C++ (`csrc/image_u8.cpp`,
+built at first use like the JPEG reader): cv2's fixed-point INTER_LINEAR
+resize, and its float32 INTER_CUBIC warp with a constant border, equal to
+cv2 5.0.0 bit for bit.
 """
 
 from __future__ import annotations
 
 import copy
+import ctypes
 import math
 
 import numpy as np
 import torch
 
 from popnet_tpu_torch.core.numerics import fma_f32
+from popnet_tpu_torch.ops._build import host_library
 
 
 def _hom(M, x, y):
@@ -128,6 +137,54 @@ def resize_linear(image: torch.Tensor, width: int, height: int) -> torch.Tensor:
     y0, y1, fy = _resize_axis(H, height, image.device)
     rows = _lerp(_per_pixel(fx[None, :], image), image[:, x0], image[:, x1])
     return _lerp(_per_pixel(fy[:, None], image), rows[y0], rows[y1])
+
+
+def _u8_lib():
+    lib = host_library("image_u8")
+    if not getattr(lib, "_typed", False):
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.popnet_resize_linear_u8.argtypes = [p, i, i, i, p, i, i]
+        lib.popnet_warp_affine_cubic_u8.argtypes = [p, i, i, i, p, i, i, p, i]
+        lib.popnet_resize_linear_u8.restype = lib.popnet_warp_affine_cubic_u8.restype = i
+        lib._typed = True
+    return lib
+
+
+def _u8_image(image: np.ndarray) -> tuple[np.ndarray, int]:
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or image.ndim not in (2, 3) or (image.ndim == 3 and not
+                                                               1 <= image.shape[2] <= 4):
+        raise ValueError(f"expected an (H, W) or (H, W, 1-4) uint8 image, got {image.dtype} "
+                         f"{image.shape}")
+    return image, 1 if image.ndim == 2 else image.shape[2]
+
+
+def resize_linear_u8(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """`cv2.resize(image, (width, height))` (INTER_LINEAR) of an (H, W) or
+    (H, W, C) uint8 NumPy image, bit for bit (`csrc/image_u8.cpp`)."""
+    image, cn = _u8_image(image)
+    out = np.empty((height, width) + image.shape[2:], np.uint8)
+    if _u8_lib().popnet_resize_linear_u8(image.ctypes.data, image.shape[0], image.shape[1], cn,
+                                         out.ctypes.data, height, width):
+        raise ValueError(f"resize_linear_u8: bad sizes {image.shape} -> ({height}, {width})")
+    return out
+
+
+def warp_affine_cubic_u8(image: np.ndarray, M, dsize: tuple[int, int],
+                         border: int = 0) -> np.ndarray:
+    """`cv2.warpAffine(image, M, dsize, flags=INTER_CUBIC,
+    borderMode=BORDER_CONSTANT, borderValue=border)` of an (H, W) or
+    (H, W, C) uint8 NumPy image, bit for bit: M the (2, 3) forward map,
+    dsize (width, height)."""
+    image, cn = _u8_image(image)
+    w, h = dsize
+    inv = np.ascontiguousarray(_invert_affine(M).ravel(), np.float64)
+    out = np.empty((h, w) + image.shape[2:], np.uint8)
+    if _u8_lib().popnet_warp_affine_cubic_u8(image.ctypes.data, image.shape[0], image.shape[1],
+                                             cn, out.ctypes.data, h, w, inv.ctypes.data,
+                                             int(border)):
+        raise ValueError(f"warp_affine_cubic_u8: bad sizes {image.shape} -> ({h}, {w})")
+    return out
 
 
 class Compose:

@@ -13,6 +13,10 @@ div_const`) and fuses `x * (1/255) - mean` into one rounding
 functions of the JAX package divide, and differ from both by an ulp. The
 other three modes scale by powers of two and round alike either way.
 
+The RGB training datasets (`data.coco_dataset`, `data.mpii`) normalize
+with `preprocess_divided`, which rounds as those NumPy functions do (true
+divisions), since the JAX datasets normalize on the host with them.
+
 `crop_with_factor` and `rgb_infer` (the COCO evaluation driver's host
 helpers, which call cv2) are not ported here.
 """
@@ -84,3 +88,15 @@ def preprocess(image: torch.Tensor, mode: str) -> torch.Tensor:
     unchanged, as the reference's dispatch does."""
     fn = PREPROCESSORS.get(mode)
     return image if fn is None else fn(image)
+
+
+def preprocess_divided(image: torch.Tensor, mode: str) -> torch.Tensor:
+    """`preprocess` of uint8 BGR images rounded as the JAX package's NumPy
+    normalizations round it: "vgg" divides by 255 and by the standard
+    deviations (divisors that are tensors on the image's device, so the
+    card divides too, rather than multiplying by a reciprocal); the other
+    modes scale by powers of two or subtract, and round alike either way."""
+    if mode != "vgg":
+        return preprocess(image, mode)
+    x = image.float().flip(-1) / torch.tensor(255.0, device=image.device)
+    return (x - _per_channel(VGG_MEANS, x)) / _per_channel(VGG_STDS, x)

@@ -1,4 +1,4 @@
-"""Training losses of the depth families (the JAX package's
+"""Training losses of the depth and RGB families (the JAX package's
 `popnet_tpu/losses/losses.py`, weighted-MSE family and the per-model
 composites).
 
@@ -52,6 +52,20 @@ def rtpose_light3d_loss_fgweight(saved_for_loss, heat_gt, paf_gt, z_gt, fg_mask_
     logs["min_paf"] = saved[-3].min()
     logs["max_z"] = saved[-1].max()
     logs["min_z"] = saved[-1].min()
+    return total, logs
+
+
+def rtpose_light_loss(saved_for_loss, heat_gt, paf_gt):
+    """The 2D CPMs (RTPoseVGG, RTPoseLight): per stage, the PAF and heat
+    MSE. saved_for_loss: [paf1, heat1, ..., pafS, heatS] (NCHW)."""
+    saved = [_nhwc(t) for t in saved_for_loss]
+    logs = {}
+    total = 0.0
+    for j in range(len(saved) // 2):
+        l1, l2 = _mse(saved[2 * j], paf_gt), _mse(saved[2 * j + 1], heat_gt)
+        total = total + l1 + l2
+        logs[f"stage{j + 1}_paf"] = l1
+        logs[f"stage{j + 1}_heat"] = l2
     return total, logs
 
 
@@ -124,6 +138,47 @@ def popnet_loss(saved_for_loss, heat_gt, zmap_gt, fg_mask_z, alignmap_gt, fg_mas
     logs["min_z"] = saved[-2].min()
     logs["max_alignf"] = (saved[-1] * fg_mask_align).max()
     logs["min_alignf"] = (saved[-1] * fg_mask_align).min()
+    return total, logs
+
+
+def popnet_rgb_loss(saved_for_loss, heat_gt, alignmap_gt, fg_mask_align, prior_gt,
+                    prior_mask_conf, prior_mask_coord, num_joints):
+    """PopNetRGB: per stage the heat MSE (weighted 0.1 + 0.9 * the joint's
+    align foreground, background 1) and the align MSE (weighted by its
+    foreground), plus the prior loss: box (x4) and objectness as the depth
+    prior's unweighted terms, and the self-pose over the 3K joint channels
+    (K x, K y, K visibilities), the positions masked by the GT visibility,
+    the visibilities by the coordinate mask alone, times 3K.
+    saved_for_loss: [heat1, align1, ..., heatS, alignS, prior] (NCHW)."""
+    saved = [_nhwc(t) for t in saved_for_loss[:-1]]
+    logs = {}
+    total = 0.0
+    fg = fg_mask_align[..., :num_joints]
+    weight_ht = torch.cat([0.1 + fg * 0.9, torch.ones_like(fg[..., :1])], -1)
+    for j in range(len(saved) // 2):
+        l1 = weighted_mse(saved[2 * j], heat_gt, weight_ht)
+        l2 = weighted_mse(saved[2 * j + 1], alignmap_gt, fg_mask_align)
+        total = total + l1 + l2
+        logs[f"stage{j + 1}_heat"] = l1
+        logs[f"stage{j + 1}_align"] = l2
+    b, h, w, _ = prior_gt.shape
+    a = prior_mask_conf.shape[-1]
+    pred = _nhwc(saved_for_loss[-1]).reshape(b, h, w, a, -1)
+    gt = prior_gt.reshape(b, h, w, a, -1)
+    mc = prior_mask_coord[..., None]
+    joints_gt = gt[..., 5:]
+    loss_coord = weighted_mse(pred[..., :4], gt[..., :4], mc) * 4
+    loss_obj = weighted_mse(pred[..., 4], gt[..., 4], prior_mask_conf)
+    vis_gt = joints_gt[..., 2 * num_joints:]
+    selfpose_mask = torch.cat([(mc * vis_gt[..., :num_joints]).repeat(1, 1, 1, 1, 2),
+                               mc.repeat(1, 1, 1, 1, num_joints)], -1)
+    loss_selfpose = weighted_mse(pred[..., 5:], joints_gt, selfpose_mask) * 3 * num_joints
+    loss_prior = loss_coord + loss_obj + loss_selfpose
+    total = total + loss_prior
+    logs["loss_prior"] = loss_prior
+    logs["loss_bbox"] = loss_coord
+    logs["loss_obj"] = loss_obj
+    logs["loss_selfpose"] = loss_selfpose
     return total, logs
 
 

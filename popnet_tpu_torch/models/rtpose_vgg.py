@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from popnet_tpu_torch.models.layers import CPMBranch, max_pool_2x2
+from popnet_tpu_torch.models.layers import BatchNorm, CPMBranch, max_pool_2x2
 
 _VGG19 = (("conv1_1", 64), ("conv1_2", 64), "pool", ("conv2_1", 128), ("conv2_2", 128), "pool",
           ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256), ("conv3_4", 256), "pool",
@@ -59,20 +59,22 @@ class MobileNetTrunk(nn.Module):
     """conv_bn(32, s2), four MobileNet-v1 conv_dw blocks (depthwise 3x3 + BN +
     ReLU, pointwise 1x1 + BN + ReLU), then conv4_3_CPM @256 and conv4_4_CPM
     @128 (3x3 with biases, ReLU). The stride-2 convs pad (1, 1),
-    torch-symmetric; no conv before the CPM ones has a bias."""
+    torch-symmetric; no conv before the CPM ones has a bias. The BatchNorms
+    are `layers.BatchNorm`: in train mode their running statistics move as
+    Flax's do."""
 
     def __init__(self, in_ch: int = 3):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_ch, 32, 3, stride=2, padding=1, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(32, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(32)
         c = 32
         for i, (feats, stride) in enumerate(_MOBILENET_DW):
             n = 2 * i + 1
             self.add_module(f"Conv_{n}", nn.Conv2d(c, c, 3, stride=stride, padding=1,
                                                    groups=c, bias=False))
-            self.add_module(f"BatchNorm_{n}", nn.BatchNorm2d(c, eps=1e-5))
+            self.add_module(f"BatchNorm_{n}", BatchNorm(c))
             self.add_module(f"Conv_{n + 1}", nn.Conv2d(c, feats, 1, bias=False))
-            self.add_module(f"BatchNorm_{n + 1}", nn.BatchNorm2d(feats, eps=1e-5))
+            self.add_module(f"BatchNorm_{n + 1}", BatchNorm(feats))
             c = feats
         self.n_convs = 2 * len(_MOBILENET_DW) + 1
         self.conv4_3_CPM = nn.Conv2d(c, 256, 3, padding=1)

@@ -8,6 +8,11 @@ build. Sources build at first use, never at import. `build_all` starts one
 nvcc per source at once and returns ptxas's register and shared-memory
 report for each. A source's `stamps` build (-DPOPNET_STAGE_CLOCKS) records
 per-block stage clocks (csrc/common.cuh); only measurements load it.
+
+The host sources (`HOST_SOURCES`, `csrc/<name>.cpp`: the JPEG reader and
+the uint8 image transforms) build the same way with the host C++ compiler
+(`c++`, the one nvcc also drives), not nvcc, so they build wherever the
+package runs, the CPU too (`host_library`).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -24,8 +30,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "popnet_tpu_torch"
 SOURCES = ("find_peaks", "paf_score", "readout", "assemble", "peak_mask")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_SOURCES = ("jpeg_decode", "image_u8")
+# no contraction into fused multiply-adds but where the source writes std::fma
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-ffp-contract=off")
 
-_loaded: dict[tuple[str, bool], ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
+_host_lock = threading.Lock()     # one build of a host source a process
 
 
 def _nvcc() -> str:
@@ -86,4 +96,42 @@ def library(name: str, stamps: bool = False) -> ctypes.CDLL:
         build_all(() if stamps else (name,), (name,) if stamps else ())
         lib = ctypes.CDLL(str(_target(name, stamps)))
         _loaded[key] = lib
+    return lib
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), shutil.which("c++"), shutil.which("g++")):
+        if cand and shutil.which(cand):
+            return cand
+    raise RuntimeError("no host C++ compiler (c++ or g++, or $CXX): the port's JPEG reader and "
+                       "uint8 image transforms (csrc/*.cpp) build with it at first use")
+
+
+def _host_target(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source `csrc/<name>.cpp`, built with
+    the host C++ compiler on first use (`CXX_FLAGS`); raises naming what is
+    missing when no compiler is found."""
+    key = (name, "host")
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
+    with _host_lock:
+        if key in _loaded:
+            return _loaded[key]
+        out = _host_target(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the host C++ compiler failed on {name}.cpp:\n{proc.stderr}")
+            os.replace(tmp, out)
+        lib = _loaded[key] = ctypes.CDLL(str(out))
     return lib

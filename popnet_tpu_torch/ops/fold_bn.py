@@ -34,8 +34,7 @@ from torch import nn
 
 __all__ = ["fold_batchnorm", "fold_module", "fuse_folded"]
 
-# Flax's BatchNorm default, which every model of the port keeps
-# (`models.layers.BatchNorm`, MobileNet's `nn.BatchNorm2d(eps=1e-5)`)
+# Flax's BatchNorm default, which every model of the port keeps (`models.layers.BatchNorm`)
 _BN_EPS = 1e-5
 
 

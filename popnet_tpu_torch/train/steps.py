@@ -1,4 +1,4 @@
-"""Train steps of the depth families, on one device.
+"""Train steps of the depth and RGB families, on one device.
 
 Each factory returns `step(state, batch) -> (state, logs)`, the JAX
 package's contract (`popnet_tpu/train/steps.py`): the forward in train mode
@@ -11,24 +11,26 @@ command line's validation does.
 
 The batch is `data.datasets.prepare_batch`'s dict: "image" (B, H, W, 1)
 and the channels-last targets; A2J's is `data.a2j_crops.A2JCropDataset`'s,
-"crops" (N, S, S, 1) and "labels".
+"crops" (N, S, S, 1) and "labels"; RTPoseVGG's `data.coco_dataset`'s and
+PopNetRGB's `data.mpii`'s, "image" (B, H, W, 3) and their targets.
 """
 
 from __future__ import annotations
 
 import torch
 
-from popnet_tpu_torch.losses.losses import (a2j_loss, popnet_loss, rtpose_light3d_loss_fgweight,
+from popnet_tpu_torch.losses.losses import (a2j_loss, popnet_loss, popnet_rgb_loss,
+                                            rtpose_light3d_loss_fgweight, rtpose_light_loss,
                                             yolo_loss)
 
 
 def _nchw(image: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 1) -> (B, 1, H, W) with plain NCHW strides. A one-channel
-    image permuted from NHWC also reads as channels-last, cuDNN keeps that
-    layout through the stem, and the CUDA backward of the stem's
-    `F.avg_pool2d` is wrong on channels-last input (PyTorch 2.11, CUDA
-    12.8: the whole gradient off by its own size), so the batch is copied
-    to the plain layout."""
+    """(B, H, W, C) -> (B, C, H, W) with plain NCHW strides. An image
+    permuted from NHWC reads as channels-last (one channel or three),
+    cuDNN keeps that layout through the stem, and the CUDA backward of the
+    stem's `F.avg_pool2d` is wrong on channels-last input (PyTorch 2.11,
+    CUDA 12.8: the whole gradient off by its own size), so the batch is
+    copied to the plain layout."""
     return image.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
 
 
@@ -49,6 +51,18 @@ def _popnet_loss(out, batch, num_joints: int = 15, pred_vis: bool = False):
 def _yolo_loss(out, batch, num_joints: int = 15):
     return yolo_loss(out, batch["prior_map"], batch["prior_mask_conf"],
                      batch["prior_mask_coord"], batch["prior_weight_map"], num_joints)
+
+
+def _rtpose_vgg_loss(out, batch):
+    _, saved = out
+    return rtpose_light_loss(saved, batch["heat"], batch["paf"])
+
+
+def _popnet_rgb_loss(out, batch, num_joints: int = 16):
+    _, saved = out
+    return popnet_rgb_loss(saved, batch["heatmaps"], batch["align_maps"], batch["fg_masks_align"],
+                           batch["prior_map"], batch["prior_mask_conf"], batch["prior_mask_coord"],
+                           num_joints)
 
 
 def _make_step(loss_fn, image_key: str = "image"):
@@ -101,6 +115,24 @@ def make_popnet_eval_loss(num_joints: int = 15, pred_vis: bool = False):
 
 def make_yolo_eval_loss(num_joints: int = 15):
     return _make_eval_loss(lambda out, batch: _yolo_loss(out, batch, num_joints))
+
+
+def make_rtpose_vgg_train_step():
+    """RTPoseVGG on COCO batches: per stage heat and PAF MSE."""
+    return _make_step(_rtpose_vgg_loss)
+
+
+def make_rtpose_vgg_eval_loss():
+    return _make_eval_loss(_rtpose_vgg_loss)
+
+
+def make_popnet_rgb_train_step(num_joints: int = 16):
+    """PopNetRGB on MPII batches (`losses.popnet_rgb_loss`)."""
+    return _make_step(lambda out, batch: _popnet_rgb_loss(out, batch, num_joints))
+
+
+def make_popnet_rgb_eval_loss(num_joints: int = 16):
+    return _make_eval_loss(lambda out, batch: _popnet_rgb_loss(out, batch, num_joints))
 
 
 A2J_REG_FACTOR = 3.0   # loss = anchor + regression * A2J_REG_FACTOR, A2J's recipe

@@ -1455,3 +1455,84 @@ def test_train_and_evaluate_itop_on_the_card(cuda, itop_root, tmp_path, model):
     with open(tmp_path / "ev" / f"{model}_results.json") as f:
         data = json.load(f)
     assert len(data["human_pred_set_2d"]) == 64
+
+
+# -- COCO and MPII RGB training (chip_smoke.py phase 12's checks at a small size) -------------
+
+
+def test_jpeg_fixtures_decode_to_cv2s_hashes(cuda):
+    """The committed JPEG fixtures read by the port's reader on the card's
+    host: each to the sha256 of cv2.imread's output recorded beside it, the
+    progressive one refused (the card's machine has no cv2)."""
+    import chip_smoke
+
+    assert chip_smoke.check_jpeg_fixtures() == (8, 1)
+
+
+@pytest.fixture(scope="module")
+def rgb_set(tmp_path_factory):
+    """chip_smoke.py's RGB sets (painted people as baseline JPEG, COCO and
+    MPII labels) at 8 + 4 frames."""
+    import chip_smoke
+
+    root = str(tmp_path_factory.mktemp("cuda_rgb"))
+    chip_smoke.write_rgb_sets(np.random.default_rng(43), root, 8, 4)
+    return root
+
+
+@pytest.mark.parametrize("dataset", ["coco", "mpii"])
+def test_rgb_batch_on_the_card_equals_the_cpu(cuda, rgb_set, dataset):
+    """A batch of 8 at 64² (COCO with rotation, scale jitter, blur and flips;
+    MPII with flips) made on the card against the CPU's from the same seed:
+    image, scales, masks and prior targets bit for bit, the maps within
+    chip_smoke.TARGETS_BAR, the generators equal."""
+    import chip_smoke
+
+    card = chip_smoke.rgb_dataset(rgb_set, dataset, cuda, 64)
+    host = chip_smoke.rgb_dataset(rgb_set, dataset, "cpu", 64)
+    idx = np.arange(8)
+    assert chip_smoke.compare_rgb_batches(dataset, card.get_batch(idx),
+                                          host.get_batch(idx)) <= chip_smoke.TARGETS_BAR
+    assert card.rng.bit_generator.state == host.rng.bit_generator.state
+
+
+@pytest.mark.parametrize("dataset,family", [("coco", "rtpose_vgg"), ("mpii", "popnet_rgb")])
+def test_rgb_train_step_on_the_card_matches_the_cpu(cuda, rgb_set, dataset, family):
+    """One step of RTPoseVGG (VGG19) or PopNetRGB from the seeded init on 4
+    frames at 64², card against CPU, TF32 off: in float64 at the step bars,
+    in float32 the loss within 1e-5 and the card's step no further from its
+    float64 step than chip_smoke.F32_GAP_FACTOR times the CPU's."""
+    import chip_smoke
+
+    idx = np.arange(4)
+    card = chip_smoke.rgb_dataset(rgb_set, dataset, cuda, 64).get_batch(idx)
+    host = chip_smoke.rgb_dataset(rgb_set, dataset, "cpu", 64).get_batch(idx)
+    chip_smoke.train_step_checks(family, family, card, host, cuda)
+
+
+@pytest.mark.parametrize("dataset,family", [("coco", "rtpose_vgg"), ("mpii", "popnet_rgb")])
+def test_train_rgb_subcommand_on_the_card(cuda, rgb_set, tmp_path, dataset, family):
+    """`train --dataset coco|mpii` on the card (its default device), 2 epochs
+    at 64² and batch 4 (COCO with the MobileNet trunk and every
+    augmentation): finite losses, the training loss falling, checkpoints
+    written, and 1 epoch + --resume 1 ending where the 2-epoch run ends."""
+    from popnet_tpu_torch.cli.main import main
+    from popnet_tpu_torch.train import checkpoint
+
+    cli = ["train", "--dataset", dataset, "--model", family, "--data-root", rgb_set,
+           "--labels", f"{dataset}_train.json", "--val-labels", f"{dataset}_val.json",
+           "--input-size", "64", "--batch-size", "4", "--lr", "0.05"]
+    if dataset == "coco":
+        cli += ["--trunk", "mobilenet", "--rotate-aug", "30", "--scale-jitter", "0.6,1.0",
+                "--blur-aug", "1.5"]
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        trainer = main([*cli, "--epochs", "2", "--out-dir", str(tmp_path / "whole")])
+        main([*cli, "--epochs", "1", "--out-dir", str(tmp_path / "split")])
+        main([*cli, "--epochs", "1", "--out-dir", str(tmp_path / "split"), "--resume"])
+    hist = trainer.history
+    assert trainer.device.type == "cuda" and len(hist) == 2
+    assert all(np.isfinite([h["train_loss"] for h in hist] + [h["val_loss"] for h in hist]))
+    assert hist[1]["train_loss"] < hist[0]["train_loss"]
+    a = checkpoint.restore_params(str(tmp_path / "whole" / "ckpt"))[0]
+    b = checkpoint.restore_params(str(tmp_path / "split" / "ckpt"))[0]
+    assert all(torch.equal(v, b[k]) for k, v in a.items())

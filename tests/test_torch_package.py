@@ -81,7 +81,9 @@ def test_port_imports_with_jax_and_reference_blocked():
                   "train.steps", "train.checkpoint", "train.loop", "data.compositing",
                   "data.streaming", "data.augment_host", "ops.fold_bn", "ops.quant",
                   "eval.single", "data.itop_a2j", "cli.itop_eval", "cli.itop_table",
-                  "decode.peaks_np", "decode.paf_np", "decode.human_list", "decode.align"):
+                  "decode.peaks_np", "decode.paf_np", "decode.human_list", "decode.align",
+                  "data.image_io", "data.coco", "data.coco_dataset", "data.mpii",
+                  "models.rtpose_light"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -93,7 +95,7 @@ def test_port_imports_with_jax_and_reference_blocked():
 
 def test_no_source_names_the_reference_package():
     """Static check: no import statement of the port or chip_smoke.py names
-    jax, flax, optax, orbax or popnet_tpu."""
+    jax, flax, optax, orbax, popnet_tpu, cv2 or PIL."""
     files = [os.path.join(ROOT, m.replace(".", os.sep) + ".py") for m in _port_modules()]
     files = [f if os.path.exists(f) else f[:-3] + os.sep + "__init__.py" for f in files]
     files.append(os.path.join(ROOT, "chip_smoke.py"))
@@ -107,7 +109,8 @@ def test_no_source_names_the_reference_package():
                 names = [node.module or ""]
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "flax", "optax", "orbax", "popnet_tpu"), (f, n)
+                assert top not in ("jax", "flax", "optax", "orbax", "popnet_tpu", "cv2", "PIL"), \
+                    (f, n)
 
 
 def test_load_npz_maps_every_committed_key():
@@ -397,3 +400,31 @@ def test_int8_conv_takes_the_plain_version_on_the_cpu_and_refuses_other_devices(
     assert torch.equal(got, quant.int8_conv_plain(x, w, 1, 1, 1).permute(0, 2, 3, 1))
     with pytest.raises(ValueError, match="no kernel for meta"):
         quant.int8_conv(x.to("meta"), quant.weight_matrix(w), w, (1, 1), (1, 1), (1, 1))
+
+
+def test_rgb_training_defaults_to_cuda_and_never_runs_on_cpu_unasked(tmp_path):
+    """`train --dataset coco|mpii` and the two RGB datasets default to the
+    card; without one they raise unless the CPU is asked for (--device
+    cpu); the JPEG reader and the uint8 transforms build with the host C++
+    compiler into the ignored build directory."""
+    from popnet_tpu_torch.cli.main import main
+    from popnet_tpu_torch.data.coco_dataset import CocoKeypointsDataset
+    from popnet_tpu_torch.data.mpii import MPIIKeypointsDataset
+
+    for cls in (CocoKeypointsDataset, MPIIKeypointsDataset):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
+    assert set(_build.HOST_SOURCES) == {"jpeg_decode", "image_u8"}
+    for name in _build.HOST_SOURCES:
+        assert (_build.CSRC / f"{name}.cpp").exists()
+        assert _build._host_target(name).parent == _build.BUILD_DIR
+    assert "-ffp-contract=off" in _build.CXX_FLAGS
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    for dataset, model in (("coco", "rtpose_vgg"), ("mpii", "popnet_rgb")):
+        argv = ["train", "--dataset", dataset, "--model", model, "--data-root", str(tmp_path)]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+        with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
+            main([*argv, "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CocoKeypointsDataset(str(tmp_path), str(tmp_path / "x.json"))

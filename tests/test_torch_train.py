@@ -620,7 +620,7 @@ def test_train_subcommand_writes_history_and_checkpoints_that_evaluate_scores(
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    for extra, what in ((["--dataset", "coco"], "11c"),
+    for extra, what in ((["--dataset", "coco"], "--dataset coco trains --model rtpose_vgg"),
                         (["--mesh", "data=4"], "item 13"), (["--n-micro", "4"], "item 13")):
         with pytest.raises(SystemExit, match=what):
             port_main(["train", "--data-root", str(tmp_path), "--device", "cpu", *extra])
