@@ -6,8 +6,9 @@ MP-3DHP evaluation drivers for the four depth families, the training
 of three of them on single-person frames (phase 7) and on mp-aug
 multi-person composites (phase 8), A2J's training (phase 9), each
 serving path folded and in dynamic int8 (phase 10), ITOP's training,
-evaluation and table with the exact host decode (phase 11), and COCO and
-MPII RGB training from JPEG files (phase 12): the four
+evaluation and table with the exact host decode (phase 11), COCO and
+MPII RGB training from JPEG files (phase 12), and COCO evaluation at the
+evaluation canvas with MP-3DHP set construction (phase 13): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -119,8 +120,8 @@ Phases, one or more lines each:
 
 8. mpaug: mp-aug training (popnet_tpu_torch.data.datasets' mp-aug classes,
    data.streaming, cli.main train --mp-aug) at full width, 224², float32:
-   (a) 5 location files of 256 single-person recordings (512x480 depth
-   and masks, write_mpaug_bank: 1280 layers, a 0.94 GB bank on the card)
+   (a) 5 location files of 128 single-person recordings (512x480 depth
+   and masks, write_mpaug_bank: 640 layers, a 0.47 GB bank on the card)
    beside phase 7's backgrounds and 64 validation frames; (b) for
    KDH3DMPAugDataset (f32 and u16mm transfer), DeviceMPAugDataset,
    KDH3DMPAugAdvDataset and a staged stream shard, a batch of 32 with
@@ -147,7 +148,7 @@ Phases, one or more lines each:
 
 9. a2j: A2J training (popnet_tpu_torch.data.augment_host, the training
    half of data.a2j_crops, cli.main train --model a2j) at full width, 288²
-   crops, float32: phase 8's writers again (5 location files of 256
+   crops, float32: phase 8's writers again (5 location files of 128
    recordings, 8 backgrounds, 64 validation frames); (a) an A2JCropDataset
    batch of 32 over KDH3DMPAugDataset made on the card against the CPU's
    from the same seed (the augmented frames, boxes, joints, crops and
@@ -242,6 +243,34 @@ Phases, one or more lines each:
     the step's ms (CUDA events) and TFLOP/s from its conv shapes,
     max_memory_allocated, and no kernel launched (a "rgb_train_launches"
     entry in each row of the kernels line).
+
+13. coco_eval: COCO evaluation at the evaluation canvas and MP-3DHP set
+    construction (popnet_tpu_torch.data.preprocessing crop_with_factor and
+    rgb_infer, ops.kernels.find_peaks' route to K2, data.coco
+    coco_eval_results and run_coco_eval, eval.coco_oks, data.construction,
+    cli.main generate-augset): (a) 4 images of 640x480, 480x640, 640x427
+    and 427x640 with 2-3 painted people each (eval_images), written as
+    baseline JPEG and read by the port's reader; RTPoseVGG (VGG19, 6
+    stages, coco_weights) float32 without TF32: rgb_infer on the card
+    (canvases 368x496, 496x368, 368x552, 552x368; maps 46x62, 62x46, 46x69,
+    69x46, where K1 cannot hold a frame's 18 planes and find_peaks launches
+    K2) and paf_decode_2d, launch counts reset just before and read just
+    after each image; the decode on the card against the host's bit for
+    bit; the card's maps against the CPU's within EVAL_MAP_BAR of their
+    largest magnitude (flip off at each canvas, flip on at the first); K2,
+    K3 and K6 against their plain versions on the CNN's maps and on the
+    oracle's; (b) the GT-map oracle (ops.encoders at each canvas) through
+    paf_decode_2d -> coco_eval_results -> run_coco_eval (the vendored
+    scorer): the results JSON on the card equals the CPU's, AP over
+    ORACLE_AP_BAR; K2 at 46x62 and 46x69, batch 1, as CUDA-graph replays
+    beside its bound; (c) `generate-augset --kind bgaug|mpaug --augment`
+    on a KDH3D layout of 48 frames (write_train_set, write_mpaug_bank),
+    on the card (its default: composite and transforms there) against
+    --device cpu byte for byte, and
+    `evaluate --model openpose` of the frozen mp-aug set on the card; (d)
+    images/s of rgb_infer + decode at each canvas, flip off and on, float32
+    and bf16 CNN, the decode's ms, generate-augset frames/s on each route;
+    the kernels' launches at each canvas (a "coco_eval" entry in each row).
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -2959,7 +2988,7 @@ def shared_prior_check(dev) -> None:
 
 MPAUG_CENTRES = ((140.0, 256.0), (340.0, 256.0), (140.0, 380.0), (340.0, 380.0),
                  (240.0, 300.0))   # tests/synthetic_data.py's five person locations
-MPAUG_PER_LOCATION = 256    # single-person recordings a location file
+MPAUG_PER_LOCATION = 128    # single-person recordings a location file
 STREAM_SHARD = 64           # --stream-bank: sample indices a shard
 STREAM_REPEATS = 2          # --stream-repeats
 REAL_SPLIT_FRAMES = 176828  # the MP-3DHP training split, for the streaming reckoning
@@ -4495,6 +4524,25 @@ RGB_BONES = ((5, 7), (7, 9), (6, 8), (8, 10), (5, 6), (11, 12), (5, 11), (6, 12)
              (13, 15), (12, 14), (14, 16), (0, 5), (0, 6), (1, 3), (2, 4))
 
 
+def draw_person(img, xs, ys, pts, colour, height: float) -> None:
+    """Paint a person's bones (RGB_BONES between its 17 points `pts`) into
+    the float (H, W, 3) image in `colour`, each a capsule of radius 0.03 x
+    height; xs, ys the image's pixel coordinates."""
+    H, W = img.shape[:2]
+    for a, b in RGB_BONES:
+        (x0, y0), (x1, y1) = pts[a], pts[b]
+        r = 0.03 * height
+        lo_x, hi_x = int(max(min(x0, x1) - r, 0)), int(min(max(x0, x1) + r + 1, W))
+        lo_y, hi_y = int(max(min(y0, y1) - r, 0)), int(min(max(y0, y1) + r + 1, H))
+        if lo_x >= hi_x or lo_y >= hi_y:
+            continue
+        px, py = xs[lo_y:hi_y, lo_x:hi_x], ys[lo_y:hi_y, lo_x:hi_x]
+        dx, dy = x1 - x0, y1 - y0
+        t = np.clip(((px - x0) * dx + (py - y0) * dy) / max(dx * dx + dy * dy, 1e-6), 0, 1)
+        near = (px - x0 - t * dx) ** 2 + (py - y0 - t * dy) ** 2 <= r * r
+        img[lo_y:hi_y, lo_x:hi_x][near] = colour
+
+
 def rgb_frames(rng, n: int, H: int = RGB_FRAME[0], W: int = RGB_FRAME[1]):
     """n BGR frames of 1-3 painted people over smooth colour, with the
     people's COCO-17 keypoints (x, y, v): per frame an (P, 17, 3) array,
@@ -4511,19 +4559,7 @@ def rgb_frames(rng, n: int, H: int = RGB_FRAME[0], W: int = RGB_FRAME[1]):
             height = rng.uniform(150, 380)
             foot = np.array([rng.uniform(40, W - 40), rng.uniform(0.45 * H, H + 20)])
             pts = foot + height * (RGB_PERSON + rng.normal(0, 0.015, RGB_PERSON.shape))
-            colour = rng.uniform(20, 235, 3)
-            for a, b in RGB_BONES:
-                (x0, y0), (x1, y1) = pts[a], pts[b]
-                r = 0.03 * height
-                lo_x, hi_x = int(max(min(x0, x1) - r, 0)), int(min(max(x0, x1) + r + 1, W))
-                lo_y, hi_y = int(max(min(y0, y1) - r, 0)), int(min(max(y0, y1) + r + 1, H))
-                if lo_x >= hi_x or lo_y >= hi_y:
-                    continue
-                px, py = xs[lo_y:hi_y, lo_x:hi_x], ys[lo_y:hi_y, lo_x:hi_x]
-                dx, dy = x1 - x0, y1 - y0
-                t = np.clip(((px - x0) * dx + (py - y0) * dy) / max(dx * dx + dy * dy, 1e-6), 0, 1)
-                near = (px - x0 - t * dx) ** 2 + (py - y0 - t * dy) ** 2 <= r * r
-                img[lo_y:hi_y, lo_x:hi_x][near] = colour
+            draw_person(img, xs, ys, pts, rng.uniform(20, 235, 3), height)
             inside = (pts[:, 0] >= 0) & (pts[:, 0] < W) & (pts[:, 1] >= 0) & (pts[:, 1] < H)
             v = np.where(inside, rng.choice([2, 2, 2, 2, 1, 0], 17), 0)
             kps.append(np.concatenate([pts, v[:, None]], 1))
@@ -4841,6 +4877,346 @@ def phase_rgb(rng, dev) -> dict:
     return launches
 
 
+EVAL_IMAGES = ((480, 640), (640, 480), (427, 640), (640, 427))  # (H, W) of phase 13's images
+EVAL_DEST = 368             # the evaluation canvas's short side (crop_with_factor)
+EVAL_TIMED = 5              # timed rgb_infer + decode calls an image and setting
+EVAL_MAP_BAR = 1e-4         # card against CPU maps, float32, over the maps' largest magnitude
+ORACLE_AP_BAR = 0.9         # the GT-map oracle's COCO AP through the vendored scorer
+GENAUG_FRAMES = 48          # frames of each generate-augset set (and recordings a location)
+
+
+def eval_people(rng, H: int, W: int) -> np.ndarray:
+    """2 or 3 standing people of RGB_PERSON's template side by side inside an
+    H x W frame, 150 px tall at least: (P, 17, 3) COCO keypoints, v = 2."""
+    n = int(rng.integers(2, 4))
+    people = []
+    for p in range(n):
+        height = rng.uniform(150, min(0.85 * H, 1.8 * W / n))
+        foot = np.array([(p + 0.5) * W / n + rng.uniform(-8, 8),
+                         rng.uniform(0.96 * height + 4, H - 4)])
+        pts = foot + height * (RGB_PERSON + rng.normal(0, 0.01, RGB_PERSON.shape))
+        people.append(np.concatenate([pts, np.full((17, 1), 2.0)], 1))
+    return np.stack(people)
+
+
+def eval_images(rng, root: str):
+    """Phase 13's images, one at each size of EVAL_IMAGES: painted people
+    (eval_people) over smooth colour, written as baseline JPEG under root
+    and read back by the port's reader; and their person_keypoints JSON.
+    Returns (BGR uint8 images, people, the JSON's path)."""
+    from popnet_tpu_torch.data.image_io import imread_bgr
+
+    images, people, anns, infos = [], [], [], []
+    for i, (H, W) in enumerate(EVAL_IMAGES):
+        ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+        ph = rng.uniform(0, 2 * np.pi, 3)
+        img = np.stack([96 + 60 * np.sin(xs / 90 + ph[c]) * np.cos(ys / 110 + ph[c] / 2)
+                        for c in range(3)], -1) + rng.normal(0, 6, (H, W, 3))
+        kps = eval_people(rng, H, W)
+        for kp in kps:
+            draw_person(img, xs, ys, kp[:, :2], rng.uniform(20, 235, 3), np.ptp(kp[:, 1]) / 0.9)
+            x0, y0 = kp[:, :2].min(0) - 6
+            x1, y1 = kp[:, :2].max(0) + 6
+            anns.append({"id": len(anns) + 1, "image_id": i, "category_id": 1, "iscrowd": 0,
+                         "keypoints": [float(v) for v in kp.ravel()], "num_keypoints": 17,
+                         "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                         "area": float((x1 - x0) * (y1 - y0))})
+        path = os.path.join(root, f"{i:06d}.jpg")
+        with open(path, "wb") as f:
+            f.write(jpeg_baseline(np.clip(img, 0, 255).astype(np.uint8)))
+        images.append(imread_bgr(path))
+        people.append(kps)
+        infos.append({"id": i, "file_name": os.path.basename(path), "height": H, "width": W})
+    gt = os.path.join(root, "person_keypoints_eval.json")
+    with open(gt, "w") as f:
+        json.dump({"images": infos, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return images, people, gt
+
+
+def oracle_maps(kps: np.ndarray, canvas_hw, scale: float, dev):
+    """GT-encoded COCO maps of the people (P, 17, 3) on an evaluation canvas
+    (H', W') at `scale`, by the port's encoders on `dev`: heat (1, H'/8,
+    W'/8, 19) and paf (1, H'/8, W'/8, 38)."""
+    import torch
+
+    from popnet_tpu_torch.core.config import EncoderConfig
+    from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS
+    from popnet_tpu_torch.data.coco import coco17_to_rtpose18
+    from popnet_tpu_torch.ops.encoders import encode_heatmaps, encode_pafs
+
+    cfg = EncoderConfig(input_x=canvas_hw[1], input_y=canvas_hw[0], num_joints=COCO_NUM_JOINTS,
+                        num_limbs=len(COCO_LIMBS))
+    j2 = np.full((1, cfg.max_people, COCO_NUM_JOINTS, 2), -1e6, np.float32)
+    valid = np.zeros((1, cfg.max_people), bool)
+    for p, kp in enumerate(kps):
+        joints, vis = coco17_to_rtpose18(kp)
+        j2[0, p] = np.where(vis[:, None] > 0, joints * scale, -1e6)
+        valid[0, p] = True
+    j2_t, v_t = torch.as_tensor(j2, device=dev), torch.as_tensor(valid, device=dev)
+    return encode_heatmaps(j2_t, v_t, cfg), encode_pafs(j2_t, v_t, cfg, limbs=COCO_LIMBS)
+
+
+def decoded_results(out, image_id: int) -> list:
+    """A paf_decode_2d output of one image -> its COCO results, each
+    person's score the mean confidence of its found joints."""
+    from popnet_tpu_torch.data.coco import coco_eval_results
+
+    n = int(out["counts"][0])
+    joints, conf = out["joints2d"][0, :n].cpu().numpy(), out["conf"][0, :n].cpu().numpy()
+    scores = [float(c[c > 0].mean()) for c in conf]
+    return coco_eval_results([joints], [image_id], [scores])
+
+
+def tree_bytes(root: str) -> dict:
+    """{relative path: bytes} of every file under root."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def check_eval_kernels(tag: str, heat, paf) -> int:
+    """K1 or K2 (as find_peaks routes the grid), K3 and K6 on (1, H, W, 19)
+    heat and (1, H, W, 38) PAF maps on the card, each exact against its
+    plain version; returns the valid peaks."""
+    from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS as K
+    from popnet_tpu_torch.decode.assemble_device import assemble_inputs
+    from popnet_tpu_torch.decode.device import find_peaks_batched, peak_planes
+    from popnet_tpu_torch.ops import kernels
+
+    h = peak_planes(heat, K)
+    for a, b, n in zip(kernels.find_peaks(h), kernels.find_peaks_plain(h), PEAK_OUTPUTS):
+        _exact(f"{tag} find_peaks {n}", a, b)
+    peaks, valid = find_peaks_batched(heat, num_joints=K)
+    sk, okk = kernels.paf_score(paf, peaks, valid, COCO_LIMBS)
+    sp, okp = kernels.paf_score_plain(paf, peaks, valid, COCO_LIMBS)
+    _exact(f"{tag} paf_score score", sk, sp)
+    _exact(f"{tag} paf_score ok", okk, okp)
+    ps, sm = assemble_inputs(peaks, sk, okk)
+    for a, b, n in zip(kernels.assemble_ids(ps, sm, COCO_LIMBS),
+                       kernels.assemble_ids_plain(ps, sm, COCO_LIMBS), ("ids", "counts")):
+        _exact(f"{tag} assemble_ids {n}", a, b)
+    return int(valid.sum())
+
+
+def phase_coco_eval(rng, dev) -> dict:
+    """Phase 13, COCO evaluation at the evaluation canvas and MP-3DHP set
+    construction (see the module docstring). Returns each kernel's
+    launches at each canvas of (a) and the K1/K2 timings there."""
+    import torch
+
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.core.config import DecodeConfig
+    from popnet_tpu_torch.core.skeleton_coco import (COCO_LIMBS, COCO_NUM_JOINTS,
+                                                     COCO_SWAP_INDICES)
+    from popnet_tpu_torch.data.coco import run_coco_eval
+    from popnet_tpu_torch.data.preprocessing import crop_with_factor, rgb_infer
+    from popnet_tpu_torch.decode.device import peak_planes
+    from popnet_tpu_torch.decode.openpose_infer import paf_decode_2d
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import RTPoseVGG
+    from popnet_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    K, M = COCO_NUM_JOINTS, DecodeConfig().max_peaks
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    weights = coco_weights()
+    models = {"float32": load_into(RTPoseVGG(), weights).eval().to(dev),
+              "bf16": load_into(RTPoseVGG(), weights).eval().to(dev, torch.bfloat16)}
+    host_model = load_into(RTPoseVGG(), weights).eval()
+
+    def infer_of(model, dtype=torch.float32):
+        def infer(x):
+            with torch.inference_mode():
+                (paf, heat), _ = model(x.permute(0, 3, 1, 2).to(dtype))
+            return paf.permute(0, 2, 3, 1).float(), heat.permute(0, 2, 3, 1).float()
+        return infer
+
+    def decode(paf, heat, s):
+        return paf_decode_2d(heat[None], paf[None], K, limbs=COCO_LIMBS, sx=1.0 / s, sy=1.0 / s)
+
+    flip_kw = dict(limbs=COCO_LIMBS, swap_indices=COCO_SWAP_INDICES)
+    launches, per_canvas, timings = {k.__name__: 0 for k in kernels.KERNELS}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        images, people, gt = eval_images(rng, root)
+        sizes = [f"{w}x{h}" for h, w in EVAL_IMAGES]
+        say("coco_eval", f"(a) {len(images)} images of {sizes} (WxH) "
+            f"with 2-3 painted people each, written as baseline JPEG and read by the port's "
+            f"reader; RTPoseVGG (VGG19, 6 stages) from its seeded init with the scaled heads "
+            f"(coco_weights), float32 (TF32 off) and bf16")
+        results_card, results_host = [], []
+        for i, img in enumerate(images):
+            canvas, s, _ = crop_with_factor(img, EVAL_DEST, 8)
+            Hm, Wm = canvas.shape[0] // 8, canvas.shape[1] // 8
+            tag = (f"{img.shape[1]}x{img.shape[0]} image (canvas {canvas.shape[1]}x"
+                   f"{canvas.shape[0]}, maps {Hm}x{Wm} HxW)")
+            # the evaluation path on the card: launch counts reset just before, read just after
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            paf, heat, s_card = rgb_infer(infer_of(models["float32"]), img, mode="rtpose",
+                                          dest_size=EVAL_DEST)
+            out = decode(paf, heat, s_card)
+            torch.cuda.synchronize()
+            got = kernels.launch_counts()
+            route = kernels.find_peaks_route(K, Hm, Wm, M)
+            require(got[route] == 1 and got["paf_score"] == 1 and got["assemble_ids"] == 1
+                    and sum(got.values()) == 3, f"{tag}: launches {got} (peaks by {route})")
+            groups = kernels.paf_score_groups(K, len(COCO_LIMBS), M, Hm, Wm)[0]
+            per_canvas[f"{Hm}x{Wm}"] = {"peaks_by": route, "paf_score_groups": groups}
+            for k, v in got.items():
+                launches[k] += v
+            host = decode(paf.cpu(), heat.cpu(), s_card)
+            for k in ("joints2d", "conf", "visibility", "counts"):
+                _exact(f"{tag} decode {k}, card against host", out[k], host[k])
+            # the card's maps against the CPU's, flip off (and on, for the first image)
+            cp, ch, s_cpu = rgb_infer(infer_of(host_model), img, mode="rtpose",
+                                      dest_size=EVAL_DEST, device="cpu")
+            require(s_cpu == s_card and s_card == EVAL_DEST / min(img.shape[:2]), f"{tag} scale")
+            map_err = max(_maxerr(paf.cpu(), cp) / float(cp.abs().max()),
+                          _maxerr(heat.cpu(), ch) / float(ch.abs().max()))
+            fpaf, fheat, _ = rgb_infer(infer_of(models["float32"]), img, mode="rtpose",
+                                       dest_size=EVAL_DEST, flip=True, **flip_kw)
+            if i == 0:
+                fcp, fch, _ = rgb_infer(infer_of(host_model), img, mode="rtpose",
+                                        dest_size=EVAL_DEST, flip=True, device="cpu", **flip_kw)
+                map_err = max(map_err, _maxerr(fpaf.cpu(), fcp) / float(fcp.abs().max()),
+                              _maxerr(fheat.cpu(), fch) / float(fch.abs().max()))
+            require(map_err <= EVAL_MAP_BAR, f"{tag}: card maps {map_err:.3g} off the CPU's")
+            # K1 or K2, K3 and K6 against their plain versions on these maps
+            check_eval_kernels(f"{tag} CNN maps", heat[None], paf[None])
+            # (b) the GT-map oracle at this canvas, card and CPU
+            oh, op = oracle_maps(people[i], canvas.shape[:2], s_card, dev)
+            n_peaks = check_eval_kernels(f"{tag} oracle maps", oh, op)
+            ocard = paf_decode_2d(oh, op, K, limbs=COCO_LIMBS, sx=1.0 / s_card, sy=1.0 / s_card)
+            ohost = paf_decode_2d(oh.cpu(), op.cpu(), K, limbs=COCO_LIMBS, sx=1.0 / s_card,
+                                  sy=1.0 / s_card)
+            results_card += decoded_results(ocard, i)
+            results_host += decoded_results(ohost, i)
+            for k in ("joints2d", "conf", "visibility", "counts"):
+                _exact(f"{tag} oracle decode {k}, card against host", ocard[k], ohost[k])
+            # (d) the rates at this canvas: rgb_infer + decode, one image a call, host clock
+            rates = {}
+            for dtype, model in models.items():
+                for flip in (False, True):
+                    infer = infer_of(model, torch.bfloat16 if dtype == "bf16" else torch.float32)
+                    kw = flip_kw if flip else {}
+                    decode(*rgb_infer(infer, img, mode="rtpose", dest_size=EVAL_DEST, flip=flip,
+                                      **kw))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(EVAL_TIMED):
+                        o = decode(*rgb_infer(infer, img, mode="rtpose", dest_size=EVAL_DEST,
+                                              flip=flip, **kw))
+                        int(o["counts"][0])
+                    rates[f"{dtype} flip {'on' if flip else 'off'}"] = \
+                        EVAL_TIMED / (time.perf_counter() - t0)
+            dec_ms = time_ms(lambda: decode(paf, heat, s_card), reps=10)
+            timings[f"{Hm}x{Wm}"] = {"images_per_s": rates, "decode_ms": dec_ms}
+            say("coco_eval", f"(a) {tag}: peaks by {route} (K1 would take "
+                f"{kernels.find_peaks_smem(K, Hm, Wm, M)} bytes of shared memory, "
+                f"{kernels.SMEM_PER_BLOCK} allowed), paf_score in {groups} groups of limbs, "
+                f"assemble_ids: each launched once on the path and exact against its plain "
+                f"version on the CNN's maps and on the oracle's ({n_peaks} valid peaks); the "
+                f"decode on the card equals the host's bit for bit "
+                f"({int(out['counts'][0])} people on the seeded CNN's maps); card maps within "
+                f"{map_err:.3g} of the CPU's (flip off{', and on' if i == 0 else ''}; bar "
+                f"{EVAL_MAP_BAR}); (d) images/s (rgb_infer + decode, host clock) "
+                + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
+                + f"; decode {dec_ms:.3f} ms (CUDA events)")
+        # (b) the oracle's results through the vendored scorer
+        require(results_card == results_host, "the oracle's results JSON differs card vs CPU")
+        stats = run_coco_eval(gt, results_card)
+        n_gt = sum(len(p) for p in people)
+        say("coco_eval", f"(b) the GT-map oracle (port encoders at each canvas, {n_gt} people) "
+            f"-> paf_decode_2d -> coco_eval_results -> run_coco_eval: results JSON on the card "
+            f"equals the CPU's ({len(results_card)} people); AP {stats[0]:.4f} AP50 "
+            f"{stats[1]:.4f} AP75 {stats[2]:.4f} AR {stats[3]:.4f} (bar AP {ORACLE_AP_BAR})")
+        require(stats[0] >= ORACLE_AP_BAR, f"the oracle's AP {stats[0]:.4f} < {ORACLE_AP_BAR}")
+
+        # K1 and K2 at two evaluation grids, batch 1, CUDA-graph replays, beside their bound
+        k12 = {}
+        for i in (0, 2):
+            canvas, s, _ = crop_with_factor(images[i], EVAL_DEST, 8)
+            _, heat, _ = rgb_infer(infer_of(models["float32"]), images[i], mode="rtpose",
+                                   dest_size=EVAL_DEST)
+            h = peak_planes(heat[None], K)
+            px, py, _, _, v = kernels.find_peaks_row(h)
+            ms = graph_ms(lambda: kernels.find_peaks_row(h))
+            plain_ms = graph_ms(lambda: kernels.find_peaks_plain(h), reps=5)
+            nbytes, ops, bound_ms, _ = _bounds("find_peaks_row", {
+                "heat": h, "px": px, "py": py, "valid": v,
+                "thresh": DecodeConfig().thresh_heatmap})
+            grid = f"{h.shape[2]}x{h.shape[3]}"
+            k12[grid] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "find_peaks_smem": kernels.find_peaks_smem(K, h.shape[2], h.shape[3], M)}
+            say("coco_eval", f"K2 (find_peaks_row) at maps {grid} (HxW), batch 1: {ms:.4f} ms (CUDA "
+                f"graph), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                f"{'bytes' if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else 'operations'}"
+                f" ({nbytes / 1e3:.1f} kB, {ops / 1e6:.3f} MFLOP); K1 cannot launch there "
+                f"({k12[grid]['find_peaks_smem']} bytes of shared memory a block)")
+
+        # (c) generate-augset on the card and on the CPU
+        data = os.path.join(root, "kdh3d")
+        write_train_set(rng, dev, data, GENAUG_FRAMES, 0)
+        write_mpaug_bank(rng, dev, data, GENAUG_FRAMES)
+        gen_rates = {}
+        for kind in ("bgaug", "mpaug"):
+            outs = {}
+            for route, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+                out = os.path.join(root, f"{kind}_{route}")
+                t0 = time.perf_counter()
+                cli_main(["generate-augset", "--kind", kind, "--data-root", data, "--out-dir",
+                          out, "--augment", *extra])
+                gen_rates[f"{kind} {route}"] = GENAUG_FRAMES / (time.perf_counter() - t0)
+                outs[route] = tree_bytes(out)
+            a, b = outs.values()
+            require(a == b and len(a) == GENAUG_FRAMES + 1,
+                    f"generate-augset --kind {kind}: the card's set differs from the CPU's")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        metrics = cli_main(["evaluate", "--model", "openpose", "--data-root",
+                            os.path.join(root, "mpaug_card"), "--labels", "labels_test.json",
+                            "--weights", WEIGHTS, "--batch-size", "16", "--out-dir",
+                            os.path.join(root, "eval_out")])
+        torch.cuda.synchronize()
+        ev = kernels.launch_counts()
+        require(ev["find_peaks"] >= 1 and ev["paf_score"] >= 1,
+                f"evaluate on the frozen mp-aug set launched {ev}")
+        say("coco_eval", f"(c) generate-augset --augment of {GENAUG_FRAMES} frames, --kind bgaug "
+            f"and mpaug, on the card (the default) equals --device cpu byte for byte "
+            f"(every .npy and labels_test.json); (d) frames/s "
+            + ", ".join(f"{k} {v:.1f}" for k, v in gen_rates.items())
+            + f"; evaluate --model openpose on the frozen mp-aug set on the card: "
+            + ", ".join(f"{k} {metrics[k]:.4f}" for k in ("pck2d", "pck3d", "map2d", "map3d"))
+            + f", launches {ev}")
+    torch.backends.cudnn.allow_tf32 = tf32
+    say("coco_eval", f"launches over (a) per kernel: {launches}; by canvas: {per_canvas}")
+    require(launches["find_peaks_row"] >= 1 and launches["paf_score"] >= 1
+            and launches["assemble_ids"] >= 1, "phase 13's path launched K2, K3 or K6 no time")
+    say("coco_eval", f"phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "per_canvas": per_canvas, "k12": k12, "timings": timings,
+            "generate_augset_fps": gen_rates, "oracle_stats": stats.tolist()}
+
+
+def coco_eval_entry(name: str, res: dict) -> dict:
+    """A kernel's "coco_eval" entry of the kernels line: its launches over
+    phase 13's evaluation path; K1 and K2 the canvases each took (K2 its
+    batch-1 times at two of them), K3 its groups of limbs at each."""
+    entry = {"launches": res["launches"][name]}
+    if name in ("find_peaks", "find_peaks_row"):
+        entry["maps"] = [g for g, c in res["per_canvas"].items() if c["peaks_by"] == name]
+    if name == "find_peaks_row":
+        entry["batch1"] = res["k12"]
+    if name == "paf_score":
+        entry["groups"] = {g: c["paf_score_groups"] for g, c in res["per_canvas"].items()}
+    return entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the frames and test inputs")
@@ -4927,6 +5303,10 @@ def main(argv=None) -> int:
         rgb_launches = phase_rgb(rng_rgb, dev)
         for r in rows:                  # none on the COCO and MPII training paths
             r["rgb_train_launches"] = rgb_launches[r["name"]]
+        rng_eval13 = np.random.default_rng([args.seed, 13])  # phase 13's images and sets
+        coco_eval = phase_coco_eval(rng_eval13, dev)
+        for r in rows:                  # the COCO evaluation canvases of phase 13 (a)
+            r["coco_eval"] = coco_eval_entry(r["name"], coco_eval)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")

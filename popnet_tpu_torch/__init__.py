@@ -27,6 +27,10 @@ prediction JSON. `train` trains Open-Pose+, PoP-Net and Yolo-Pose+ on a
 KDH3D-format dataset (`ops/encoders.py`, `data/datasets.py`, `losses/`,
 `train/`), and A2J on person crops of it (`data/augment_host.py`,
 `data/a2j_crops.py`), writing checkpoints that `evaluate --ckpt` reads.
+COCO results are scored by `data.preprocessing.rgb_infer` ->
+`decode.openpose_infer.paf_decode_2d` -> `data.coco.coco_eval_results` ->
+`data.coco.run_coco_eval`, and `generate-augset` freezes MP-3DHP test
+sets (`data/construction.py`).
 """
 
 from popnet_tpu_torch.interop.from_jax import load_npz, state_dict_from_jax

@@ -1,4 +1,5 @@
-"""The port's command line: the `train`, `evaluate` and `benchmark` subcommands.
+"""The port's command line: the `train`, `evaluate`, `benchmark` and
+`generate-augset` subcommands.
 
     python -m popnet_tpu_torch.cli.main train --model openpose --data-root DATA \\
         --bg-aug --val-labels labels_val.json --out-dir runs/op
@@ -6,6 +7,8 @@
         --data-root DATA --ckpt runs/op/ckpt
     python -m popnet_tpu_torch.cli.main benchmark --gt DATA/labels.json \\
         --pred runs/out/openpose_results.json
+    python -m popnet_tpu_torch.cli.main generate-augset --kind mpaug \\
+        --data-root DATA --out-dir frozen/mpaug --augment
 
 `train` trains Open-Pose+, PoP-Net, Yolo-Pose+ or A2J (`--model openpose|
 popnet|yolo|a2j`) on a KDH3D-format dataset (DATA/depth_maps/*.npy and the
@@ -62,9 +65,23 @@ rounded as the JAX command line's op-by-op call of the model rounds them
 (`rounding="eager"`). As in the JAX command line, `--model a2j` ignores
 `--quant`, and says so.
 
-Options and models of the JAX command line that the port lacks raise,
-naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`): COCO and
-MPII evaluation (9b), meshes and `--n-micro` (13), `--spatial` (13). ITOP's single-person 10-cm
+`generate-augset --kind bgaug|mpaug` freezes the bg-aug or mp-aug
+composite of DATA (the layout `train --bg-aug` / `--mp-aug` reads) into a
+static test set in `--out-dir` (`depth_maps/%08d.npy`, `labels_test.json`;
+`data.construction`): `--n-images` frames (all by default), `--augment`
+adds the freeze-time rotation, dolly and resize. The composite and the
+transforms run on `--device`, the card unless `--device cpu` is passed
+(the JAX command line composites on its host unless given its boolean
+`--device`); the card's sets equal the CPU's byte for byte.
+
+`evaluate --dataset coco|mpii` and the RGB models exit, as the JAX command
+line's do (its `_build_model` refuses `rtpose_vgg` and `popnet_rgb`):
+neither command line evaluates an RGB model. COCO results are scored by
+the library chain `data.preprocessing.rgb_infer` ->
+`decode.openpose_infer.paf_decode_2d` -> `data.coco.coco_eval_results` ->
+`data.coco.run_coco_eval`. Options of the JAX command line that the port
+lacks raise, naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`):
+meshes and `--n-micro` (13), `--spatial` (13). ITOP's single-person 10-cm
 table has its own entry point, `python -m popnet_tpu_torch.cli.itop_table`.
 """
 
@@ -83,13 +100,17 @@ from popnet_tpu_torch.core.config import (ITOP_DATASET, KDH3D_DATASET, DatasetCo
 _NOT_PORTED = {
     "spatial": "--spatial waits for ROADMAP Queue 1 item 13",
 }
-_NOT_PORTED_DATASETS = {
-    "coco": "COCO evaluation waits for ROADMAP Queue 1 item 9b",
-    "mpii": "MPII evaluation waits for ROADMAP Queue 1 item 9b",
-}
-_NOT_PORTED_MODELS = {
-    "rtpose_vgg": "rtpose_vgg evaluates on COCO, which waits for ROADMAP Queue 1 item 9b",
-    "popnet_rgb": "popnet_rgb evaluates on MPII, which waits for ROADMAP Queue 1 item 9b",
+# evaluate's RGB datasets and models: neither command line evaluates them
+_RGB_SCORING = ("COCO results are scored by data.preprocessing.rgb_infer -> "
+                "decode.openpose_infer.paf_decode_2d -> data.coco.coco_eval_results -> "
+                "data.coco.run_coco_eval")
+_NO_RGB_EVALUATE = {
+    "coco": f"--dataset coco: neither command line evaluates an RGB model; {_RGB_SCORING}",
+    "mpii": "--dataset mpii: neither command line evaluates an RGB model",
+    "rtpose_vgg": f"rtpose_vgg: neither command line evaluates an RGB model (the JAX one's "
+                  f"_build_model refuses it); {_RGB_SCORING}",
+    "popnet_rgb": "popnet_rgb: neither command line evaluates an RGB model (the JAX one's "
+                  "_build_model refuses it)",
 }
 # the train subcommand's: options set away from their defaults
 _NOT_PORTED_TRAIN = {
@@ -402,10 +423,9 @@ def cmd_evaluate(args) -> dict:
     for opt, why in _NOT_PORTED.items():
         if getattr(args, opt):
             raise SystemExit(f"evaluate: {why}")
-    if args.dataset in _NOT_PORTED_DATASETS:
-        raise SystemExit(f"evaluate: {_NOT_PORTED_DATASETS[args.dataset]}")
-    if args.model in _NOT_PORTED_MODELS:
-        raise SystemExit(f"evaluate: {_NOT_PORTED_MODELS[args.model]}")
+    for refused in (args.dataset, args.model):
+        if refused in _NO_RGB_EVALUATE:
+            raise SystemExit(f"evaluate {_NO_RGB_EVALUATE[refused]}")
     if args.model == "a2j" and not (args.yolo_weights or args.yolo_ckpt or args.gt_boxes):
         raise SystemExit("evaluate --model a2j needs --yolo-ckpt or --yolo-weights (the "
                          "stage-1 detector) or --gt-boxes (the label-box ablation)")
@@ -463,6 +483,32 @@ def cmd_benchmark(args) -> dict:
     gt2d = [[a["2d_joints"] for a in anns] for anns in anno_dic.values()]
     gt3d = [[a["3d_joints"] for a in anns] for anns in anno_dic.values()]
     return evaluate_predictions(p2, p3, res.get("human_pred_set_part_conf", []), gt2d, gt3d)
+
+
+def cmd_generate_augset(args) -> dict:
+    """Freeze DATA's bg-aug or mp-aug composite into a static test set in
+    --out-dir; returns the labels written."""
+    from popnet_tpu_torch.core.device import resolve_device
+    from popnet_tpu_torch.data import construction
+    from popnet_tpu_torch.data.datasets import KDH3DDataset, KDH3DMPAugDataset
+
+    device = resolve_device(args.device)
+    root = args.data_root
+    scene = dict(bg_file=os.path.join(root, "labels_bg.json"),
+                 bg_dir=os.path.join(root, "bg_maps"), seg_dir=os.path.join(root, "seg_maps"),
+                 ecfg=EncoderConfig(), augment=False, seed=args.seed, device=device)
+    if args.kind == "bgaug":
+        ds = KDH3DDataset(os.path.join(root, "depth_maps"), os.path.join(root, args.labels),
+                          bg_aug=True, **scene)
+        generate = construction.generate_bgaug_set
+    else:
+        ann_files = sorted(os.path.join(root, f) for f in os.listdir(root)
+                           if f.startswith(args.mp_label_prefix) and f.endswith(".json"))
+        ds = KDH3DMPAugDataset(os.path.join(root, "depth_maps"), ann_files, **scene)
+        generate = construction.generate_mpaug_set
+    labels = generate(ds, args.out_dir, args.n_images, augment=args.augment)
+    print(f"frozen {args.kind} set written to {args.out_dir}")
+    return labels
 
 
 def build_parser():
@@ -580,6 +626,15 @@ def build_parser():
     b.add_argument("--pred", required=True)
     b.add_argument("--aligned", action="store_true")
     b.set_defaults(fn=cmd_benchmark)
+
+    g = sub.add_parser("generate-augset")
+    common(g)
+    g.add_argument("--kind", choices=["bgaug", "mpaug"], required=True)
+    g.add_argument("--n-images", type=int, default=None)
+    g.add_argument("--mp-label-prefix", default="labels_loc")
+    g.add_argument("--augment", action="store_true",
+                   help="freeze-time Rotate/RenderDepth/Resize like the reference generator")
+    g.set_defaults(fn=cmd_generate_augset)
     return p
 
 

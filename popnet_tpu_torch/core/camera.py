@@ -1,5 +1,7 @@
 """Pinhole camera intrinsics (the port's copies of the Kinect Azure rig and
-of the ITOP camera)."""
+of the ITOP camera), the back-projections, and the pelvis frame of a pose
+(`approx_root_orientation`, which the pose-rarity weights of
+`data.construction` use)."""
 
 from __future__ import annotations
 
@@ -45,3 +47,21 @@ def back_project_np(x, y, z, cam: CameraIntrinsics) -> np.ndarray:
     X = (x - cam.cx) / cam.fx * z
     Y = (y - cam.cy) / cam.fy * z
     return np.stack([np.broadcast_to(X, z.shape), np.broadcast_to(Y, z.shape), z], axis=-1)
+
+
+def approx_root_orientation(hip_left_pt, hip_right_pt, neck_pt) -> np.ndarray:
+    """The pelvis frame of each pose from its hips and neck, float64: X the
+    left -> right hip, Y = (right -> left hip) x (left hip -> neck), Z = X x
+    Y, each normalized (+ 1e-9). Returns (N, 3, 3) with the axes as
+    columns."""
+    hip_left = np.asarray(hip_left_pt, dtype=np.float64).reshape(-1, 3)
+    hip_right = np.asarray(hip_right_pt, dtype=np.float64).reshape(-1, 3)
+    neck = np.asarray(neck_pt, dtype=np.float64).reshape(-1, 3)
+
+    x_axis = hip_right - hip_left
+    x_axis = x_axis / (np.linalg.norm(x_axis, axis=1, keepdims=True) + 1e-9)
+    y_axis = np.cross(-x_axis, neck - hip_left)
+    y_axis = y_axis / (np.linalg.norm(y_axis, axis=1, keepdims=True) + 1e-9)
+    z_axis = np.cross(x_axis, y_axis)
+    return np.concatenate(
+        [x_axis.reshape(-1, 3, 1), y_axis.reshape(-1, 3, 1), z_axis.reshape(-1, 3, 1)], axis=2)

@@ -21,7 +21,10 @@
 // and the per-plane top-M (16%) (chip_smoke.py phase 5, stage clocks).
 //
 // Design: one block of 16 warps per frame, holding all K planes (two blocks
-// fit an SM, so 256 frames fill 132 SMs in one wave).
+// fit an SM, so 256 frames fill 132 SMs in one wave). Where the K planes do
+// not fit one block's 227 KB (18 planes from 46x47 on, every COCO
+// evaluation canvas that is not square), the wrapper launches
+// find_peaks_row_kernel, which takes a frame's planes in rounds.
 // - Load: the frame goes to shared memory in one pass of cp.async copies,
 //   threads numbered in the order of the memory the strides show (channel
 //   fastest on the serving path's channels-last maps, x fastest on NCHW), so
@@ -765,6 +768,13 @@ extern "C" int popnet_find_peaks(const void* heat, long long sb, long long sk,
       (const float*)heat, sb, frame_dims(heat, sb, sk, sy, sx, K, H, W), K, H, W, M, thresh,
       (const float*)U, (int*)px, (int*)py, (int*)loc, (float*)score, (bool*)valid);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a find_peaks_kernel block at these sizes, in
+// bytes; above 227 KB the kernel cannot launch, and ops/kernels.py
+// find_peaks takes find_peaks_row_kernel instead.
+extern "C" long long popnet_find_peaks_smem(int K, int H, int W, int M) {
+  return PeakLayout(K, H, W, M).bytes;
 }
 
 // Elements per copy with which find_peaks_kernel brings a frame of these

@@ -5,6 +5,7 @@
 //
 // C interface (ctypes, popnet_tpu_torch/data/augment_host.py):
 //   popnet_resize_linear_u8(src, h, w, cn, dst, dh, dw)
+//   popnet_resize_linear_scaled_u8(src, h, w, cn, dst, dh, dw, fx, fy)
 //   popnet_warp_affine_cubic_u8(src, h, w, cn, dst, dh, dw, inv, border)
 // `inv` is the inverse map (dst -> src) as 6 doubles, which cv2 computes
 // from the forward one in float64 before warping; `border` the constant
@@ -18,7 +19,15 @@
 // clipped. A horizontal pass into int32, then cv2's vector vertical pass,
 // ((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16) rounded by 2 bits, over
 // the whole row. An exact 2x downscale in both axes is cv2's INTER_AREA
-// fast path, (a + b + c + d + 2) >> 2.
+// fast path: (a + b + c + d + 2) >> 2 where the 2x2 cell lies inside the
+// image, and the mean of the taps that do, rounded half to even, where it
+// overhangs the last row or column.
+//
+// The two entries differ as cv2.resize(im, (dw, dh)) and cv2.resize(im,
+// None, fx=fx, fy=fy) differ: given sizes, scale = src / dst along each
+// axis; given factors, the sizes are w * fx and h * fy rounded half to
+// even and scale = 1 / fx, 1 / fy, so a coordinate maps by the factor and
+// not by the ratio of the rounded sizes.
 //
 // The warp is float32, as cv2 5.0.0 computes it (found by probing cv2 with
 // float32 delta images, whose warps round to the uint8 ones): the source
@@ -46,9 +55,8 @@ inline int round_f(float v) { return static_cast<int>(std::nearbyint(v)); }
 // cv2's per-axis taps and 11-bit weights (resize.cpp, INTER_LINEAR): along
 // x a tap off either edge moves onto it with weight 0 (`clamp`); along y
 // the weights stay and the rows are clipped to the image
-void linear_axis(int src, int dst, bool clamp, std::vector<int>& ofs,
+void linear_axis(int src, int dst, double scale, bool clamp, std::vector<int>& ofs,
                  std::vector<int16_t>& w) {
-    double scale = 1.0 / (static_cast<double>(dst) / src);
     ofs.resize(dst);
     w.resize(2 * dst);
     for (int d = 0; d < dst; ++d) {
@@ -143,50 +151,58 @@ int warp_cubic_plain(const uint8_t* src, int h, int w, int cn, uint8_t* dst, int
     return warp_cubic(src, h, w, cn, dst, dh, dw, inv, border);
 }
 
-}  // namespace
-
-extern "C" {
-
-int popnet_resize_linear_u8(const uint8_t* src, int h, int w, int cn, uint8_t* dst, int dh,
-                            int dw) {
-    if (h < 1 || w < 1 || dh < 1 || dw < 1 || cn < 1 || cn > 4) return -1;
+// cv2's INTER_AREA fast path of an exact 2x downscale (dw = w / 2 and dh =
+// h / 2 rounded): a cell inside the image is (a + b + c + d + 2) >> 2, a
+// cell that overhangs the last row or column the mean of the taps inside,
+// as float32, rounded half to even.
+void area_2x(const uint8_t* src, int h, int w, int cn, uint8_t* dst, int dh, int dw) {
     const size_t sstep = static_cast<size_t>(w) * cn, dstep = static_cast<size_t>(dw) * cn;
-    if (dh == h && dw == w) {
-        std::memcpy(dst, src, sstep * h);
-        return 0;
-    }
-    if (w == 2 * dw && h == 2 * dh) {   // INTER_AREA's 2x2 fast path
-        for (int y = 0; y < dh; ++y) {
-            const uint8_t* s0 = src + 2 * y * sstep;
-            const uint8_t* s1 = s0 + sstep;
-            uint8_t* d = dst + y * dstep;
-            for (int x = 0; x < dw; ++x)
-                for (int k = 0; k < cn; ++k) {
-                    int i = 2 * x * cn + k;
-                    d[x * cn + k] = static_cast<uint8_t>((s0[i] + s0[i + cn] + s1[i] + s1[i + cn] + 2) >> 2);
+    for (int y = 0; y < dh; ++y) {
+        const int sy0 = 2 * y;
+        uint8_t* d = dst + y * dstep;
+        for (int x = 0; x < dw; ++x) {
+            const int sx0 = 2 * x;
+            for (int k = 0; k < cn; ++k) {
+                if (sy0 + 2 <= h && sx0 + 2 <= w) {
+                    const uint8_t* s0 = src + sy0 * sstep + sx0 * cn + k;
+                    const uint8_t* s1 = s0 + sstep;
+                    d[x * cn + k] = static_cast<uint8_t>((s0[0] + s0[cn] + s1[0] + s1[cn] + 2) >> 2);
+                    continue;
                 }
+                int sum = 0, count = 0;
+                for (int sy = sy0; sy < std::min(sy0 + 2, h); ++sy)
+                    for (int sx = sx0; sx < std::min(sx0 + 2, w); ++sx, ++count)
+                        sum += src[sy * sstep + sx * cn + k];
+                d[x * cn + k] = count ? sat_u8(round_f(static_cast<float>(sum) / count)) : 0;
+            }
         }
-        return 0;
     }
+}
+
+// The linear resize with per-axis source steps sx, sy (source pixels a
+// destination pixel).
+int resize_linear(const uint8_t* src, int h, int w, int cn, uint8_t* dst, int dh, int dw,
+                  double sx, double sy) {
+    const size_t dstep = static_cast<size_t>(dw) * cn, sstep = static_cast<size_t>(w) * cn;
     std::vector<int> xo, yo;
     std::vector<int16_t> xw, yw;
-    linear_axis(w, dw, true, xo, xw);
-    linear_axis(h, dh, false, yo, yw);
+    linear_axis(w, dw, sx, true, xo, xw);
+    linear_axis(h, dh, sy, false, yo, yw);
     // the horizontal pass, one int32 row per source row used
     std::vector<int32_t> rows(static_cast<size_t>(h) * dstep);
     std::vector<char> done(h, 0);
-    auto hrow = [&](int sy) -> const int32_t* {
-        int32_t* r = &rows[static_cast<size_t>(sy) * dstep];
-        if (!done[sy]) {
-            const uint8_t* s = src + sy * sstep;
+    auto hrow = [&](int y) -> const int32_t* {
+        int32_t* r = &rows[static_cast<size_t>(y) * dstep];
+        if (!done[y]) {
+            const uint8_t* s = src + y * sstep;
             for (int x = 0; x < dw; ++x) {
-                int sx = xo[x] * cn;
+                int x0 = xo[x] * cn;
                 int a0 = xw[2 * x], a1 = xw[2 * x + 1];
                 bool edge = xo[x] + 1 >= w;
                 for (int k = 0; k < cn; ++k)
-                    r[x * cn + k] = s[sx + k] * a0 + (edge ? 0 : s[sx + cn + k] * a1);
+                    r[x * cn + k] = s[x0 + k] * a0 + (edge ? 0 : s[x0 + cn + k] * a1);
             }
-            done[sy] = 1;
+            done[y] = 1;
         }
         return r;
     };
@@ -205,6 +221,45 @@ int popnet_resize_linear_u8(const uint8_t* src, int h, int w, int cn, uint8_t* d
         }
     }
     return 0;
+}
+
+bool bad_shape(int h, int w, int cn, int dh, int dw) {
+    return h < 1 || w < 1 || dh < 1 || dw < 1 || cn < 1 || cn > 4;
+}
+
+}  // namespace
+
+extern "C" {
+
+int popnet_resize_linear_u8(const uint8_t* src, int h, int w, int cn, uint8_t* dst, int dh,
+                            int dw) {
+    if (bad_shape(h, w, cn, dh, dw)) return -1;
+    if (dh == h && dw == w) {
+        std::memcpy(dst, src, static_cast<size_t>(w) * cn * h);
+        return 0;
+    }
+    if (w == 2 * dw && h == 2 * dh) {   // INTER_AREA's 2x2 fast path
+        area_2x(src, h, w, cn, dst, dh, dw);
+        return 0;
+    }
+    return resize_linear(src, h, w, cn, dst, dh, dw, 1.0 / (static_cast<double>(dw) / w),
+                         1.0 / (static_cast<double>(dh) / h));
+}
+
+// dh, dw: the sizes the caller rounded from h * fy, w * fx (half to even).
+int popnet_resize_linear_scaled_u8(const uint8_t* src, int h, int w, int cn, uint8_t* dst,
+                                   int dh, int dw, double fx, double fy) {
+    if (bad_shape(h, w, cn, dh, dw) || !(fx > 0) || !(fy > 0)) return -1;
+    const double sx = 1.0 / fx, sy = 1.0 / fy;
+    if (dh == h && dw == w && sx == 1.0 && sy == 1.0) {
+        std::memcpy(dst, src, static_cast<size_t>(w) * cn * h);
+        return 0;
+    }
+    if (sx == 2.0 && sy == 2.0) {   // cv2 takes an exact 2x as INTER_AREA's fast path
+        area_2x(src, h, w, cn, dst, dh, dw);
+        return 0;
+    }
+    return resize_linear(src, h, w, cn, dst, dh, dw, sx, sy);
 }
 
 int popnet_warp_affine_cubic_u8(const uint8_t* src, int h, int w, int cn, uint8_t* dst, int dh,

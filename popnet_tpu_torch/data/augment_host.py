@@ -114,9 +114,12 @@ def warp_affine_linear(image: torch.Tensor, M, dsize: tuple[int, int]) -> torch.
     return _lerp(b, v0, v1)
 
 
-def _resize_axis(src: int, dst: int, device):
-    """cv2 INTER_LINEAR's taps and float32 fractions along one axis."""
-    f = (np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5
+def _resize_axis(src: int, dst: int, device, factor: float | None = None):
+    """cv2 INTER_LINEAR's taps and float32 fractions along one axis: the
+    source step is src / dst, or 1 / factor where the caller gave cv2 a
+    scale factor rather than a size."""
+    step = 1.0 / (dst / src) if factor is None else 1.0 / factor
+    f = (np.arange(dst) + 0.5) * step - 0.5
     i0 = np.floor(f)
     frac = (f - i0).astype(np.float32)
     i0 = i0.astype(np.int64)
@@ -132,11 +135,30 @@ def _resize_axis(src: int, dst: int, device):
 def resize_linear(image: torch.Tensor, width: int, height: int) -> torch.Tensor:
     """`cv2.resize(image, (width, height), interpolation=INTER_LINEAR)`:
     image (H, W) or (H, W, C) float32."""
+    return _resize_linear(image, width, height, None, None)
+
+
+def scaled_size(h: int, w: int, fx: float, fy: float) -> tuple[int, int]:
+    """The (height, width) that `cv2.resize(im, None, fx=fx, fy=fy)` gives
+    an (h, w) image: w * fx and h * fy rounded half to even."""
+    return int(np.rint(h * fy)), int(np.rint(w * fx))
+
+
+def resize_linear_scaled(image: torch.Tensor, fx: float, fy: float) -> torch.Tensor:
+    """`cv2.resize(image, None, fx=fx, fy=fy)` (INTER_LINEAR) of an (H, W)
+    or (H, W, C) float32 image: the size rounded from the factors, and each
+    output pixel mapped back by 1 / fx, 1 / fy (not by the ratio of the
+    sizes, as `resize_linear` maps)."""
+    height, width = scaled_size(image.shape[0], image.shape[1], fx, fy)
+    return _resize_linear(image, width, height, fx, fy)
+
+
+def _resize_linear(image, width, height, fx, fy):
     H, W = image.shape[:2]
-    x0, x1, fx = _resize_axis(W, width, image.device)
-    y0, y1, fy = _resize_axis(H, height, image.device)
-    rows = _lerp(_per_pixel(fx[None, :], image), image[:, x0], image[:, x1])
-    return _lerp(_per_pixel(fy[:, None], image), rows[y0], rows[y1])
+    x0, x1, ax = _resize_axis(W, width, image.device, fx)
+    y0, y1, ay = _resize_axis(H, height, image.device, fy)
+    rows = _lerp(_per_pixel(ax[None, :], image), image[:, x0], image[:, x1])
+    return _lerp(_per_pixel(ay[:, None], image), rows[y0], rows[y1])
 
 
 def _u8_lib():
@@ -144,8 +166,12 @@ def _u8_lib():
     if not getattr(lib, "_typed", False):
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.popnet_resize_linear_u8.argtypes = [p, i, i, i, p, i, i]
+        lib.popnet_resize_linear_scaled_u8.argtypes = [p, i, i, i, p, i, i, ctypes.c_double,
+                                                       ctypes.c_double]
         lib.popnet_warp_affine_cubic_u8.argtypes = [p, i, i, i, p, i, i, p, i]
-        lib.popnet_resize_linear_u8.restype = lib.popnet_warp_affine_cubic_u8.restype = i
+        for fn in (lib.popnet_resize_linear_u8, lib.popnet_resize_linear_scaled_u8,
+                   lib.popnet_warp_affine_cubic_u8):
+            fn.restype = i
         lib._typed = True
     return lib
 
@@ -167,6 +193,22 @@ def resize_linear_u8(image: np.ndarray, width: int, height: int) -> np.ndarray:
     if _u8_lib().popnet_resize_linear_u8(image.ctypes.data, image.shape[0], image.shape[1], cn,
                                          out.ctypes.data, height, width):
         raise ValueError(f"resize_linear_u8: bad sizes {image.shape} -> ({height}, {width})")
+    return out
+
+
+def resize_linear_scaled_u8(image: np.ndarray, fx: float, fy: float) -> np.ndarray:
+    """`cv2.resize(image, None, fx=fx, fy=fy)` (INTER_LINEAR) of an (H, W)
+    or (H, W, C) uint8 NumPy image, bit for bit (`csrc/image_u8.cpp`): the
+    size rounded from the factors (`scaled_size`), coordinates mapped by
+    the factors."""
+    image, cn = _u8_image(image)
+    height, width = scaled_size(image.shape[0], image.shape[1], fx, fy)
+    out = np.empty((height, width) + image.shape[2:], np.uint8)
+    if _u8_lib().popnet_resize_linear_scaled_u8(image.ctypes.data, image.shape[0],
+                                                image.shape[1], cn, out.ctypes.data, height,
+                                                width, float(fx), float(fy)):
+        raise ValueError(f"resize_linear_scaled_u8: bad sizes or factors {image.shape}, "
+                         f"fx={fx}, fy={fy}")
     return out
 
 

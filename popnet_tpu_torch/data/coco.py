@@ -7,8 +7,10 @@ labelled keypoints, not crowds, their 17 COCO keypoints converted to the
 18-part rtpose order with the neck synthesized as the shoulders' midpoint
 (`coco17_to_rtpose18`), and their boxes as (x0, y0, x1, y1).
 `remove_illegal_joints` and `mask_valid_area` are the reference's input
-masking helpers. The COCO evaluation helpers (`coco_eval_results`,
-`run_coco_eval`) wait for ROADMAP item 9b.
+masking helpers. `coco_eval_results` formats decoded rtpose-18 people as
+COCO-17 keypoint results, and `run_coco_eval` scores them: with
+pycocotools where it is installed, else with the port's vendored scorer
+(`eval.coco_oks`), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -88,3 +90,50 @@ def mask_valid_area(image: np.ndarray, valid_area) -> np.ndarray:
     if valid_area[0] >= 1.0:
         out[:, : int(valid_area[0])] = 0
     return out
+
+
+def coco_eval_results(humans_per_image, image_ids, scores_per_image) -> list:
+    """Decoded people as COCO-17 keypoint results: for each image id, each
+    (18, >= 2) rtpose-18 person (x < 0 a hole) and its score -> {"image_id",
+    "category_id": 1, "keypoints": 51 floats (x, y, 1 where labelled, else
+    0, 0, 0), "score"}."""
+    results = []
+    for img_id, humans, scores in zip(image_ids, humans_per_image, scores_per_image):
+        for human, score in zip(humans, scores):
+            h = np.asarray(human)
+            kp = np.zeros((17, 3))
+            for i17, name in enumerate(COCO17):
+                j = COCO_KEYPOINT_NAMES.index(name)
+                if h[j, 0] >= 0:
+                    kp[i17] = (h[j, 0], h[j, 1], 1)
+            results.append({
+                "image_id": int(img_id),
+                "category_id": 1,
+                "keypoints": kp.ravel().tolist(),
+                "score": float(score),
+            })
+    return results
+
+
+def run_coco_eval(gt_annotation_json: str, results: list) -> np.ndarray:
+    """COCO keypoint AP of `results` against a person_keypoints JSON:
+    pycocotools' COCOeval where it is installed (its 10 stats), else the
+    vendored scorer (`eval.coco_oks.score_results_json`), which prints its
+    line and returns (AP, AP50, AP75, AR)."""
+    try:
+        from pycocotools.coco import COCO
+        from pycocotools.cocoeval import COCOeval
+    except ImportError:
+        from popnet_tpu_torch.eval.coco_oks import score_results_json
+
+        stats = score_results_json(gt_annotation_json, results)
+        print(f"[coco_oks] AP={stats['AP']:.4f} AP50={stats['AP50']:.4f} "
+              f"AP75={stats['AP75']:.4f} AR={stats['AR']:.4f} (vendored scorer)")
+        return np.array([stats["AP"], stats["AP50"], stats["AP75"], stats["AR"]])
+    coco_gt = COCO(gt_annotation_json)
+    coco_dt = coco_gt.loadRes(results)
+    ev = COCOeval(coco_gt, coco_dt, "keypoints")
+    ev.evaluate()
+    ev.accumulate()
+    ev.summarize()
+    return ev.stats

@@ -19,7 +19,8 @@ The port's counterpart of `popnet_tpu/data/datasets.py`:
   two stages on threads ahead of the consumer (`_pipeline_iter`), or a
   dataset's own `get_batch` on one thread where it overrides it:
   - `KDH3DDataset`: single-person frames, with `bg_aug` composited over a
-    background on the host;
+    background on the host (or on the device, `load_composited_device`,
+    which `data.construction` freezes sets with);
   - `KDH3DMPAugDataset`: multi-person frames z-buffered on the host from
     the per-location single-person recordings;
   - `DeviceMPAugDataset`: the same draws over a scene bank resident on the
@@ -53,7 +54,7 @@ from popnet_tpu_torch.core.device import resolve_device
 from popnet_tpu_torch.core.numerics import div_const
 from popnet_tpu_torch.core.skeleton import SWAP_INDICES
 from popnet_tpu_torch.data import augment_device as ad
-from popnet_tpu_torch.data.compositing import mp_composite
+from popnet_tpu_torch.data.compositing import bg_composite, mp_composite
 from popnet_tpu_torch.data.labels import OOB, load_label_file, pack_annotations
 from popnet_tpu_torch.ops.encoders import encode_targets
 from popnet_tpu_torch.ops.resize import resize_bilinear_cv2
@@ -343,6 +344,21 @@ class KDH3DDataset(_TrainDataset):
             bg = self._load_npy(os.path.join(self.bg_dir, entry["file_name"]))
             fg = self._load_npy(os.path.join(self.seg_dir, image_id))
             depth = depth * fg + bg * (1.0 - fg)
+        return depth, list(self.anno_dic[image_id])
+
+    def load_composited_device(self, index: int):
+        """`load_composited` with the composite on the dataset's device
+        (`compositing.bg_composite`): (depth (H, W) float32 tensor there,
+        the frame's annotation list); for {0, 1} masks the same image bit
+        for bit."""
+        image_id = self.ids[index]
+        dev = self.device
+        depth = torch.from_numpy(self._load_npy(os.path.join(self.img_dir, image_id))).to(dev)
+        if self.bg_aug:
+            entry = self.bg_list[index % len(self.bg_list)]
+            bg = self._load_npy(os.path.join(self.bg_dir, entry["file_name"]))
+            fg = self._load_npy(os.path.join(self.seg_dir, image_id))
+            depth = bg_composite(depth, torch.from_numpy(fg).to(dev), torch.from_numpy(bg).to(dev))
         return depth, list(self.anno_dic[image_id])
 
 

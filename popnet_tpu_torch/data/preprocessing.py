@@ -17,8 +17,18 @@ The RGB training datasets (`data.coco_dataset`, `data.mpii`) normalize
 with `preprocess_divided`, which rounds as those NumPy functions do (true
 divisions), since the JAX datasets normalize on the host with them.
 
-`crop_with_factor` and `rgb_infer` (the COCO evaluation driver's host
-helpers, which call cv2) are not ported here.
+The COCO evaluation's helpers:
+
+- `crop_with_factor` scales an image so its short side is `dest_size`, as
+  `cv2.resize(im, None, fx=s, fy=s)` does (`augment_host
+  .resize_linear_scaled_u8`, bit for bit on uint8; `resize_linear_scaled`
+  on float32), and zero-pads each side up to a multiple of `factor`: the
+  evaluation canvas, on the host;
+- `rgb_infer` copies that canvas once to the device, normalizes it there
+  (`preprocess_divided`, as the JAX package's NumPy normalization rounds),
+  runs the CNN (and, with `flip`, the mirrored pass averaged in by
+  `decode.flip_average`) and returns one image's (paf, heat) maps on the
+  device with the scale, for `decode.openpose_infer.paf_decode_2d`.
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from popnet_tpu_torch.core.device import resolve_device
 from popnet_tpu_torch.core.numerics import div_const, fma_f32
+from popnet_tpu_torch.data.augment_host import resize_linear_scaled, resize_linear_scaled_u8
 
 VGG_MEANS = (0.485, 0.456, 0.406)   # RGB order
 VGG_STDS = (0.229, 0.224, 0.225)
@@ -100,3 +112,64 @@ def preprocess_divided(image: torch.Tensor, mode: str) -> torch.Tensor:
         return preprocess(image, mode)
     x = image.float().flip(-1) / torch.tensor(255.0, device=image.device)
     return (x - _per_channel(VGG_MEANS, x)) / _per_channel(VGG_STDS, x)
+
+
+def _factor_closest(num: float, factor: int, is_ceil: bool = True) -> int:
+    num = np.ceil(float(num) / factor) if is_ceil else np.floor(float(num) / factor)
+    return int(num) * factor
+
+
+def crop_with_factor(im: np.ndarray, dest_size: int, factor: int = 32, is_ceil: bool = True):
+    """Resize an (H, W) or (H, W, C) uint8 or float32 NumPy image so that
+    min(H, W) == dest_size, as `cv2.resize(im, None, fx=s, fy=s)` (s =
+    dest_size / min(H, W)), then zero-pad H and W up to multiples of
+    `factor` (down, where not `is_ceil`: a resized side that is not such a
+    multiple then raises, as the JAX package's NumPy assignment does).
+
+    Returns (canvas (H', W', C), im_scale, resized_shape); the canvas's
+    top-left holds the resized image, and the model's outputs map back to
+    the image's pixels by stride / im_scale."""
+    im = np.asarray(im)
+    im_scale = float(dest_size) / np.min(im.shape[0:2])
+    if im.dtype == np.uint8:
+        im = resize_linear_scaled_u8(im, im_scale, im_scale)
+    elif im.dtype == np.float32:
+        im = resize_linear_scaled(torch.from_numpy(np.ascontiguousarray(im)), im_scale,
+                                  im_scale).numpy()
+    else:
+        raise ValueError(f"crop_with_factor takes uint8 or float32 images, got {im.dtype}")
+    if im.ndim == 2:
+        im = im[:, :, None]
+    h, w, c = im.shape
+    canvas = np.zeros([_factor_closest(h, factor, is_ceil), _factor_closest(w, factor, is_ceil),
+                       c], dtype=im.dtype)
+    if canvas.shape[0] < h or canvas.shape[1] < w:
+        raise ValueError(f"crop_with_factor: the resized image {im.shape} does not fit the "
+                         f"canvas {canvas.shape} that is_ceil=False leaves")
+    canvas[0:h, 0:w, :] = im
+    return canvas, im_scale, im.shape
+
+
+def rgb_infer(infer, image: np.ndarray, mode: str = "vgg", dest_size: int = 368,
+              factor: int = 8, flip: bool = False, limbs=None, swap_indices=None,
+              device: str | torch.device = "cuda"):
+    """One image through the COCO evaluation's CNN: `crop_with_factor` on
+    the host, the canvas copied once to `device` and normalized there
+    (`preprocess_divided`), `infer((1, H', W', 3) float32) -> (paf, heat,
+    ...)` channels-last, and with `flip` the mirrored pass averaged in
+    (`decode.flip_average.flip_average_infer` with the skeleton tables
+    `limbs`, `swap_indices`).
+
+    image: (H, W, 3) BGR uint8, as `data.image_io` reads it. Returns (paf
+    (H'/8, W'/8, 2L), heat (H'/8, W'/8, K+1), im_scale), the maps on
+    `device`."""
+    from popnet_tpu_torch.decode.flip_average import flip_average_infer
+
+    canvas, im_scale, _ = crop_with_factor(image, dest_size, factor=factor)
+    x = torch.from_numpy(canvas).to(resolve_device(device))
+    x = preprocess_divided(x, mode).float()[None]
+    if flip:
+        paf, heat = flip_average_infer(infer, x, limbs, swap_indices)[:2]
+    else:
+        paf, heat = infer(x)[:2]
+    return paf[0], heat[0], im_scale

@@ -32,9 +32,10 @@ def find_peaks_batched(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 
     (x, y, score) and valid (B, K, M).
 
     refine: "kernel" (None takes it) is `find_peaks`, one block of 16 warps
-    per frame; "kernel_row" is `find_peaks_row`, a cluster of 2 CTAs per
-    frame, each owning every other plane. Both give the same result bit for
-    bit."""
+    per frame where a frame's planes fit it, else `find_peaks_row` (the
+    COCO evaluation canvas of an image that is not square); "kernel_row"
+    is `find_peaks_row`, a cluster of 2 CTAs per frame, each owning every
+    other plane. Both give the same result bit for bit."""
     if refine not in (None, "kernel", "kernel_row"):
         raise ValueError(f"unknown refine {refine!r}")
     fn = kernels.find_peaks_row if refine == "kernel_row" else kernels.find_peaks

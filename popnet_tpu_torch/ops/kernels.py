@@ -13,7 +13,9 @@ wrapper per CUDA kernel, with its plain PyTorch version beside it.
 | `peak_local_max` | csrc/peak_mask.cu      | pallas_kernels.py peak_local_max_pallas  |
 
 `find_peaks` and `find_peaks_row` are two designs of one function and share
-one plain version, `find_peaks_plain`. `readouts` is the Open-Pose+
+one plain version, `find_peaks_plain`; `find_peaks` launches the second
+where a frame's planes do not fit one block of the first
+(`find_peaks_route`). `readouts` is the Open-Pose+
 decode's launch of K4 and K5 together, from the normalized maps: it counts
 as one launch of each of the two.
 
@@ -277,15 +279,42 @@ def find_peaks_plain(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.
     return px, py, loc[..., 0].to(torch.int32), peak_score, valid
 
 
-def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
-    B, K, H, W = heat.shape
+SMEM_PER_BLOCK = 227 * 1024   # the dynamic shared memory a block may have on the H100
+
+
+def _find_peaks_args(heat, max_peaks, win_size, factor) -> None:
     _check(heat, "heat", torch.float32)
     if (win_size, factor) != (2, 8):
         raise ValueError(f"the find_peaks kernels refine 5x5 windows upsampled 8x (win_size=2, "
                          f"factor=8), got win_size={win_size}, factor={factor}")
-    if max_peaks > 32 or H > 255 or W > 255:
-        raise ValueError(f"the find_peaks kernels keep at most 32 peaks on grids of at most "
-                         f"255x255, got {max_peaks} on {H}x{W}")
+    H, W = heat.shape[2:]
+    if max_peaks > 32:
+        raise ValueError(f"the find_peaks kernels keep at most 32 peaks, got {max_peaks}")
+    if H > 255 or W > 255:
+        raise ValueError(f"the find_peaks kernels take maps of at most 255x255 cells (a canvas "
+                         f"of at most {255 * factor} px a side at stride {factor}), got "
+                         f"{H}x{W} maps of a {H * factor}x{W * factor} canvas")
+
+
+@functools.cache
+def find_peaks_smem(K: int, H: int, W: int, M: int) -> int:
+    """Bytes of shared memory a block of the `find_peaks` kernel takes at
+    these sizes (all K planes of a frame, csrc/find_peaks.cu PeakLayout)."""
+    fn = _build.library("find_peaks").popnet_find_peaks_smem
+    fn.argtypes, fn.restype = [_I] * 4, ctypes.c_longlong
+    return int(fn(K, H, W, M))
+
+
+def find_peaks_route(K: int, H: int, W: int, M: int) -> str:
+    """The kernel `find_peaks` launches at these sizes: "find_peaks" (K1)
+    where a frame's K planes fit one block's SMEM_PER_BLOCK, else
+    "find_peaks_row" (K2, which takes them in rounds)."""
+    return "find_peaks" if find_peaks_smem(K, H, W, M) <= SMEM_PER_BLOCK else "find_peaks_row"
+
+
+def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
+    B, K, H, W = heat.shape
+    _find_peaks_args(heat, max_peaks, win_size, factor)
     dev = heat.device
     U = _upsample(2 * win_size + 1, factor, dev)
     px, py, loc = (torch.empty((B, K, max_peaks), dtype=torch.int32, device=dev)
@@ -305,11 +334,23 @@ def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
 def find_peaks(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
                factor: int = 8, win_size: int = 2):
     """Peak NMS + top-M + windowed bicubic refine over (B, K, H, W) float32
-    heat planes (any strides), one block per frame. Same contract as
-    `find_peaks_plain`; on the card win_size=2, factor=8 and at most 32
-    peaks, as the decode uses."""
+    heat planes (any strides). Same contract as `find_peaks_plain`; on the
+    card win_size=2, factor=8, at most 32 peaks and maps of at most 255x255
+    cells, as the decode uses.
+
+    On the card one block per frame holds all K planes (this kernel, K1)
+    where they fit a block's shared memory (`find_peaks_smem` at most
+    SMEM_PER_BLOCK); where they do not (18 planes from 46x47 cells on, the
+    COCO evaluation canvas of every image that is not square), the call
+    is `find_peaks_row` (K2), which takes a frame's planes in rounds and
+    counts the launch as its own (`find_peaks_route`). The two agree bit
+    for bit."""
     if not _on_cuda(heat):
         return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
+    _find_peaks_args(heat, max_peaks, win_size, factor)
+    B, K, H, W = heat.shape
+    if find_peaks_route(K, H, W, max_peaks) == "find_peaks_row":
+        return find_peaks_row(heat, max_peaks, thresh, factor, win_size)
     out = _find_peaks_launch("popnet_find_peaks", heat, max_peaks, thresh, factor, win_size)
     find_peaks.launches += 1
     return out

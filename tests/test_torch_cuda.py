@@ -1536,3 +1536,113 @@ def test_train_rgb_subcommand_on_the_card(cuda, rgb_set, tmp_path, dataset, fami
     a = checkpoint.restore_params(str(tmp_path / "whole" / "ckpt"))[0]
     b = checkpoint.restore_params(str(tmp_path / "split" / "ckpt"))[0]
     assert all(torch.equal(v, b[k]) for k, v in a.items())
+
+
+# -- COCO evaluation at the evaluation canvas, and generate-augset ----------------------------
+
+
+@pytest.mark.parametrize("H,W", [(46, 62), (62, 46), (46, 69), (46, 123), (46, 46)])
+def test_find_peaks_takes_k2_where_k1_cannot_hold_the_maps(cuda, H, W):
+    """find_peaks at the evaluation grids of non-square COCO images (18
+    planes of 46x62, 62x46, 46x69 and 46x123 do not fit one block of K1):
+    the call launches find_peaks_row (K2) and counts it there, exact against
+    the plain version; at 46x46 K1 itself launches."""
+    heat = torch.as_tensor(sparse_heat(31, 3, H, W, 19), device=cuda)
+    h = peak_planes(heat.permute(0, 2, 3, 1), COCO_NUM_JOINTS)
+    route = kernels.find_peaks_route(18, H, W, 16)
+    assert route == ("find_peaks" if (H, W) == (46, 46) else "find_peaks_row")
+    kernels.reset_launches()
+    got = kernels.find_peaks(h)
+    torch.cuda.synchronize()
+    other = "find_peaks_row" if route == "find_peaks" else "find_peaks"
+    assert kernels.launch_counts()[route] == 1 and kernels.launch_counts()[other] == 0
+    for a, b in zip(got, kernels.find_peaks_plain(h)):
+        assert torch.equal(a, b)
+    assert bool(got[4].any())
+
+
+def test_find_peaks_refuses_grids_over_255_cells_naming_the_canvas(cuda):
+    heat = torch.zeros((1, 18, 46, 256), device=cuda)
+    with pytest.raises(ValueError, match="255x255 cells .* 368x2048 canvas"):
+        kernels.find_peaks(heat)
+
+
+@pytest.mark.parametrize("H,W", [(46, 62), (62, 46), (46, 69), (46, 123)])
+def test_paf_score_at_the_evaluation_grids(cuda, H, W):
+    """K3 with the COCO tables at the evaluation grids: bit for bit against
+    the plain version, one launch."""
+    heat = torch.as_tensor(sparse_heat(32, 2, H, W, 19)).permute(0, 2, 3, 1)
+    peaks, valid = (t.to(cuda) for t in find_peaks_batched(heat, num_joints=18))
+    paf = torch.as_tensor(np.random.default_rng(33).uniform(-0.2, 1, (2, H, W, 38)),
+                          dtype=torch.float32, device=cuda)
+    kernels.reset_launches()
+    s, ok = kernels.paf_score(paf, peaks, valid, COCO_LIMBS)
+    torch.cuda.synchronize()
+    assert kernels.paf_score.launches == 1
+    s_p, ok_p = kernels.paf_score_plain(paf, peaks, valid, COCO_LIMBS)
+    assert torch.equal(s, s_p) and torch.equal(ok, ok_p) and ok.any()
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_rgb_infer_on_the_card_matches_the_cpu(cuda, flip):
+    """rgb_infer of a 240x320 image at dest_size 184 (maps 23x31), VGG19
+    RTPoseVGG with chip_smoke's scaled heads, float32 with TF32 off: the
+    card's maps within 1e-4 of the CPU's over their largest magnitude, the
+    same scale; the decode of the card's maps on the card equals the
+    host's."""
+    from chip_smoke import coco_weights
+    from popnet_tpu_torch.core.skeleton_coco import COCO_SWAP_INDICES
+    from popnet_tpu_torch.data.preprocessing import rgb_infer
+    from popnet_tpu_torch.models import RTPoseVGG
+
+    weights = coco_weights()
+    img = np.random.default_rng(34).integers(0, 256, (240, 320, 3), dtype=np.uint8)
+
+    def infer_of(model):
+        def infer(x):
+            with torch.inference_mode():
+                (paf, heat), _ = model(x.permute(0, 3, 1, 2))
+            return paf.permute(0, 2, 3, 1), heat.permute(0, 2, 3, 1)
+        return infer
+
+    kw = dict(mode="rtpose", dest_size=184, flip=flip, limbs=COCO_LIMBS,
+              swap_indices=COCO_SWAP_INDICES)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = rgb_infer(infer_of(load_into(RTPoseVGG(), weights).eval().to(cuda)), img, **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    host = rgb_infer(infer_of(load_into(RTPoseVGG(), weights).eval()), img, device="cpu", **kw)
+    assert card[2] == host[2] == 184 / 240
+    for a, b in zip(card[:2], host[:2]):
+        assert a.device.type == "cuda" and tuple(a.shape[:2]) == (23, 31)
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    s = card[2]
+    dk = paf_decode_2d(card[1][None], card[0][None], COCO_NUM_JOINTS, limbs=COCO_LIMBS,
+                       sx=1 / s, sy=1 / s)
+    dh = paf_decode_2d(card[1][None].cpu(), card[0][None].cpu(), COCO_NUM_JOINTS,
+                       limbs=COCO_LIMBS, sx=1 / s, sy=1 / s)
+    for k in ("joints2d", "conf", "visibility", "counts"):
+        assert torch.equal(dk[k].cpu(), dh[k]), k
+
+
+@pytest.mark.parametrize("kind", ["bgaug", "mpaug"])
+def test_generate_augset_card_composite_equals_the_host(cuda, tmp_path, kind):
+    """generate-augset --augment on the card (its default: the composite and
+    the transforms there) and with --device cpu on chip_smoke's KDH3D layout
+    (8 frames, 8 recordings a location): the same files, byte for byte."""
+    from chip_smoke import write_mpaug_bank, write_train_set
+    from popnet_tpu_torch.cli.main import main
+
+    rng = np.random.default_rng(35)
+    data = str(tmp_path / "data")
+    write_train_set(rng, cuda, data, 8, 0)
+    write_mpaug_bank(rng, cuda, data, 8)
+    outs = []
+    for extra in ([], ["--device", "cpu"]):
+        out = tmp_path / (extra[-1] if extra else "card")
+        main(["generate-augset", "--kind", kind, "--data-root", data, "--out-dir", str(out),
+              "--augment", *extra])
+        outs.append({p.relative_to(out): p.read_bytes() for p in out.rglob("*") if p.is_file()})
+    assert outs[0] == outs[1] and len(outs[0]) == 9

@@ -556,8 +556,11 @@ def test_cli_evaluate_writes_the_json_and_benchmark_scores_it_as_jax_does(paths,
 
 @pytest.mark.parametrize("argv,match", [
     (["--spatial", "2"], "item 13"),
-    (["--ckpt", "x"], "no checkpoint of the port"), (["--dataset", "coco"], "item 9b"),
-    (["--model", "rtpose_vgg"], "item 9b"),
+    (["--ckpt", "x"], "no checkpoint of the port"),
+    pytest.param(["--dataset", "coco"], "neither command line evaluates an RGB model; COCO results",
+                 id="argv2-item 9b"),
+    pytest.param(["--model", "rtpose_vgg"], "neither command line evaluates an RGB model",
+                 id="argv3-item 9b"),
     (["--model", "a2j"], "--yolo-weights"),
 ])
 def test_cli_evaluate_refuses_what_is_not_ported(paths, tmp_path, argv, match):

@@ -467,14 +467,19 @@ def test_cli_evaluate_itop_matches_the_jax_command_line(itop_set, tmp_path, caps
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["evaluate", "--dataset", "coco"], "item 9b"), (["evaluate", "--dataset", "mpii"], "item 9b"),
+    pytest.param(["evaluate", "--dataset", "coco"], "neither command line evaluates an RGB model",
+                 id="argv0-item 9b"),
+    pytest.param(["evaluate", "--dataset", "mpii"], "neither command line evaluates an RGB model",
+                 id="argv1-item 9b"),
     (["train", "--dataset", "coco"], "--dataset coco trains --model rtpose_vgg"),
     (["train", "--dataset", "mpii"], "--dataset mpii trains --model popnet_rgb"),
 ])
 def test_cli_refuses_coco_and_mpii_naming_the_jpeg_reader(tmp_path, argv, match):
-    """COCO and MPII evaluation still wait for ROADMAP item 9b; training
-    runs (tests/test_torch_rgb_train.py), and refuses the depth models, as
-    the JAX command line does."""
+    """evaluate refuses COCO and MPII, as the JAX command line does (neither
+    evaluates an RGB model; COCO results are scored by the library chain,
+    tests/test_torch_coco_eval.py); training runs
+    (tests/test_torch_rgb_train.py), and refuses the depth models, as the
+    JAX command line does."""
     with pytest.raises(SystemExit, match=match):
         pcli.main([*argv, "--data-root", str(tmp_path), "--device", "cpu"])
 

@@ -83,7 +83,8 @@ def test_port_imports_with_jax_and_reference_blocked():
                   "eval.single", "data.itop_a2j", "cli.itop_eval", "cli.itop_table",
                   "decode.peaks_np", "decode.paf_np", "decode.human_list", "decode.align",
                   "data.image_io", "data.coco", "data.coco_dataset", "data.mpii",
-                  "models.rtpose_light"):
+                  "models.rtpose_light", "eval.coco_oks", "data.construction",
+                  "data.preprocessing", "core.camera"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -428,3 +429,66 @@ def test_rgb_training_defaults_to_cuda_and_never_runs_on_cpu_unasked(tmp_path):
             main([*argv, "--device", "cpu"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CocoKeypointsDataset(str(tmp_path), str(tmp_path / "x.json"))
+
+
+def test_generate_augset_and_rgb_infer_default_to_cuda_and_never_run_on_cpu_unasked(
+        tmp_path, monkeypatch):
+    """`generate-augset` and `rgb_infer` default to the card; without one
+    they raise unless the CPU is asked for (--device cpu, device="cpu").
+    generate-augset composites and transforms on --device: its dataset lies
+    there, the freeze takes the dataset's device route by default, and the
+    freeze-time transforms get that composite as it lies."""
+    from popnet_tpu_torch.cli.main import build_parser, main
+    from popnet_tpu_torch.core.config import KDH3D_DATASET
+    from popnet_tpu_torch.data import construction, preprocessing
+    from tests import synthetic_data
+
+    args = build_parser().parse_args(["generate-augset", "--kind", "bgaug", "--data-root",
+                                      str(tmp_path)])
+    assert args.device == "cuda" and not args.augment
+    assert inspect.signature(preprocessing.rgb_infer).parameters["device"].default == "cuda"
+    for fn in (construction._freeze, construction.generate_bgaug_set,
+               construction.generate_mpaug_set):
+        assert inspect.signature(fn).parameters["device"].default is True
+
+    # _freeze: the device composite itself goes through the transforms
+    composite = torch.zeros((4, 4))
+
+    class Frames:
+        dcfg, rng = KDH3D_DATASET, np.random.default_rng(0)
+
+        def __len__(self):
+            return 1
+
+        def load_composited_device(self, index):
+            return composite, []
+
+        def load_composited(self, index):
+            raise AssertionError("the default route composites on the dataset's device")
+
+    seen = []
+    monkeypatch.setattr(construction, "freeze_augment_pipeline",
+                        lambda dcfg, rng: lambda sample: seen.append(sample[0]) or sample)
+    construction.generate_bgaug_set(Frames(), str(tmp_path / "frozen"), augment=True)
+    assert len(seen) == 1 and seen[0] is composite
+
+    # the command line: the dataset on the card, the freeze on its default route
+    data = str(tmp_path / "data")
+    synthetic_data.build(data, n_images=2)
+    calls = []
+    for kind in ("bgaug", "mpaug"):
+        monkeypatch.setattr(construction, f"generate_{kind}_set",
+                            lambda ds, out, n, **kw: calls.append((ds.device, kw)) or {})
+    argv = ["generate-augset", "--data-root", data, "--out-dir", str(tmp_path / "o")]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        for kind in ("bgaug", "mpaug"):
+            main([*argv, "--kind", kind])
+    assert calls == [(torch.device("cuda"), {"augment": False})] * 2
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    argv = ["generate-augset", "--kind", "bgaug", "--data-root", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
+        main([*argv, "--device", "cpu"])

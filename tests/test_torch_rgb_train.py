@@ -626,8 +626,8 @@ def test_train_rgb_on_the_command_line(dataset, coco_set, mpii_set, tmp_path):
 
 def test_train_rgb_refuses_the_other_models(tmp_path):
     """As the JAX command line: each RGB dataset trains its one model, the
-    RGB models train on their dataset only; evaluation of COCO and MPII
-    waits for ROADMAP item 9b."""
+    RGB models train on their dataset only; neither command line evaluates
+    an RGB model."""
     base = ["--data-root", str(tmp_path), "--device", "cpu"]
     for argv, what in ((["train", "--dataset", "coco", "--model", "popnet"],
                         "--dataset coco trains --model rtpose_vgg"),
@@ -635,7 +635,8 @@ def test_train_rgb_refuses_the_other_models(tmp_path):
                         "--dataset mpii trains --model popnet_rgb"),
                        (["train", "--model", "popnet_rgb"], "popnet_rgb trains with --dataset mpii"),
                        (["train", "--model", "rtpose_vgg"], "rtpose_vgg trains with --dataset coco"),
-                       (["evaluate", "--dataset", "mpii", "--model", "popnet_rgb"], "item 9b")):
+                       (["evaluate", "--dataset", "mpii", "--model", "popnet_rgb"],
+                        "neither command line evaluates an RGB model")):
         with pytest.raises(SystemExit, match=what):
             port_main([*argv, *base])
 
