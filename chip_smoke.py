@@ -7,8 +7,9 @@ of three of them on single-person frames (phase 7) and on mp-aug
 multi-person composites (phase 8), A2J's training (phase 9), each
 serving path folded and in dynamic int8 (phase 10), ITOP's training,
 evaluation and table with the exact host decode (phase 11), COCO and
-MPII RGB training from JPEG files (phase 12), and COCO evaluation at the
-evaluation canvas with MP-3DHP set construction (phase 13): the four
+MPII RGB training from JPEG files (phase 12), COCO evaluation at the
+evaluation canvas with MP-3DHP set construction (phase 13), and the
+four-method table and the readout ablation (phase 14): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -34,7 +35,7 @@ Phases, one or more lines each:
 2. build: nvcc compiles the kernels of csrc/ in parallel, and find_peaks,
    paf_score and assemble once more with stage clocks; ptxas's register,
    shared-memory and spill lines are printed;
-3. kernels: each of the seven kernels against its plain PyTorch version,
+3. kernels: each of the eight kernels against its plain PyTorch version,
    on the card, at the main-path shapes plus edge cases (exact ties, border
    peaks, plateaus, a plane with no peak, sparse heat in two memory orders,
    the per-frame peak kernel at K = 1, 5, 15, 16 on three grids and three
@@ -120,8 +121,8 @@ Phases, one or more lines each:
 
 8. mpaug: mp-aug training (popnet_tpu_torch.data.datasets' mp-aug classes,
    data.streaming, cli.main train --mp-aug) at full width, 224², float32:
-   (a) 5 location files of 128 single-person recordings (512x480 depth
-   and masks, write_mpaug_bank: 640 layers, a 0.47 GB bank on the card)
+   (a) 5 location files of 96 single-person recordings (512x480 depth
+   and masks, write_mpaug_bank: 480 layers, a 0.35 GB bank on the card)
    beside phase 7's backgrounds and 64 validation frames; (b) for
    KDH3DMPAugDataset (f32 and u16mm transfer), DeviceMPAugDataset,
    KDH3DMPAugAdvDataset and a staged stream shard, a batch of 32 with
@@ -148,7 +149,7 @@ Phases, one or more lines each:
 
 9. a2j: A2J training (popnet_tpu_torch.data.augment_host, the training
    half of data.a2j_crops, cli.main train --model a2j) at full width, 288²
-   crops, float32: phase 8's writers again (5 location files of 128
+   crops, float32: phase 8's writers again (5 location files of 96
    recordings, 8 backgrounds, 64 validation frames); (a) an A2JCropDataset
    batch of 32 over KDH3DMPAugDataset made on the card against the CPU's
    from the same seed (the augmented frames, boxes, joints, crops and
@@ -270,7 +271,24 @@ Phases, one or more lines each:
     `evaluate --model openpose` of the frozen mp-aug set on the card; (d)
     images/s of rgb_infer + decode at each canvas, flip off and on, float32
     and bf16 CNN, the decode's ms, generate-augset frames/s on each route;
-    the kernels' launches at each canvas (a "coco_eval" entry in each row).
+    the kernels' launches at each canvas (a "coco_eval" entry in each row);
+    (e) a 2304x384 panorama (canvas 368x2208, maps 46x276: over 255 cells
+    wide, where only find_peaks_plane, the third find_peaks kernel, takes
+    them): rgb_infer + paf_decode_2d on the card with the launch counts
+    reset just before and read just after, the decode against the host's,
+    the kernels against their plain versions on the CNN's and the
+    oracle's maps, the oracle's AP, and find_peaks_plane at batch 1 against
+    its bound (its row of the kernels line takes these numbers and this
+    path's launches; its time at the depth planes stands beside them).
+
+14. tables: `cli.method_table` at a smoke budget (TABLE_SMOKE: 32
+    training scenes, 8 frozen, 2 steps a row in two calls, the second a
+    resume), all four rows trained and scored on the card, the launch
+    counts reset just before and read just after; the validation and
+    frozen trees' sha256 against the constant the CPU tests pin; every row
+    done with its metrics in [0, 1]; then `cli.ablation_table`'s ablation
+    of the committed Open-Pose+ weights on the frozen set, card against
+    CPU (a "table_launches" entry in each row).
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -323,6 +341,8 @@ KERNEL_META = {
     "find_peaks": ("popnet_tpu_torch/csrc/find_peaks.cu", "popnet_tpu/ops/pallas_kernels.py:457"),
     "find_peaks_row": ("popnet_tpu_torch/csrc/find_peaks.cu",
                        "popnet_tpu/ops/pallas_kernels.py:278"),
+    "find_peaks_plane": ("popnet_tpu_torch/csrc/find_peaks.cu",
+                         "popnet_tpu/ops/pallas_kernels.py:278"),
     "paf_score": ("popnet_tpu_torch/csrc/paf_score.cu", "popnet_tpu/ops/pallas_kernels.py:132"),
     "window_readout": ("popnet_tpu_torch/csrc/readout.cu", "popnet_tpu/ops/pallas_kernels.py:546"),
     "point_readout": ("popnet_tpu_torch/csrc/readout.cu", "popnet_tpu/ops/pallas_kernels.py:598"),
@@ -1193,6 +1213,56 @@ def phase_a2j_slice(frames, dev, weights, yolo_out):
     return launches, out
 
 
+# maps that K1 and K2 cannot take (a side over 255 cells, a plane over K2's CTA):
+# find_peaks routes them to find_peaks_plane
+PLANE_SHAPES = ((1, 18, 46, 256), (1, 1, 255, 255), (2, 3, 300, 300))
+
+
+def plane_cases(rng, dev) -> tuple[int, float]:
+    """find_peaks_plane, the third find_peaks kernel, through find_peaks
+    (one launch counted on it, none on K1 or K2) against the plain version,
+    all five outputs bit for bit: at PLANE_SHAPES, planes of NCHW and NHWC
+    memory and slices of larger maps, dense heat (a lattice of peaks and an
+    exact tie, 32 kept) and sparse heat. Returns (cases, max |err| of the
+    score)."""
+    import torch
+
+    from popnet_tpu_torch.ops import kernels
+
+    n, err = 0, 0.0
+    for B, K, H, W in PLANE_SHAPES:
+        require(kernels.find_peaks_route(K, H, W, 16) == "find_peaks_plane",
+                f"find_peaks_route at {(B, K, H, W)}")
+        dense = rng.uniform(0, 1, (B, K + 1, H + 3, W + 4)).astype(np.float32)
+        dense[0, 0, 1:H:5, 1:W:5] = 2.0 + rng.uniform(0, 1, dense[0, 0, 1:H:5, 1:W:5].shape)
+        dense[0, 0, 7, 9] = dense[0, 0, H - 2, W - 1] = 4.0      # an exact tie
+        sparse = np.zeros_like(dense)
+        sparse[:, :, :H, :W] = sparse_heat(rng, B, K + 1, H, W)
+        for heat, M in ((dense, 32), (sparse, 16)):
+            t = torch.as_tensor(heat, device=dev)
+            for tag, h in (("NCHW", t[:, :K, :H, :W].contiguous()),
+                           ("NHWC", t[:, :K, :H, :W].contiguous(
+                               memory_format=torch.channels_last)),
+                           ("sliced", t[:, 1:, 2:H + 2, 3:W + 3])):
+                kernels.reset_launches()
+                got = kernels.find_peaks(h, max_peaks=M)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                require((counts["find_peaks_plane"], counts["find_peaks"],
+                         counts["find_peaks_row"]) == (1, 0, 0),
+                        f"find_peaks at {(B, K, H, W)} launched {counts}")
+                ref = kernels.find_peaks_plain(h, max_peaks=M)
+                for i, name in enumerate(PEAK_OUTPUTS):
+                    _exact(f"find_peaks_plane {name}, {(B, K, H, W)}, {tag}, M={M}", got[i],
+                           ref[i])
+                err = max(err, _maxerr(got[3], ref[3]))
+                n += 1
+                if M == 32 and tag == "NCHW":
+                    require(int(got[4][0, 0].sum()) == 32,
+                            "find_peaks_plane: the dense plane keeps 32 peaks")
+    return n, err
+
+
 def _refine_ops(px, py, H: int, W: int, size: int = 5, factor: int = 8):
     """Operations of the windowed refine at each (px, py): U.patch for the
     window's win_h rows (win_h x size x size multiply-adds), then their
@@ -1214,7 +1284,7 @@ def _bounds(name: str, inputs: dict) -> tuple[float, float, float, str]:
     import torch.nn.functional as F
 
     note = ""
-    if name in ("find_peaks", "find_peaks_row"):      # two designs of one function
+    if name in ("find_peaks", "find_peaks_row", "find_peaks_plane"):  # one function, 3 designs
         h, px, py, valid = inputs["heat"], inputs["px"], inputs["py"], inputs["valid"]
         B, K, H, W = h.shape
         M = px.shape[-1]
@@ -1462,6 +1532,8 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
             f"paf_score {kernels.copy_width('paf_score', paf_n)}")
         require(min(per_sm.values()) >= 2, f"a frame's block does not fit two to an SM: {per_sm}")
         px, py, _, _, slot_valid = kernels.find_peaks(h)
+        for a, b, n in zip(kernels.find_peaks_plane(h), kernels.find_peaks(h), PEAK_OUTPUTS):
+            _exact(f"find_peaks_plane {n} against find_peaks on the main path's planes", a, b)
         peaks, pvalid = find_peaks_batched(heat_n)
         scores, ok = score_limb_pairs_batched(paf_n, peaks, pvalid)
         ps, sm = assemble_inputs(peaks, scores, ok)
@@ -1482,6 +1554,9 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
                            None, peak_in),
             "find_peaks_row": (lambda: kernels.find_peaks_row(h),
                                lambda: kernels.find_peaks_plain(h), None, peak_in),
+            # at the depth planes beside K1 and K2; its own path's maps are phase 13 (e)'s
+            "find_peaks_plane": (lambda: kernels.find_peaks_plane(h),
+                                 lambda: kernels.find_peaks_plain(h), None, peak_in),
             "paf_score": (lambda: kernels.paf_score(paf_n, peaks, pvalid, LIMBS),
                           lambda: kernels.paf_score_plain(paf_n, peaks, pvalid, LIMBS),
                           None, {"paf": paf_n, "peaks": peaks, "score": scores}),
@@ -1968,6 +2043,8 @@ def phase_coco_timing(frames, weights, dev, iters: int, launches, f32_out, f32_m
         heat, paf = painted["heat"], painted["paf"]
         h = peak_planes(heat, K)
         px, py, _, _, slot_valid = kernels.find_peaks(h)
+        for a, b, n in zip(kernels.find_peaks_plane(h), kernels.find_peaks(h), PEAK_OUTPUTS):
+            _exact(f"find_peaks_plane {n} against find_peaks on the main path's planes", a, b)
         peaks, pvalid = find_peaks_batched(heat, num_joints=K)
         scores, ok = score_limb_pairs_batched(paf, peaks, pvalid, limbs=COCO_LIMBS)
         ps, sm = assemble_inputs(peaks, scores, ok)
@@ -2988,7 +3065,7 @@ def shared_prior_check(dev) -> None:
 
 MPAUG_CENTRES = ((140.0, 256.0), (340.0, 256.0), (140.0, 380.0), (340.0, 380.0),
                  (240.0, 300.0))   # tests/synthetic_data.py's five person locations
-MPAUG_PER_LOCATION = 128    # single-person recordings a location file
+MPAUG_PER_LOCATION = 96     # single-person recordings a location file
 STREAM_SHARD = 64           # --stream-bank: sample indices a shard
 STREAM_REPEATS = 2          # --stream-repeats
 REAL_SPLIT_FRAMES = 176828  # the MP-3DHP training split, for the streaming reckoning
@@ -4899,15 +4976,15 @@ def eval_people(rng, H: int, W: int) -> np.ndarray:
     return np.stack(people)
 
 
-def eval_images(rng, root: str):
-    """Phase 13's images, one at each size of EVAL_IMAGES: painted people
+def eval_images(rng, root: str, sizes=EVAL_IMAGES):
+    """Phase 13's images, one at each (H, W) of `sizes`: painted people
     (eval_people) over smooth colour, written as baseline JPEG under root
     and read back by the port's reader; and their person_keypoints JSON.
     Returns (BGR uint8 images, people, the JSON's path)."""
     from popnet_tpu_torch.data.image_io import imread_bgr
 
     images, people, anns, infos = [], [], [], []
-    for i, (H, W) in enumerate(EVAL_IMAGES):
+    for i, (H, W) in enumerate(sizes):
         ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
         ph = rng.uniform(0, 2 * np.pi, 3)
         img = np.stack([96 + 60 * np.sin(xs / 90 + ph[c]) * np.cos(ys / 110 + ph[c] / 2)
@@ -5203,6 +5280,91 @@ def phase_coco_eval(rng, dev) -> dict:
             "generate_augset_fps": gen_rates, "oracle_stats": stats.tolist()}
 
 
+WIDE_IMAGE = (384, 2304)    # (H, W) of phase 13 (e)'s panorama: canvas 368x2208, maps 46x276
+
+
+def phase_wide_canvas(rng, dev) -> dict:
+    """Phase 13 (e): COCO evaluation of a panorama whose evaluation canvas
+    gives maps over 255 cells wide, which only find_peaks_plane takes: one
+    painted WIDE_IMAGE through `rgb_infer` + `paf_decode_2d` on the card
+    (float32, TF32 off), the launch counts reset just before and read just
+    after; the decode on the card against the host's on the same maps; K3,
+    K6 and find_peaks (as it routes) against their plain versions on the
+    CNN's maps and on the GT-map oracle's; the oracle's AP; and
+    find_peaks_plane at these maps, batch 1, against its bound. Returns
+    {"launches", "maps", "ms", "plain_ms", "bound_ms", "bound_by", "ap"}."""
+    import torch
+
+    from popnet_tpu_torch.core.config import DecodeConfig
+    from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS as K
+    from popnet_tpu_torch.data.coco import run_coco_eval
+    from popnet_tpu_torch.data.preprocessing import crop_with_factor, rgb_infer
+    from popnet_tpu_torch.decode.device import peak_planes
+    from popnet_tpu_torch.decode.openpose_infer import paf_decode_2d
+    from popnet_tpu_torch.interop.from_jax import load_into
+    from popnet_tpu_torch.models import RTPoseVGG
+    from popnet_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    M = DecodeConfig().max_peaks
+    model = load_into(RTPoseVGG(), coco_weights()).eval().to(dev)
+
+    def infer(x):
+        with torch.inference_mode():
+            (paf, heat), _ = model(x.permute(0, 3, 1, 2))
+        return paf.permute(0, 2, 3, 1), heat.permute(0, 2, 3, 1)
+
+    def decode(paf, heat, s):
+        return paf_decode_2d(heat, paf, K, limbs=COCO_LIMBS, sx=1.0 / s, sy=1.0 / s)
+
+    with tempfile.TemporaryDirectory() as root, \
+            torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        (img,), (kps,), gt = eval_images(rng, root, (WIDE_IMAGE,))
+        canvas, _, _ = crop_with_factor(img, EVAL_DEST, 8)
+        Hm, Wm = canvas.shape[0] // 8, canvas.shape[1] // 8
+        maps = f"{Hm}x{Wm}"
+        route = kernels.find_peaks_route(K, Hm, Wm, M)
+        require(route == "find_peaks_plane" and Wm > 255,
+                f"the panorama's maps {maps} go to {route}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        paf, heat, s_card = rgb_infer(infer, img, mode="rtpose", dest_size=EVAL_DEST)
+        out = decode(paf[None], heat[None], s_card)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        require(launches["find_peaks_plane"] == 1 and launches["paf_score"] == 1
+                and launches["assemble_ids"] == 1 and sum(launches.values()) == 3,
+                f"the panorama's evaluation launched {launches}")
+        host = decode(paf[None].cpu(), heat[None].cpu(), s_card)
+        for k in ("joints2d", "conf", "visibility", "counts"):
+            _exact(f"panorama decode {k}, card against host", out[k], host[k])
+        check_eval_kernels(f"panorama {maps} CNN maps", heat[None], paf[None])
+        oh, op = oracle_maps(kps, canvas.shape[:2], s_card, dev)
+        n_peaks = check_eval_kernels(f"panorama {maps} oracle maps", oh, op)
+        ocard, ohost = decode(op, oh, s_card), decode(op.cpu(), oh.cpu(), s_card)
+        for k in ("joints2d", "conf", "visibility", "counts"):
+            _exact(f"panorama oracle decode {k}, card against host", ocard[k], ohost[k])
+        ap = float(run_coco_eval(gt, decoded_results(ocard, 0))[0])
+    require(ap >= ORACLE_AP_BAR, f"the panorama oracle's AP {ap:.4f} < {ORACLE_AP_BAR}")
+    h = peak_planes(heat[None], K)
+    px, py, _, _, v = kernels.find_peaks(h)
+    ms = graph_ms(lambda: kernels.find_peaks(h))
+    plain_ms = graph_ms(lambda: kernels.find_peaks_plain(h), reps=5)
+    nbytes, ops, bound_ms, _ = _bounds("find_peaks_plane", {
+        "heat": h, "px": px, "py": py, "valid": v, "thresh": DecodeConfig().thresh_heatmap})
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+    say("coco_eval", f"(e) a {img.shape[1]}x{img.shape[0]} panorama (canvas {canvas.shape[1]}x"
+        f"{canvas.shape[0]}, maps {maps} HxW, {len(kps)} people): rgb_infer + paf_decode_2d on "
+        f"the card launched {launches} (peaks by {route}), its decode equals the host's bit for "
+        f"bit ({int(out['counts'][0])} people on the seeded CNN's maps); find_peaks, K3 and K6 "
+        f"exact against their plain versions on the CNN's and the oracle's maps ({n_peaks} valid "
+        f"peaks); the oracle's AP {ap:.4f}; find_peaks_plane at batch 1: {ms:.4f} ms (CUDA "
+        f"graph), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes / 1e3:.1f} kB, {ops / 1e6:.3f} MFLOP); in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "maps": maps, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ap": ap}
+
+
 def coco_eval_entry(name: str, res: dict) -> dict:
     """A kernel's "coco_eval" entry of the kernels line: its launches over
     phase 13's evaluation path; K1 and K2 the canvases each took (K2 its
@@ -5215,6 +5377,124 @@ def coco_eval_entry(name: str, res: dict) -> dict:
     if name == "paf_score":
         entry["groups"] = {g: c["paf_score_groups"] for g, c in res["per_canvas"].items()}
     return entry
+
+
+# -- phase 14: the four-method table and the readout ablation ------------------------------------
+
+# the table at a smoke budget: 32 training scenes, 8 validation scenes frozen, 2 steps a
+# row at batch 32 in two chunks, the second after a resume (TABLE_CHUNKS=1 per call)
+TABLE_SMOKE = {"TABLE_TRAIN": "32", "TABLE_VAL": "8", "TABLE_EPOCHS": "2",
+               "TABLE_A2J_EPOCHS": "2", "TABLE_CHUNK": "1", "TABLE_CHUNKS": "1",
+               "TABLE_BATCH": "32", "TABLE_WARMUP": "1"}
+# sha256 of the smoke table's validation tree (data.synthetic.build, 8 scenes, 5
+# locations, seed 777) and of its frozen set (generate-augset --seed 777), names and
+# bytes (tree_sha256); tests/test_torch_method_table.py pins it on the CPU
+TABLE_SMOKE_SHA256 = "368ca9e8f7945021465046fd2ca2380850ba47ea552c939505eb471199e039e8"
+
+
+def tree_sha256(*roots: str) -> str:
+    """sha256 over the files under each root, in sorted order: each file's
+    path below its root's parent, then its bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for root in roots:
+        base = os.path.dirname(os.path.abspath(root))
+        for dirpath, dirs, files in os.walk(root):
+            dirs.sort()
+            for f in sorted(files):
+                path = os.path.join(dirpath, f)
+                h.update(os.path.relpath(path, base).encode() + b"\0")
+                with open(path, "rb") as fh:
+                    h.update(fh.read())
+    return h.hexdigest()
+
+
+def phase_tables(dev) -> dict:
+    """Phase 14, the paper's instruments at a smoke budget (TABLE_SMOKE):
+    `python -m popnet_tpu_torch.cli.method_table`'s main twice in this
+    process, the second call resuming each row from its checkpoint, all
+    four rows trained and scored on the card; the launch counts reset just
+    before the first call and read just after the second; then the
+    ablation (`cli/ablation_table.py ablation`) of the committed Open-Pose+
+    weights on the table's frozen set on the card, counted the same way,
+    against the same on the CPU. Checks: the validation and frozen trees'
+    sha256 (TABLE_SMOKE_SHA256), every row done at 2 steps with its curve
+    and metrics in [0, 1], the device named with its power limit, the
+    table's kernels launched, the ablation card = CPU. Returns {"table",
+    "ablation"}: each kernel's launches."""
+    import torch
+
+    from popnet_tpu_torch.cli import method_table
+    from popnet_tpu_torch.cli.ablation_table import ablation
+    from popnet_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_table_")
+    saved = {k: os.environ.get(k) for k in (*TABLE_SMOKE, "TABLE_DIR", "TABLE_OUT")}
+    try:
+        os.environ.update(TABLE_SMOKE, TABLE_DIR=work,
+                          TABLE_OUT=os.path.join(work, "method_table.json"))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = method_table.main()
+        walls = [time.perf_counter() - t0]
+        calls = [{k: len(r["curve"]) for k, r in first["methods"].items()}]
+        out = method_table.main()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0 - walls[0])
+        table_launches = kernels.launch_counts()
+        calls.append({k: len(r["curve"]) for k, r in out["methods"].items()})
+        digest = tree_sha256(os.path.join(work, "val"), os.path.join(work, "val_frozen"))
+        require(digest == TABLE_SMOKE_SHA256,
+                f"the smoke table's validation and frozen trees hash to {digest}, not "
+                f"{TABLE_SMOKE_SHA256}")
+        require(calls[0] == {m: 1 for m in method_table.METHODS}
+                and calls[1] == {m: 2 for m in method_table.METHODS},
+                f"curve points after each call: {calls}")
+        for name, rec in out["methods"].items():
+            require(rec.get("done") and rec["steps"] == 2 and "latest" not in rec,
+                    f"table row {name}: {rec}")
+            require(all(0.0 <= v <= 1.0 for p in rec["curve"] for v in p["metrics"].values()),
+                    f"table row {name}: a metric outside [0, 1]")
+        dev_desc = out["device"]
+        require(dev_desc["platform"] == "gpu" and "W" in dev_desc.get("nvidia_smi", ""),
+                f"the table's device {dev_desc}")
+        for k in ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout",
+                  "peak_local_max"):
+            require(table_launches[k] >= 1, f"the table's scoring launched {k} no time")
+        frozen = os.path.join(work, "val_frozen")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        card = ablation(WEIGHTS, method_table.frozen_dataset(frozen, dev))
+        torch.cuda.synchronize()
+        abl_launches = kernels.launch_counts()
+        walls.append(time.perf_counter() - t0)
+        cpu = ablation(WEIGHTS, method_table.frozen_dataset(frozen, torch.device("cpu")))
+        walls.append(time.perf_counter() - t0 - walls[2])
+        require(card == cpu, f"the ablation on the card {card} differs from the CPU's {cpu}")
+        require(abl_launches["find_peaks"] >= 1 and abl_launches["paf_score"] >= 1,
+                f"the ablation launched {abl_launches}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    finals = {k: r["final"] for k, r in out["methods"].items()}
+    say("tables", f"wall: the first call {walls[0]:.1f} s (the sets built in it), the resume "
+        f"{walls[1]:.1f} s, the ablation on the card {walls[2]:.1f} s and on the CPU "
+        f"{walls[3]:.1f} s")
+    say("tables", f"method_table at {TABLE_SMOKE} in two calls (a resume): rows done at 2 steps, "
+        f"curves {calls}, metrics in [0, 1]: {finals}; the validation and frozen trees' sha256 "
+        f"{digest} as pinned; device {dev_desc}; launches over both calls {table_launches}")
+    say("tables", f"ablation of {os.path.relpath(WEIGHTS, ROOT)} on the frozen set: card = CPU "
+        f"{card}; launches {abl_launches}")
+    say("tables", f"phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return {"table": table_launches, "ablation": abl_launches}
 
 
 def main(argv=None) -> int:
@@ -5239,6 +5519,11 @@ def main(argv=None) -> int:
     rng3 = np.random.default_rng([args.seed, 3])    # the sparse and shared-coordinate cases
     rng4 = np.random.default_rng([args.seed, 4])    # the readout's and the assembly's new cases
     errs = phase_kernels(rng, rng_new, rng3, rng4, dev, BATCH)
+    n_plane, errs["find_peaks_plane"] = plane_cases(np.random.default_rng([args.seed, 16]), dev)
+    say("kernels", f"find_peaks_plane: px/py/loc/score/valid exact against the plain version in "
+        f"{n_plane} cases at {PLANE_SHAPES} (B, K, H, W), where find_peaks routes to it (one "
+        f"launch, none on K1 or K2): NCHW, NHWC and sliced planes, dense heat (a lattice of "
+        f"peaks, an exact tie, 32 kept) and sparse heat")
     rng_coco = np.random.default_rng([args.seed, 6])  # the COCO painted maps and frames
     errs_coco, painted = phase_coco_kernels(rng_coco, dev, COCO_BATCH)
     weights, weights_pn = load_npz(WEIGHTS), load_npz(WEIGHTS_POPNET)
@@ -5307,6 +5592,16 @@ def main(argv=None) -> int:
         coco_eval = phase_coco_eval(rng_eval13, dev)
         for r in rows:                  # the COCO evaluation canvases of phase 13 (a)
             r["coco_eval"] = coco_eval_entry(r["name"], coco_eval)
+        wide = phase_wide_canvas(np.random.default_rng([args.seed, 13, 5]), dev)
+        for r in rows:                  # the panorama of phase 13 (e): find_peaks_plane's path
+            r["wide_canvas_launches"] = wide["launches"][r["name"]]
+            if r["name"] == "find_peaks_plane":
+                r["depth_planes"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                r.update({k: wide[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                         launches=wide["launches"]["find_peaks_plane"], maps=wide["maps"])
+        tables = phase_tables(dev)
+        for r in rows:                  # the four-method table and the ablation of phase 14
+            r["table_launches"] = {k: v[r["name"]] for k, v in tables.items()}
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")

@@ -29,113 +29,16 @@ examples/results/itop_syngen_torch.json) ITOP_CPU=1 (run on the CPU).
 
 from __future__ import annotations
 
-import json
 import os
-import subprocess
 import tempfile
-import time
 
-import numpy as np
 import torch
 
-from popnet_tpu_torch.core.camera import ITOP_INTRINSICS, CameraIntrinsics
+from popnet_tpu_torch.cli.tables import Table
+from popnet_tpu_torch.data.synthetic import build_itop
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DEFAULT_OUT = os.path.join(REPO, "examples", "results", "itop_syngen_torch.json")
-K = 15
-
-
-def person_scene(rng: np.random.Generator, center, z_base: float, H: int, W: int,
-                 intr: CameraIntrinsics, scale: float = 1.0, block: int = 18):
-    """One person of the kinematic template: (depth (H, W) float32, seg
-    mask (H, W) float32, annotation). The joints follow an articulated
-    skeleton (head above neck, shoulders either side, limbs hanging with
-    random articulation) in the benchmark's keypoint order; each joint is a
-    block of side 2 * block * scale at its depth. The draws, their order and
-    the arithmetic are those of the test suite's synthetic builder, so a
-    seed gives the same frames."""
-    s = rng.uniform(0.85, 1.25) * scale
-    lean = rng.normal(0.0, 0.12)
-
-    def rot(vx, vy, a):
-        return np.array([vx * np.cos(a) - vy * np.sin(a), vx * np.sin(a) + vy * np.cos(a)])
-
-    torso = np.asarray(center, np.float64) + rng.normal(0, 8, 2)
-    neck = torso + rot(0, -62 * s, lean)
-    head = neck + rot(0, -34 * s, lean + rng.normal(0, 0.1))
-    pts = np.zeros((K, 2))
-    pts[8], pts[1], pts[0] = torso, neck, head
-    for side, sh_i, el_i, wr_i, hip_i, kn_i, an_i in ((+1, 2, 4, 6, 9, 11, 13),
-                                                       (-1, 3, 5, 7, 10, 12, 14)):
-        sh = neck + rot(side * 30 * s, 6 * s, lean)
-        el = sh + rot(0, 42 * s, lean + rng.normal(0, 0.5))
-        wr = el + rot(0, 40 * s, lean + rng.normal(0, 0.7))
-        hip = torso + rot(side * 20 * s, 46 * s, lean)
-        kn = hip + rot(0, 50 * s, lean + rng.normal(0, 0.25))
-        an = kn + rot(0, 48 * s, lean + rng.normal(0, 0.25))
-        for i, p in ((sh_i, sh), (el_i, el), (wr_i, wr), (hip_i, hip), (kn_i, kn), (an_i, an)):
-            pts[i] = p
-    pts += rng.normal(0, 2.0 * scale, size=(K, 2))
-    pts = np.clip(pts, 10 * scale, [W - 10 * scale, H - 10 * scale])
-    z = z_base + rng.normal(0, 0.05, K)
-    depth = np.zeros((H, W), np.float32)
-    seg = np.zeros((H, W), np.float32)
-    ys, xs = np.mgrid[0:H, 0:W]
-    blk = max(4, int(round(block * scale)))
-    for k in range(K):
-        m = (np.abs(xs - pts[k, 0]) < blk) & (np.abs(ys - pts[k, 1]) < blk)
-        depth[m] = z[k]
-        seg[m] = 1.0
-    j3 = np.stack([(pts[:, 0] - intr.cx) / intr.fx * z, (pts[:, 1] - intr.cy) / intr.fy * z, z], 1)
-    margin = 20 * scale
-    ann = {
-        "2d_joints": pts.tolist(),
-        "3d_joints": j3.tolist(),
-        "bbox": [float(pts[:, 0].min() - margin), float(pts[:, 1].min() - margin),
-                 float(pts[:, 0].max() + margin), float(pts[:, 1].max() + margin)],
-        "pose_weight": float(rng.uniform(0.8, 1.5)),
-    }
-    return depth, seg, ann
-
-
-def build_itop(root: str, n_images: int = 6, seed: int = 0) -> dict:
-    """A synthetic ITOP-geometry set under `root`: depth_maps/itop_NNNN.npy,
-    320x240 single-person frames at the ITOP camera over a flat 4.5 m
-    background, and labels.json (with its "intrinsics"). Returns
-    {"img_dir", "labels"}."""
-    rng = np.random.default_rng(seed)
-    h, w = 240, 320
-    img_dir = os.path.join(root, "depth_maps")
-    os.makedirs(img_dir, exist_ok=True)
-    cam = ITOP_INTRINSICS
-    labels = {"intrinsics": {"fx": cam.fx, "fy": cam.fy, "cx": cam.cx, "cy": cam.cy}}
-    for i in range(n_images):
-        center = np.array([w / 2, h / 2]) + rng.uniform(-25, 25, 2)
-        depth, _, ann = person_scene(rng, center, rng.uniform(1.8, 3.6), H=h, W=w, intr=cam,
-                                     scale=0.42, block=16)
-        depth[depth == 0] = 4.5
-        name = f"itop_{i:04d}.npy"
-        np.save(os.path.join(img_dir, name), depth)
-        labels[name] = [ann]
-    path = os.path.join(root, "labels.json")
-    with open(path, "w") as f:
-        json.dump(labels, f)
-    return {"img_dir": img_dir, "labels": path}
-
-
-def device_description(device: torch.device) -> dict:
-    """The device a run used: with a card, its name and power limit as
-    nvidia-smi gives them."""
-    if device.type != "cuda":
-        return {"platform": "cpu"}
-    desc = {"platform": "gpu", "name": torch.cuda.get_device_name(device)}
-    try:
-        desc["nvidia_smi"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30).stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        desc["nvidia_smi"] = "not available"
-    return desc
 
 
 def _strip(m: dict) -> dict:
@@ -180,53 +83,11 @@ def main() -> dict:
         build_itop(val_root, n_images=n_val, seed=777)
 
     ecfg = EncoderConfig()
-    out = {"budget": {"train_images": n_train, "val_images": n_val, "epochs": epochs,
-                      "a2j_epochs": a2j_epochs, "batch": batch, "train_seed": 0,
-                      "val_seed": 777,
-                      "protocol": "single-person acc@10cm (eval_pose_single.py / itop_test.py)"},
-           "methods": {}}
-    if os.path.exists(out_path):
-        try:
-            with open(out_path) as f:
-                prev = json.load(f)
-            if prev.get("budget") == out["budget"]:
-                out = prev
-        except (OSError, ValueError):
-            pass
-    out["device"] = device_description(device)
-
-    def save():
-        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-        with open(out_path, "w") as f:
-            json.dump(out, f, indent=2)
-
-    def train_chunked(name, trainer, train_ds, total, score_fn, spe):
-        rec = out["methods"].setdefault(name, {"curve": []})
-        if rec.get("done"):
-            print(f"[itop] {name}: already done", flush=True)
-            return
-        t0 = time.time()
-        tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            while trainer.epoch < total:
-                n = min(chunk, total - trainer.epoch)
-                trainer.fit(train_ds, None, epochs=n, batch_size=batch, checkpoint_every=n,
-                            val_every=max(1, n // 2))
-                with torch.inference_mode():
-                    m = score_fn(trainer)
-                point = {"epoch": trainer.epoch, "step": trainer.epoch * spe,
-                         "train_loss": trainer.history[-1]["train_loss"],
-                         "wall_s": round(time.time() - t0, 1), "metrics": m}
-                rec["curve"].append(point)
-                rec["final"] = m
-                rec["steps"] = point["step"]
-                save()
-                print(f"[itop] {name} epoch {trainer.epoch}: {m}", flush=True)
-        finally:
-            torch.backends.cudnn.allow_tf32 = tf32
-        rec["done"] = True
-        save()
+    table = Table(out_path, {
+        "train_images": n_train, "val_images": n_val, "epochs": epochs, "a2j_epochs": a2j_epochs,
+        "batch": batch, "train_seed": 0, "val_seed": 777,
+        "protocol": "single-person acc@10cm (eval_pose_single.py / itop_test.py)"},
+        device, "itop")
 
     def dataset(cls, root, **kw):
         return cls(os.path.join(root, "depth_maps"), os.path.join(root, "labels.json"),
@@ -243,7 +104,7 @@ def main() -> dict:
                         cache_images=True)
         rel_mean, rel_std = itop_relative_stats(inner)
         print(f"[itop] a2j relative stats: mean {rel_mean:.6f} std {rel_std:.6f}", flush=True)
-        rec = out["methods"].setdefault("a2j", {"curve": []})
+        rec = table.methods.setdefault("a2j", {"curve": []})
         rec["rel_stats"] = [round(rel_mean, 6), round(rel_std, 6)]
 
         def a2j_score(trainer):
@@ -261,7 +122,8 @@ def main() -> dict:
                           out_dir=run_dir, seed=0, device=device)
         if os.path.exists(os.path.join(run_dir, "ckpt")):
             trainer.resume()
-        train_chunked("a2j", trainer, train_ds, a2j_epochs, a2j_score, n_train // batch)
+        table.train_chunked("a2j", trainer, train_ds, None, a2j_epochs, chunk, batch, a2j_score,
+                            n_train // batch, latest=False)
 
     if "openpose" in methods:
         val_mp = dataset(MPRealDataset, val_root, ecfg=ecfg)
@@ -284,10 +146,11 @@ def main() -> dict:
                           out_dir=run_dir, seed=0, device=device)
         if os.path.exists(os.path.join(run_dir, "ckpt")):
             trainer.resume()
-        train_chunked("openpose", trainer, train_ds, epochs, op_score, n_train // batch)
+        table.train_chunked("openpose", trainer, train_ds, None, epochs, chunk, batch, op_score,
+                            n_train // batch, latest=False)
 
     print(f"[itop] wrote {out_path}", flush=True)
-    return out
+    return table.out
 
 
 if __name__ == "__main__":

@@ -1,12 +1,13 @@
 // Peak front end of the Open-Pose+ decode: cross NMS + threshold, top-M, and
-// windowed 5x5 bicubic subpixel refine. Two kernels with one contract and one
-// refine (refine_window), so they agree bit for bit:
+// windowed 5x5 bicubic subpixel refine. Three kernels with one contract and
+// one refine (refine_window), so they agree bit for bit:
 //
 // find_peaks_kernel replaces popnet_tpu/ops/pallas_kernels.py
 // find_peaks_pallas_bt (kernel _find_peaks_bt_kernel), the default peak refine
 // of the TPU decode; find_peaks_row_kernel (below) replaces its per-frame twin
-// find_peaks_pallas (kernel _find_peaks_kernel). The notes here are the first
-// kernel's; the second has its own.
+// find_peaks_pallas (kernel _find_peaks_kernel); find_peaks_plane_kernel
+// (the last) takes the maps the first two cannot hold. The notes here are
+// the first kernel's; the others have their own.
 //
 // Bound on the H100: bytes, counted as the inputs need them. The kernel
 // reads each (H, W) heat plane once (B*K*H*W*4 bytes, 12 MB at B=256, K=15,
@@ -753,6 +754,161 @@ int launch_row(const void* heat, long long sb, long long sk, long long sy,
   return (int)cudaGetLastError();
 }
 
+// find_peaks_plane_kernel: the same function for the maps the other two
+// cannot take: a side over 255 cells (their survivor keys hold a cell in 16
+// bits, cell_key) or a plane larger than a CTA of find_peaks_row_kernel
+// holds (row_config).
+//
+// Replaces, for those maps: popnet_tpu/ops/pallas_kernels.py
+// find_peaks_pallas and find_peaks_pallas_bt, which take maps of any size.
+//
+// Bound on the H100: bytes, as for find_peaks_kernel; this kernel also
+// writes and reads back its survivors (4 bytes each), a few per plane on
+// heat maps.
+//
+// Design, simple rather than fast: one CTA of 8 warps per (frame, plane),
+// reading the plane from global memory at its strides.
+// - NMS: a thread per cell, the same four-neighbour test and threshold;
+//   each warp appends its survivors' 32-bit flat indices to the plane's
+//   region of a global scratch buffer with one atomic.
+// - Top-M: M rounds of block reductions over the survivors on (value
+//   descending, flat index ascending) as one 64-bit key, the pick of the
+//   TPU kernel; the pick's entry is struck from the list.
+// - Refine: a warp per pick (and one at the corner (0, 0) for all the
+//   empty slots, as find_peaks_kernel): it copies the pick's 5x5 patch of
+//   edge-clamped taps into shared memory and runs refine_window on it, the
+//   device function of the other two kernels (its coordinates are ints).
+constexpr int kPlaneThreads = 256;
+constexpr int kPlaneWarps = kPlaneThreads / 32;
+
+// (value descending, flat index ascending) as one key: a larger key is a
+// better pick; 0 is no survivor (order_key of any float but NaN is above 0).
+__device__ __forceinline__ unsigned long long pick_key(float v, int i) {
+  return (unsigned long long)order_key(v) << 32 | (0xFFFFFFFFu - (unsigned)i);
+}
+
+__device__ __forceinline__ unsigned long long max_key(unsigned long long a, unsigned long long b) {
+  return a > b ? a : b;
+}
+
+// The largest key over the block; every thread ends with it. `red` holds
+// kPlaneWarps + 1 keys of shared memory.
+__device__ __forceinline__ unsigned long long block_max_key(unsigned long long k,
+                                                           unsigned long long* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) k = max_key(k, __shfl_xor_sync(kFull, k, off));
+  if (lane == 0) red[warp] = k;
+  __syncthreads();
+  if (warp == 0) {
+    k = lane < kPlaneWarps ? red[lane] : 0ull;
+    for (int off = 16; off > 0; off >>= 1) k = max_key(k, __shfl_xor_sync(kFull, k, off));
+    if (lane == 0) red[kPlaneWarps] = k;
+  }
+  __syncthreads();
+  k = red[kPlaneWarps];
+  __syncthreads();                                  // red is free for the next reduction
+  return k;
+}
+
+__global__ void __launch_bounds__(kPlaneThreads)
+find_peaks_plane_kernel(const float* __restrict__ heat, long long sb, long long sk, long long sy,
+                        long long sx, int K, int H, int W, int M, float thresh,
+                        const float* __restrict__ U, int* __restrict__ survivors,
+                        int* __restrict__ px_out, int* __restrict__ py_out,
+                        int* __restrict__ loc_out, float* __restrict__ score_out,
+                        bool* __restrict__ valid_out) {
+  __shared__ __align__(16) float Us[kS * kRow];
+  __shared__ __align__(16) float upA[kPlaneWarps][kS * kRow];
+  __shared__ float patch[kPlaneWarps][kPatchFloats];
+  __shared__ unsigned long long red[kPlaneWarps + 1];
+  __shared__ int picks[kMaxPeaks];
+  __shared__ int n_surv;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long plane = blockIdx.x;
+  const float* h = heat + (plane / K) * sb + (plane % K) * sk;
+  const int HW = H * W;
+  int* list = survivors + plane * HW;
+  load_u(U, Us);
+  if (tid == 0) n_surv = 0;
+  __syncthreads();
+
+  // NMS: v >= each of its four neighbours (kSent off the plane) and v > thresh
+  for (int base = 0; base < HW; base += kPlaneThreads) {
+    const int i = base + tid;
+    bool keep = false;
+    if (i < HW) {
+      const int y = i / W, x = i - y * W;
+      const float* p = h + y * sy + x * sx;
+      const float v = *p;
+      const float up = y > 0 ? p[-sy] : kSent, down = y < H - 1 ? p[sy] : kSent;
+      const float left = x > 0 ? p[-sx] : kSent, right = x < W - 1 ? p[sx] : kSent;
+      keep = v >= fmaxf(fmaxf(up, down), fmaxf(left, right)) && v > thresh;
+    }
+    const unsigned ballot = __ballot_sync(kFull, keep);
+    int first = 0;
+    if (lane == 0 && ballot) first = atomicAdd(&n_surv, __popc(ballot));
+    first = __shfl_sync(kFull, first, 0);
+    if (keep) list[first + __popc(ballot & ((1u << lane) - 1))] = i;
+  }
+  __syncthreads();
+  const int n = n_surv;
+
+  // top-M: the best survivor left, M times; its entry struck (-1)
+  int m = 0;
+  for (; m < M; ++m) {
+    unsigned long long mine = 0;
+    int q_mine = -1;
+    for (int q = tid; q < n; q += kPlaneThreads) {
+      const int i = list[q];
+      if (i < 0) continue;
+      const int y = i / W;
+      const unsigned long long key = pick_key(h[y * sy + (i - y * W) * sx], i);
+      if (key > mine) { mine = key; q_mine = q; }
+    }
+    const unsigned long long best = block_max_key(mine, red);
+    if (best == 0) break;                           // the same in every thread
+    if (mine == best) {                              // keys are unique: one thread
+      list[q_mine] = -1;
+      picks[m] = (int)(0xFFFFFFFFu - (unsigned)(best & 0xFFFFFFFFu));
+    }
+    __syncthreads();
+  }
+  const long long o = plane * M;
+  if (tid < M) {
+    const int i = tid < m ? picks[tid] : 0, y = i / W;
+    px_out[o + tid] = i - y * W;
+    py_out[o + tid] = y;
+    valid_out[o + tid] = tid < m;
+  }
+
+  // refines: a warp per pick, and one at the corner for every empty slot
+  float u[kSize][kSize];
+  lane_columns(Us, lane, u);
+  const int items = m < M ? m + 1 : m;
+  for (int j = warp; j < items; j += kPlaneWarps) {
+    const int i = j < m ? picks[j] : 0, cy = i / W, cx = i - cy * W;
+    if (lane < kSize * kSize) {
+      const int r = lane / kSize, c = lane - r * kSize;
+      patch[warp][lane] = h[min(max(cy + r - kWin, 0), H - 1) * sy +
+                            min(max(cx + c - kWin, 0), W - 1) * sx];
+    }
+    __syncwarp();
+    float bv;
+    int bi;
+    refine_window<true>(patch[warp], H, W, cx, cy, Us, u, upA[warp], lane, bv, bi);
+    for (int s = j + lane; s < (j < m ? j + 1 : M); s += 32) {
+      loc_out[o + s] = bi;
+      score_out[o + s] = bv;
+    }
+  }
+}
+
+bool plane_bad_args(int B, int K, int H, int W, int M, int win, int factor) {
+  return win != kWin || factor != kFactor || M < 1 || M > kMaxPeaks || H < 1 || W < 1 ||
+         B < 1 || K < 1 || (long long)H * W > INT_MAX || (long long)B * K > INT_MAX;
+}
+
 }  // namespace
 
 extern "C" int popnet_find_peaks(const void* heat, long long sb, long long sk,
@@ -834,4 +990,29 @@ extern "C" int popnet_find_peaks_row(const void* heat, long long sb, long long s
                                      void* score, void* valid, void* stream) {
   return launch_row(heat, sb, sk, sy, sx, readable, B, K, H, W, M, thresh, win, factor, U, px,
                     py, loc, score, valid, stream);
+}
+
+// Dynamic shared memory of a find_peaks_row_kernel CTA at these sizes, in
+// bytes, or -1 where that kernel cannot take them (a side over 255 cells,
+// or not one plane and one warp in a CTA); ops/kernels.py find_peaks then
+// takes find_peaks_plane_kernel.
+extern "C" long long popnet_find_peaks_row_smem(int K, int H, int W, int M) {
+  int R, warps;
+  size_t smem;
+  if (bad_args(1, K, H, W, M, kWin, kFactor) || !row_config(K, H, W, M, R, warps, smem))
+    return -1;
+  return (long long)smem;
+}
+
+// survivors: B * K * H * W ints of scratch on the card.
+extern "C" int popnet_find_peaks_plane(const void* heat, long long sb, long long sk,
+                                       long long sy, long long sx, int B, int K, int H, int W,
+                                       int M, float thresh, int win, int factor, const void* U,
+                                       void* survivors, void* px, void* py, void* loc,
+                                       void* score, void* valid, void* stream) {
+  if (plane_bad_args(B, K, H, W, M, win, factor)) return (int)cudaErrorInvalidValue;
+  find_peaks_plane_kernel<<<(unsigned)B * K, kPlaneThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)heat, sb, sk, sy, sx, K, H, W, M, thresh, (const float*)U, (int*)survivors,
+      (int*)px, (int*)py, (int*)loc, (float*)score, (bool*)valid);
+  return (int)cudaGetLastError();
 }

@@ -5,6 +5,7 @@ wrapper per CUDA kernel, with its plain PyTorch version beside it.
 | ---------------- | ---------------------- | ---------------------------------------- |
 | `find_peaks`     | csrc/find_peaks.cu     | pallas_kernels.py find_peaks_pallas_bt   |
 | `find_peaks_row` | csrc/find_peaks.cu     | pallas_kernels.py find_peaks_pallas      |
+| `find_peaks_plane` | csrc/find_peaks.cu   | both find_peaks kernels above, at any map size |
 | `paf_score`      | csrc/paf_score.cu      | pallas_kernels.py paf_sample_pallas      |
 | `window_readout` | csrc/readout.cu        | pallas_kernels.py window_readout_pallas  |
 | `point_readout`  | csrc/readout.cu        | pallas_kernels.py point_readout_pallas   |
@@ -12,10 +13,11 @@ wrapper per CUDA kernel, with its plain PyTorch version beside it.
 | `assemble_ids`   | csrc/assemble.cu       | assemble_pallas.py assemble_ids_pallas   |
 | `peak_local_max` | csrc/peak_mask.cu      | pallas_kernels.py peak_local_max_pallas  |
 
-`find_peaks` and `find_peaks_row` are two designs of one function and share
-one plain version, `find_peaks_plain`; `find_peaks` launches the second
-where a frame's planes do not fit one block of the first
-(`find_peaks_route`). `readouts` is the Open-Pose+
+`find_peaks`, `find_peaks_row` and `find_peaks_plane` are three designs of
+one function and share one plain version, `find_peaks_plain`; `find_peaks`
+launches the second where a frame's planes do not fit one block of the
+first, and the third where the second cannot hold them either or a side
+exceeds 255 cells (`find_peaks_route`). `readouts` is the Open-Pose+
 decode's launch of K4 and K5 together, from the normalized maps: it counts
 as one launch of each of the two.
 
@@ -51,9 +53,11 @@ _F = ctypes.c_float
 _FIND_PEAKS_ARGS = [_P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P]
 _FIND_PEAKS_ROW_ARGS = _FIND_PEAKS_ARGS[:5] + [_LL] + _FIND_PEAKS_ARGS[5:]  # + readable bytes
+_FIND_PEAKS_PLANE_ARGS = _FIND_PEAKS_ARGS[:14] + [_P] + _FIND_PEAKS_ARGS[14:]  # + survivors
 _SIGNATURES = {
     "popnet_find_peaks": ("find_peaks", _FIND_PEAKS_ARGS),
     "popnet_find_peaks_row": ("find_peaks", _FIND_PEAKS_ROW_ARGS),
+    "popnet_find_peaks_plane": ("find_peaks", _FIND_PEAKS_PLANE_ARGS),
     "popnet_paf_score": ("paf_score", [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _F, _F, _F, _P, _P, _P]),
     "popnet_window_readout": ("readout", [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL,
@@ -287,13 +291,8 @@ def _find_peaks_args(heat, max_peaks, win_size, factor) -> None:
     if (win_size, factor) != (2, 8):
         raise ValueError(f"the find_peaks kernels refine 5x5 windows upsampled 8x (win_size=2, "
                          f"factor=8), got win_size={win_size}, factor={factor}")
-    H, W = heat.shape[2:]
     if max_peaks > 32:
         raise ValueError(f"the find_peaks kernels keep at most 32 peaks, got {max_peaks}")
-    if H > 255 or W > 255:
-        raise ValueError(f"the find_peaks kernels take maps of at most 255x255 cells (a canvas "
-                         f"of at most {255 * factor} px a side at stride {factor}), got "
-                         f"{H}x{W} maps of a {H * factor}x{W * factor} canvas")
 
 
 @functools.cache
@@ -305,11 +304,27 @@ def find_peaks_smem(K: int, H: int, W: int, M: int) -> int:
     return int(fn(K, H, W, M))
 
 
+@functools.cache
+def find_peaks_row_smem(K: int, H: int, W: int, M: int) -> int:
+    """Bytes of shared memory a CTA of the `find_peaks_row` kernel takes at
+    these sizes (csrc/find_peaks.cu row_config), or -1 where that kernel
+    cannot take them: a side over 255 cells (its survivor keys hold a cell
+    in 16 bits), or not one plane in a CTA."""
+    fn = _build.library("find_peaks").popnet_find_peaks_row_smem
+    fn.argtypes, fn.restype = [_I] * 4, ctypes.c_longlong
+    return int(fn(K, H, W, M))
+
+
 def find_peaks_route(K: int, H: int, W: int, M: int) -> str:
     """The kernel `find_peaks` launches at these sizes: "find_peaks" (K1)
-    where a frame's K planes fit one block's SMEM_PER_BLOCK, else
-    "find_peaks_row" (K2, which takes them in rounds)."""
-    return "find_peaks" if find_peaks_smem(K, H, W, M) <= SMEM_PER_BLOCK else "find_peaks_row"
+    where the sides are at most 255 cells and a frame's K planes fit one
+    block's SMEM_PER_BLOCK; else "find_peaks_row" (K2, which takes them in
+    rounds) where it can hold one plane; else "find_peaks_plane", which
+    reads each plane from global memory and takes any size. A query of the
+    sizes: no launch is tried."""
+    if H <= 255 and W <= 255 and find_peaks_smem(K, H, W, M) <= SMEM_PER_BLOCK:
+        return "find_peaks"
+    return "find_peaks_row" if find_peaks_row_smem(K, H, W, M) >= 0 else "find_peaks_plane"
 
 
 def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
@@ -324,9 +339,13 @@ def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
     # the row kernel may read whole pixel runs up to the end of the storage
     storage = heat.untyped_storage()
     readable = ([storage.data_ptr() + storage.nbytes() - heat.data_ptr()]
-                if symbol != "popnet_find_peaks" else [])
+                if symbol == "popnet_find_peaks_row" else [])
+    # the plane kernel's survivors: a flat index each, at most every cell of every plane
+    survivors = (torch.empty(B * K * H * W, dtype=torch.int32, device=dev)
+                 if symbol == "popnet_find_peaks_plane" else None)
     _launch(symbol, dev, heat.data_ptr(), *heat.stride(), *readable, B, K, H, W,
-            max_peaks, thresh, win_size, factor, U.data_ptr(), px.data_ptr(),
+            max_peaks, thresh, win_size, factor, U.data_ptr(),
+            *([survivors.data_ptr()] if survivors is not None else []), px.data_ptr(),
             py.data_ptr(), loc.data_ptr(), score.data_ptr(), valid.data_ptr())
     return px, py, loc, score, valid
 
@@ -335,22 +354,27 @@ def find_peaks(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
                factor: int = 8, win_size: int = 2):
     """Peak NMS + top-M + windowed bicubic refine over (B, K, H, W) float32
     heat planes (any strides). Same contract as `find_peaks_plain`; on the
-    card win_size=2, factor=8, at most 32 peaks and maps of at most 255x255
-    cells, as the decode uses.
+    card win_size=2, factor=8 and at most 32 peaks, as the decode uses; maps
+    of any size.
 
     On the card one block per frame holds all K planes (this kernel, K1)
     where they fit a block's shared memory (`find_peaks_smem` at most
-    SMEM_PER_BLOCK); where they do not (18 planes from 46x47 cells on, the
-    COCO evaluation canvas of every image that is not square), the call
-    is `find_peaks_row` (K2), which takes a frame's planes in rounds and
-    counts the launch as its own (`find_peaks_route`). The two agree bit
-    for bit."""
+    SMEM_PER_BLOCK) and no side exceeds 255 cells; where they do not fit
+    (18 planes from 46x47 cells on, the COCO evaluation canvas of every
+    image that is not square), the call is `find_peaks_row` (K2), which
+    takes a frame's planes in rounds; where K2 cannot take them either (a
+    side over 255 cells, a plane larger than its CTA), `find_peaks_plane`.
+    Each counts its launch as its own (`find_peaks_route`). The three agree
+    bit for bit."""
     if not _on_cuda(heat):
         return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
     _find_peaks_args(heat, max_peaks, win_size, factor)
     B, K, H, W = heat.shape
-    if find_peaks_route(K, H, W, max_peaks) == "find_peaks_row":
-        return find_peaks_row(heat, max_peaks, thresh, factor, win_size)
+    route = find_peaks_route(K, H, W, max_peaks)
+    if route != "find_peaks":
+        return {"find_peaks_row": find_peaks_row,
+                "find_peaks_plane": find_peaks_plane}[route](heat, max_peaks, thresh, factor,
+                                                             win_size)
     out = _find_peaks_launch("popnet_find_peaks", heat, max_peaks, thresh, factor, win_size)
     find_peaks.launches += 1
     return out
@@ -364,13 +388,38 @@ def find_peaks_row(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
     """`find_peaks` by its second kernel (a cluster of 2 CTAs per frame,
     each owning every other plane, loaded through distributed shared memory,
     the frame's refines shared by all 12 warps).
-    Same contract, limits and plain version as `find_peaks`; the two
+    Same contract and plain version as `find_peaks`, but on the card only
+    maps it can hold (`find_peaks_row_smem`; else a ValueError); the
     kernels agree bit for bit."""
     if not _on_cuda(heat):
         return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
+    _find_peaks_args(heat, max_peaks, win_size, factor)
+    _, K, H, W = heat.shape
+    if find_peaks_row_smem(K, H, W, max_peaks) < 0:
+        raise ValueError(f"find_peaks_row cannot hold {K} planes of {H}x{W} cells (a side over "
+                         f"255 cells, or a plane over one CTA's shared memory): find_peaks "
+                         f"takes them by find_peaks_plane")
     out = _find_peaks_launch("popnet_find_peaks_row", heat, max_peaks, thresh, factor,
                              win_size)
     find_peaks_row.launches += 1
+    return out
+
+
+# ---- the same function at any map size, a CTA per (frame, plane) ---------------
+
+
+def find_peaks_plane(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
+                     factor: int = 8, win_size: int = 2):
+    """`find_peaks` by its third kernel (a CTA per (frame, plane), the plane
+    read from global memory, its NMS survivors listed in a global scratch
+    buffer of B * K * H * W ints, top-M by block reductions): maps of any
+    size, where K1 and K2 cannot hold them. Same contract and plain version
+    as `find_peaks`; the kernels agree bit for bit."""
+    if not _on_cuda(heat):
+        return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
+    out = _find_peaks_launch("popnet_find_peaks_plane", heat, max_peaks, thresh, factor,
+                             win_size)
+    find_peaks_plane.launches += 1
     return out
 
 
@@ -865,8 +914,8 @@ def peak_mask(heat: torch.Tensor, thresh: float) -> torch.Tensor:
     return peak_local_max(heat.float().permute(0, 3, 1, 2), thresh).permute(0, 2, 3, 1)
 
 
-KERNELS = (find_peaks, find_peaks_row, paf_score, window_readout, point_readout,
-           assemble_ids, peak_local_max)      # one wrapper per TPU kernel
+KERNELS = (find_peaks, find_peaks_row, find_peaks_plane, paf_score, window_readout,
+           point_readout, assemble_ids, peak_local_max)      # one wrapper per CUDA kernel
 for _k in KERNELS + (readouts,):
     _k.launches = 0
 
@@ -877,7 +926,7 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each TPU kernel's counterpart (a `readouts` launch counts
+    """Launches of each CUDA kernel (a `readouts` launch counts
     for `window_readout` and `point_readout`; its own count is
     `readouts.launches`)."""
     return {k.__name__: k.launches for k in KERNELS}

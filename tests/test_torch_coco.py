@@ -45,6 +45,15 @@ COCO_CFG = EncoderConfig(input_x=368, input_y=368, num_joints=COCO_NUM_JOINTS,
                          num_limbs=len(COCO_LIMBS))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_coco_skeleton_copy_matches_jax():
     assert skeleton_coco.COCO_KEYPOINT_NAMES == jax_coco.COCO_KEYPOINT_NAMES
     assert COCO_LIMBS == jax_coco.COCO_LIMBS and skeleton_coco.COCO_NUM_LIMBS == 19

@@ -441,13 +441,24 @@ def test_find_peaks_row_cluster_matches_plain_and_find_peaks(cuda, K, grid):
 
 def test_find_peaks_row_on_large_planes(cuda):
     """A single 195x195 plane, which the kernel of the previous design took
-    too: the CTA holds it in one round of one plane and stays bit-equal;
-    planes too large for the shared memory still raise."""
+    too: the CTA holds it in one round of one plane and stays bit-equal. A
+    255x255 plane is too large for K2's shared memory: find_peaks_row
+    refuses it by a query of the sizes, and find_peaks takes it by
+    find_peaks_plane, bit for bit against the plain version."""
     heat = torch.as_tensor(sparse_heat(9, 2, 195, 195, 1), device=cuda)
     for a, b in zip(kernels.find_peaks_row(heat), kernels.find_peaks_plain(heat)):
         assert torch.equal(a, b)
-    with pytest.raises(RuntimeError, match="failed to launch"):
-        kernels.find_peaks_row(torch.rand((1, 1, 255, 255), device=cuda))
+    big = torch.as_tensor(sparse_heat(10, 1, 255, 255, 1), device=cuda)
+    with pytest.raises(ValueError, match="find_peaks_row cannot hold"):
+        kernels.find_peaks_row(big)
+    assert kernels.find_peaks_route(1, 255, 255, 16) == "find_peaks_plane"
+    kernels.reset_launches()
+    got = kernels.find_peaks(big)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["find_peaks_plane"] == 1
+    for a, b in zip(got, kernels.find_peaks_plain(big)):
+        assert torch.equal(a, b)
+    assert bool(got[4].any())
 
 
 def test_slice_on_the_card_matches_the_cpu(cuda):
@@ -1561,10 +1572,52 @@ def test_find_peaks_takes_k2_where_k1_cannot_hold_the_maps(cuda, H, W):
     assert bool(got[4].any())
 
 
+@pytest.mark.parametrize("shape", [(1, 18, 46, 256), (1, 1, 255, 255), (2, 3, 300, 300)])
+def test_find_peaks_plane_at_any_size_bit_for_bit(cuda, shape):
+    """find_peaks_plane, the third kernel, on maps K1 and K2 cannot hold
+    (NCHW, channels-last and a slice of larger maps): every output equal to
+    the plain version, dense heat with 32 peaks kept and sparse heat with
+    16."""
+    B, K, H, W = shape
+    rng = np.random.default_rng(H * W + K)
+    dense = rng.uniform(0, 1, (B, K + 1, H + 3, W + 4)).astype(np.float32)
+    dense[0, 0, 1:H:5, 1:W:5] = 2.0 + rng.uniform(0, 1, dense[0, 0, 1:H:5, 1:W:5].shape)
+    dense[0, 0, 7, 9] = dense[0, 0, H - 2, W - 1] = 4.0             # an exact tie
+    sparse = np.zeros_like(dense)
+    sparse[:, :, :H, :W] = sparse_heat(H + W, B, H, W, K + 1)
+    for heat, M in ((dense, 32), (sparse, 16)):
+        t = torch.as_tensor(heat, device=cuda)
+        for h in (t[:, :K, :H, :W].contiguous(),
+                  t[:, :K, :H, :W].contiguous(memory_format=torch.channels_last),
+                  t[:, 1:, 2:H + 2, 3:W + 3]):
+            kernels.reset_launches()
+            got = kernels.find_peaks_plane(h, max_peaks=M)
+            torch.cuda.synchronize()
+            assert kernels.find_peaks_plane.launches == 1
+            for a, b in zip(got, kernels.find_peaks_plain(h, max_peaks=M)):
+                assert torch.equal(a, b)
+    assert int(got[4].sum()) > 0
+
+
 def test_find_peaks_refuses_grids_over_255_cells_naming_the_canvas(cuda):
-    heat = torch.zeros((1, 18, 46, 256), device=cuda)
-    with pytest.raises(ValueError, match="255x255 cells .* 368x2048 canvas"):
-        kernels.find_peaks(heat)
+    """Maps with a side over 255 cells, which K1 and K2 cannot take (their
+    survivor keys hold a cell in 16 bits; a 368x2048 canvas gives 46x256
+    maps): find_peaks routes them to find_peaks_plane by a query of the
+    sizes and equals the plain version bit for bit, one launch counted
+    there and none on K1 or K2."""
+    for shape in ((1, 18, 46, 256), (2, 3, 300, 300)):
+        B, K, H, W = shape
+        heat = torch.as_tensor(sparse_heat(H + W, B, H, W, K), device=cuda)
+        assert kernels.find_peaks_route(K, H, W, 16) == "find_peaks_plane"
+        kernels.reset_launches()
+        got = kernels.find_peaks(heat)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert (counts["find_peaks_plane"], counts["find_peaks"], counts["find_peaks_row"]) == \
+            (1, 0, 0)
+        for a, b in zip(got, kernels.find_peaks_plain(heat)):
+            assert torch.equal(a, b)
+        assert bool(got[4].any())
 
 
 @pytest.mark.parametrize("H,W", [(46, 62), (62, 46), (46, 69), (46, 123)])

@@ -25,6 +25,15 @@ from popnet_tpu_torch.decode.prior import decode_prior_maps, parse_prior_pose, s
 from tests.test_decode_device import synth
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def check_assembly(peaks, valid, scores, ok):
     ref_j, ref_c = jax_assemble(jnp.asarray(peaks), jnp.asarray(valid), jnp.asarray(scores),
                                 jnp.asarray(ok))

@@ -34,6 +34,15 @@ P, K = 16, 15
 
 # -- the builders ---------------------------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def agree(got: dict, ref: dict, people: int, share: float):
     """Decoded outputs of two int8 pipelines: people per frame within
     `people`, the visible flags equal on 99% of the joints, and `share` of

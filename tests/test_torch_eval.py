@@ -58,6 +58,15 @@ PRED_KEYS = ("human_pred_set_2d", "human_pred_set_3d", "human_pred_set_3d_read_r
 GT_KEYS = ("human_gt_set_2d", "human_gt_set_2d_visible", "human_gt_set_3d")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_scene(rng, num_images=12, max_people=3, drop_prob=0.15, fp_prob=0.3):
     """Random multi-person scenes with dropped joints and false positives
     (the generator of tests/test_eval_golden.py make_scene)."""

@@ -9,6 +9,7 @@ tests/test_torch_import.py pins for the import direction).
 
 import numpy as np
 import pytest
+import torch
 
 torch = pytest.importorskip("torch")
 
@@ -21,6 +22,15 @@ from tests.reference_shim import load_cr_module
 from tests.test_torch_import import _nchw, _to_nhwc
 
 pytestmark = pytest.mark.reference
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _assert_roundtrip(variables, exported, importer, reference_net):

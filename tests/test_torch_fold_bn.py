@@ -32,6 +32,15 @@ FAMILIES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomized(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """`model` in eval mode with every BatchNorm's scale and running var in
     U(0.5, 2) and its bias and running mean in U(-0.5, 0.5)."""

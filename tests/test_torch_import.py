@@ -10,6 +10,7 @@ evaluation_yolo_posenet_kdh3d_mpreal.py:120-123).
 
 import numpy as np
 import pytest
+import torch
 
 torch = pytest.importorskip("torch")
 
@@ -21,6 +22,15 @@ from popnet_tpu.models import A2J, RTPoseAlign3D, RTPoseLight, RTPoseLight3D, Yo
 from tests.reference_shim import load_cr_module
 
 pytestmark = pytest.mark.reference
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _nchw(x_nhwc):

@@ -11,6 +11,7 @@ import struct
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from popnet_tpu_torch.data.image_io import apply_exif_orientation, decode_jpeg, imread_bgr
 
@@ -24,6 +25,15 @@ SAMPLINGS = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
 SIZES = ((1, 1), (7, 9), (17, 33), (427, 640), (480, 640))
 EXTRAS = {"plain": [], "optimize": [cv2.IMWRITE_JPEG_OPTIMIZE, 1],
           "restart": [cv2.IMWRITE_JPEG_RST_INTERVAL, 3]}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def frame(rng, h: int, w: int) -> np.ndarray:

@@ -28,6 +28,15 @@ from popnet_tpu_torch.decode.device import find_peaks_batched, score_limb_pairs_
 from popnet_tpu_torch.ops import kernels
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def peak_heat(seed, B, K=15):
     """(B, K, 28, 28) uniform heat with an exact tie, border peaks and a
     plane with no peak above the threshold (not a flat one: on a flat plane
@@ -41,22 +50,43 @@ def peak_heat(seed, B, K=15):
 
 
 @pytest.fixture(scope="module")
-def heat3():
-    return peak_heat(11, 3)
+def heat2():
+    """Two frames: the shape of the flat-plane case below, so the batch-tiled
+    Pallas kernel compiles once for both."""
+    return peak_heat(11, 2)
 
 
 @pytest.mark.parametrize("which", ["bt", "row"])
-def test_find_peaks_plain_matches_pallas(heat3, which):
+def test_find_peaks_plain_matches_pallas(heat2, which):
     """px, py, loc and valid exact (invalid slots included), score 1e-5."""
     if which == "bt":
-        ref = find_peaks_pallas_bt(jnp.asarray(heat3), bt=2, interpret=True)
+        ref = find_peaks_pallas_bt(jnp.asarray(heat2), bt=2, interpret=True)
     else:
-        ref = find_peaks_pallas(jnp.asarray(heat3), interpret=True)
-    got = kernels.find_peaks_plain(torch.from_numpy(heat3))
+        ref = find_peaks_pallas(jnp.asarray(heat2), interpret=True)
+    got = kernels.find_peaks_plain(torch.from_numpy(heat2))
     for i in (0, 1, 2, 4):
         np.testing.assert_array_equal(got[i].numpy(), np.asarray(ref[i]))
     np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]), atol=1e-5)
-    assert not got[4][2, 4].any() and got[4][0].sum() > 0
+    assert not got[4][1, 4].any() and got[4][0].sum() > 0
+
+
+@pytest.mark.parametrize("H,W", [(260, 9), (9, 260)])
+def test_find_peaks_plain_matches_pallas_on_maps_over_255_cells(H, W):
+    """One plane with a side over 255 cells (the maps find_peaks_plane takes
+    on the card) against the per-frame Pallas kernel, which takes any size:
+    px, py, loc and valid exact, score 1e-5; an exact tie among the top
+    values and a peak on the far border, past cell 255."""
+    heat = np.random.default_rng(H * 1000 + W).uniform(0, 1, (1, 1, H, W)).astype(np.float32)
+    heat[0, 0, H - 1, W - 1] = 3.0                 # far corner, flat index over 255 * 255
+    heat[0, 0, 4, 2] = heat[0, 0, H - 5, W - 3] = 2.0  # exact tie: the lower flat index first
+    ref = find_peaks_pallas(jnp.asarray(heat), interpret=True)
+    got = kernels.find_peaks_plain(torch.from_numpy(heat))
+    for i in (0, 1, 2, 4):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(ref[i]))
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]), atol=1e-5)
+    assert got[4].all()
+    assert (int(got[0][0, 0, 0]), int(got[1][0, 0, 0])) == (W - 1, H - 1)
+    assert (int(got[0][0, 0, 1]), int(got[1][0, 0, 1])) == (2, 4)
 
 
 def test_find_peaks_on_a_flat_plane_agrees_with_pallas_but_for_the_tied_refine():
@@ -84,8 +114,8 @@ def test_find_peaks_on_a_flat_plane_agrees_with_pallas_but_for_the_tied_refine()
     np.testing.assert_allclose(got[3][1, 6], 0.05, atol=1e-5)
 
 
-def test_find_peaks_batched_matches_xla(heat3):
-    heat = np.concatenate([heat3, np.zeros_like(heat3[:, :1])], 1).transpose(0, 2, 3, 1)
+def test_find_peaks_batched_matches_xla(heat2):
+    heat = np.concatenate([heat2, np.zeros_like(heat2[:, :1])], 1).transpose(0, 2, 3, 1)
     pk_x, v_x = jax_find_peaks(jnp.asarray(heat), refine="xla")
     pk, v = find_peaks_batched(torch.from_numpy(np.ascontiguousarray(heat)))
     np.testing.assert_array_equal(v.numpy(), np.asarray(v_x))

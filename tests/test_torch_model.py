@@ -27,6 +27,15 @@ WEIGHTS = os.path.join(ROOT, "examples", "results", "bench_weights_openpose.npz"
 WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def person_frames(seed, n_frames=2, people=(2, 3)):
     """(n, 512, 480) raw depth in metres with 2-3 people per frame."""
     rng = np.random.default_rng(seed)

@@ -53,14 +53,14 @@ def _port_modules():
 
 def test_port_imports_with_jax_and_reference_blocked():
     """Every module of the port (and chip_smoke.py) imports while jax, flax,
-    popnet_tpu, cv2 and PIL are unimportable; popnet_tpu_torch itself must
+    popnet_tpu, the test suite, cv2 and PIL are unimportable; popnet_tpu_torch itself must
     pass the blocker (a bare prefix match would block it too)."""
     code = textwrap.dedent(f"""
         import importlib, sys
         class Block:
             def find_spec(self, name, path=None, target=None):
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL") \\
+                if top in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "tests") \\
                         or name == "popnet_tpu" or name.startswith("popnet_tpu."):
                     raise ImportError("blocked: " + name)
                 return None
@@ -70,7 +70,7 @@ def test_port_imports_with_jax_and_reference_blocked():
             importlib.import_module(m)
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "popnet_tpu", "cv2",
-                                         "PIL")]
+                                         "PIL", "tests")]
         assert not leaked, leaked
         for m in ("models.popnet", "models.rtpose_align3d", "models.yolo_posenet", "decode.prior",
                   "decode.popnet_infer", "models.a2j", "decode.a2j", "data.a2j_crops",
@@ -84,7 +84,8 @@ def test_port_imports_with_jax_and_reference_blocked():
                   "decode.peaks_np", "decode.paf_np", "decode.human_list", "decode.align",
                   "data.image_io", "data.coco", "data.coco_dataset", "data.mpii",
                   "models.rtpose_light", "eval.coco_oks", "data.construction",
-                  "data.preprocessing", "core.camera"):
+                  "data.preprocessing", "core.camera", "data.synthetic", "cli.tables",
+                  "cli.method_table", "cli.ablation_table"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -258,6 +259,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                        kernels.peak_local_max_plain(heat.permute(0, 3, 1, 2), 0.5).permute(0, 2, 3, 1))
     for a, b in zip(kernels.find_peaks_row(h), ref):
         assert torch.equal(a, b)
+    for a, b in zip(kernels.find_peaks_plane(h), ref):
+        assert torch.equal(a, b)
     ps = torch.as_tensor(rng.uniform(0.1, 1, (2, 15, 4)).astype(np.float32))
     sm = torch.full((2, 14, 4, 4), float("-inf"))
     sm[:, :, 0, 1] = 1.0
@@ -265,8 +268,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     for a, b in zip(kernels.assemble_ids(ps, sm, limbs), kernels.assemble_ids_plain(ps, sm, limbs)):
         assert torch.equal(a, b)
     assert [k.__name__ for k in kernels.KERNELS] == [
-        "find_peaks", "find_peaks_row", "paf_score", "window_readout", "point_readout",
-        "assemble_ids", "peak_local_max"]
+        "find_peaks", "find_peaks_row", "find_peaks_plane", "paf_score", "window_readout",
+        "point_readout", "assemble_ids", "peak_local_max"]
     assert kernels.launch_counts() == {k.__name__: 0 for k in kernels.KERNELS}
 
 
@@ -277,6 +280,8 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
         kernels.peak_local_max(torch.empty((1, 15, 28, 28), device="meta"))
     with pytest.raises(ValueError, match="one CPU or CUDA device"):
         kernels.find_peaks_row(torch.empty((1, 15, 28, 28), device="meta"))
+    with pytest.raises(ValueError, match="one CPU or CUDA device"):
+        kernels.find_peaks_plane(torch.empty((1, 1, 300, 9), device="meta"))
     with pytest.raises(ValueError, match="one CPU or CUDA device"):
         kernels.assemble_ids(torch.zeros((1, 15, 16)), torch.zeros((1, 14, 16, 16), device="meta"),
                              popnet_tpu_torch.core.skeleton.LIMBS)
@@ -385,6 +390,25 @@ def test_itop_entry_points_default_to_cuda_and_never_run_on_cpu_unasked(tmp_path
     with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
         main(["train", "--dataset", "itop", "--model", "a2j", "--data-root", str(tmp_path),
               "--device", "cpu"])
+
+
+def test_table_entry_points_default_to_cuda_and_never_run_on_cpu_unasked(tmp_path,
+                                                                         monkeypatch):
+    """The four-method table and the readout ablation run on the card;
+    without one they raise before they build anything unless the CPU is
+    asked for (TABLE_CPU, ABL_CPU)."""
+    from popnet_tpu_torch.cli import ablation_table, method_table
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    for k in ("TABLE_CPU", "ABL_CPU"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("TABLE_DIR", str(tmp_path / "t"))
+    monkeypatch.setenv("ABL_DIR", str(tmp_path / "a"))
+    for entry in (method_table.main, ablation_table.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    assert not (tmp_path / "t").exists() and not (tmp_path / "a").exists()
 
 
 def test_int8_conv_takes_the_plain_version_on_the_cpu_and_refuses_other_devices():

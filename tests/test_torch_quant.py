@@ -48,6 +48,15 @@ WEIGHTS = {m: os.path.join(ROOT, "examples", "results", f"bench_weights_{m}.npz"
            for m in ("openpose", "popnet", "yolo")}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 class OneConv(nn.Module):
     """One Flax conv, as the JAX models declare theirs."""
     features: int

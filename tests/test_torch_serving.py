@@ -30,6 +30,15 @@ WEIGHTS_POPNET = os.path.join(ROOT, "examples", "results", "bench_weights_popnet
 P, K = 16, 15
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def frames():
     return person_frames(4, n_frames=2, people=(2, 3))

@@ -42,6 +42,15 @@ WEIGHTS_YOLO = os.path.join(ROOT, "examples", "results", "bench_weights_yolo.npz
 P, K = 16, 15
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two PyTorch threads a test process: the suite runs in several."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def frames():
     """Two frames of 3 and 2 people over the depth background the committed
