@@ -9,7 +9,8 @@ serving path folded and in dynamic int8 (phase 10), ITOP's training,
 evaluation and table with the exact host decode (phase 11), COCO and
 MPII RGB training from JPEG files (phase 12), COCO evaluation at the
 evaluation canvas with MP-3DHP set construction (phase 13), and the
-four-method table and the readout ablation (phase 14): the four
+four-method table and the readout ablation (phase 14), and the parallel
+layouts over torch.distributed (phase 15): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -290,6 +291,25 @@ Phases, one or more lines each:
     of the committed Open-Pose+ weights on the frozen set, card against
     CPU (a "table_launches" entry in each row).
 
+15. parallel: the layouts of popnet_tpu_torch/parallel on the one card
+    (training launches no kernel): (a) PoP-Net's Trainer over a mesh of
+    one rank (data=1, NCCL) against the plain Trainer, an epoch of 64
+    frames at 224², batch 32, float32, TF32 off, cuDNN deterministic: the
+    losses and parameters bit for bit; (b) data=2 over gloo, two processes
+    both on cuda:0, 16 frames a rank, one step against world size 1 (loss
+    rtol 1e-5, parameters 1e-5), or gloo's refusal recorded; (c) at group
+    size 1 over NCCL: Open-Pose+'s step under model=1 = the plain step bit
+    for bit, RTPoseLight3D's forward of 512x480 frames under spatial=1 =
+    the plain forward bit for bit, the pipelined Open-Pose+ at pipe=1,
+    n_micro=2 (224², batch 32) within 1e-5 of the sequential eval-mode
+    model, its step's loss within rtol 1e-5 of the sequential one and the
+    state after it within 1e-5 of the sequential step's; (d)
+    `evaluate --spatial 1` of Open-Pose+ (--device-decode) and PoP-Net on
+    phase 6's sets: each JSON = the plain evaluate's, the launches over
+    the spatial runs counted (a "parallel_launches" entry in each row);
+    (e) the data-parallel step's ms at world size 1 beside the plain
+    step's, and (b)'s, with the card's name and power limit.
+
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
 from the root of a checkout: python3 chip_smoke.py
@@ -300,6 +320,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2507,8 +2528,9 @@ def phase_eval(rng, dev, n: int = 256, batch: int = 64, keep: str | None = None)
     the vote's bar) and metrics equal; the batched metrics on the card
     against NumPy's; the painted Open-Pose+ oracle over its bars; the
     `evaluate` and `benchmark` subcommands once. Returns the eval path's
-    launch counts; with `keep`, the "bg" set is copied to keep/eval_bg
-    (phase 9 evaluates A2J on it)."""
+    launch counts; with `keep`, the "bg" and "zero" sets are copied to
+    keep/eval_bg (phase 9 evaluates A2J on it) and keep/eval_zero (phase
+    15's evaluate --spatial)."""
     import tempfile
 
     import torch
@@ -2597,6 +2619,7 @@ def phase_eval(rng, dev, n: int = 256, batch: int = 64, keep: str | None = None)
             f"{time.perf_counter() - t0:.1f} s")
         if keep is not None:
             shutil.copytree(os.path.dirname(sets["bg"][0]), os.path.join(keep, "eval_bg"))
+            shutil.copytree(os.path.dirname(sets["zero"][0]), os.path.join(keep, "eval_zero"))
     return launches
 
 
@@ -5497,6 +5520,295 @@ def phase_tables(dev) -> dict:
     return {"table": table_launches, "ablation": abl_launches}
 
 
+# -- phase 15: parallel layouts ------------------------------------------------------------
+
+PAR_FRAMES = 64             # training frames of phase 15's set: 2 batches of TRAIN_BATCH
+PAR_STEPS = PAR_FRAMES // TRAIN_BATCH   # (a)'s steps: an epoch
+PAR_TIMED = 5               # steps of each timing run of (e), the first a warm-up
+PAR_FRAME_BATCH = 4         # (c)'s 512x480 frames
+PAR_BARS = {"loss": 1e-5, "params": 1e-5, "pipeline": 1e-5}
+PAR_EVAL = (("openpose", "eval_zero", ["--device-decode"]), ("popnet", "eval_bg", []))
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _state_gap(a: dict, b: dict) -> tuple[float, str | None]:
+    """max |a - b| over two state dicts' float tensors, and the first tensor that differs."""
+    worst, first = 0.0, None
+    for k, v in a.items():
+        w = np.asarray(b[k])
+        if np.asarray(v).dtype.kind != "f":
+            continue
+        gap = float(np.abs(np.asarray(v, np.float64) - w).max()) if v.size else 0.0
+        if gap and first is None:
+            first = k
+        worst = max(worst, gap)
+    return worst, first
+
+
+def parallel_trainers(root: str, dev, batch: int) -> dict:
+    """(a) PoP-Net's Trainer over a mesh of one rank (data=1, the job's
+    group) against the plain Trainer: an epoch of the set under `root`
+    (PAR_STEPS steps of `batch`) from the same seeded init and the same
+    batches, float32, TF32 off, cuDNN deterministic. Returns each one's
+    mean loss and the state dicts' gap."""
+    import torch
+
+    from popnet_tpu_torch.models import PopNet
+    from popnet_tpu_torch.parallel.mesh import Mesh
+    from popnet_tpu_torch.train import steps as st
+    from popnet_tpu_torch.train.loop import Trainer
+
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False, deterministic=True):
+        for name, mesh in (("plain", None), ("dp", Mesh({"data": 1}))):
+            with tempfile.TemporaryDirectory() as tmp:
+                trainer = Trainer(PopNet(), st.make_popnet_train_step(),
+                                  st.make_popnet_eval_loss(), learning_rate=TRAIN_LR,
+                                  out_dir=tmp, device=dev, mesh=mesh, print_freq=10 ** 6)
+                loss = trainer.train_epoch(train_dataset(root, "popnet", dev), batch)
+                out[name] = (loss, {k: v.detach().cpu().numpy() for k, v in
+                                    trainer.state.model.state_dict().items()})
+    gap, first = _state_gap(out["dp"][1], out["plain"][1])
+    return {"loss": (out["plain"][0], out["dp"][0]), "gap": gap, "first": first}
+
+
+def start_gloo(batch_np: dict, dev, go: str, steps: int = 3):
+    """Start (b): data parallelism at world size 2 over gloo, both ranks on
+    card 0 (`checks.train_job` spawned), `steps` steps of PoP-Net, those
+    after the first waiting for the file `go` (so that they are timed with
+    the card to themselves). Returns the job."""
+    from popnet_tpu_torch.parallel import checks, distributed
+
+    args = ("popnet", None, batch_np, {"data": 2}, "dp", steps, TRAIN_LR, "float32", 0,
+            dev.type, True, go)
+    return distributed.start(checks.train_job, 2, args, device=dev.type, backend="gloo",
+                             one_card=True, timeout=300, threads=2)
+
+
+# what a rank raises where gloo takes no CUDA tensors: the dispatcher finds no gloo backend
+# for the device, or ProcessGroupGloo refuses it by name
+GLOO_REFUSAL = re.compile(r"No backend type associated with device type cuda"
+                          r"|ProcessGroupGloo::\w+: (?:unsupported|invalid) device type")
+
+
+def gloo_refused(e: BaseException) -> bool:
+    """True when `e` is a rank's failure (the launcher's ProcessRaisedException,
+    the rank's traceback in its message) on gloo's refusal of CUDA tensors."""
+    import torch.multiprocessing as mp
+
+    return isinstance(e, mp.ProcessRaisedException) and GLOO_REFUSAL.search(str(e)) is not None
+
+
+def parallel_gloo(batch_np: dict, dev, job=None, go: str | None = None) -> dict:
+    """(b) against the same step at world size 1 (over the job's group where
+    there is one): PoP-Net, the first step's loss and parameters, and the
+    later steps' median ms. `job` is `start_gloo`'s (started here when
+    None); `go` is created here before its result is awaited. Gloo's
+    refusal of CUDA tensors (`gloo_refused`), if it refuses, is returned as
+    "error"; any other failure, a timeout included, raises."""
+    from popnet_tpu_torch.parallel import checks
+
+    if job is None:
+        go = os.path.join(tempfile.mkdtemp(), "go")
+        job = start_gloo(batch_np, dev, go)
+    open(go, "w").close()
+    try:
+        two = job.result()
+    except Exception as e:
+        if not gloo_refused(e):
+            raise
+        return {"error": f"{type(e).__name__}: {str(e)[-600:]}"}
+    one = checks.train_job("popnet", None, batch_np, {"data": 1}, "dp", 1, TRAIN_LR, "float32",
+                           0, dev.type, True)
+    gap, _ = _state_gap(two["state"], one["state"])
+    return {"loss": (float(one["losses"][0]), float(two["losses"][0])), "gap": gap,
+            "ms": float(np.median(two["seconds"][1:])) * 1e3}
+
+
+def parallel_group_of_one(root: str, dev, batch_np: dict, frames: np.ndarray) -> dict:
+    """(c) tensor, spatial and pipeline parallelism at group size 1, at
+    full width: Open-Pose+'s step under model=1 against the plain step
+    (loss and parameters); RTPoseLight3D's forward of 512x480 frames under
+    spatial=1 against the plain forward; the pipelined Open-Pose+ at
+    pipe=1, n_micro=2 (its uniform stages, 224², `batch_np`): the forward
+    against the sequential eval-mode model, and one step's loss and the
+    whole state after it against one step of the sequential eval-mode
+    model (`checks.sequential_pipeline_step`)."""
+    import torch
+
+    from popnet_tpu_torch.models import RTPoseLight3D
+    from popnet_tpu_torch.parallel import checks
+
+    tp = checks.train_job("openpose", None, batch_np, {"data": 1, "model": 1}, "tp", 1, TRAIN_LR,
+                          "float32", 0, dev.type, True)
+    plain = checks.train_job("openpose", None, batch_np, None, "dp", 1, TRAIN_LR, "float32", 0,
+                             dev.type, True)
+    tp_gap, tp_first = _state_gap(tp["state"], plain["state"])
+    model = RTPoseLight3D().init_seeded(0).to(dev).eval()
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = model(torch.as_tensor(frames, device=dev))[0]
+    got = checks.spatial_forward_job("openpose", None, frames, {"data": 1, "spatial": 1},
+                                     device=dev.type)
+    sp_gap = max(float(np.abs(g - w.cpu().numpy()).max()) for g, w in zip(got, want))
+    x = np.ascontiguousarray(np.transpose(batch_np["image"], (0, 3, 1, 2)))
+    pp_batch = {k: batch_np[k] for k in ("image", "heatmaps", "pafs", "zmaps")}
+    pp = checks.pipeline_job(None, x, pp_batch, {"data": 1, "pipe": 1}, n_micro=2, lr=TRAIN_LR,
+                             device=dev.type)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _, saved = model(torch.as_tensor(x, device=dev))
+    seq = checks.sequential_pipeline_step(None, pp_batch, lr=TRAIN_LR, device=dev.type)
+    pp_gap = max(float(np.abs(g - w.cpu().numpy()).max()) for g, w in zip(pp["saved"], saved))
+    pp_state_gap, pp_first = _state_gap(pp["state"], seq["state"])
+    return {"tp_loss": (float(plain["losses"][0]), float(tp["losses"][0])), "tp_gap": tp_gap,
+            "tp_first": tp_first, "sp_gap": sp_gap, "pp_gap": pp_gap,
+            "pp_loss": (seq["loss"], pp["loss"]), "pp_state_gap": pp_state_gap,
+            "pp_first": pp_first}
+
+
+def parallel_eval(keep: str, dev, batch: int) -> tuple[dict, dict, float]:
+    """(d) `evaluate --spatial 1` of Open-Pose+ (--device-decode) and
+    PoP-Net on phase 6's sets against the plain `evaluate`: the JSONs equal,
+    the kernels' launches counted over the spatial runs. Returns (launches,
+    readouts' launches, the spatial runs' seconds)."""
+    import torch
+
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.ops import kernels
+
+    weights = {"openpose": WEIGHTS, "popnet": WEIGHTS_POPNET}
+    launches = {k.__name__: 0 for k in kernels.KERNELS}
+    fused, seconds = 0, 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, data, extra in PAR_EVAL:
+            jsons = []
+            for spatial in ([], ["--spatial", "1"]):
+                out = os.path.join(tmp, model + "_".join(spatial))
+                _sync(dev)
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                cli_main(["evaluate", "--model", model, "--data-root", os.path.join(keep, data),
+                          "--out-dir", out, "--batch-size", str(batch), "--weights",
+                          weights[model], "--device", str(dev), *extra, *spatial])
+                _sync(dev)
+                if spatial:
+                    seconds += time.perf_counter() - t0
+                    for k, v in kernels.launch_counts().items():
+                        launches[k] += v
+                    fused += kernels.readouts.launches
+                with open(os.path.join(out, f"{model}_results.json")) as f:
+                    jsons.append(json.load(f))
+            require(jsons[0] == jsons[1], f"evaluate --spatial 1 --model {model}: the JSON "
+                    "differs from the plain evaluate's")
+    return launches, {"readouts": fused}, seconds
+
+
+def phase_parallel(rng, dev, keep: str) -> dict:
+    """Phase 15, the parallel layouts (popnet_tpu_torch/parallel): (a)-(d)
+    of the module docstring, and (e) the data-parallel step's ms at world
+    size 1 beside the plain step's, and (b)'s. Returns the launches of (d)."""
+    import torch
+
+    from popnet_tpu_torch.parallel import checks, distributed
+
+    t_phase = time.perf_counter()
+    card = phase_device_name()
+    with tempfile.TemporaryDirectory() as root:
+        write_train_set(rng, dev, root, PAR_FRAMES, 4)
+        idx = np.arange(TRAIN_BATCH)
+        batch_pn = {k: v.cpu().numpy() for k, v in
+                    train_dataset(root, "popnet", dev).get_batch(idx).items()}
+        batch_op = {k: v.cpu().numpy() for k, v in
+                    train_dataset(root, "openpose", dev).get_batch(idx).items()}
+        names = sorted(os.listdir(os.path.join(root, "depth_maps")))[:PAR_FRAME_BATCH]
+        frames = np.stack([(np.clip(np.load(os.path.join(root, "depth_maps", n)), 0, 6) - 3) / 2
+                           for n in names]).astype(np.float32)[:, None]
+        t_set = time.perf_counter() - t_phase
+        go = os.path.join(root, "go")
+        job = start_gloo(batch_pn, dev, go)     # its start-up overlaps (a), (c) and (d)
+        with distributed.single_rank_job(dev):
+            t0 = time.perf_counter()
+            a = parallel_trainers(root, dev, TRAIN_BATCH)
+            t_a = time.perf_counter() - t0
+            c = parallel_group_of_one(root, dev, batch_op, frames)
+            t_c = time.perf_counter() - t0 - t_a
+            launches, fused, eval_s = parallel_eval(keep, dev, EVAL_BATCH)
+            t_d = time.perf_counter() - t0 - t_a - t_c
+            gloo = parallel_gloo(batch_pn, dev, job, go)
+            t_b = time.perf_counter() - t0 - t_a - t_c - t_d
+            timed = {}
+            for name, shape in (("plain", None), ("dp", {"data": 1}), ("plain_again", None)):
+                r = checks.train_job("popnet", None, batch_pn, shape, "dp", PAR_TIMED, TRAIN_LR,
+                                     "float32", 0, dev.type)
+                timed[name] = float(np.median(r["seconds"][1:])) * 1e3
+            t_e = time.perf_counter() - t0 - t_a - t_c - t_d - t_b
+    say("parallel", f"wrote a set of {PAR_FRAMES} training frames; {card}; seconds: the set and "
+        f"its batches {t_set:.1f}, (a) {t_a:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}, (b) after them "
+        f"{t_b:.1f} (its start-up overlapped them), (e) {t_e:.1f}")
+    require(a["loss"][0] == a["loss"][1] and a["gap"] == 0.0,
+            f"(a) the data-parallel Trainer at world size 1 differs from the plain one: losses "
+            f"{a['loss']}, parameters {a['gap']:.3g} apart (first {a['first']})")
+    say("parallel", f"(a) Trainer --mesh data=1 over NCCL against the plain Trainer: PoP-Net at "
+        f"{TRAIN_INPUT}², batch {TRAIN_BATCH}, {PAR_STEPS} steps, float32, TF32 off: mean loss "
+        f"{a['loss'][1]!r} = {a['loss'][0]!r}, parameters bit for bit")
+    if "error" in gloo:
+        say("parallel", f"(b) gloo refused the job on CUDA tensors: {gloo['error']}")
+    else:
+        rel = abs(gloo["loss"][1] - gloo["loss"][0]) / abs(gloo["loss"][0])
+        require(rel <= PAR_BARS["loss"] and gloo["gap"] <= PAR_BARS["params"],
+                f"(b) world size 2 over gloo against 1: loss {gloo['loss']} (rel {rel:.3g}), "
+                f"parameters {gloo['gap']:.3g} apart")
+        say("parallel", f"(b) data=2 over gloo, both ranks on cuda:0, {TRAIN_BATCH // 2} "
+            f"frames a rank, one step: loss {gloo['loss'][1]!r} against {gloo['loss'][0]!r} at world size 1 (rel "
+            f"{rel:.3g}, bar {PAR_BARS['loss']}), parameters {gloo['gap']:.3g} apart (bar "
+            f"{PAR_BARS['params']})")
+    rel_tp = abs(c["tp_loss"][1] - c["tp_loss"][0]) / abs(c["tp_loss"][0])
+    rel_pp = abs(c["pp_loss"][1] - c["pp_loss"][0]) / abs(c["pp_loss"][0])
+    require(c["tp_loss"][0] == c["tp_loss"][1] and c["tp_gap"] == 0.0,
+            f"(c) model=1 differs from the plain step: losses {c['tp_loss']}, parameters "
+            f"{c['tp_gap']:.3g} apart (first {c['tp_first']})")
+    require(c["sp_gap"] == 0.0, f"(c) spatial=1's forward is {c['sp_gap']:.3g} off the plain one")
+    require(c["pp_gap"] <= PAR_BARS["pipeline"] and rel_pp <= PAR_BARS["loss"]
+            and c["pp_state_gap"] <= PAR_BARS["params"],
+            f"(c) pipe=1: forward {c['pp_gap']:.3g} off the sequential model, loss "
+            f"{c['pp_loss']}, the state after the step {c['pp_state_gap']:.3g} off the "
+            f"sequential step's (first {c['pp_first']})")
+    say("parallel", f"(c) at group size 1 over NCCL: model=1 Open-Pose+ step = the plain step "
+        f"bit for bit (loss {c['tp_loss'][1]!r}); spatial=1 forward of {PAR_FRAME_BATCH} 512x480 "
+        f"frames = the plain forward bit for bit; pipe=1, n_micro=2 at {TRAIN_INPUT}², batch "
+        f"{TRAIN_BATCH}: forward {c['pp_gap']:.3g} from the sequential eval-mode model (bar "
+        f"{PAR_BARS['pipeline']}), loss {c['pp_loss'][1]!r} against {c['pp_loss'][0]!r} (rel "
+        f"{rel_pp:.3g}, bar {PAR_BARS['loss']}), the state after the step "
+        f"{c['pp_state_gap']:.3g} from the sequential step's (bar {PAR_BARS['params']}); tp rel "
+        f"{rel_tp:.3g}")
+    for name in EVAL_PATH:
+        require(launches[name] >= 1, f"(d) evaluate --spatial 1 launched {name} no time")
+    require(fused["readouts"] >= 1, "(d) evaluate --spatial 1 launched the fused readouts no time")
+    say("parallel", f"(d) evaluate --spatial 1 (Open-Pose+ --device-decode, PoP-Net) on phase "
+        f"6's sets: JSON = the plain evaluate's; launches over the spatial runs {launches}, "
+        f"readouts (K4 and K5 together) {fused['readouts']}; {eval_s:.1f} s")
+    gloo_ms = (f"{gloo['ms']:.2f} ms a step ({TRAIN_BATCH // 2} frames a rank)" if "ms" in gloo
+               else "not run")
+    say("parallel", f"(e) PoP-Net step at {TRAIN_INPUT}², batch {TRAIN_BATCH}, float32, CUDA "
+        f"synchronized wall, median of {PAR_TIMED - 1} after a warm-up, on {card}: plain "
+        f"{timed['plain']:.2f} ms, data=1 over NCCL {timed['dp']:.2f} ms, plain again "
+        f"{timed['plain_again']:.2f} ms; data=2 over gloo on one card {gloo_ms}")
+    say("parallel", f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_device_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the frames and test inputs")
@@ -5602,6 +5914,9 @@ def main(argv=None) -> int:
         tables = phase_tables(dev)
         for r in rows:                  # the four-method table and the ablation of phase 14
             r["table_launches"] = {k: v[r["name"]] for k, v in tables.items()}
+        par = phase_parallel(np.random.default_rng([args.seed, 15]), dev, keep)
+        for r in rows:                  # evaluate --spatial 1 of phase 15 (d)
+            r["parallel_launches"] = par[r["name"]]
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")

@@ -79,27 +79,39 @@ line's do (its `_build_model` refuses `rtpose_vgg` and `popnet_rgb`):
 neither command line evaluates an RGB model. COCO results are scored by
 the library chain `data.preprocessing.rgb_infer` ->
 `decode.openpose_infer.paf_decode_2d` -> `data.coco.coco_eval_results` ->
-`data.coco.run_coco_eval`. Options of the JAX command line that the port
-lacks raise, naming the ROADMAP Queue 1 item they wait for (`_NOT_PORTED*`):
-meshes and `--n-micro` (13), `--spatial` (13). ITOP's single-person 10-cm
-table has its own entry point, `python -m popnet_tpu_torch.cli.itop_table`.
+`data.coco.run_coco_eval`. ITOP's single-person 10-cm table has its own
+entry point, `python -m popnet_tpu_torch.cli.itop_table`.
+
+Parallel layouts (`parallel/`), with the JAX command line's grammar:
+`train --mesh data=D[,model=N | ,spatial=N | ,pipe=N]` trains the three
+dense depth families over D x N ranks, channel-sharded (`model`), in
+height bands (`spatial`) or, for `--model openpose` only, as a GPipe
+pipeline of `--n-micro` microbatches (`pipe`; its final checkpoint is in
+the sequential layout, with `pipelined` and `n_pipe` in its metadata, so
+`evaluate --ckpt` scores it). `data` defaults to the ranks available over
+N: torchrun's WORLD_SIZE, the host's cards, or 1 on the CPU. A2J, COCO
+and MPII ignore --mesh, as the JAX command line does, and say so.
+`evaluate --spatial N` runs the CNN in N height bands (N must divide
+--input-size; a ragged tail batch takes the plain path); every rank runs
+the driver and the mesh's first rank writes the JSON. Without a torchrun
+environment the command starts its ranks itself on this host
+(`parallel.distributed.launch`: one a card, or processes over gloo with
+`--device cpu`); a mesh of one rank runs in this process.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import sys
 
 import torch
 
 from popnet_tpu_torch.core.config import (ITOP_DATASET, KDH3D_DATASET, DatasetConfig,
                                           DecodeConfig, EncoderConfig)
 
-# what each option of the JAX command line that the port lacks waits for
-_NOT_PORTED = {
-    "spatial": "--spatial waits for ROADMAP Queue 1 item 13",
-}
 # evaluate's RGB datasets and models: neither command line evaluates them
 _RGB_SCORING = ("COCO results are scored by data.preprocessing.rgb_infer -> "
                 "decode.openpose_infer.paf_decode_2d -> data.coco.coco_eval_results -> "
@@ -111,10 +123,6 @@ _NO_RGB_EVALUATE = {
                   f"_build_model refuses it); {_RGB_SCORING}",
     "popnet_rgb": "popnet_rgb: neither command line evaluates an RGB model (the JAX one's "
                   "_build_model refuses it)",
-}
-# the train subcommand's: options set away from their defaults
-_NOT_PORTED_TRAIN = {
-    "mesh": "--mesh (sharded and pipelined training) waits for ROADMAP Queue 1 item 13",
 }
 # the one model each RGB dataset trains, and the refusal of the others (the JAX command line's)
 _RGB_MODELS = {"coco": "rtpose_vgg", "mpii": "popnet_rgb"}
@@ -158,7 +166,8 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
 
 def make_infers(model: str, weights: str | None = None, yolo_weights: str | None = None,
                 seed: int = 0, device: str | torch.device = "cuda", ckpt: str | None = None,
-                yolo_ckpt: str | None = None, fold_bn: bool = False, quant: str | None = None):
+                yolo_ckpt: str | None = None, fold_bn: bool = False, quant: str | None = None,
+                spatial_mesh=None):
     """(infer, infer_yolo) for `model`'s driver: infer(images NHWC) -> the
     model's NHWC maps as the evaluation driver takes them (for "a2j", its heads from
     crops); infer_yolo is the stage-1 detector of "a2j" where `yolo_weights`
@@ -166,11 +175,17 @@ def make_infers(model: str, weights: str | None = None, yolo_weights: str | None
     directories (`ckpt`, `yolo_ckpt`) before the npz files. The CNNs run in
     float32, with their BatchNorms folded (`fold_bn`, both stages of "a2j")
     and their eligible convs in int8 (`quant="int8"`), rounded as the JAX
-    command line's op-by-op call (`serving.deploy_model`)."""
+    command line's op-by-op call (`serving.deploy_model`). With
+    `spatial_mesh` the CNN runs in height bands over it
+    (`parallel.spatial.SpatialModel`), its outputs whole on every rank."""
     from popnet_tpu_torch.serving import deploy_model
 
     net = deploy_model(_build_model(model, weights, seed, device, ckpt), device, torch.float32,
                        fold_bn, quant, rounding="eager")
+    if spatial_mesh is not None:
+        from popnet_tpu_torch.parallel.spatial import SpatialModel
+
+        net = SpatialModel(net, spatial_mesh)
     if model == "openpose":
         def infer(images):
             (paf, heat, z), _ = net(_nchw(images))
@@ -354,18 +369,152 @@ def _rgb_trainer(args, device):
     return trainer, train_ds, val_ds
 
 
+def _parse_mesh(spec: str, available: int | None = None) -> tuple[str, dict]:
+    """--mesh "data=4,model=2" -> (layout, {"data": 4, "model": 2}): data
+    (optional; `available` ranks over the other axis's size, else 1) plus
+    at most one of model (tensor parallel), spatial or pipe (GPipe)."""
+    try:
+        sizes = {k: int(v) for k, v in (p.split("=") for p in spec.split(","))}
+    except ValueError:
+        raise SystemExit(f"bad --mesh spec {spec!r} (want e.g. data=4,model=2)") from None
+    n_data = sizes.pop("data", None)
+    if not sizes:
+        return "dp", {"data": n_data or available or 1}
+    if len(sizes) > 1:
+        raise SystemExit("--mesh supports data plus ONE of model|spatial|pipe")
+    (axis, n), = sizes.items()
+    layouts = {"model": "tp", "spatial": "sp", "pipe": "pp"}
+    if axis not in layouts:
+        raise SystemExit(f"unknown mesh axis {axis!r} (model | spatial | pipe)")
+    if n < 1 or (n_data is not None and n_data < 1):
+        raise SystemExit(f"bad --mesh spec {spec!r}: sizes are at least 1")
+    return layouts[axis], {"data": n_data or max(1, (available or n) // n), axis: n}
+
+
+def _available_ranks(device: str) -> int | None:
+    """The ranks a mesh that leaves `data` out fills: a job's, the host's
+    cards, or None on the CPU."""
+    from popnet_tpu_torch.parallel.distributed import under_launcher
+
+    if under_launcher():
+        return int(os.environ["WORLD_SIZE"])
+    if torch.device(device).type == "cuda" and torch.cuda.is_available():
+        return torch.cuda.device_count()
+    return None
+
+
+def _uses_mesh(args) -> bool:
+    """train --mesh, but where the JAX command line ignores it (A2J, COCO,
+    MPII) unless it pipelines, which it refuses there first."""
+    if not args.mesh:
+        return False
+    layout, _ = _parse_mesh(args.mesh, _available_ranks(args.device))
+    return layout == "pp" or not (args.model == "a2j" or args.dataset in _RGB_MODELS)
+
+
+def _job_ranks(args) -> int | None:
+    """The ranks the command runs on (None: one process, no mesh); refuses,
+    in the calling process, what the JAX command line refuses."""
+    if args.cmd == "train" and args.mesh:
+        layout, shape = _parse_mesh(args.mesh, _available_ranks(args.device))
+        if layout == "pp":
+            if args.model != "openpose":
+                raise SystemExit("--mesh ...,pipe=N pipelines the CPM stage family; use "
+                                 "--model openpose")
+            if args.batch_size % (shape["data"] * args.n_micro):
+                raise SystemExit(f"batch {args.batch_size} must divide data axis "
+                                 f"({shape['data']}) x n_micro ({args.n_micro})")
+        return math.prod(shape.values()) if _uses_mesh(args) else None
+    if args.cmd == "evaluate" and args.spatial and args.model != "a2j":
+        if args.input_size % args.spatial:
+            raise SystemExit(f"--spatial {args.spatial} must divide --input-size "
+                             f"{args.input_size}")
+        if args.quant:
+            raise SystemExit("evaluate --spatial: the int8 convs take one dynamic scale an "
+                             "activation, which the height bands do not share; run --spatial "
+                             "in float32")
+        available = _available_ranks(args.device)
+        return max(1, (available or args.spatial) // args.spatial) * args.spatial
+    return None
+
+
+def _mesh_of(args):
+    """The command's Mesh over the job (built collectively on every rank)."""
+    from popnet_tpu_torch.parallel.distributed import world_size
+    from popnet_tpu_torch.parallel.mesh import Mesh
+
+    if args.cmd == "train":
+        layout, shape = _parse_mesh(args.mesh, world_size())
+    else:
+        layout, shape = "sp", {"data": max(1, world_size() // args.spatial),
+                               "spatial": args.spatial}
+    n = math.prod(shape.values())
+    if n != world_size():
+        raise SystemExit(f"the mesh {shape} needs {n} ranks and the job has {world_size()}")
+    return layout, Mesh(shape)
+
+
+def _writes() -> bool:
+    """This process writes the command's files (the job's first rank)."""
+    from popnet_tpu_torch.parallel.distributed import rank
+
+    return rank() == 0
+
+
+def _train_openpose_pipelined(args, mesh, device):
+    """GPipe-pipelined Open-Pose+ training (the JAX command line's
+    `_train_openpose_pipelined`): the stem on each data shard's first pipe
+    rank, the stages over the pipe, `--n-micro` microbatches; the final
+    checkpoint in the sequential layout, so `evaluate --ckpt` scores it.
+    Returns the history."""
+    from popnet_tpu_torch.models import RTPoseLight3D
+    from popnet_tpu_torch.parallel import pipeline as pp
+    from popnet_tpu_torch.train import checkpoint as ckpt
+    from popnet_tpu_torch.train.state import make_optimizer
+
+    ecfg = EncoderConfig(input_x=args.input_size, input_y=args.input_size)
+    model = RTPoseLight3D().init_seeded(args.seed).to(device)
+    state = pp.create_pipeline_train_state(model, mesh, args.lr, args.momentum,
+                                           args.weight_decay)
+    step = pp.make_pipeline_train_step(args.n_micro)
+    train_ds = _train_dataset(args, args.labels, ecfg, False, False, device, mp_aug=args.mp_aug)
+    os.makedirs(args.out_dir, exist_ok=True)
+    history = []
+    for epoch in range(args.epochs):
+        losses = [step(state, batch)[1]["loss"] for batch in train_ds.iter_batches(args.batch_size)]
+        train_loss = float(torch.stack(losses).double().mean()) if losses else 0.0
+        rec = {"epoch": epoch, "train_loss": train_loss}
+        history.append(rec)
+        if _writes():
+            print(f"epoch {epoch} [pipelined x{mesh.shape['pipe']}] loss {train_loss:.4f}",
+                  flush=True)
+            with open(os.path.join(args.out_dir, "history.jsonl"), "a") as f:
+                f.write(json.dumps(rec) + "\n")
+    sd = pp.sequential_state_dict(state)
+    if _writes():
+        seq = RTPoseLight3D()
+        seq.load_state_dict(sd)
+        opt = make_optimizer(seq, "sgd", args.lr, args.momentum, args.weight_decay)
+        ckpt.save_checkpoint(os.path.join(args.out_dir, "ckpt"),
+                             {"model": seq.state_dict(), "optimizer": opt.state_dict()},
+                             step=args.epochs - 1,
+                             metadata={"pipelined": True, "n_pipe": int(mesh.shape["pipe"])})
+    return history
+
+
 def cmd_train(args):
-    """Train a depth or RGB family (`train --help`); returns the Trainer."""
+    """Train a depth or RGB family (`train --help`); returns the Trainer
+    (the pipelined run's history)."""
     from popnet_tpu_torch.core.device import resolve_device
     from popnet_tpu_torch.train.loop import Trainer
     from popnet_tpu_torch.train.schedule import WarmupCosine
 
-    for opt, why in _NOT_PORTED_TRAIN.items():
-        if getattr(args, opt):
-            raise SystemExit(f"train: {why}")
-    if args.n_micro != 2:
-        raise SystemExit("train: --n-micro (pipelined training) waits for ROADMAP Queue 1 "
-                         "item 13")
+    layout, mesh = "dp", None
+    if _job_ranks(args) is not None:
+        layout, mesh = _mesh_of(args)
+    elif args.mesh:
+        print(f"train --model {args.model} --dataset {args.dataset}: --mesh is ignored, as the "
+              "JAX command line ignores it there (one device)", flush=True)
     rgb = args.dataset in _RGB_MODELS
     if rgb and args.model != _RGB_MODELS[args.dataset]:
         raise SystemExit(f"--dataset {args.dataset} trains --model {_RGB_MODELS[args.dataset]}")
@@ -377,6 +526,13 @@ def cmd_train(args):
 
     device = resolve_device(args.device)
     ecfg = EncoderConfig(input_x=args.input_size, input_y=args.input_size)
+    if layout == "pp":
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return _train_openpose_pipelined(args, mesh, device)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
     if rgb:
         trainer, train_ds, val_ds = _rgb_trainer(args, device)
     elif args.model == "a2j":
@@ -396,13 +552,16 @@ def cmd_train(args):
                                      warmup_epochs=args.warmup_epochs)
         trainer = Trainer(model, step, eval_loss, learning_rate=args.lr, momentum=args.momentum,
                           weight_decay=args.weight_decay, out_dir=args.out_dir, seed=args.seed,
-                          optimizer=args.optimizer, scheduler=scheduler, device=device)
+                          optimizer=args.optimizer, scheduler=scheduler, device=device,
+                          mesh=mesh, layout=layout)
         if args.lr_patience is not None and args.schedule == "plateau":
             # patience past the epoch budget holds the rate constant
             trainer.scheduler.patience = args.lr_patience
     if args.resume:
         trainer.resume()
-    print(f"train {args.model} on {device}: float32 convolutions, TF32 off", flush=True)
+    if _writes():
+        where = f"{device}" if mesh is None else f"{mesh.size} ranks {mesh.shape} ({layout})"
+        print(f"train {args.model} on {where}: float32 convolutions, TF32 off", flush=True)
     tf32 = torch.backends.cudnn.allow_tf32      # the other cuDNN flags stay as the caller set them
     torch.backends.cudnn.allow_tf32 = False
     # the RGB recipes validate and checkpoint every epoch, as the JAX command line's do
@@ -420,9 +579,6 @@ def cmd_evaluate(args) -> dict:
     from popnet_tpu_torch.data.datasets import MPRealDataset
     from popnet_tpu_torch.train.checkpoint import checkpoint_steps
 
-    for opt, why in _NOT_PORTED.items():
-        if getattr(args, opt):
-            raise SystemExit(f"evaluate: {why}")
     for refused in (args.dataset, args.model):
         if refused in _NO_RGB_EVALUATE:
             raise SystemExit(f"evaluate {_NO_RGB_EVALUATE[refused]}")
@@ -448,20 +604,24 @@ def cmd_evaluate(args) -> dict:
         print("evaluate --model a2j: --quant is ignored, as the JAX command line ignores it "
               "(both stages run float32 convs)")
         quant = None
+    if args.model == "a2j" and args.spatial:
+        print("evaluate --model a2j: --spatial is ignored, as the JAX command line ignores it")
+    mesh = _mesh_of(args)[1] if _job_ranks(args) is not None else None
     infer, infer_yolo = make_infers(args.model, args.weights, args.yolo_weights, args.seed,
                                     device, ckpt=args.ckpt, yolo_ckpt=args.yolo_ckpt,
-                                    fold_bn=args.fold_bn, quant=quant)
+                                    fold_bn=args.fold_bn, quant=quant, spatial_mesh=mesh)
     data = run_evaluation(args.model, infer, dataset, args.batch_size, ecfg, decfg,
                           device_decode=args.device_decode, readout=args.readout,
                           gt_boxes=args.gt_boxes, infer_yolo=infer_yolo)
 
-    os.makedirs(args.out_dir, exist_ok=True)
     out_json = os.path.join(args.out_dir, f"{args.model}_results.json")
-    with open(out_json, "w") as f:
-        json.dump(data, f)
-    print(f"wrote {out_json}")
-    result = ev.evaluate_eval_data(data)
-    if "human_pred_set_3d_perfect_2d" in data:
+    if _writes():
+        os.makedirs(args.out_dir, exist_ok=True)
+        with open(out_json, "w") as f:
+            json.dump(data, f)
+        print(f"wrote {out_json}")
+    result = ev.evaluate_eval_data(data, verbose=_writes())
+    if "human_pred_set_3d_perfect_2d" in data and _writes():
         print("ablation 3D-PCK channels:",
               json.dumps(ev.evaluate_ablation_channels(data, ecfg.num_joints)))
     return result
@@ -588,9 +748,12 @@ def build_parser():
                         "letterbox, e.g. 0.5,1.0")
     t.add_argument("--blur-aug", type=float, default=0.0, metavar="SIGMA",
                    help="--dataset coco: a Gaussian blur a frame, sigma uniform in [0, SIGMA]")
-    # options of the JAX command line that the port does not have yet: they raise
-    t.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    t.add_argument("--n-micro", type=int, default=2, help=argparse.SUPPRESS)
+    t.add_argument("--mesh", default=None,
+                   help="rank mesh layout, e.g. data=4 | data=4,model=2 (tensor parallel) | "
+                        "data=2,spatial=4 (height-sharded) | data=1,pipe=2 (GPipe, --model "
+                        "openpose); ranks start on this host without torchrun")
+    t.add_argument("--n-micro", type=int, default=2,
+                   help="GPipe microbatches per data shard's batch (--mesh ...,pipe=N)")
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("evaluate")
@@ -617,8 +780,9 @@ def build_parser():
     e.add_argument("--quant", choices=["int8"], default=None,
                    help="int8: dynamic int8 for the CNN's eligible convs (ignored by --model "
                         "a2j, as in the JAX command line)")
-    # an option of the JAX command line that the port does not have yet: it raises
-    e.add_argument("--spatial", type=int, default=0, help=argparse.SUPPRESS)
+    e.add_argument("--spatial", type=int, default=0, metavar="N",
+                   help="run the CNN in N height bands over a (data, spatial=N) mesh of ranks "
+                        "(parallel/spatial.py halo exchanges); N must divide --input-size")
     e.set_defaults(fn=cmd_evaluate)
 
     b = sub.add_parser("benchmark")
@@ -638,9 +802,36 @@ def build_parser():
     return p
 
 
+def _cli_rank(argv):
+    """One rank of a job that `main` launched: the command, and what rank 0
+    hands back (a Trainer's history)."""
+    from popnet_tpu_torch.train.loop import Trainer
+
+    out = main(argv)
+    return out.history if isinstance(out, Trainer) else out
+
+
 def main(argv=None):
+    """Run a subcommand. A command over a mesh of several ranks outside a
+    job starts the job on this host and returns its first rank's result."""
+    import torch.distributed as dist
+
+    from popnet_tpu_torch.parallel import distributed
+
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    ranks = _job_ranks(args)
+    if ranks is None or dist.is_initialized():
+        return args.fn(args)
+    if distributed.under_launcher():
+        distributed.initialize(device=args.device)
+        return args.fn(args)
+    distributed.check_cards(ranks, args.device)
+    if ranks == 1:
+        with distributed.single_rank_job(args.device):
+            return args.fn(args)
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    threads = torch.get_num_threads() if torch.device(args.device).type == "cpu" else None
+    return distributed.launch(_cli_rank, ranks, (argv,), device=args.device, threads=threads)
 
 
 if __name__ == "__main__":

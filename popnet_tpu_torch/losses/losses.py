@@ -30,18 +30,16 @@ def _mse(pred, target):
     return torch.mean((pred - target) ** 2)
 
 
-def rtpose_light3d_loss_fgweight(saved_for_loss, heat_gt, paf_gt, z_gt, fg_mask_z):
-    """Open-Pose+: per stage, PAF and heat MSE and the z MSE weighted
-    0.1 + 0.9 * fg. saved_for_loss: [paf1, heat1, z1, paf2, heat2, z2]
-    (NCHW)."""
+def _rtpose_light3d(saved_for_loss, heat_gt, paf_gt, z_gt, z_weight, num_stages: int):
+    """Per stage, the PAF and heat MSE and the z MSE (weighted by `z_weight`
+    where it is given, which also logs the z canaries)."""
     saved = [_nhwc(t) for t in saved_for_loss]
     logs = {}
     total = 0.0
-    weight = 0.1 + fg_mask_z * 0.9
-    for j in range(len(saved) // 3):
+    for j in range(num_stages):
         paf, heat, z = saved[3 * j], saved[3 * j + 1], saved[3 * j + 2]
         l1, l2 = _mse(paf, paf_gt), _mse(heat, heat_gt)
-        l3 = weighted_mse(z, z_gt, weight)
+        l3 = _mse(z, z_gt) if z_weight is None else weighted_mse(z, z_gt, z_weight)
         total = total + l1 + l2 + l3
         logs[f"stage{j + 1}_paf"] = l1
         logs[f"stage{j + 1}_heat"] = l2
@@ -50,9 +48,25 @@ def rtpose_light3d_loss_fgweight(saved_for_loss, heat_gt, paf_gt, z_gt, fg_mask_
     logs["min_ht"] = saved[-2][..., :-1].min()
     logs["max_paf"] = saved[-3].max()
     logs["min_paf"] = saved[-3].min()
-    logs["max_z"] = saved[-1].max()
-    logs["min_z"] = saved[-1].min()
+    if z_weight is not None:
+        logs["max_z"] = saved[-1].max()
+        logs["min_z"] = saved[-1].min()
     return total, logs
+
+
+def rtpose_light3d_loss(saved_for_loss, heat_gt, paf_gt, z_gt, num_stages: int = 2):
+    """Open-Pose+ without the foreground weight: per stage, the PAF, heat
+    and z MSE (the pipelined step's loss). saved_for_loss: [paf1, heat1,
+    z1, ...] (NCHW)."""
+    return _rtpose_light3d(saved_for_loss, heat_gt, paf_gt, z_gt, None, num_stages)
+
+
+def rtpose_light3d_loss_fgweight(saved_for_loss, heat_gt, paf_gt, z_gt, fg_mask_z):
+    """Open-Pose+: per stage, PAF and heat MSE and the z MSE weighted
+    0.1 + 0.9 * fg. saved_for_loss: [paf1, heat1, z1, paf2, heat2, z2]
+    (NCHW)."""
+    return _rtpose_light3d(saved_for_loss, heat_gt, paf_gt, z_gt, 0.1 + fg_mask_z * 0.9,
+                           len(saved_for_loss) // 3)
 
 
 def rtpose_light_loss(saved_for_loss, heat_gt, paf_gt):

@@ -24,16 +24,26 @@ class BatchNorm(nn.BatchNorm2d):
     `ra = 0.99 * ra + 0.01 * batch`, the variance taken as
     max(E[x^2] - E[x]^2, 0) in float32 at least. (`nn.BatchNorm2d` weighs the old
     value by 0.9 and moves the running variance by the unbiased one.)
-    In eval mode it is `nn.BatchNorm2d` on the running statistics."""
+    In eval mode it is `nn.BatchNorm2d` on the running statistics.
+
+    `group` (a process group, None by default) makes the batch one logical
+    tensor across its ranks, as a sharded array is in JAX: the sums of x
+    and x^2 and the count are all-reduced over the group, with autograd,
+    and the layer normalizes by those statistics and moves its running
+    ones by them (`parallel.mesh.DataParallel.attach` sets it). A group of
+    one rank reduces nothing, and the layer computes as without one."""
 
     MOMENTUM = 0.99     # Flax's: the weight of the old running value
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5)
+        self.group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.group is not None and torch.distributed.get_world_size(self.group) > 1:
+            return self._group_forward(x)
         with torch.no_grad():
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean((0, 2, 3))
@@ -42,6 +52,25 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _group_forward(self, x):
+        from popnet_tpu_torch.parallel.mesh import all_reduce_sum
+
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = x.shape[1]
+        local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        total = all_reduce_sum(local, self.group)
+        count = total[2 * c]
+        mean = total[:c] / count
+        var = (total[c:2 * c] / count - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def init_flax_like(model: nn.Module, seed: int, kaiming_prefix: str = "stem.") -> nn.Module:

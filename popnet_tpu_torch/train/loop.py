@@ -11,8 +11,21 @@ training dataset (`rng_state`), so a resumed run continues as the
 uninterrupted one would (the JAX package restores the rate, `best` and the
 epoch of its controller, and its data generators start again from the
 seed). The losses of an epoch are read
-from the device once, at its end, as in the JAX package. Meshes and
-layouts other than one device wait for ROADMAP Queue 1 item 13.
+from the device once, at its end, as in the JAX package.
+
+Over a mesh (`parallel.mesh.Mesh`) the Trainer runs one of the JAX
+package's layouts: "dp" (data parallel), "tp" (channel-sharded convs,
+`parallel.tensor`) or "sp" (height bands, `parallel.spatial`). Every rank
+builds the same seeded model and iterates the same global batches, takes
+its rows (`layout.shard_batch`) and steps; the logged losses are the
+global batch's. The mesh's first rank alone writes the history and the
+checkpoints (in the one-device layout: a sharded conv's weight and moments
+gathered whole), and `resume` restores on every rank. Validation follows
+JAX's rule: a batch the data axis divides is split and its loss averaged
+over the data group; a ragged tail is scored whole on every rank. A batch
+size the data axis does not divide shrinks a data-parallel mesh to the
+largest divisor (the ranks left out sit the run out); under the other
+layouts it raises.
 """
 
 from __future__ import annotations
@@ -29,6 +42,18 @@ from popnet_tpu_torch.train import checkpoint as ckpt
 from popnet_tpu_torch.train.schedule import ReduceLROnPlateau
 from popnet_tpu_torch.train.state import (TrainState, get_learning_rate, make_optimizer,
                                           set_learning_rate)
+
+
+def make_layout(name: str, mesh):
+    """The layout `name` ("dp", "tp" or "sp") over `mesh`."""
+    from popnet_tpu_torch.parallel.mesh import DataParallel
+    from popnet_tpu_torch.parallel.spatial import SpatialParallel
+    from popnet_tpu_torch.parallel.tensor import TensorParallel
+
+    layouts = {"dp": DataParallel, "tp": TensorParallel, "sp": SpatialParallel}
+    if name not in layouts:
+        raise ValueError(f"unknown layout {name!r} (dp | tp | sp)")
+    return layouts[name](mesh)
 
 
 class AverageMeter:
@@ -57,16 +82,18 @@ class Trainer:
                  out_dir: str = "runs/default", print_freq: int = 20, seed: int = 0,
                  optimizer: str = "sgd", scheduler=None, layout: str = "dp",
                  device: str | torch.device = "cuda"):
-        if mesh is not None or layout != "dp":
-            raise NotImplementedError("training over a mesh or a layout other than one device "
-                                      "waits for ROADMAP Queue 1 item 13")
+        if mesh is None and layout != "dp":
+            raise ValueError(f"layout {layout!r} needs a mesh (parallel.mesh.Mesh)")
         self.device = resolve_device(device)
         self.out_dir = out_dir
         os.makedirs(out_dir, exist_ok=True)
         self.print_freq = print_freq
         model = model.init_seeded(seed).to(self.device)
+        self.layout = None if mesh is None else make_layout(layout, mesh)
+        if self.layout is not None:
+            model = self.layout.attach(model)
         self.state = TrainState(model, make_optimizer(model, optimizer, learning_rate,
-                                                      momentum, weight_decay))
+                                                      momentum, weight_decay), self.layout)
         self.step_fn = make_step
         self.eval_loss_fn = make_eval_loss
         self.scheduler = scheduler or ReduceLROnPlateau(learning_rate)
@@ -79,17 +106,24 @@ class Trainer:
         self.history = []
         self._data_rng_state = None     # a resumed run's training generators
 
+    @property
+    def writes(self) -> bool:
+        """This rank writes the history and the checkpoints."""
+        return self.layout is None or self.layout.mesh.rank0
+
     def train_epoch(self, dataset, batch_size: int) -> float:
         batch_time, data_time = AverageMeter(), AverageMeter()
         device_losses = []  # read once an epoch, not once a step
         end = time.time()
         for i, batch in enumerate(dataset.iter_batches(batch_size)):
             data_time.update(time.time() - end)
+            if self.layout is not None:
+                batch = self.layout.shard_batch(batch)
             self.state, logs = self.step_fn(self.state, batch)
             device_losses.append(logs["loss"])
             batch_time.update(time.time() - end)
             end = time.time()
-            if i % self.print_freq == 0:
+            if i % self.print_freq == 0 and self.writes:
                 # reading the loss waits for the step, here only
                 print(f"epoch {self.epoch} [{i}] loss {float(logs['loss']):.4f} "
                       f"batch {batch_time.avg:.3f}s data {data_time.avg:.3f}s "
@@ -100,9 +134,16 @@ class Trainer:
 
     def validate(self, dataset, batch_size: int) -> float:
         losses = AverageMeter()
+        lay = self.layout
         for batch in dataset.iter_batches(batch_size, shuffle=False, drop_last=False):
             first = batch.get("image", next(iter(batch.values())))
-            losses.update(float(self.eval_loss_fn(self.state, batch)), first.shape[0])
+            n = first.shape[0]
+            if lay is None or n % lay.n_data:
+                # one device, or a ragged tail scored whole on every rank
+                losses.update(float(self.eval_loss_fn(self.state, batch)), n)
+            else:
+                loss = self.eval_loss_fn(self.state, lay.shard_batch(batch))
+                losses.update(float(lay.reduce_mean(loss)), n)
         if losses.count == 0:
             raise ValueError(f"validation set yielded no batches (len={len(dataset)}, "
                              f"batch_size={batch_size})")
@@ -121,6 +162,10 @@ class Trainer:
         if self._data_rng_state is not None:
             train_ds.set_rng_state(self._data_rng_state)
             self._data_rng_state = None
+        if self.layout is not None and batch_size % self.layout.n_data:
+            self._shrink(batch_size)
+        if self.layout is not None and not self.layout.mesh.member:
+            return self.history         # a rank the mesh leaves out sits the run out
         for k in range(epochs):
             last = k == epochs - 1
             t0 = time.perf_counter()
@@ -136,8 +181,9 @@ class Trainer:
             rec = {"epoch": self.epoch, "train_loss": train_loss, "val_loss": val_loss,
                    "lr": new_lr, "train_seconds": train_seconds}
             self.history.append(rec)
-            with open(os.path.join(self.out_dir, "history.jsonl"), "a") as f:
-                f.write(json.dumps(rec) + "\n")
+            if self.writes:
+                with open(os.path.join(self.out_dir, "history.jsonl"), "a") as f:
+                    f.write(json.dumps(rec) + "\n")
 
             meta = {"val_loss": val_loss, "epoch": self.epoch, "lr": new_lr,
                     "scheduler_best": self.scheduler.best,
@@ -145,14 +191,31 @@ class Trainer:
             if (do_val or val_ds is None) and val_loss < self.best_val:
                 self.best_val = val_loss
                 # its own directory, so periodic checkpoints never evict it
-                ckpt.save_checkpoint(os.path.join(self.out_dir, "ckpt_best"),
-                                     self._payload(train_ds), step=self.epoch, metadata=meta,
-                                     keep=1)
+                self._save("ckpt_best", train_ds, meta, keep=1)
             if last or checkpoint_every is None or (self.epoch + 1) % checkpoint_every == 0:
-                ckpt.save_checkpoint(os.path.join(self.out_dir, "ckpt"), self._payload(train_ds),
-                                     step=self.epoch, metadata=meta)
+                self._save("ckpt", train_ds, meta)
             self.epoch += 1
         return self.history
+
+    def _save(self, directory: str, train_ds, meta: dict, keep: int = 3) -> None:
+        payload = self._payload(train_ds)       # every rank: a sharded layout gathers
+        if self.writes:
+            ckpt.save_checkpoint(os.path.join(self.out_dir, directory), payload,
+                                 step=self.epoch, metadata=meta, keep=keep)
+
+    def _shrink(self, batch_size: int) -> None:
+        """JAX's rule for a batch the data axis does not divide: a
+        data-parallel mesh shrinks to the largest divisor; other layouts raise."""
+        lay = self.layout
+        if lay.name != "dp":
+            raise ValueError(f"batch {batch_size} must divide the mesh's data axis "
+                             f"({lay.n_data}) under layout {lay.name!r}")
+        from popnet_tpu_torch.parallel.mesh import make_mesh
+
+        n = max(d for d in range(1, lay.n_data + 1) if batch_size % d == 0)
+        self.layout = make_layout("dp", make_mesh(n, lay.mesh.ranks[:n]))
+        self.layout.attach(self.state.model)
+        self.state.layout = self.layout
 
     def resume(self):
         """Continue from the latest checkpoint: the model, the optimizer, the

@@ -25,15 +25,26 @@ import torch
 
 @dataclasses.dataclass
 class TrainState:
+    """A model, its optimizer and, under a parallel layout
+    (`parallel.mesh.DataParallel` and its kin), the layout: the step then
+    reads the forward, the gradients' and the logs' reductions from it, and
+    the state dicts are the one-device layout's on every rank."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    layout: object = None
 
     def state_dict(self) -> dict:
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+        if self.layout is None:
+            return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+        return {"model": self.layout.model_state_dict(self.model),
+                "optimizer": self.layout.optimizer_state_dict(self.model, self.optimizer)}
 
     def load_state_dict(self, sd: dict) -> None:
-        self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        if self.layout is None:
+            self.model.load_state_dict(sd["model"])
+            self.optimizer.load_state_dict(sd["optimizer"])
+        else:
+            self.layout.load_state(self.model, self.optimizer, sd["model"], sd["optimizer"])
 
 
 def _f32(x: float) -> float:

@@ -7,7 +7,10 @@ Flax does, `models.layers.BatchNorm`), the loss, the backward, and the
 optimizer's update, in place. `logs` holds the loss's parts and `loss` as
 0-d tensors on the device: reading one waits for the step. The
 `make_*_eval_loss` factories score a batch in eval mode, as the JAX
-command line's validation does.
+command line's validation does. Under a parallel layout (`state.layout`,
+`parallel/`), the batch is this rank's rows (`layout.shard_batch`), the
+layout runs the forward, the gradients are reduced over its groups before
+the update, and the logs are the global batch's.
 
 The batch is `data.datasets.prepare_batch`'s dict: "image" (B, H, W, 1)
 and the channels-last targets; A2J's is `data.a2j_crops.A2JCropDataset`'s,
@@ -65,16 +68,24 @@ def _popnet_rgb_loss(out, batch, num_joints: int = 16):
                            num_joints)
 
 
+def _forward(state, x):
+    return state.model(x) if state.layout is None else state.layout.forward(state.model, x)
+
+
 def _make_step(loss_fn, image_key: str = "image"):
     def step(state, batch):
-        model, opt = state.model, state.optimizer
+        model, opt, layout = state.model, state.optimizer, state.layout
         model.train()
         opt.zero_grad(set_to_none=True)
-        loss, logs = loss_fn(model(_nchw(batch[image_key])), batch)
+        loss, logs = loss_fn(_forward(state, _nchw(batch[image_key])), batch)
         loss.backward()
+        if layout is not None:
+            layout.reduce_gradients(model)
         opt.step()
         logs = {k: v.detach() for k, v in logs.items()}
         logs["loss"] = loss.detach()
+        if layout is not None:
+            logs = layout.reduce_logs(logs)
         return state, logs
 
     return step
@@ -84,7 +95,7 @@ def _make_eval_loss(loss_fn, image_key: str = "image"):
     def eval_loss(state, batch) -> torch.Tensor:
         state.model.eval()
         with torch.no_grad():
-            return loss_fn(state.model(_nchw(batch[image_key])), batch)[0]
+            return loss_fn(_forward(state, _nchw(batch[image_key])), batch)[0]
 
     return eval_loss
 

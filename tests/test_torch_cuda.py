@@ -1699,3 +1699,50 @@ def test_generate_augset_card_composite_equals_the_host(cuda, tmp_path, kind):
               "--augment", *extra])
         outs.append({p.relative_to(out): p.read_bytes() for p in out.rglob("*") if p.is_file()})
     assert outs[0] == outs[1] and len(outs[0]) == 9
+
+
+# -- parallel layouts (chip_smoke.py phase 15's checks at a small size) ---------------------------
+
+def _card_batch(root, family, cuda):
+    import chip_smoke
+
+    return {k: v.cpu().numpy() for k, v in
+            chip_smoke.train_dataset(root, family, cuda).get_batch(np.arange(4)).items()}
+
+
+def test_data_parallel_trainer_at_world_size_one_equals_the_plain_one(cuda, train_set):
+    """(a) at batch 4 (two steps of the 8-frame set): PoP-Net's Trainer over
+    a mesh of one rank over NCCL, losses and parameters bit for bit."""
+    import chip_smoke
+    from popnet_tpu_torch.parallel import distributed
+
+    with distributed.single_rank_job(cuda):
+        a = chip_smoke.parallel_trainers(train_set, cuda, 4)
+    assert a["loss"][0] == a["loss"][1] and a["gap"] == 0.0, a
+
+
+def test_data_parallel_over_gloo_with_two_ranks_on_one_card(cuda, train_set):
+    """(b) at 2 frames a rank: two processes on cuda:0 over gloo against
+    world size 1 (loss rtol 1e-5, parameters 1e-5)."""
+    import chip_smoke
+
+    g = chip_smoke.parallel_gloo(_card_batch(train_set, "popnet", cuda), cuda)
+    assert "error" not in g, g.get("error")
+    assert abs(g["loss"][1] - g["loss"][0]) <= 1e-5 * abs(g["loss"][0]) and g["gap"] <= 1e-5, g
+
+
+def test_tensor_spatial_and_pipeline_at_group_size_one(cuda, train_set):
+    """(c) at 4 frames: model=1 and spatial=1 equal the plain paths bit for
+    bit, pipe=1 within 1e-5 of the sequential eval-mode model, forward,
+    loss and the state after one step."""
+    import chip_smoke
+    from popnet_tpu_torch.parallel import distributed
+
+    frames = np.random.default_rng(3).uniform(-1.5, 1.5, (1, 1, 512, 480)).astype(np.float32)
+    with distributed.single_rank_job(cuda):
+        c = chip_smoke.parallel_group_of_one(train_set, cuda,
+                                             _card_batch(train_set, "openpose", cuda), frames)
+    assert c["tp_loss"][0] == c["tp_loss"][1] and c["tp_gap"] == 0.0, c
+    assert c["sp_gap"] == 0.0 and c["pp_gap"] <= 1e-5, c
+    assert abs(c["pp_loss"][1] - c["pp_loss"][0]) <= 1e-5 * abs(c["pp_loss"][0]), c
+    assert c["pp_state_gap"] <= 1e-5, c

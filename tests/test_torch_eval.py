@@ -564,7 +564,8 @@ def test_cli_evaluate_writes_the_json_and_benchmark_scores_it_as_jax_does(paths,
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--spatial", "2"], "item 13"),
+    pytest.param(["--spatial", "3"], "--spatial 3 must divide --input-size 224",
+                 id="argv0-item 13"),
     (["--ckpt", "x"], "no checkpoint of the port"),
     pytest.param(["--dataset", "coco"], "neither command line evaluates an RGB model; COCO results",
                  id="argv2-item 9b"),

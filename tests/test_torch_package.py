@@ -85,7 +85,9 @@ def test_port_imports_with_jax_and_reference_blocked():
                   "data.image_io", "data.coco", "data.coco_dataset", "data.mpii",
                   "models.rtpose_light", "eval.coco_oks", "data.construction",
                   "data.preprocessing", "core.camera", "data.synthetic", "cli.tables",
-                  "cli.method_table", "cli.ablation_table"):
+                  "cli.method_table", "cli.ablation_table", "parallel.distributed",
+                  "parallel.mesh", "parallel.tensor", "parallel.spatial", "parallel.pipeline",
+                  "parallel.checks"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -516,3 +518,29 @@ def test_generate_augset_and_rgb_infer_default_to_cuda_and_never_run_on_cpu_unas
         main(argv)
     with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
         main([*argv, "--device", "cpu"])
+
+
+def test_parallel_entry_points_default_to_cuda_and_never_run_on_cpu_unasked(monkeypatch):
+    """The launcher and the process groups default to the card: a job of
+    ranks on a host without cards is refused before a rank starts, and a
+    job of one rank raises; asked for the CPU, it runs over gloo."""
+    import torch.distributed as dist
+
+    from popnet_tpu_torch.parallel import distributed
+
+    for fn in (distributed.initialize, distributed.single_rank_job, distributed.start,
+               distributed.launch):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "device_count", lambda: 0)
+        with pytest.raises(SystemExit, match="needs 2 ranks, one a card, and this host has 0"):
+            distributed.launch(int, 2)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with distributed.single_rank_job():
+            pass
+    assert not dist.is_initialized()
+    with distributed.single_rank_job("cpu"):
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+    assert not dist.is_initialized()

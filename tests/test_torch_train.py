@@ -621,10 +621,13 @@ def test_train_subcommand_writes_history_and_checkpoints_that_evaluate_scores(
 
 def test_train_refuses_what_is_not_ported(tmp_path):
     for extra, what in ((["--dataset", "coco"], "--dataset coco trains --model rtpose_vgg"),
-                        (["--mesh", "data=4"], "item 13"), (["--n-micro", "4"], "item 13")):
+                        (["--mesh", "data=4,pipe"], "bad --mesh spec"),
+                        (["--mesh", "data=1,pipe=2", "--n-micro", "3"],
+                         r"batch 32 must divide data axis \(1\) x n_micro \(3\)")):
         with pytest.raises(SystemExit, match=what):
-            port_main(["train", "--data-root", str(tmp_path), "--device", "cpu", *extra])
+            port_main(["train", "--data-root", str(tmp_path), "--device", "cpu",
+                       "--model", "openpose", *extra])
     state = TrainState(YoloPoseNet(), make_optimizer(YoloPoseNet()))
     assert set(state.state_dict()) == {"model", "optimizer"}
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="layout 'tp' needs a mesh"):
         _trainer(tmp_path, layout="tp")
