@@ -50,6 +50,10 @@ Phases, one or more lines each:
    then K1, K3 and K6 at the COCO shapes on painted people (2-4 a frame,
    coco_people_maps) in two memory orders, and the COCO decode of those
    maps on the card against the host's and against the painted people;
+   and find_peaks_plane through find_peaks against the plain version
+   (plane_cases: maps K1 and K2 cannot hold, one frame of two COCO
+   canvases and of 46x276, and a 2048x2048 plane, with peaks, plateaus and
+   ties where its bands meet);
 4. slices, float32, 256 frames each, launch counts reset just before a path
    is driven and read just after: Open-Pose+ (then the assembly kernel
    against its plain version on that batch's candidates, and the same maps
@@ -73,7 +77,8 @@ Phases, one or more lines each:
    kernel; the main path's valid peaks per plane and distinct coordinate
    pairs per limb, the blocks an SM holds (K1, K2, K3, K6) and the
    clusters of K2 the card places at once, the copy width of K1 and K3, the
-   time by stage of K1, K2, K3 and K6 from per-block clock64() stamps (and
+   time by stage of K1, K2, find_peaks_plane, K3 and K6 from per-block
+   clock64() stamps (and
    how K1's and K2's blocks were scheduled, from their spans on the global
    timer), the fused readouts beside K4 and K5 alone, the launch floor (a one-element
    fill in a CUDA graph), the decode's readout stage as a CUDA graph, and
@@ -248,39 +253,47 @@ Phases, one or more lines each:
 
 13. coco_eval: COCO evaluation at the evaluation canvas and MP-3DHP set
     construction (popnet_tpu_torch.data.preprocessing crop_with_factor and
-    rgb_infer, ops.kernels.find_peaks' route to K2, data.coco
-    coco_eval_results and run_coco_eval, eval.coco_oks, data.construction,
-    cli.main generate-augset): (a) 4 images of 640x480, 480x640, 640x427
-    and 427x640 with 2-3 painted people each (eval_images), written as
-    baseline JPEG and read by the port's reader; RTPoseVGG (VGG19, 6
-    stages, coco_weights) float32 without TF32: rgb_infer on the card
-    (canvases 368x496, 496x368, 368x552, 552x368; maps 46x62, 62x46, 46x69,
-    69x46, where K1 cannot hold a frame's 18 planes and find_peaks launches
-    K2) and paf_decode_2d, launch counts reset just before and read just
-    after each image; the decode on the card against the host's bit for
-    bit; the card's maps against the CPU's within EVAL_MAP_BAR of their
-    largest magnitude (flip off at each canvas, flip on at the first); K2,
-    K3 and K6 against their plain versions on the CNN's maps and on the
-    oracle's; (b) the GT-map oracle (ops.encoders at each canvas) through
+    rgb_infer, ops.kernels.find_peaks' route to find_peaks_plane,
+    data.coco coco_eval_results and run_coco_eval, eval.coco_oks,
+    data.construction, cli.main generate-augset): (a) 4 images of 640x480,
+    480x640, 640x427 and 427x640 with 2-3 painted people each
+    (eval_images), written as baseline JPEG and read by the port's reader;
+    RTPoseVGG (VGG19, 6 stages, coco_weights) float32 without TF32:
+    rgb_infer on the card (canvases 368x496, 496x368, 368x552, 552x368;
+    maps 46x62, 62x46, 46x69, 69x46, where K1 cannot hold a frame's 18
+    planes and find_peaks launches find_peaks_plane) and paf_decode_2d,
+    launch counts reset just before and read just after each image; the
+    decode on the card against the host's bit for bit; the card's maps
+    against the CPU's within EVAL_MAP_BAR of their largest magnitude (flip
+    off at each canvas, flip on at the first); find_peaks_plane, K3 and K6
+    against their plain versions on the CNN's maps and on the oracle's;
+    (b) the GT-map oracle (ops.encoders at each canvas) through
     paf_decode_2d -> coco_eval_results -> run_coco_eval (the vendored
     scorer): the results JSON on the card equals the CPU's, AP over
-    ORACLE_AP_BAR; K2 at 46x62 and 46x69, batch 1, as CUDA-graph replays
-    beside its bound; (c) `generate-augset --kind bgaug|mpaug --augment`
-    on a KDH3D layout of 48 frames (write_train_set, write_mpaug_bank),
-    on the card (its default: composite and transforms there) against
-    --device cpu byte for byte, and
-    `evaluate --model openpose` of the frozen mp-aug set on the card; (d)
-    images/s of rgb_infer + decode at each canvas, flip off and on, float32
-    and bf16 CNN, the decode's ms, generate-augset frames/s on each route;
-    the kernels' launches at each canvas (a "coco_eval" entry in each row);
-    (e) a 2304x384 panorama (canvas 368x2208, maps 46x276: over 255 cells
-    wide, where only find_peaks_plane, the third find_peaks kernel, takes
-    them): rgb_infer + paf_decode_2d on the card with the launch counts
-    reset just before and read just after, the decode against the host's,
-    the kernels against their plain versions on the CNN's and the
-    oracle's maps, the oracle's AP, and find_peaks_plane at batch 1 against
-    its bound (its row of the kernels line takes these numbers and this
-    path's launches; its time at the depth planes stands beside them).
+    ORACLE_AP_BAR; find_peaks_plane and K2 at the four canvases and at
+    46x70 and 46x82 (640x426 and 640x360 images, EVAL_CROP_ROWS), batch 1,
+    and at 46x62 at ROUTE_BATCH frames, as CUDA-graph replays beside their
+    bound and the launch floor (the route's premise, that find_peaks_plane
+    is the faster wherever K1 cannot hold the maps, is required at each),
+    find_peaks, find_peaks_plane and K2 exact against the plain version at
+    each canvas at batch 1 and 2, and find_peaks_plane's stage clocks at
+    the first; (c) `generate-augset --kind bgaug|mpaug --augment` on a
+    KDH3D layout of 48 frames (write_train_set, write_mpaug_bank), on the
+    card (its default: composite and transforms there) against --device
+    cpu byte for byte, and `evaluate --model openpose` of the frozen
+    mp-aug set on the card; (d) images/s of rgb_infer + decode at each
+    canvas, flip off and on, float32 and bf16 CNN, the decode's ms,
+    generate-augset frames/s on each route; the kernels' launches at each
+    canvas (a "coco_eval" entry in each row); (e) a 2304x384 panorama
+    (canvas 368x2208, maps 46x276: over 255 cells wide, where only
+    find_peaks_plane, the third find_peaks kernel, takes them): rgb_infer
+    + paf_decode_2d on the card with the launch counts reset just before
+    and read just after, the decode against the host's, the kernels
+    against their plain versions on the CNN's and the oracle's maps, the
+    oracle's AP, and find_peaks_plane at batch 1 against its bound, with
+    its stage clocks (its row of the kernels line takes these numbers and
+    this path's launches; its times at the depth planes and (b)'s beside
+    K2's stand beside them, (a)'s launches in its "coco_eval" entry).
 
 14. tables: `cli.method_table` at a smoke budget (TABLE_SMOKE: 32
     training scenes, 8 frozen, 2 steps a row in two calls, the second a
@@ -378,10 +391,11 @@ COCO_PATH = ("find_peaks", "paf_score", "assemble_ids")
 # the stages between a kernel's STAGE_STAMPs, in order (csrc/common.cuh)
 STAGES = {"find_peaks": ("load", "NMS", "top-M", "refine"),
           "find_peaks_row": ("load", "NMS", "top-M", "refine"),
+          "find_peaks_plane": ("load", "NMS", "top-M", "merge", "refine"),
           "paf_score": ("copies issued", "peaks", "load wait", "integrals", "fill"),
           "assemble_ids": ("load", "match", "merge", "pack")}
 # the kernels that stamp each block's span on the global timer in stamp slots 6 and 7
-SPANS = ("find_peaks", "find_peaks_row")
+SPANS = ("find_peaks", "find_peaks_row", "find_peaks_plane")
 
 
 def source_of(name: str) -> str:
@@ -1235,23 +1249,57 @@ def phase_a2j_slice(frames, dev, weights, yolo_out):
 
 
 # maps that K1 and K2 cannot take (a side over 255 cells, a plane over K2's CTA):
-# find_peaks routes them to find_peaks_plane
+# find_peaks routes them to find_peaks_plane; and the COCO canvases, which it
+# routes there too (the cases with band edges below, PLANE_EDGE_SHAPES)
 PLANE_SHAPES = ((1, 18, 46, 256), (1, 1, 255, 255), (2, 3, 300, 300))
+PLANE_EDGE_SHAPES = ((1, 18, 46, 62), (1, 18, 69, 46), (1, 18, 46, 276), (1, 1, 2048, 2048))
+
+
+def plane_edges(B: int, K: int, H: int, W: int, M: int = 16) -> list[int]:
+    """The rows where two of find_peaks_plane's bands meet at these sizes:
+    the first row of every CTA's share of the rows but the first, and of
+    every band after the first within a share
+    (kernels.find_peaks_plane_config)."""
+    from popnet_tpu_torch.ops import kernels
+
+    cfg = kernels.find_peaks_plane_config(B, K, H, W, M)
+    share = -(-H // cfg["cluster"])
+    return [y for y0 in range(0, H, share)
+            for y in range(y0, min(H, y0 + share), cfg["rows"]) if y > 0]
+
+
+def band_edge_heat(rng, B: int, K: int, H: int, W: int, edges) -> np.ndarray:
+    """(B, K, H, W) float32 heat under the threshold (uniform below 0.09)
+    but at each of the rows `edges` where two bands meet: a peak on the
+    row above, a peak on the row, a plateau of two equal cells across the
+    edge, and a cell of 0.8, the same at every edge, so that equal values
+    lie in different bands and CTAs. Their columns move along the edges;
+    W >= 12."""
+    heat = rng.uniform(0, 0.09, (B, K, H, W)).astype(np.float32)
+    for j, y in enumerate(edges):
+        x = 7 * j % (W - 11)
+        heat[:, :, y - 1, x] = 0.5 + 0.001 * j
+        heat[:, :, y, x + 3] = 0.6 + 0.001 * j
+        heat[:, :, y - 1:y + 1, x + 6] = 0.7
+        heat[:, :, y, x + 9] = 0.8
+    return heat
 
 
 def plane_cases(rng, dev) -> tuple[int, float]:
     """find_peaks_plane, the third find_peaks kernel, through find_peaks
     (one launch counted on it, none on K1 or K2) against the plain version,
-    all five outputs bit for bit: at PLANE_SHAPES, planes of NCHW and NHWC
-    memory and slices of larger maps, dense heat (a lattice of peaks and an
-    exact tie, 32 kept) and sparse heat. Returns (cases, max |err| of the
-    score)."""
+    all five outputs bit for bit: at PLANE_SHAPES and PLANE_EDGE_SHAPES (one
+    frame), planes of NCHW and NHWC memory and slices of larger maps; dense
+    heat (a lattice of peaks and an exact tie, 32 kept), sparse heat, and
+    at PLANE_EDGE_SHAPES peaks, plateaus and ties on the rows where bands
+    meet (band_edge_heat; the 2048x2048 plane in bands taken in turn).
+    Returns (cases, max |err| of the score)."""
     import torch
 
     from popnet_tpu_torch.ops import kernels
 
     n, err = 0, 0.0
-    for B, K, H, W in PLANE_SHAPES:
+    for B, K, H, W in PLANE_SHAPES + PLANE_EDGE_SHAPES:
         require(kernels.find_peaks_route(K, H, W, 16) == "find_peaks_plane",
                 f"find_peaks_route at {(B, K, H, W)}")
         dense = rng.uniform(0, 1, (B, K + 1, H + 3, W + 4)).astype(np.float32)
@@ -1259,11 +1307,17 @@ def plane_cases(rng, dev) -> tuple[int, float]:
         dense[0, 0, 7, 9] = dense[0, 0, H - 2, W - 1] = 4.0      # an exact tie
         sparse = np.zeros_like(dense)
         sparse[:, :, :H, :W] = sparse_heat(rng, B, K + 1, H, W)
-        for heat, M in ((dense, 32), (sparse, 16)):
+        heats = [(dense, 32, (0, 0, 0)), (sparse, 16, (0, 0, 0))]
+        if (B, K, H, W) in PLANE_EDGE_SHAPES:   # the edges where the views put them
+            edge = np.zeros_like(dense)
+            edge[:, 1:, 2:H + 2, 3:W + 3] = band_edge_heat(rng, B, K, H, W,
+                                                           plane_edges(B, K, H, W))
+            heats.append((edge, 32, (1, 2, 3)))
+        for heat, M, (k0, y0, x0) in heats:
             t = torch.as_tensor(heat, device=dev)
-            for tag, h in (("NCHW", t[:, :K, :H, :W].contiguous()),
-                           ("NHWC", t[:, :K, :H, :W].contiguous(
-                               memory_format=torch.channels_last)),
+            at = t[:, k0:k0 + K, y0:y0 + H, x0:x0 + W]
+            for tag, h in (("NCHW", at.contiguous()),
+                           ("NHWC", at.contiguous(memory_format=torch.channels_last)),
                            ("sliced", t[:, 1:, 2:H + 2, 3:W + 3])):
                 kernels.reset_launches()
                 got = kernels.find_peaks(h, max_peaks=M)
@@ -1278,9 +1332,9 @@ def plane_cases(rng, dev) -> tuple[int, float]:
                            ref[i])
                 err = max(err, _maxerr(got[3], ref[3]))
                 n += 1
-                if M == 32 and tag == "NCHW":
-                    require(int(got[4][0, 0].sum()) == 32,
-                            "find_peaks_plane: the dense plane keeps 32 peaks")
+            if heat is not sparse:
+                require(int(got[4].sum(-1).max()) == 32,
+                        f"find_peaks_plane at {(B, K, H, W)}: a plane keeps 32 peaks")
     return n, err
 
 
@@ -1615,6 +1669,8 @@ def phase_timing(frames, weights, dev, B: int, iters: int, errs, launches, f32_o
         stage_breakdown("find_peaks", lambda: kernels.find_peaks(h), ms["find_peaks"])
         stage_breakdown("find_peaks_row", lambda: kernels.find_peaks_row(h),
                         ms["find_peaks_row"])
+        stage_breakdown("find_peaks_plane", lambda: kernels.find_peaks_plane(h),
+                        ms["find_peaks_plane"], tag="at the depth planes, ")
         stage_breakdown("paf_score", lambda: kernels.paf_score(paf_n, peaks, pvalid, LIMBS),
                         ms["paf_score"])
         stage_breakdown("assemble_ids", lambda: kernels.assemble_ids(ps, sm, LIMBS),
@@ -4980,6 +5036,8 @@ def phase_rgb(rng, dev) -> dict:
 EVAL_IMAGES = ((480, 640), (640, 480), (427, 640), (640, 427))  # (H, W) of phase 13's images
 EVAL_DEST = 368             # the evaluation canvas's short side (crop_with_factor)
 EVAL_TIMED = 5              # timed rgb_infer + decode calls an image and setting
+EVAL_CROP_ROWS = (426, 360)  # 640x426 and 640x360 images cut from the third: maps 46x70, 46x82
+ROUTE_BATCH = 64            # the batch at which phase 13 (b) also times find_peaks_plane and K2
 EVAL_MAP_BAR = 1e-4         # card against CPU maps, float32, over the maps' largest magnitude
 ORACLE_AP_BAR = 0.9         # the GT-map oracle's COCO AP through the vendored scorer
 GENAUG_FRAMES = 48          # frames of each generate-augset set (and recordings a location)
@@ -5079,9 +5137,9 @@ def tree_bytes(root: str) -> dict:
 
 
 def check_eval_kernels(tag: str, heat, paf) -> int:
-    """K1 or K2 (as find_peaks routes the grid), K3 and K6 on (1, H, W, 19)
-    heat and (1, H, W, 38) PAF maps on the card, each exact against its
-    plain version; returns the valid peaks."""
+    """find_peaks (as it routes one frame of these maps), K3 and K6 on
+    (1, H, W, 19) heat and (1, H, W, 38) PAF maps on the card, each exact
+    against its plain version; returns the valid peaks."""
     from popnet_tpu_torch.core.skeleton_coco import COCO_LIMBS, COCO_NUM_JOINTS as K
     from popnet_tpu_torch.decode.assemble_device import assemble_inputs
     from popnet_tpu_torch.decode.device import find_peaks_batched, peak_planes
@@ -5105,7 +5163,8 @@ def check_eval_kernels(tag: str, heat, paf) -> int:
 def phase_coco_eval(rng, dev) -> dict:
     """Phase 13, COCO evaluation at the evaluation canvas and MP-3DHP set
     construction (see the module docstring). Returns each kernel's
-    launches at each canvas of (a) and the K1/K2 timings there."""
+    launches at each canvas of (a) and (b)'s times of find_peaks_plane
+    beside K2's."""
     import torch
 
     from popnet_tpu_torch.cli.main import main as cli_main
@@ -5187,7 +5246,7 @@ def phase_coco_eval(rng, dev) -> dict:
                 map_err = max(map_err, _maxerr(fpaf.cpu(), fcp) / float(fcp.abs().max()),
                               _maxerr(fheat.cpu(), fch) / float(fch.abs().max()))
             require(map_err <= EVAL_MAP_BAR, f"{tag}: card maps {map_err:.3g} off the CPU's")
-            # K1 or K2, K3 and K6 against their plain versions on these maps
+            # the routed find_peaks kernel, K3 and K6 against their plain versions on these maps
             check_eval_kernels(f"{tag} CNN maps", heat[None], paf[None])
             # (b) the GT-map oracle at this canvas, card and CPU
             oh, op = oracle_maps(people[i], canvas.shape[:2], s_card, dev)
@@ -5217,7 +5276,7 @@ def phase_coco_eval(rng, dev) -> dict:
                         EVAL_TIMED / (time.perf_counter() - t0)
             dec_ms = time_ms(lambda: decode(paf, heat, s_card), reps=10)
             timings[f"{Hm}x{Wm}"] = {"images_per_s": rates, "decode_ms": dec_ms}
-            say("coco_eval", f"(a) {tag}: peaks by {route} (K1 would take "
+            say("coco_eval", f"(a) {tag}: peaks by {route} at batch 1 (K1 would take "
                 f"{kernels.find_peaks_smem(K, Hm, Wm, M)} bytes of shared memory, "
                 f"{kernels.SMEM_PER_BLOCK} allowed), paf_score in {groups} groups of limbs, "
                 f"assemble_ids: each launched once on the path and exact against its plain "
@@ -5238,27 +5297,57 @@ def phase_coco_eval(rng, dev) -> dict:
             f"{stats[1]:.4f} AP75 {stats[2]:.4f} AR {stats[3]:.4f} (bar AP {ORACLE_AP_BAR})")
         require(stats[0] >= ORACLE_AP_BAR, f"the oracle's AP {stats[0]:.4f} < {ORACLE_AP_BAR}")
 
-        # K1 and K2 at two evaluation grids, batch 1, CUDA-graph replays, beside their bound
+        # find_peaks_plane and K2 at the four canvases and at two common COCO ones (rows cut
+        # from the 640x427 image), batch 1, and at the first canvas at ROUTE_BATCH frames:
+        # CUDA-graph replays beside their bound and the launch floor. find_peaks_route takes
+        # find_peaks_plane wherever K1 cannot hold the maps, so it must be the faster at each.
+        # Both kernels and find_peaks exact against the plain version there, at batch 1 and
+        # 2 (K2 takes the 18 planes in rounds)
+        one = torch.zeros(1, device=dev)
+        floor_ms = graph_ms(lambda: one.fill_(0.0))
         k12 = {}
-        for i in (0, 2):
-            canvas, s, _ = crop_with_factor(images[i], EVAL_DEST, 8)
-            _, heat, _ = rgb_infer(infer_of(models["float32"]), images[i], mode="rtpose",
+        canvases = [*images, *(images[2][:rows] for rows in EVAL_CROP_ROWS)]
+        for i, img in enumerate(canvases):
+            _, heat, _ = rgb_infer(infer_of(models["float32"]), img, mode="rtpose",
                                    dest_size=EVAL_DEST)
-            h = peak_planes(heat[None], K)
-            px, py, _, _, v = kernels.find_peaks_row(h)
-            ms = graph_ms(lambda: kernels.find_peaks_row(h))
-            plain_ms = graph_ms(lambda: kernels.find_peaks_plain(h), reps=5)
-            nbytes, ops, bound_ms, _ = _bounds("find_peaks_row", {
-                "heat": h, "px": px, "py": py, "valid": v,
-                "thresh": DecodeConfig().thresh_heatmap})
-            grid = f"{h.shape[2]}x{h.shape[3]}"
-            k12[grid] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "find_peaks_smem": kernels.find_peaks_smem(K, h.shape[2], h.shape[3], M)}
-            say("coco_eval", f"K2 (find_peaks_row) at maps {grid} (HxW), batch 1: {ms:.4f} ms (CUDA "
-                f"graph), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-                f"{'bytes' if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else 'operations'}"
-                f" ({nbytes / 1e3:.1f} kB, {ops / 1e6:.3f} MFLOP); K1 cannot launch there "
-                f"({k12[grid]['find_peaks_smem']} bytes of shared memory a block)")
+            frames = torch.stack([heat, heat.flip(1)])
+            grid = f"{heat.shape[0]}x{heat.shape[1]}"
+            for h in (peak_planes(heat[None], K), peak_planes(frames, K)):
+                ref = kernels.find_peaks_plain(h)
+                for fn in (kernels.find_peaks, kernels.find_peaks_plane, kernels.find_peaks_row):
+                    for a, b, n in zip(fn(h), ref, PEAK_OUTPUTS):
+                        _exact(f"{fn.__name__} at maps {grid}, batch {h.shape[0]}, {n}", a, b)
+            batches = (ROUTE_BATCH, 1) if i == 0 else (1,)   # batch 1 last: its stages
+            for B in batches:
+                h = peak_planes(heat[None].repeat(B, 1, 1, 1), K)
+                px, py, _, _, v = kernels.find_peaks_plane(h)
+                times = {"find_peaks_plane": graph_ms(lambda: kernels.find_peaks_plane(h)),
+                         "find_peaks_row": graph_ms(lambda: kernels.find_peaks_row(h))}
+                plain_ms = graph_ms(lambda: kernels.find_peaks_plain(h), reps=5)
+                nbytes, ops, bound_ms, _ = _bounds("find_peaks_plane", {
+                    "heat": h, "px": px, "py": py, "valid": v,
+                    "thresh": DecodeConfig().thresh_heatmap})
+                by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+                key = grid if B == 1 else f"{grid} batch {B}"
+                k12[key] = {"ms": times["find_peaks_plane"], "k2_ms": times["find_peaks_row"],
+                            "plain_ms": plain_ms, "bound_ms": bound_ms, "floor_ms": floor_ms,
+                            "find_peaks_smem": kernels.find_peaks_smem(K, *h.shape[2:], M),
+                            "config": kernels.find_peaks_plane_config(B, K, *h.shape[2:], M)}
+                say("coco_eval", f"find_peaks_plane at maps {grid} (HxW), batch {B}: "
+                    f"{times['find_peaks_plane']:.4f} ms (CUDA graph; {k12[key]['config']}), "
+                    f"K2 (find_peaks_row) {times['find_peaks_row']:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({nbytes / 1e3:.1f} "
+                    f"kB, {ops / 1e6:.3f} MFLOP), the launch floor {floor_ms:.4f} ms ({times['find_peaks_plane'] / floor_ms:.2f}x it); K1 "
+                    f"cannot launch there ({k12[key]['find_peaks_smem']} bytes of shared "
+                    f"memory a block); find_peaks, find_peaks_plane and K2 exact against the "
+                    f"plain version at batch 1 and 2")
+                require(times["find_peaks_plane"] < times["find_peaks_row"],
+                        f"find_peaks_route takes find_peaks_plane at {grid}, batch {B}, as the "
+                        f"faster, but K2 took {times['find_peaks_row']:.4f} ms against "
+                        f"{times['find_peaks_plane']:.4f}")
+            if i == 0:
+                stage_breakdown("find_peaks_plane", lambda: kernels.find_peaks_plane(h),
+                                times["find_peaks_plane"], tag=f"coco_eval {key}: ")
 
         # (c) generate-augset on the card and on the CPU
         data = os.path.join(root, "kdh3d")
@@ -5296,8 +5385,11 @@ def phase_coco_eval(rng, dev) -> dict:
             + f", launches {ev}")
     torch.backends.cudnn.allow_tf32 = tf32
     say("coco_eval", f"launches over (a) per kernel: {launches}; by canvas: {per_canvas}")
-    require(launches["find_peaks_row"] >= 1 and launches["paf_score"] >= 1
-            and launches["assemble_ids"] >= 1, "phase 13's path launched K2, K3 or K6 no time")
+    routes = {c["peaks_by"] for c in per_canvas.values()}
+    require(routes == {"find_peaks_plane"} and launches["find_peaks_plane"] == len(images)
+            and launches["find_peaks_row"] == 0 and launches["paf_score"] >= 1
+            and launches["assemble_ids"] >= 1,
+            f"phase 13's path launched {launches} (peaks by {routes})")
     say("coco_eval", f"phase 13 in {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "per_canvas": per_canvas, "k12": k12, "timings": timings,
             "generate_augset_fps": gen_rates, "oracle_stats": stats.tolist()}
@@ -5376,6 +5468,8 @@ def phase_wide_canvas(rng, dev) -> dict:
     nbytes, ops, bound_ms, _ = _bounds("find_peaks_plane", {
         "heat": h, "px": px, "py": py, "valid": v, "thresh": DecodeConfig().thresh_heatmap})
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+    stage_breakdown("find_peaks_plane", lambda: kernels.find_peaks(h), ms,
+                    tag=f"(e) panorama {maps} batch 1: ")
     say("coco_eval", f"(e) a {img.shape[1]}x{img.shape[0]} panorama (canvas {canvas.shape[1]}x"
         f"{canvas.shape[0]}, maps {maps} HxW, {len(kps)} people): rgb_infer + paf_decode_2d on "
         f"the card launched {launches} (peaks by {route}), its decode equals the host's bit for "
@@ -5390,13 +5484,14 @@ def phase_wide_canvas(rng, dev) -> dict:
 
 def coco_eval_entry(name: str, res: dict) -> dict:
     """A kernel's "coco_eval" entry of the kernels line: its launches over
-    phase 13's evaluation path; K1 and K2 the canvases each took (K2 its
-    batch-1 times at two of them), K3 its groups of limbs at each."""
+    phase 13's evaluation path; the find_peaks kernels the canvases each
+    took, find_peaks_plane its times beside K2's (phase 13 (b)), K3
+    its groups of limbs at each."""
     entry = {"launches": res["launches"][name]}
-    if name in ("find_peaks", "find_peaks_row"):
+    if name in ("find_peaks", "find_peaks_row", "find_peaks_plane"):
         entry["maps"] = [g for g, c in res["per_canvas"].items() if c["peaks_by"] == name]
-    if name == "find_peaks_row":
-        entry["batch1"] = res["k12"]
+    if name == "find_peaks_plane":
+        entry["against_k2"] = res["k12"]
     if name == "paf_score":
         entry["groups"] = {g: c["paf_score_groups"] for g, c in res["per_canvas"].items()}
     return entry
@@ -5822,6 +5917,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from popnet_tpu_torch import load_npz
+    from popnet_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)           # the first slice's inputs, as ever
@@ -5833,9 +5929,12 @@ def main(argv=None) -> int:
     errs = phase_kernels(rng, rng_new, rng3, rng4, dev, BATCH)
     n_plane, errs["find_peaks_plane"] = plane_cases(np.random.default_rng([args.seed, 16]), dev)
     say("kernels", f"find_peaks_plane: px/py/loc/score/valid exact against the plain version in "
-        f"{n_plane} cases at {PLANE_SHAPES} (B, K, H, W), where find_peaks routes to it (one "
-        f"launch, none on K1 or K2): NCHW, NHWC and sliced planes, dense heat (a lattice of "
-        f"peaks, an exact tie, 32 kept) and sparse heat")
+        f"{n_plane} cases at {PLANE_SHAPES + PLANE_EDGE_SHAPES} (B, K, H, W), where find_peaks "
+        f"routes to it (one launch, none on K1 or K2): NCHW, NHWC and sliced planes, dense heat "
+        f"(a lattice of peaks, an exact tie, 32 kept), sparse heat, and at the last "
+        f"{len(PLANE_EDGE_SHAPES)} shapes peaks, plateaus and ties on the rows where bands meet "
+        f"(the 2048x2048 plane in bands taken in turn, "
+        f"{kernels.find_peaks_plane_config(1, 1, 2048, 2048, 32)})")
     rng_coco = np.random.default_rng([args.seed, 6])  # the COCO painted maps and frames
     errs_coco, painted = phase_coco_kernels(rng_coco, dev, COCO_BATCH)
     weights, weights_pn = load_npz(WEIGHTS), load_npz(WEIGHTS_POPNET)
@@ -5907,7 +6006,7 @@ def main(argv=None) -> int:
         wide = phase_wide_canvas(np.random.default_rng([args.seed, 13, 5]), dev)
         for r in rows:                  # the panorama of phase 13 (e): find_peaks_plane's path
             r["wide_canvas_launches"] = wide["launches"][r["name"]]
-            if r["name"] == "find_peaks_plane":
+            if r["name"] == "find_peaks_plane":    # (e)'s launches and times; (a)'s: coco_eval
                 r["depth_planes"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
                 r.update({k: wide[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                          launches=wide["launches"]["find_peaks_plane"], maps=wide["maps"])

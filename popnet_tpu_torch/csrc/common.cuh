@@ -90,9 +90,11 @@ struct Walk3 {
   }
 };
 
-template <int kBytes>
-__device__ __forceinline__ void cp_async_walk(unsigned base, const float* src, const Dims3& g) {
+template <int kBytes, bool kLimit>
+__device__ __forceinline__ void cp_async_walk(unsigned base, const float* src, const Dims3& g,
+                                              int limit) {
   for (Walk3 w(g, threadIdx.x, blockDim.x); w.more(g); w.next(g)) {
+    if (kLimit && w.dst >= limit) continue;
     if (kBytes == 16)
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(base + 4u * w.dst),
                    "l"(src + w.src));
@@ -102,18 +104,32 @@ __device__ __forceinline__ void cp_async_walk(unsigned base, const float* src, c
   }
 }
 
+template <bool kLimit>
+__device__ __forceinline__ void cp_async_dims(float* dst, const float* src, const Dims3& g,
+                                              int limit) {
+  const unsigned base = (unsigned)__cvta_generic_to_shared(dst);
+  if (g.vec == 4)
+    cp_async_walk<16, kLimit>(base, src, g, limit);
+  else if (g.vec == 2)
+    cp_async_walk<8, kLimit>(base, src, g, limit);
+  else
+    cp_async_walk<4, kLimit>(base, src, g, limit);
+}
+
 // Copy the frame at `src` into shared memory at `dst` through the walk: one
 // asynchronous copy of g.vec elements per step, threads numbered in memory
 // order, so a warp's copies fall on neighbouring addresses. Completes at
 // cp_async_wait_all().
 __device__ __forceinline__ void cp_async_frame(float* dst, const float* src, const Dims3& g) {
-  const unsigned base = (unsigned)__cvta_generic_to_shared(dst);
-  if (g.vec == 4)
-    cp_async_walk<16>(base, src, g);
-  else if (g.vec == 2)
-    cp_async_walk<8>(base, src, g);
-  else
-    cp_async_walk<4>(base, src, g);
+  cp_async_dims<false>(dst, src, g, 0);
+}
+
+// The same copy of only the elements whose shared-memory offset is below
+// `limit`: the first rows of a walk built on the host for more rows, as a
+// kernel whose bands differ in height takes them (find_peaks.cu).
+__device__ __forceinline__ void cp_async_rows(float* dst, const float* src, const Dims3& g,
+                                              int limit) {
+  cp_async_dims<true>(dst, src, g, limit);
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {

@@ -6,8 +6,9 @@
 // find_peaks_pallas_bt (kernel _find_peaks_bt_kernel), the default peak refine
 // of the TPU decode; find_peaks_row_kernel (below) replaces its per-frame twin
 // find_peaks_pallas (kernel _find_peaks_kernel); find_peaks_plane_kernel
-// (the last) takes the maps the first two cannot hold. The notes here are
-// the first kernel's; the others have their own.
+// (the last) takes the maps the first two cannot hold, and one frame of the
+// COCO evaluation canvases. The notes here are the first kernel's; the
+// others have their own.
 //
 // Bound on the H100: bytes, counted as the inputs need them. The kernel
 // reads each (H, W) heat plane once (B*K*H*W*4 bytes, 12 MB at B=256, K=15,
@@ -25,7 +26,8 @@
 // fit an SM, so 256 frames fill 132 SMs in one wave). Where the K planes do
 // not fit one block's 227 KB (18 planes from 46x47 on, every COCO
 // evaluation canvas that is not square), the wrapper launches
-// find_peaks_row_kernel, which takes a frame's planes in rounds.
+// find_peaks_plane_kernel for one frame and find_peaks_row_kernel, which
+// takes a frame's planes in rounds, for a batch.
 // - Load: the frame goes to shared memory in one pass of cp.async copies,
 //   threads numbered in the order of the memory the strides show (channel
 //   fastest on the serving path's channels-last maps, x fastest on NCHW), so
@@ -56,6 +58,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <algorithm>
+#include <numeric>
 #include <climits>
 #include <math.h>
 
@@ -125,21 +129,23 @@ __device__ __forceinline__ void lane_columns(const float* Us, int lane,
 // the first-flat-index tie rule. Every lane ends with the value in bv and
 // the flat index in bi. Products and sums are unfused, in the order of the
 // plain PyTorch version. kPatch: `h` is the 5x5 patch of edge-clamped taps
-// itself (row stride 5), copied out of the plane beforehand.
+// itself (row stride 5), copied out of the plane beforehand. With `parts`
+// warps on one refine, this warp takes every parts-th step of output rows
+// from `part` on (and computes only the rows of upA those steps read), and
+// the caller reduces their results by the same rule.
 template <bool kPatch = false>
 __device__ __forceinline__ void refine_window(const float* h, int H, int W, int cx, int cy,
                                               const float* Us,
                                               const float (&u)[kSize][kSize], float* upA,
-                                              int lane, float& bv, int& bi) {
+                                              int lane, float& bv, int& bi, int part = 0,
+                                              int parts = 1) {
   const int kx0 = max(0, kWin - cx), kx1 = kWin + min(W - 1 - cx, kWin);
   const int ky0 = max(0, kWin - cy), ky1 = kWin + min(H - 1 - cy, kWin);
   int row[kSize];
 #pragma unroll
   for (int i = 0; i < kSize; ++i)
     row[i] = kPatch ? i * kSize : min(max(cy + i - kWin, 0), H - 1) * W;
-  const int s0 = ky0 * kFactor, n_up = (ky1 - ky0 + 1) * kFactor * kSize;
-  for (int q = lane; q < n_up; q += 32) {
-    const int s = s0 + q / kSize, j = q % kSize;
+  auto up_entry = [&](int s, int j) {               // upA[s, j]
     const int col = kPatch ? j : min(max(cx + j - kWin, 0), W - 1);
     float us[kSize];
     row5(Us + s * kRow, us);
@@ -147,12 +153,19 @@ __device__ __forceinline__ void refine_window(const float* h, int H, int W, int 
 #pragma unroll
     for (int i = 1; i < kSize; ++i) acc = __fadd_rn(acc, __fmul_rn(us[i], h[row[i] + col]));
     upA[s * kRow + j] = acc;
+  };
+  if (parts == 1) {
+    const int s0 = ky0 * kFactor, n_up = (ky1 - ky0 + 1) * kFactor * kSize;
+    for (int q = lane; q < n_up; q += 32) up_entry(s0 + q / kSize, q % kSize);
+  } else {                                          // only the rows of this warp's steps
+    for (int step = ky0 * kStepsPerCell + part; step < (ky1 + 1) * kStepsPerCell; step += parts)
+      if (lane < kRowGroups * kSize) up_entry(step * kRowGroups + lane / kSize, lane % kSize);
   }
   __syncwarp();
   const int c = lane % kFactor, r = lane / kFactor;
   bv = -INFINITY;
   bi = INT_MAX;
-  for (int step = ky0 * kStepsPerCell; step < (ky1 + 1) * kStepsPerCell; ++step) {
+  for (int step = ky0 * kStepsPerCell + part; step < (ky1 + 1) * kStepsPerCell; step += parts) {
     const int s = r + kRowGroups * step;
     float a[kSize];
     row5(upA + s * kRow, a);
@@ -754,159 +767,327 @@ int launch_row(const void* heat, long long sb, long long sk, long long sy,
   return (int)cudaGetLastError();
 }
 
-// find_peaks_plane_kernel: the same function for the maps the other two
-// cannot take: a side over 255 cells (their survivor keys hold a cell in 16
-// bits, cell_key) or a plane larger than a CTA of find_peaks_row_kernel
-// holds (row_config).
+// find_peaks_plane_kernel: the same function for the maps find_peaks_kernel
+// cannot take (a frame's planes over one block's shared memory, as at the
+// COCO evaluation canvases of images that are not square; a side over 255
+// cells: its survivor keys hold a cell in 16 bits, cell_key), at any batch
+// (ops/kernels.py find_peaks_route). Where find_peaks_row_kernel takes the
+// same maps, this kernel is the faster at every batch measured
+// (chip_smoke.py phase 13 (b)).
 //
 // Replaces, for those maps: popnet_tpu/ops/pallas_kernels.py
 // find_peaks_pallas and find_peaks_pallas_bt, which take maps of any size.
 //
-// Bound on the H100: bytes, as for find_peaks_kernel; this kernel also
-// writes and reads back its survivors (4 bytes each), a few per plane on
-// heat maps.
+// Bound on the H100: bytes, as for find_peaks_kernel: each plane read once,
+// five (B, K, M) arrays written. At batch 1 a frame is a few hundred kB
+// (0.0001 ms at the COCO canvases, 0.0003 ms at 46x276), so what the card
+// can reach there is the launch floor (a one-element fill, about 0.0013
+// ms), not the bound. On a COCO canvas at batch 1 (chip_smoke.py phase 13
+// (b) stage clocks) a CTA lives about 5.3 us: load 23%, NMS 14%, top-M 9%,
+// the cluster's merge 27% (its barrier waits for the cluster's slowest
+// CTA), refine 27%.
 //
-// Design, simple rather than fast: one CTA of 8 warps per (frame, plane),
-// reading the plane from global memory at its strides.
-// - NMS: a thread per cell, the same four-neighbour test and threshold;
-//   each warp appends its survivors' 32-bit flat indices to the plane's
-//   region of a global scratch buffer with one atomic.
-// - Top-M: M rounds of block reductions over the survivors on (value
-//   descending, flat index ascending) as one 64-bit key, the pick of the
-//   TPU kernel; the pick's entry is struck from the list.
-// - Refine: a warp per pick (and one at the corner (0, 0) for all the
-//   empty slots, as find_peaks_kernel): it copies the pick's 5x5 patch of
-//   edge-clamped taps into shared memory and runs refine_window on it, the
-//   device function of the other two kernels (its coordinates are ints).
-constexpr int kPlaneThreads = 256;
-constexpr int kPlaneWarps = kPlaneThreads / 32;
+// Design: a plane's rows are split into bands over a thread-block cluster
+// of C CTAs (C up to 8, the portable cluster size, where the frames' B * K
+// planes are fewer than the SMs: 18 planes x 8 = 144 CTAs at batch 1; one
+// CTA of 4 warps a plane where there are enough planes).
+// - Load: a CTA copies its band and the rows above and below it into
+//   shared memory with the stride-aware cp.async copies of common.cuh (a
+//   walk in the order of the plane's memory, 16 or 8 bytes a copy where the
+//   strides allow), along with U. The walk is built once on the host for
+//   the tallest band (band_walk) and a shorter band copies its first rows
+//   (cp_async_rows): built on the card, per band, it took longer than the
+//   copy. A share of rows larger than the shared memory holds is taken in
+//   successive bands, so any plane size runs.
+// - NMS: a warp takes 32 columns of a group of rows and walks down them
+//   with the cells above and below in registers (three shared-memory reads
+//   a cell, no division); the row groups keep every warp busy on narrow
+//   planes.
+// - Top-M, on chip in one pass: each warp keeps its best M keys (value
+//   descending, flat index ascending, one 64-bit key, pick_key) as a sorted
+//   list across its lanes, lane m holding rank m; a survivor above the
+//   list's M-th key enters by a ballot and a shift. The warps' lists merge
+//   in shared memory by a tree of bitonic merges of pairs (merge_lists;
+//   faster than ranking each key by binary searches of the other lists).
+//   Each CTA then pushes its list into every CTA of the cluster
+//   (distributed shared memory), and after one cluster barrier each merges
+//   the C lists the same way and holds the plane's picks.
+// - Refine: the picks, and one refine at the corner (0, 0) for all the
+//   empty slots, go to the cluster's CTAs in turn, and a CTA splits each of
+//   its refines over several warps, each taking a share of the window's
+//   rows (refine_window's part and parts), their results reduced by the tie
+//   rule. A warp copies its pick's 5x5 patch of edge-clamped taps from
+//   global memory: the pick may lie in another CTA's band or in a band its
+//   CTA has moved on from; reading it from the owner's band (a halo of two
+//   rows, the refine taken by the owner) was no faster. The products are
+//   refine_window's, the device function of the other two kernels, so the
+//   three agree bit for bit.
+constexpr int kPlaneWarps = 8;                     // warps a CTA at most
+constexpr int kPlaneThreads = kPlaneWarps * 32;
+constexpr int kPlaneCluster = 8;                   // CTAs a plane at most
+constexpr int kPlaneFewWarps = 4;                  // warps a CTA where each plane has one CTA
+using Key = unsigned long long;
+static_assert(kMaxPeaks == 32 && kPlaneCluster <= 2 * kPlaneWarps, "merge_lists: 32 keys a list");
 
 // (value descending, flat index ascending) as one key: a larger key is a
 // better pick; 0 is no survivor (order_key of any float but NaN is above 0).
-__device__ __forceinline__ unsigned long long pick_key(float v, int i) {
-  return (unsigned long long)order_key(v) << 32 | (0xFFFFFFFFu - (unsigned)i);
+__device__ __forceinline__ Key pick_key(float v, int i) {
+  return (Key)order_key(v) << 32 | (0xFFFFFFFFu - (unsigned)i);
 }
 
-__device__ __forceinline__ unsigned long long max_key(unsigned long long a, unsigned long long b) {
-  return a > b ? a : b;
+__device__ __forceinline__ int key_index(Key k) {
+  return (int)(0xFFFFFFFFu - (unsigned)(k & 0xFFFFFFFFu));
 }
 
-// The largest key over the block; every thread ends with it. `red` holds
-// kPlaneWarps + 1 keys of shared memory.
-__device__ __forceinline__ unsigned long long block_max_key(unsigned long long k,
-                                                           unsigned long long* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) k = max_key(k, __shfl_xor_sync(kFull, k, off));
-  if (lane == 0) red[warp] = k;
-  __syncthreads();
-  if (warp == 0) {
-    k = lane < kPlaneWarps ? red[lane] : 0ull;
-    for (int off = 16; off > 0; off >>= 1) k = max_key(k, __shfl_xor_sync(kFull, k, off));
-    if (lane == 0) red[kPlaneWarps] = k;
+// The survivors that the lanes flagged in `offer` hold (key `mine`) into
+// the warp's list of its best M keys, `list` in lane m being rank m (0 past
+// the last key; lanes from M on hold 0): a key above the list's M-th enters
+// at its rank, the keys below it moving down one lane.
+__device__ __forceinline__ void warp_offer(bool offer, Key mine, Key& list, int M, int lane) {
+  const Key last = __shfl_sync(kFull, list, M - 1);
+  for (unsigned bits = __ballot_sync(kFull, offer && mine > last); bits; bits &= bits - 1) {
+    const Key k = __shfl_sync(kFull, mine, __ffs((int)bits) - 1);
+    const int pos = __popc(__ballot_sync(kFull, list > k));
+    const Key above = __shfl_up_sync(kFull, list, 1);
+    if (pos < M && lane >= pos && lane < M) list = lane == pos ? k : above;
   }
-  __syncthreads();
-  k = red[kPlaneWarps];
-  __syncthreads();                                  // red is free for the next reduction
-  return k;
 }
 
-__global__ void __launch_bounds__(kPlaneThreads)
-find_peaks_plane_kernel(const float* __restrict__ heat, long long sb, long long sk, long long sy,
-                        long long sx, int K, int H, int W, int M, float thresh,
-                        const float* __restrict__ U, int* __restrict__ survivors,
-                        int* __restrict__ px_out, int* __restrict__ py_out,
-                        int* __restrict__ loc_out, float* __restrict__ score_out,
-                        bool* __restrict__ valid_out) {
-  __shared__ __align__(16) float Us[kS * kRow];
-  __shared__ __align__(16) float upA[kPlaneWarps][kS * kRow];
-  __shared__ float patch[kPlaneWarps][kPatchFloats];
-  __shared__ unsigned long long red[kPlaneWarps + 1];
-  __shared__ int picks[kMaxPeaks];
-  __shared__ int n_surv;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long plane = blockIdx.x;
-  const float* h = heat + (plane / K) * sb + (plane % K) * sk;
-  const int HW = H * W;
-  int* list = survivors + plane * HW;
-  load_u(U, Us);
-  if (tid == 0) n_surv = 0;
-  __syncthreads();
-
-  // NMS: v >= each of its four neighbours (kSent off the plane) and v > thresh
-  for (int base = 0; base < HW; base += kPlaneThreads) {
-    const int i = base + tid;
-    bool keep = false;
-    if (i < HW) {
-      const int y = i / W, x = i - y * W;
-      const float* p = h + y * sy + x * sx;
-      const float v = *p;
-      const float up = y > 0 ? p[-sy] : kSent, down = y < H - 1 ? p[sy] : kSent;
-      const float left = x > 0 ? p[-sx] : kSent, right = x < W - 1 ? p[sx] : kSent;
-      keep = v >= fmaxf(fmaxf(up, down), fmaxf(left, right)) && v > thresh;
-    }
-    const unsigned ballot = __ballot_sync(kFull, keep);
-    int first = 0;
-    if (lane == 0 && ballot) first = atomicAdd(&n_surv, __popc(ballot));
-    first = __shfl_sync(kFull, first, 0);
-    if (keep) list[first + __popc(ballot & ((1u << lane) - 1))] = i;
-  }
-  __syncthreads();
-  const int n = n_surv;
-
-  // top-M: the best survivor left, M times; its entry struck (-1)
-  int m = 0;
-  for (; m < M; ++m) {
-    unsigned long long mine = 0;
-    int q_mine = -1;
-    for (int q = tid; q < n; q += kPlaneThreads) {
-      const int i = list[q];
-      if (i < 0) continue;
-      const int y = i / W;
-      const unsigned long long key = pick_key(h[y * sy + (i - y * W) * sx], i);
-      if (key > mine) { mine = key; q_mine = q; }
-    }
-    const unsigned long long best = block_max_key(mine, red);
-    if (best == 0) break;                           // the same in every thread
-    if (mine == best) {                              // keys are unique: one thread
-      list[q_mine] = -1;
-      picks[m] = (int)(0xFFFFFFFFu - (unsigned)(best & 0xFFFFFFFFu));
+// The best 32 keys of n lists of 32 keys (`lists`, each descending, 0 after
+// its last key) into lists[0..32), by a tree of pairwise merges, a warp a
+// pair (n / 2 warps at most): the elementwise maximum of one list and the
+// other reversed holds the best 32 of the two as a bitonic sequence, which
+// five shuffle steps sort. A pair whose second list is empty is skipped.
+// Every thread of the block calls it (a block barrier a level).
+__device__ __forceinline__ void merge_lists(Key* lists, int n, int warp, int lane) {
+  for (int width = 1; width < n; width *= 2) {
+    const int a = warp * 2 * width, b = a + width;
+    if (b < n && lists[b * 32] != 0) {               // the same in every lane
+      Key c = lists[a * 32 + lane];
+      const Key y = lists[b * 32 + 31 - lane];
+      c = c > y ? c : y;
+#pragma unroll
+      for (int j = 16; j > 0; j >>= 1) {
+        const Key other = __shfl_xor_sync(kFull, c, j);
+        c = (lane & j) ? (c < other ? c : other) : (c > other ? c : other);
+      }
+      lists[a * 32 + lane] = c;
     }
     __syncthreads();
   }
+}
+
+// The split arrive and wait of the cluster barrier (cluster.sync() is the
+// two together): arriving at the start and waiting before the first write
+// to another CTA's shared memory makes sure every CTA of the cluster runs.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// U (S, size) into shared memory with rows padded to kRow floats, as
+// load_u, by asynchronous copies that complete at cp_async_wait_all().
+__device__ __forceinline__ void cp_async_u(const float* __restrict__ U, float* Us) {
+  const unsigned base = (unsigned)__cvta_generic_to_shared(Us);
+  for (int i = threadIdx.x; i < kS * kSize; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     base + 4u * ((i / kSize) * kRow + i % kSize)),
+                 "l"(U + i));
+}
+
+// C: CTAs a plane (a cluster where C > 1); R: rows of a band (the dynamic
+// shared memory holds R + 2 rows of W floats: the band and the rows above
+// and below it, which the NMS reads); g: the walk of the copy of R + 2 rows
+// of a plane (band_walk), of which a band copies its first rows.
+__global__ void __launch_bounds__(kPlaneThreads)
+find_peaks_plane_kernel(const float* __restrict__ heat, long long sb, long long sk, long long sy,
+                        long long sx, popnet::Dims3 g, int K, int H, int W, int M, int C, int R,
+                        float thresh, const float* __restrict__ U,
+                        int* __restrict__ px_out, int* __restrict__ py_out,
+                        int* __restrict__ loc_out, float* __restrict__ score_out,
+                        bool* __restrict__ valid_out) {
+  extern __shared__ float4 plane_smem4[];
+  float* band = reinterpret_cast<float*>(plane_smem4);     // rows y_lo .. y_hi - 1, W floats each
+  __shared__ __align__(16) float Us[kS * kRow];
+  __shared__ __align__(16) float upA[kPlaneWarps][kS * kRow];
+  __shared__ float patch[kPlaneWarps][kPatchFloats];
+  __shared__ Key warp_lists[kPlaneWarps * 32];            // each warp's keys, 0 from M on
+  __shared__ Key cta_lists[kPlaneCluster * 32];           // each CTA's keys, pushed by it
+  __shared__ float part_v[kPlaneWarps];                   // each warp's share of a refine
+  __shared__ int part_i[kPlaneWarps];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const int rank = blockIdx.x % C;
+  const long long plane = blockIdx.x / C;
+  const float* h = heat + (plane / K) * sb + (plane % K) * sk;
+  BLOCK_SPAN(6);
+  STAGE_STAMP(0);
+  if (C > 1) cluster_arrive_relaxed();
+  cp_async_u(U, Us);                                  // completes with the first band
+
+  // this CTA's share of the rows, in bands of at most R rows
+  const int share = (H + C - 1) / C;
+  const int y_begin = min(H, rank * share), y_end = min(H, y_begin + share);
+  const int chunks = (W + 31) / 32;                 // 32 columns a warp
+  Key list = 0;
+  for (int r0 = y_begin; r0 < y_end; r0 += R) {
+    const int r1 = min(y_end, r0 + R);
+    const int y_lo = max(r0 - 1, 0), y_hi = min(r1 + 1, H);
+    popnet::cp_async_rows(band, h + y_lo * sy, g, (y_hi - y_lo) * W);
+    popnet::cp_async_wait_all();
+    __syncthreads();
+    STAGE_STAMP(1);
+    // NMS: v >= each of its four neighbours (kSent off the plane) and v > thresh
+    const int rows = r1 - r0;
+    const int groups = max(1, min(rows, nw / chunks));
+    const int per = (rows + groups - 1) / groups;
+    for (int unit = warp; unit < chunks * groups; unit += nw) {
+      const int grp = unit / chunks, x = (unit - grp * chunks) * 32 + lane;
+      const int ya = r0 + grp * per, yb = min(r1, ya + per);
+      if (ya >= yb) continue;                        // the same in every lane
+      const bool in = x < W;
+      const int xc = min(x, W - 1);
+      const float* p = band + (ya - y_lo) * W + xc;
+      float up = ya > 0 ? p[-W] : kSent, v = p[0];
+      int i = ya * W + xc;
+      for (int y = ya; y < yb; ++y, p += W, i += W) {
+        const float down = y < H - 1 ? p[W] : kSent;
+        const float left = xc > 0 ? p[-1] : kSent, right = xc < W - 1 ? p[1] : kSent;
+        const bool keep = in && v >= fmaxf(fmaxf(up, down), fmaxf(left, right)) && v > thresh;
+        warp_offer(keep, pick_key(v, i), list, M, lane);
+        up = v;
+        v = down;
+      }
+    }
+    __syncthreads();                                  // the band is free for the next
+    STAGE_STAMP(2);
+  }
+
+  // top-M of the CTA: its warps' lists merged
+  popnet::cp_async_wait_all();                        // U, where the CTA had no rows
+  warp_lists[tid] = list;
+  __syncthreads();
+  merge_lists(warp_lists, nw, warp, lane);
+  STAGE_STAMP(3);
+
+  // top-M of the plane: every CTA pushes its list into every CTA of the
+  // cluster, and each merges the C lists
+  const Key* top = warp_lists;
+  if (C > 1) {
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    cluster_wait();                                  // every CTA of the cluster runs
+    if (tid < C * 32)
+      cluster.map_shared_rank(cta_lists, tid >> 5)[rank * 32 + lane] = warp_lists[lane];
+    cluster.sync();                                  // no CTA touches another's memory after this
+    merge_lists(cta_lists, C, warp, lane);
+    top = cta_lists;
+  }
+  STAGE_STAMP(4);
+
+  const int m = __popc(__ballot_sync(kFull, lane < M && top[lane] != 0));
   const long long o = plane * M;
-  if (tid < M) {
-    const int i = tid < m ? picks[tid] : 0, y = i / W;
+  if (rank == 0 && tid < M) {
+    const int i = tid < m ? key_index(top[tid]) : 0, y = i / W;
     px_out[o + tid] = i - y * W;
     py_out[o + tid] = y;
     valid_out[o + tid] = tid < m;
   }
 
-  // refines: a warp per pick, and one at the corner for every empty slot
+  // refines: one a pick, and one at the corner for every empty slot; item j
+  // to CTA j % C, a CTA's items split over its warps, `parts` warps an item
+  // each taking a share of the window's rows, their results reduced by the
+  // tie rule. A warp copies its item's 5x5 patch of edge-clamped taps from
+  // global memory (the pick may lie in another CTA's band, or in a band that
+  // this CTA has moved on from).
   float u[kSize][kSize];
   lane_columns(Us, lane, u);
   const int items = m < M ? m + 1 : m;
-  for (int j = warp; j < items; j += kPlaneWarps) {
-    const int i = j < m ? picks[j] : 0, cy = i / W, cx = i - cy * W;
-    if (lane < kSize * kSize) {
-      const int r = lane / kSize, c = lane - r * kSize;
-      patch[warp][lane] = h[min(max(cy + r - kWin, 0), H - 1) * sy +
-                            min(max(cx + c - kWin, 0), W - 1) * sx];
+  const int mine = items > rank ? (items - rank + C - 1) / C : 0;   // this CTA's items
+  const int parts = mine > 0 ? max(1, nw / mine) : 1, per_round = nw / parts;
+  for (int a0 = 0; a0 < mine; a0 += per_round) {
+    const int a = a0 + warp / parts, part = warp - (warp / parts) * parts;
+    const bool on = warp / parts < per_round && a < mine;
+    const int j = rank + a * C;
+    const int i = on && j < m ? key_index(top[j]) : 0, cy = i / W, cx = i - cy * W;
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+    if (on) {
+      if (lane < kSize * kSize) {
+        const int r = lane / kSize, c = lane - r * kSize;
+        patch[warp][lane] = h[min(max(cy + r - kWin, 0), H - 1) * sy +
+                              min(max(cx + c - kWin, 0), W - 1) * sx];
+      }
+      __syncwarp();
+      refine_window<true>(patch[warp], H, W, cx, cy, Us, u, upA[warp], lane, bv, bi, part,
+                          parts);
     }
-    __syncwarp();
-    float bv;
-    int bi;
-    refine_window<true>(patch[warp], H, W, cx, cy, Us, u, upA[warp], lane, bv, bi);
-    for (int s = j + lane; s < (j < m ? j + 1 : M); s += 32) {
-      loc_out[o + s] = bi;
-      score_out[o + s] = bv;
+    if (lane == 0) {
+      part_v[warp] = bv;
+      part_i[warp] = bi;
     }
+    __syncthreads();
+    if (on && part == 0) {
+      for (int q = 1; q < parts; ++q)
+        if (better(part_v[warp + q], part_i[warp + q], bv, bi)) {
+          bv = part_v[warp + q];
+          bi = part_i[warp + q];
+        }
+      for (int s = j + lane; s < (j < m ? j + 1 : M); s += 32) {
+        loc_out[o + s] = bi;
+        score_out[o + s] = bv;
+      }
+    }
+    __syncthreads();                                  // the parts are free for the next round
   }
+  STAGE_STAMP(5);
+  BLOCK_SPAN(7);
 }
 
-bool plane_bad_args(int B, int K, int H, int W, int M, int win, int factor) {
-  return win != kWin || factor != kFactor || M < 1 || M > kMaxPeaks || H < 1 || W < 1 ||
-         B < 1 || K < 1 || (long long)H * W > INT_MAX || (long long)B * K > INT_MAX;
+// The walk of the copy of `rows` rows of a plane into find_peaks_plane_kernel's
+// band (rows of W floats), in the order of the plane's memory; 16 or 8 bytes
+// a copy where every band of every plane starts and ends on such a boundary
+// (the strides of frames, planes and rows and the width all multiples).
+popnet::Dims3 band_walk(const void* heat, long long sb, long long sk, long long sy,
+                        long long sx, int B, int K, int rows, int W) {
+  const int n[3] = {1, rows, W};
+  const long long src[3] = {0, sy, sx};
+  const int dst[3] = {0, W, 1};
+  int vec = 4;
+  while (vec > 1 && (sy % vec != 0 || W % vec != 0)) vec /= 2;
+  return popnet::memory_order(n, src, dst, heat, std::gcd(B > 1 ? sb : 0, K > 1 ? sk : 0), vec);
+}
+
+// How find_peaks_plane_kernel takes B frames of K planes of H x W: CTAs a
+// plane (C), warps a CTA, rows a band (R) and its dynamic shared memory. An
+// error where it cannot: bad sizes, or not three rows of W floats in a CTA.
+struct PlaneConfig {
+  int C, warps, R;
+  size_t smem;
+};
+cudaError_t plane_config(int B, int K, int H, int W, int M, int win, int factor,
+                         PlaneConfig& cfg) {
+  if (win != kWin || factor != kFactor || M < 1 || M > kMaxPeaks || H < 1 || W < 1 || B < 1 ||
+      K < 1 || (long long)H * W > INT_MAX)
+    return cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, find_peaks_plane_kernel);
+  if (e != cudaSuccess) return e;
+  const long long planes = (long long)B * K;
+  cfg.C = planes >= sms ? 1 : (int)std::min<long long>(kPlaneCluster, (sms + planes - 1) / planes);
+  cfg.C = std::min(cfg.C, H);
+  cfg.warps = cfg.C > 1 ? kPlaneWarps : kPlaneFewWarps;
+  if (planes * cfg.C > INT_MAX) return cudaErrorInvalidValue;
+  const long long rows_fit = ((long long)kMaxSmem - (long long)attr.sharedSizeBytes) / (4LL * W);
+  const int share = (H + cfg.C - 1) / cfg.C;
+  if (rows_fit < 3) return cudaErrorInvalidValue;
+  cfg.R = (int)std::min<long long>(share, rows_fit - 2);
+  cfg.smem = (size_t)align16(4 * W * (cfg.R + 2));
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1004,15 +1185,47 @@ extern "C" long long popnet_find_peaks_row_smem(int K, int H, int W, int M) {
   return (long long)smem;
 }
 
-// survivors: B * K * H * W ints of scratch on the card.
+// The configuration find_peaks_plane_kernel takes at these sizes into
+// out[0..3]: CTAs a plane, warps a CTA, rows a band, dynamic shared memory
+// in bytes; an error where it cannot take them (ops/kernels.py
+// find_peaks_plane then raises, naming the sizes).
+extern "C" int popnet_find_peaks_plane_config(int B, int K, int H, int W, int M, void* out) {
+  PlaneConfig cfg;
+  const cudaError_t e = plane_config(B, K, H, W, M, kWin, kFactor, cfg);
+  if (e != cudaSuccess) return (int)e;
+  int* o = (int*)out;
+  o[0] = cfg.C;
+  o[1] = cfg.warps;
+  o[2] = cfg.R;
+  o[3] = (int)cfg.smem;
+  return 0;
+}
+
 extern "C" int popnet_find_peaks_plane(const void* heat, long long sb, long long sk,
                                        long long sy, long long sx, int B, int K, int H, int W,
                                        int M, float thresh, int win, int factor, const void* U,
-                                       void* survivors, void* px, void* py, void* loc,
-                                       void* score, void* valid, void* stream) {
-  if (plane_bad_args(B, K, H, W, M, win, factor)) return (int)cudaErrorInvalidValue;
-  find_peaks_plane_kernel<<<(unsigned)B * K, kPlaneThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)heat, sb, sk, sy, sx, K, H, W, M, thresh, (const float*)U, (int*)survivors,
-      (int*)px, (int*)py, (int*)loc, (float*)score, (bool*)valid);
+                                       void* px, void* py, void* loc, void* score, void* valid,
+                                       void* stream) {
+  PlaneConfig pc;
+  cudaError_t e = plane_config(B, K, H, W, M, win, factor, pc);
+  if (e == cudaSuccess) e = allow_smem((const void*)find_peaks_plane_kernel, pc.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * K * pc.C));
+  cfg.blockDim = dim3(pc.warps * 32);
+  cfg.dynamicSmemBytes = pc.smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pc.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pc.C > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, find_peaks_plane_kernel, (const float*)heat, sb, sk, sy, sx,
+                         band_walk(heat, sb, sk, sy, sx, B, K, pc.R + 2, W), K, H, W, M, pc.C, pc.R,
+                         thresh, (const float*)U, (int*)px, (int*)py, (int*)loc, (float*)score,
+                         (bool*)valid);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,9 @@
 
 Maps keep the JAX layout at these public functions: (B, H, W, C) in,
 peaks (B, K, M, 3) of (x, y, score) in upsampled-image coordinates out.
-The work runs in the kernels of `ops/kernels.py` (`find_peaks` or
-`find_peaks_row`, `paf_score`) on a CUDA tensor, and in their plain
-versions on a CPU one.
+The work runs in the kernels of `ops/kernels.py` (`find_peaks`,
+`find_peaks_row` or `find_peaks_plane`, `paf_score`) on a CUDA tensor, and
+in their plain versions on a CPU one.
 The refine's bicubic upsample matrix (`_cubic_kernel`, `_upsample_matrix`)
 lives with the kernels.
 """
@@ -32,10 +32,11 @@ def find_peaks_batched(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 
     (x, y, score) and valid (B, K, M).
 
     refine: "kernel" (None takes it) is `find_peaks`, one block of 16 warps
-    per frame where a frame's planes fit it, else `find_peaks_row` (the
-    COCO evaluation canvas of an image that is not square); "kernel_row"
+    per frame where a frame's planes fit it, else `find_peaks_plane` (the
+    COCO evaluation canvas of an image that is not square: each plane's
+    rows over a cluster of CTAs; `kernels.find_peaks_route`); "kernel_row"
     is `find_peaks_row`, a cluster of 2 CTAs per frame, each owning every
-    other plane. Both give the same result bit for bit."""
+    other plane. All give the same result bit for bit."""
     if refine not in (None, "kernel", "kernel_row"):
         raise ValueError(f"unknown refine {refine!r}")
     fn = kernels.find_peaks_row if refine == "kernel_row" else kernels.find_peaks

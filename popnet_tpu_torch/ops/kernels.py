@@ -5,7 +5,7 @@ wrapper per CUDA kernel, with its plain PyTorch version beside it.
 | ---------------- | ---------------------- | ---------------------------------------- |
 | `find_peaks`     | csrc/find_peaks.cu     | pallas_kernels.py find_peaks_pallas_bt   |
 | `find_peaks_row` | csrc/find_peaks.cu     | pallas_kernels.py find_peaks_pallas      |
-| `find_peaks_plane` | csrc/find_peaks.cu   | both find_peaks kernels above, at any map size |
+| `find_peaks_plane` | csrc/find_peaks.cu   | both find_peaks kernels above, where K1 cannot hold the maps |
 | `paf_score`      | csrc/paf_score.cu      | pallas_kernels.py paf_sample_pallas      |
 | `window_readout` | csrc/readout.cu        | pallas_kernels.py window_readout_pallas  |
 | `point_readout`  | csrc/readout.cu        | pallas_kernels.py point_readout_pallas   |
@@ -14,10 +14,10 @@ wrapper per CUDA kernel, with its plain PyTorch version beside it.
 | `peak_local_max` | csrc/peak_mask.cu      | pallas_kernels.py peak_local_max_pallas  |
 
 `find_peaks`, `find_peaks_row` and `find_peaks_plane` are three designs of
-one function and share one plain version, `find_peaks_plain`; `find_peaks`
-launches the second where a frame's planes do not fit one block of the
-first, and the third where the second cannot hold them either or a side
-exceeds 255 cells (`find_peaks_route`). `readouts` is the Open-Pose+
+one function and share one plain version, `find_peaks_plain`; where a
+frame's planes do not fit one block of the first or a side exceeds 255
+cells, `find_peaks` launches the third (`find_peaks_route`); the second
+launches only when called by name. `readouts` is the Open-Pose+
 decode's launch of K4 and K5 together, from the normalized maps: it counts
 as one launch of each of the two.
 
@@ -53,11 +53,10 @@ _F = ctypes.c_float
 _FIND_PEAKS_ARGS = [_P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P]
 _FIND_PEAKS_ROW_ARGS = _FIND_PEAKS_ARGS[:5] + [_LL] + _FIND_PEAKS_ARGS[5:]  # + readable bytes
-_FIND_PEAKS_PLANE_ARGS = _FIND_PEAKS_ARGS[:14] + [_P] + _FIND_PEAKS_ARGS[14:]  # + survivors
 _SIGNATURES = {
     "popnet_find_peaks": ("find_peaks", _FIND_PEAKS_ARGS),
     "popnet_find_peaks_row": ("find_peaks", _FIND_PEAKS_ROW_ARGS),
-    "popnet_find_peaks_plane": ("find_peaks", _FIND_PEAKS_PLANE_ARGS),
+    "popnet_find_peaks_plane": ("find_peaks", _FIND_PEAKS_ARGS),
     "popnet_paf_score": ("paf_score", [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _F, _F, _F, _P, _P, _P]),
     "popnet_window_readout": ("readout", [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL,
@@ -315,16 +314,35 @@ def find_peaks_row_smem(K: int, H: int, W: int, M: int) -> int:
     return int(fn(K, H, W, M))
 
 
+@functools.cache
+def find_peaks_plane_config(B: int, K: int, H: int, W: int, M: int) -> dict | None:
+    """How the `find_peaks_plane` kernel takes B frames of K planes of H x W
+    cells at M peaks (csrc/find_peaks.cu plane_config): {"cluster": CTAs a
+    plane, "warps": warps a CTA, "rows": rows a band, "smem": dynamic shared
+    memory a CTA in bytes}; None where it cannot take them (not three rows
+    of W floats in a CTA's shared memory, or more CTAs than a grid holds)."""
+    fn = _build.library("find_peaks").popnet_find_peaks_plane_config
+    fn.argtypes, fn.restype = [_I] * 5 + [_P], ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(B, K, H, W, M, ctypes.addressof(out))
+    if err == 1:                                      # cudaErrorInvalidValue: sizes it cannot take
+        return None
+    if err != 0:
+        raise RuntimeError(f"popnet_find_peaks_plane_config failed: CUDA error {err}")
+    return dict(zip(("cluster", "warps", "rows", "smem"), out))
+
+
 def find_peaks_route(K: int, H: int, W: int, M: int) -> str:
     """The kernel `find_peaks` launches at these sizes: "find_peaks" (K1)
     where the sides are at most 255 cells and a frame's K planes fit one
-    block's SMEM_PER_BLOCK; else "find_peaks_row" (K2, which takes them in
-    rounds) where it can hold one plane; else "find_peaks_plane", which
-    reads each plane from global memory and takes any size. A query of the
-    sizes: no launch is tried."""
+    block's SMEM_PER_BLOCK; else "find_peaks_plane", which takes any size
+    and spreads few planes over the card. K2 (`find_peaks_row`), which
+    takes some of the same maps, was the slower at every size and batch
+    measured (PERF.md section 6, chip_smoke.py phase 13 (b)) and launches
+    only when called by name. A query of the sizes: no launch is tried."""
     if H <= 255 and W <= 255 and find_peaks_smem(K, H, W, M) <= SMEM_PER_BLOCK:
         return "find_peaks"
-    return "find_peaks_row" if find_peaks_row_smem(K, H, W, M) >= 0 else "find_peaks_plane"
+    return "find_peaks_plane"
 
 
 def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
@@ -340,12 +358,8 @@ def _find_peaks_launch(symbol: str, heat, max_peaks, thresh, factor, win_size):
     storage = heat.untyped_storage()
     readable = ([storage.data_ptr() + storage.nbytes() - heat.data_ptr()]
                 if symbol == "popnet_find_peaks_row" else [])
-    # the plane kernel's survivors: a flat index each, at most every cell of every plane
-    survivors = (torch.empty(B * K * H * W, dtype=torch.int32, device=dev)
-                 if symbol == "popnet_find_peaks_plane" else None)
     _launch(symbol, dev, heat.data_ptr(), *heat.stride(), *readable, B, K, H, W,
-            max_peaks, thresh, win_size, factor, U.data_ptr(),
-            *([survivors.data_ptr()] if survivors is not None else []), px.data_ptr(),
+            max_peaks, thresh, win_size, factor, U.data_ptr(), px.data_ptr(),
             py.data_ptr(), loc.data_ptr(), score.data_ptr(), valid.data_ptr())
     return px, py, loc, score, valid
 
@@ -359,22 +373,17 @@ def find_peaks(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
 
     On the card one block per frame holds all K planes (this kernel, K1)
     where they fit a block's shared memory (`find_peaks_smem` at most
-    SMEM_PER_BLOCK) and no side exceeds 255 cells; where they do not fit
-    (18 planes from 46x47 cells on, the COCO evaluation canvas of every
-    image that is not square), the call is `find_peaks_row` (K2), which
-    takes a frame's planes in rounds; where K2 cannot take them either (a
-    side over 255 cells, a plane larger than its CTA), `find_peaks_plane`.
-    Each counts its launch as its own (`find_peaks_route`). The three agree
-    bit for bit."""
+    SMEM_PER_BLOCK) and no side exceeds 255 cells. Where they do not (18
+    planes from 46x47 cells on, the COCO evaluation canvas of every image
+    that is not square; a side over 255 cells), the call is
+    `find_peaks_plane`, which counts its launch as its own
+    (`find_peaks_route`). The kernels agree bit for bit."""
     if not _on_cuda(heat):
         return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
     _find_peaks_args(heat, max_peaks, win_size, factor)
-    B, K, H, W = heat.shape
-    route = find_peaks_route(K, H, W, max_peaks)
-    if route != "find_peaks":
-        return {"find_peaks_row": find_peaks_row,
-                "find_peaks_plane": find_peaks_plane}[route](heat, max_peaks, thresh, factor,
-                                                             win_size)
+    _, K, H, W = heat.shape
+    if find_peaks_route(K, H, W, max_peaks) == "find_peaks_plane":
+        return find_peaks_plane(heat, max_peaks, thresh, factor, win_size)
     out = _find_peaks_launch("popnet_find_peaks", heat, max_peaks, thresh, factor, win_size)
     find_peaks.launches += 1
     return out
@@ -405,18 +414,30 @@ def find_peaks_row(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
     return out
 
 
-# ---- the same function at any map size, a CTA per (frame, plane) ---------------
+# ---- the same function at any map size, a cluster of CTAs per plane --------------
 
 
 def find_peaks_plane(heat: torch.Tensor, max_peaks: int = 16, thresh: float = 0.1,
                      factor: int = 8, win_size: int = 2):
-    """`find_peaks` by its third kernel (a CTA per (frame, plane), the plane
-    read from global memory, its NMS survivors listed in a global scratch
-    buffer of B * K * H * W ints, top-M by block reductions): maps of any
-    size, where K1 and K2 cannot hold them. Same contract and plain version
-    as `find_peaks`; the kernels agree bit for bit."""
+    """`find_peaks` by its third kernel: each plane's rows in bands over a
+    cluster of up to 8 CTAs where the frames' planes are fewer than the SMs
+    (one CTA a plane where they are not), each band copied to shared memory
+    with its halo, the NMS survivors kept on chip in each warp's sorted
+    top-M list, the lists merged within the CTA and then across the cluster
+    through distributed shared memory, the refines dealt to all the
+    cluster's warps (`find_peaks_plane_config`). Maps K1 cannot hold, of
+    any size and at any batch, the COCO evaluation canvases among them.
+    Same contract and plain version as `find_peaks`; the kernels agree bit
+    for bit. On the card, sizes it cannot take (a row too wide for three
+    rows in a CTA) raise a ValueError."""
     if not _on_cuda(heat):
         return find_peaks_plain(heat, max_peaks, thresh, factor, win_size)
+    _find_peaks_args(heat, max_peaks, win_size, factor)
+    B, K, H, W = heat.shape
+    if find_peaks_plane_config(B, K, H, W, max_peaks) is None:
+        raise ValueError(f"find_peaks_plane cannot take {B} frames of {K} planes of {H}x{W} "
+                         f"cells at {max_peaks} peaks (three rows of {W} floats must fit one "
+                         f"CTA's shared memory, and B * K * 8 CTAs one grid)")
     out = _find_peaks_launch("popnet_find_peaks_plane", heat, max_peaks, thresh, factor,
                              win_size)
     find_peaks_plane.launches += 1

@@ -1552,24 +1552,30 @@ def test_train_rgb_subcommand_on_the_card(cuda, rgb_set, tmp_path, dataset, fami
 # -- COCO evaluation at the evaluation canvas, and generate-augset ----------------------------
 
 
-@pytest.mark.parametrize("H,W", [(46, 62), (62, 46), (46, 69), (46, 123), (46, 46)])
+@pytest.mark.parametrize("H,W", [(46, 62), (62, 46), (46, 69), (46, 70), (46, 82), (46, 123),
+                                 (46, 46)])
 def test_find_peaks_takes_k2_where_k1_cannot_hold_the_maps(cuda, H, W):
     """find_peaks at the evaluation grids of non-square COCO images (18
-    planes of 46x62, 62x46, 46x69 and 46x123 do not fit one block of K1):
-    the call launches find_peaks_row (K2) and counts it there, exact against
-    the plain version; at 46x46 K1 itself launches."""
+    planes of 46x62, 62x46, 46x69, 46x70, 46x82 and 46x123 do not fit one
+    block of K1), a batch of 3: the call launches find_peaks_plane, the
+    faster of the two kernels that take them, and counts it there, none on
+    K1 or K2, exact against the plain version; K2 (find_peaks_row), which
+    launches only by name, exact too; at 46x46 K1 itself launches."""
     heat = torch.as_tensor(sparse_heat(31, 3, H, W, 19), device=cuda)
     h = peak_planes(heat.permute(0, 2, 3, 1), COCO_NUM_JOINTS)
     route = kernels.find_peaks_route(18, H, W, 16)
-    assert route == ("find_peaks" if (H, W) == (46, 46) else "find_peaks_row")
+    assert route == ("find_peaks" if (H, W) == (46, 46) else "find_peaks_plane")
     kernels.reset_launches()
     got = kernels.find_peaks(h)
     torch.cuda.synchronize()
-    other = "find_peaks_row" if route == "find_peaks" else "find_peaks"
-    assert kernels.launch_counts()[route] == 1 and kernels.launch_counts()[other] == 0
-    for a, b in zip(got, kernels.find_peaks_plain(h)):
+    counts = kernels.launch_counts()
+    assert counts[route] == 1 and sum(counts.values()) == 1
+    ref = kernels.find_peaks_plain(h)
+    for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert bool(got[4].any())
+    for a, b in zip(kernels.find_peaks_row(h), ref):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape", [(1, 18, 46, 256), (1, 1, 255, 255), (2, 3, 300, 300)])
@@ -1618,6 +1624,123 @@ def test_find_peaks_refuses_grids_over_255_cells_naming_the_canvas(cuda):
         for a, b in zip(got, kernels.find_peaks_plain(heat)):
             assert torch.equal(a, b)
         assert bool(got[4].any())
+
+
+COCO_CANVASES = ((46, 62), (62, 46), (46, 69), (69, 46))   # maps of the non-square canvases
+
+
+def memory_variants(heat, dev):
+    """(B, K, H, W) heat on the card in NCHW and channels-last memory, and
+    as a slice of larger maps."""
+    B, K, H, W = heat.shape
+    big = np.zeros((B, K + 1, H + 3, W + 4), np.float32)
+    big[:, 1:, 2:H + 2, 3:W + 3] = heat
+    t = torch.as_tensor(heat, device=dev)
+    return (t, t.contiguous(memory_format=torch.channels_last),
+            torch.as_tensor(big, device=dev)[:, 1:, 2:H + 2, 3:W + 3])
+
+
+def plane_matches_plain(h, M):
+    """find_peaks_plane on h: one launch, every output equal to the plain
+    version; returns its outputs."""
+    kernels.reset_launches()
+    got = kernels.find_peaks_plane(h, max_peaks=M)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["find_peaks_plane"] == 1
+    for a, b in zip(got, kernels.find_peaks_plain(h, max_peaks=M)):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("H,W", [*COCO_CANVASES, (46, 70), (46, 276)])
+def test_find_peaks_plane_on_band_edges_at_batch_1(cuda, H, W):
+    """find_peaks_plane on one frame of 18 planes (a cluster of CTAs a
+    plane, each taking a band of rows): peaks, a plateau and exact ties on
+    the rows where two CTAs' bands meet, equal values held by different
+    CTAs of a cluster, plateau heat, dense heat keeping 32 and a frame
+    without a survivor, in NCHW, channels-last and sliced memory, every
+    output equal to the plain version. find_peaks routes these maps to it,
+    one frame and a batch of 2."""
+    from chip_smoke import band_edge_heat, plane_edges
+
+    K = COCO_NUM_JOINTS
+    assert kernels.find_peaks_plane_config(1, K, H, W, 32)["cluster"] == 8
+    edges = plane_edges(1, K, H, W)
+    assert len(edges) == 7
+    rng = np.random.default_rng(H * W)
+    edge = band_edge_heat(rng, 1, K, H, W, edges)
+    plateau = (np.round(rng.uniform(0, 1, (1, K, H, W)) * 4) / 4).astype(np.float32)
+    dense = rng.uniform(0, 1, (1, K, H, W)).astype(np.float32)
+    none = rng.uniform(0, 0.09, (1, K, H, W)).astype(np.float32)
+    for heat, M in ((edge, 16), (edge, 32), (plateau, 32), (dense, 32), (none, 16)):
+        for h in memory_variants(heat, cuda):
+            got = plane_matches_plain(h, M)
+        if heat is dense:
+            assert bool(got[4].all())
+        if heat is none:
+            assert not bool(got[4].any())
+    assert int(plane_matches_plain(torch.as_tensor(edge, device=cuda), 32)[4][0, 0].sum()) == 32
+    assert kernels.find_peaks_route(K, H, W, 16) == "find_peaks_plane"
+    two = np.concatenate([edge, edge[..., ::-1]])
+    for h in (torch.as_tensor(edge, device=cuda), torch.as_tensor(two, device=cuda)):
+        h = h.contiguous(memory_format=torch.channels_last)
+        kernels.reset_launches()
+        got = kernels.find_peaks(h)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert (counts["find_peaks_plane"], counts["find_peaks"], counts["find_peaks_row"]) == \
+            (1, 0, 0)
+        for a, b in zip(got, kernels.find_peaks_plain(h)):
+            assert torch.equal(a, b)
+
+
+def test_find_peaks_plane_takes_a_2048_plane_in_bands(cuda):
+    """A 1x1x2048x2048 plane: each of the cluster's 8 CTAs takes its 256
+    rows in successive bands, its warps' running top-M kept across them;
+    peaks, plateaus and ties on every edge between bands and between CTAs,
+    and sparse heat; every output equal to the plain version."""
+    from chip_smoke import band_edge_heat, plane_edges
+
+    cfg = kernels.find_peaks_plane_config(1, 1, 2048, 2048, 16)
+    assert cfg["cluster"] == 8 and cfg["rows"] < 256
+    edges = plane_edges(1, 1, 2048, 2048)
+    assert len(edges) > 8
+    edge = band_edge_heat(np.random.default_rng(2048), 1, 1, 2048, 2048, edges)
+    for heat, M in ((edge, 32), (sparse_heat(2048, 1, 2048, 2048, 1), 16)):
+        for h in memory_variants(heat, cuda):
+            got = plane_matches_plain(h, M)
+    assert int(plane_matches_plain(torch.as_tensor(edge, device=cuda), 32)[4].sum()) == 32
+
+
+def test_find_peaks_plane_at_the_depth_planes(cuda):
+    """The serving path's planes, 256 frames of 15 planes of 28x28 in the
+    CNN's channels-last memory (one CTA a plane): find_peaks_plane equal to
+    the plain version and to K1."""
+    heat = sparse_heat(41, 256, 28, 28, 19)
+    h = peak_planes(torch.as_tensor(heat, device=cuda).permute(0, 2, 3, 1).contiguous())
+    assert kernels.find_peaks_plane_config(256, 15, 28, 28, 16)["cluster"] == 1
+    got = plane_matches_plain(h, 16)
+    for a, b in zip(got, kernels.find_peaks(h)):
+        assert torch.equal(a, b)
+    assert bool(got[4].any()) and bool((~got[4].any(-1)).any())
+
+
+def test_find_peaks_plane_refuses_what_it_cannot_take(cuda):
+    """Rows too wide for three of them in a CTA's shared memory raise a
+    ValueError naming the sizes, through find_peaks too (a side over 255
+    cells routes there); so do the refine settings the kernels do not
+    build. Nothing runs something else instead."""
+    h = torch.rand((1, 1, 3, 20000), device=cuda)
+    assert kernels.find_peaks_plane_config(1, 1, 3, 20000, 16) is None
+    for fn in (kernels.find_peaks_plane, kernels.find_peaks):
+        with pytest.raises(ValueError, match="find_peaks_plane cannot take 1 frames of 1 planes "
+                                             "of 3x20000"):
+            fn(h)
+    small = torch.rand((1, 2, 300, 9), device=cuda)
+    for kw, match in ((dict(win_size=3), "win_size=2"), (dict(factor=4), "factor=8"),
+                      (dict(max_peaks=33), "at most 32 peaks")):
+        with pytest.raises(ValueError, match=match):
+            kernels.find_peaks_plane(small, **kw)
 
 
 @pytest.mark.parametrize("H,W", [(46, 62), (62, 46), (46, 69), (46, 123)])

@@ -385,3 +385,23 @@ def test_find_peaks_row_path_matches_pallas_row(grid, max_peaks):
     assert not got_v[1, 4].any() and got_v[0, 0].sum() > 1
     with pytest.raises(ValueError, match="unknown refine"):
         find_peaks_batched(torch.from_numpy(heat), refine="pallas")
+
+
+@pytest.mark.parametrize("B,K,H,W,M", [(1, 2, 46, 62, 32), (1, 1, 69, 46, 16)])
+def test_find_peaks_plain_matches_pallas_on_band_edges(B, K, H, W, M):
+    """One frame of a COCO evaluation canvas (the maps that find_peaks_plane
+    takes on the card, its rows in bands over 8 CTAs) with peaks, a plateau
+    across the edge and values equal in every band on the rows where two
+    bands meet (chip_smoke.band_edge_heat): the plain version, the card's
+    reference, against the per-frame Pallas kernel; px, py, loc and valid
+    exact, score 1e-5, the plane's top-M taken across the edges."""
+    from chip_smoke import band_edge_heat
+
+    share = -(-H // 8)
+    heat = band_edge_heat(np.random.default_rng(H * W + M), B, K, H, W, range(share, H, share))
+    ref = find_peaks_pallas(jnp.asarray(heat), max_peaks=M, interpret=True)
+    got = kernels.find_peaks_plain(torch.from_numpy(heat), max_peaks=M)
+    for i in (0, 1, 2, 4):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(ref[i]))
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]), atol=1e-5)
+    assert int(got[4].sum(-1).min()) == min(M, 35)
