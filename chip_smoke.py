@@ -9,8 +9,9 @@ serving path folded and in dynamic int8 (phase 10), ITOP's training,
 evaluation and table with the exact host decode (phase 11), COCO and
 MPII RGB training from JPEG files (phase 12), COCO evaluation at the
 evaluation canvas with MP-3DHP set construction (phase 13), and the
-four-method table and the readout ablation (phase 14), and the parallel
-layouts over torch.distributed (phase 15): the four
+four-method table and the readout ablation (phase 14), the parallel
+layouts over torch.distributed (phase 15), and the visualizers and the
+reference-checkpoint import (phase 16): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -234,8 +235,9 @@ Phases, one or more lines each:
     (tests/fixtures/jpeg, written by cv2) against the sha256 of cv2.imread's
     output recorded beside them, the progressive fixture refused; (b)
     64 training and 16 validation frames of 640x480 BGR with 1-3 painted
-    people each (rgb_frames), written as baseline JPEG by the phase's NumPy
-    writer (jpeg_baseline) with COCO and MPII labels, and the host
+    people each (rgb_frames), written as baseline 4:2:0 JPEG at quality 90
+    by data.image_io.encode_jpeg (cv2.imencode's bytes, held so by the CPU
+    tests) with COCO and MPII labels, and the host
     transforms' ms an image (decode, rotation, blur, resize); then for COCO
     (RTPoseVGG, VGG19 trunk) and MPII (PopNetRGB, 16 parts): a batch of 32
     made on the card against the CPU's (COCO with rotation, scale jitter,
@@ -322,6 +324,20 @@ Phases, one or more lines each:
     the spatial runs counted (a "parallel_launches" entry in each row);
     (e) the data-parallel step's ms at world size 1 beside the plain
     step's, and (b)'s, with the card's name and power limit.
+
+16. viz: the visualizers and the reference checkpoints (phase_viz): (a)
+    the committed Open-Pose+ weights exported as a 'module.'-prefixed
+    reference state dict (interop.torch_import) and imported into a fresh
+    RTPoseLight3D on the card, one batch of 64 served through
+    build_openpose_pipeline with cuDNN deterministic: the wire buffer equal
+    to the committed weights' bit for bit, K1, K3 and K6 launched; (b)
+    `visualize-pred` on phase 6's Open-Pose+ evaluate JSON and
+    `visualize-gt` with seg maps, 64 frames each, on the card and with
+    --device cpu: the files equal byte for byte, each the JPEG
+    (encode_jpeg) of the frame drawn in the phase and within 20 dB PSNR of
+    it, no kernel launched; (c) a ROIDataset batch of 8 made on the card
+    against the CPU's; (d) visualize-pred's images/s, with the card's name
+    and power limit.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -2586,7 +2602,9 @@ def phase_eval(rng, dev, n: int = 256, batch: int = 64, keep: str | None = None)
     `evaluate` and `benchmark` subcommands once. Returns the eval path's
     launch counts; with `keep`, the "bg" and "zero" sets are copied to
     keep/eval_bg (phase 9 evaluates A2J on it) and keep/eval_zero (phase
-    15's evaluate --spatial)."""
+    15's evaluate --spatial, phase 16's visualizers), and the Open-Pose+
+    evaluate JSON of the latter to keep/openpose_results.json (phase 16's
+    visualize-pred)."""
     import tempfile
 
     import torch
@@ -2676,6 +2694,7 @@ def phase_eval(rng, dev, n: int = 256, batch: int = 64, keep: str | None = None)
         if keep is not None:
             shutil.copytree(os.path.dirname(sets["bg"][0]), os.path.join(keep, "eval_bg"))
             shutil.copytree(os.path.dirname(sets["zero"][0]), os.path.join(keep, "eval_zero"))
+            shutil.copy(os.path.join(out, "openpose_results.json"), keep)
     return launches
 
 
@@ -4521,7 +4540,7 @@ RGB_EPOCHS = 2
 RGB_STEP_INPUT = 64         # the card-against-CPU step check's input and frames
 RGB_STEP_BATCH = 4
 RGB_SEED = 0                # the seeded RTPoseVGG and PopNetRGB of the step check
-RGB_QUALITY = 90            # the JPEG writer's IJG quality
+RGB_QUALITY = 90            # the RGB sets' IJG JPEG quality (encode_jpeg)
 RGB_TIMED = 16              # frames of each host-stage timing
 COCO_AUG_FLAGS = ["--rotate-aug", "30", "--scale-jitter", "0.6,1.0", "--blur-aug", "1.5"]
 COCO_AUG = {"rotate_max_deg": 30.0, "scale_jitter": (0.6, 1.0), "blur_max_sigma": 1.5}
@@ -4529,147 +4548,6 @@ RGB_FAMILIES = {"coco": "rtpose_vgg", "mpii": "popnet_rgb"}
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
 RGB_MAPS_EXACT = ("image", "scale", "valid", "prior_mask_conf", "prior_mask_coord",
                   "prior_weight_map", "fg_masks_align")
-
-# the standard (Annex K) Huffman tables, as DHT payloads: DC and AC luminance, DC and AC
-# chrominance
-JPEG_DHT = tuple(bytes.fromhex(h) for h in (
-    "0000010501010101010100000000000000000102030405060708090a0b",
-    "100002010303020403050504040000017d01020300041105122131410613516107227114328191a1082342b1c1"
-    "1552d1f02433627282090a161718191a25262728292a3435363738393a434445464748494a535455565758595a"
-    "636465666768696a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
-    "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa",
-    "0100030101010101010101010000000000000102030405060708090a0b",
-    "1100020102040403040705040400010277000102031104052131061241510761711322328108144291a1b1c109"
-    "233352f0156272d10a162434e125f11718191a262728292a35363738393a434445464748494a535455565758595a"
-    "636465666768696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3"
-    "b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))
-# the standard quantization tables (natural order), luminance and chrominance
-JPEG_QUANT = (
-    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40,
-              57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35,
-              55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
-              100, 103, 99]),
-    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99,
-              99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32))
-JPEG_ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40,
-                        48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
-                        29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60,
-                        61, 54, 47, 55, 62, 63])
-
-
-def _huffman_codes(payload: bytes) -> tuple[np.ndarray, np.ndarray]:
-    """A DHT payload -> (code, length) of each of the 256 symbols."""
-    counts, values = payload[1:17], payload[17:]
-    codes, lengths = np.zeros(256, np.int64), np.zeros(256, np.int64)
-    code = k = 0
-    for n in range(16):
-        for _ in range(counts[n]):
-            codes[values[k]], lengths[values[k]] = code, n + 1
-            code += 1
-            k += 1
-        code <<= 1
-    return codes, lengths
-
-
-def _bit_size(v: np.ndarray) -> np.ndarray:
-    """The JPEG magnitude category of each integer: its bit length (0 for 0)."""
-    a = np.abs(v)
-    return np.where(a == 0, 0, np.floor(np.log2(np.maximum(a, 1))).astype(np.int64) + 1)
-
-
-def jpeg_baseline(bgr: np.ndarray, quality: int = RGB_QUALITY) -> bytes:
-    """A baseline JFIF JPEG (SOF0, 4:4:4 YCbCr, the standard Huffman tables,
-    IJG-scaled standard quantization at `quality`) of an (H, W, 3) uint8 BGR
-    frame, in NumPy: the phase's writer, since the card's machine has no
-    cv2 or PIL (the package itself only reads JPEG). Checked on the CPU
-    against cv2's decoder (tests/test_torch_jpeg.py)."""
-    h, w = bgr.shape[:2]
-    hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
-    img = np.pad(bgr.astype(np.float64), ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
-    b, g, r = img[..., 0], img[..., 1], img[..., 2]
-    planes = (0.299 * r + 0.587 * g + 0.114 * b,
-              -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
-              0.5 * r - 0.418688 * g - 0.081312 * b + 128.0)
-    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
-    quant = [np.clip((q * scale + 50) // 100, 1, 255) for q in JPEG_QUANT]
-    u = np.arange(8)
-    dct = np.sqrt(2.0 / 8) * np.cos((2 * u[None, :] + 1) * u[:, None] * np.pi / 16)
-    dct[0] /= np.sqrt(2.0)
-    coefs = []
-    for ci, plane in enumerate(planes):
-        blocks = (plane - 128.0).reshape(hp // 8, 8, wp // 8, 8).transpose(0, 2, 1, 3)
-        d = np.einsum("ux,byxv->byuv", dct, np.einsum("byxw,vw->byxv", blocks, dct))
-        q = np.round(d / quant[min(ci, 1)].reshape(8, 8)).astype(np.int64)
-        coefs.append(q.reshape(-1, 64)[:, JPEG_ZIGZAG])
-    nb = coefs[0].shape[0]
-    blk = np.stack(coefs, 1).reshape(3 * nb, 64)         # the scan's order: Y, Cb, Cr a block
-    table = np.tile([0, 1, 1], nb)
-    dc = blk[:, 0].copy()
-    for c in range(3):
-        dc[c::3] = np.diff(blk[c::3, 0], prepend=0)
-    huff = [_huffman_codes(p) for p in JPEG_DHT]         # DC0, AC0, DC1, AC1
-    dcc = np.where(table == 0, 0, 2)
-    acc = dcc + 1
-
-    def codes_of(tab, sym):
-        code = np.where(tab == 0, huff[0][0][sym], huff[2][0][sym])
-        length = np.where(tab == 0, huff[0][1][sym], huff[2][1][sym])
-        return code, length
-
-    def ac_codes_of(tab, sym):
-        code = np.where(tab == 0, huff[1][0][sym], huff[3][0][sym])
-        length = np.where(tab == 0, huff[1][1][sym], huff[3][1][sym])
-        return code, length
-
-    def extra_bits(v, s):
-        return np.where(v >= 0, v, v + (1 << s) - 1)
-
-    events = []                                          # (block, position, order, code, length)
-    s = _bit_size(dc)
-    c, l = codes_of(table, s)
-    events.append((np.arange(3 * nb), np.zeros(3 * nb, np.int64), np.zeros(3 * nb, np.int64),
-                   (c << s) | extra_bits(dc, s), l + s))
-    bi, k = np.nonzero(blk[:, 1:])
-    k = k + 1
-    v = blk[bi, k]
-    prev = np.where(np.r_[True, bi[1:] != bi[:-1]], 0, np.r_[0, k[:-1]])
-    run = k - prev - 1
-    zrl, rr = run // 16, run % 16
-    s = _bit_size(v)
-    c, l = ac_codes_of(table[bi], (rr << 4) | s)
-    events.append((bi, k, zrl, (c << s) | extra_bits(v, s), l + s))
-    if zrl.any():                                        # runs of 16 zeros (ZRL) first
-        rep = np.repeat(np.arange(len(bi)), zrl)
-        order = np.arange(len(rep)) - np.repeat(np.cumsum(zrl) - zrl, zrl)
-        c, l = ac_codes_of(table[bi[rep]], np.full(len(rep), 0xF0))
-        events.append((bi[rep], k[rep], order, c, l))
-    last = np.zeros(3 * nb, np.int64)
-    np.maximum.at(last, bi, k)
-    eob = np.nonzero(last < 63)[0]
-    c, l = ac_codes_of(table[eob], np.zeros(len(eob), np.int64))
-    events.append((eob, np.full(len(eob), 64), np.zeros(len(eob), np.int64), c, l))
-    bi, k, o, code, length = (np.concatenate(x) for x in zip(*events))
-    order = np.lexsort((o, k, bi))
-    code, length = code[order], length[order]
-    word = (code << (32 - length)).astype(">u4")
-    bits = np.unpackbits(word.view(np.uint8)).reshape(-1, 32)
-    bits = bits[np.arange(32)[None, :] < length[:, None]]
-    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
-    data = np.packbits(bits)
-    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0)   # byte stuffing
-
-    def seg(marker: int, payload: bytes) -> bytes:
-        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
-
-    out = [b"\xff\xd8", seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    out.append(seg(0xDB, b"".join(bytes([t]) + bytes(q[JPEG_ZIGZAG].astype(np.uint8))
-                                  for t, q in enumerate(quant))))
-    out.append(seg(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
-                   + bytes([3, 1, 0x11, 0, 2, 0x11, 1, 3, 0x11, 1])))
-    out.append(seg(0xC4, b"".join(JPEG_DHT)))
-    out.append(seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
-    return b"".join(out) + data.tobytes() + b"\xff\xd9"
-
 
 # a person's 17 COCO keypoints in units of its height, feet at (0, 0), facing the camera
 RGB_PERSON = np.array([[0.0, -0.92], [0.03, -0.95], [-0.03, -0.95], [0.06, -0.93], [-0.06, -0.93],
@@ -4738,16 +4616,18 @@ def _mpii_joints(kp17: np.ndarray) -> tuple[list, list]:
 
 def write_rgb_sets(rng, root: str, n_train: int = RGB_TRAIN_FRAMES,
                    n_val: int = RGB_VAL_FRAMES) -> float:
-    """n_train + n_val painted frames as JPEG (jpeg_baseline) under
+    """n_train + n_val painted frames as JPEG (encode_jpeg) under
     root/images, their people as COCO person_keypoints JSONs (coco_train.json,
     coco_val.json) and MPII JSON releases (mpii_train.json, mpii_val.json).
     Returns the writer's ms a frame."""
+    from popnet_tpu_torch.data.image_io import encode_jpeg
+
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
     frames, people = rgb_frames(rng, n_train + n_val)
     t0 = time.perf_counter()
     for i, f in enumerate(frames):
         with open(os.path.join(root, "images", f"{i:06d}.jpg"), "wb") as fh:
-            fh.write(jpeg_baseline(f))
+            fh.write(encode_jpeg(f, RGB_QUALITY))
     write_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
     H, W = RGB_FRAME
     for split, lo, hi in (("train", 0, n_train), ("val", n_train, n_train + n_val)):
@@ -4917,8 +4797,8 @@ def phase_rgb(rng, dev) -> dict:
         write_ms = write_rgb_sets(rng, root)
         ms = host_stage_ms(root)
         say("rgb", f"(b) wrote {RGB_TRAIN_FRAMES} + {RGB_VAL_FRAMES} frames of "
-            f"{RGB_FRAME[1]}x{RGB_FRAME[0]} BGR with painted people as baseline JPEG (the "
-            f"phase's NumPy writer, quality {RGB_QUALITY}, {write_ms:.1f} ms a frame) and their "
+            f"{RGB_FRAME[1]}x{RGB_FRAME[0]} BGR with painted people as baseline JPEG (encode_jpeg, "
+            f"cv2.imencode's 4:2:0 bytes, quality {RGB_QUALITY}, {write_ms:.1f} ms a frame) and their "
             f"COCO and MPII labels; host transforms, ms an image over {RGB_TIMED} frames, one "
             "thread: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
         idx = np.arange(RGB_BATCH)
@@ -5062,7 +4942,7 @@ def eval_images(rng, root: str, sizes=EVAL_IMAGES):
     (eval_people) over smooth colour, written as baseline JPEG under root
     and read back by the port's reader; and their person_keypoints JSON.
     Returns (BGR uint8 images, people, the JSON's path)."""
-    from popnet_tpu_torch.data.image_io import imread_bgr
+    from popnet_tpu_torch.data.image_io import encode_jpeg, imread_bgr
 
     images, people, anns, infos = [], [], [], []
     for i, (H, W) in enumerate(sizes):
@@ -5081,7 +4961,7 @@ def eval_images(rng, root: str, sizes=EVAL_IMAGES):
                          "area": float((x1 - x0) * (y1 - y0))})
         path = os.path.join(root, f"{i:06d}.jpg")
         with open(path, "wb") as f:
-            f.write(jpeg_baseline(np.clip(img, 0, 255).astype(np.uint8)))
+            f.write(encode_jpeg(np.clip(img, 0, 255).astype(np.uint8), RGB_QUALITY))
         images.append(imread_bgr(path))
         people.append(kps)
         infos.append({"id": i, "file_name": os.path.basename(path), "height": H, "width": W})
@@ -5897,6 +5777,151 @@ def phase_parallel(rng, dev, keep: str) -> dict:
     return launches
 
 
+# -- phase 16: visualizers and reference checkpoints ----------------------------------------
+
+VIZ_FRAMES = 64             # frames of phase 6's "zero" set the visualize commands draw
+VIZ_SERVE_BATCH = 64        # the batch (a) serves through both pipelines
+VIZ_ROI_BATCH = 8           # frames of (c)'s ROIDataset batch
+VIZ_ROI_SEED = 16
+VIZ_PSNR_BAR = 20.0         # dB: a drawn frame's JPEG against the frame (the encoder's loss)
+
+
+def phase_viz(dev, keep: str, frames) -> dict:
+    """Phase 16: (a) the committed Open-Pose+ weights exported as a
+    reference state dict (interop.torch_import.export_rtpose_light3d, under
+    the 'module.' prefix) and imported into a fresh RTPoseLight3D on the
+    card, every tensor unchanged, then one batch served through
+    build_openpose_pipeline with cuDNN deterministic: the wire buffer
+    equal to the committed weights' bit for bit, K1, K3 and K6 launched;
+    (b) `visualize-pred` on phase 6's Open-Pose+ evaluate JSON and
+    `visualize-gt` with seg maps, each on the card and with --device cpu,
+    over VIZ_FRAMES frames: every file equal byte for byte, its decode
+    equal to the decode of encode_jpeg of the frame drawn here, within
+    VIZ_PSNR_BAR of the drawn frame, no kernel launched; (c) a
+    ROIDataset batch made on the card against the CPU's; (d) images/s of
+    visualize-pred on the card, with the card's name and power limit.
+    Returns (a)'s launches."""
+    import torch
+
+    from popnet_tpu_torch import build_openpose_pipeline, load_npz
+    from popnet_tpu_torch.cli.main import main as cli_main
+    from popnet_tpu_torch.data.datasets import ROIDataset
+    from popnet_tpu_torch.data.image_io import decode_jpeg, encode_jpeg
+    from popnet_tpu_torch.data.labels import load_label_file
+    from popnet_tpu_torch.interop import torch_import as ti
+    from popnet_tpu_torch.interop.from_jax import flat_from_module, load_into
+    from popnet_tpu_torch.models import RTPoseLight3D
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.viz import visualize_gt, visualize_pred
+
+    t_phase = time.perf_counter()
+    committed = load_into(RTPoseLight3D(), load_npz(WEIGHTS))
+    template = {f"module.{k}": v for k, v in RTPoseLight3D().state_dict().items()}
+    exported = {f"module.{k}": torch.from_numpy(v)
+                for k, v in ti.export_rtpose_light3d(committed, template).items()}
+    imported = ti.import_rtpose_light3d(RTPoseLight3D().to(dev), exported)
+    for k, v in committed.state_dict().items():
+        require(torch.equal(imported.state_dict()[k].cpu(), v),
+                f"viz (a): {k} changed through export and import")
+    batch = frames[:VIZ_SERVE_BATCH]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = build_openpose_pipeline(load_npz(WEIGHTS), device=dev)(batch)
+        pipe = build_openpose_pipeline(flat_from_module(imported), device=dev)
+        _sync(dev)
+        kernels.reset_launches()
+        got = pipe(batch)
+        _sync(dev)
+        launches = kernels.launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    require(bool(torch.equal(got, ref)), "viz (a): the imported weights' wire buffer differs")
+    require(all(launches[k] >= 1 for k in ("find_peaks", "paf_score", "assemble_ids")),
+            f"viz (a): the Open-Pose+ path missed a kernel: {launches}")
+    say("viz", f"(a) the committed Open-Pose+ weights exported as a reference state dict "
+        f"({len(exported)} keys under 'module.') and imported into a fresh RTPoseLight3D on the "
+        f"card, every tensor unchanged; {len(batch)} frames served through "
+        f"build_openpose_pipeline: wire buffer {tuple(got.shape)} = the committed weights' bit "
+        f"for bit; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+
+    data = os.path.join(keep, "eval_zero")
+    pred = os.path.join(keep, "openpose_results.json")
+    anno, _ = load_label_file(os.path.join(data, "labels.json"))
+    ids = list(anno)[:VIZ_FRAMES]
+    os.makedirs(os.path.join(data, "seg_maps"), exist_ok=True)
+    for image_id in ids:
+        depth = np.load(os.path.join(data, "depth_maps", image_id))
+        np.save(os.path.join(data, "seg_maps", image_id), (depth > 0).astype(np.uint8))
+    with open(pred) as f:
+        res = json.load(f)
+    key = "human_pred_set_2d_aligned" if "human_pred_set_2d_aligned" in res else "human_pred_set_2d"
+    humans = res[key][:VIZ_FRAMES]
+    n_people = sum(len(h) for h in humans)
+    with tempfile.TemporaryDirectory() as tmp:
+        seconds = {}
+        for cmd in ("visualize-pred", "visualize-gt"):
+            extra = ["--pred", pred] if cmd == "visualize-pred" else []
+            files = {}
+            for device in (str(dev), "cpu"):
+                out = os.path.join(tmp, f"{cmd}-{device}")
+                _sync(dev)
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                files[device] = cli_main([cmd, "--data-root", data, "--out-dir", out, "--limit",
+                                          str(VIZ_FRAMES), "--device", device, *extra])
+                _sync(dev)
+                seconds[cmd, device] = time.perf_counter() - t0
+                require(not any(kernels.launch_counts().values()),
+                        f"viz (b): {cmd} launched a kernel")
+            require(len(files[str(dev)]) == len(files["cpu"]) == VIZ_FRAMES,
+                    f"viz (b): {cmd} wrote {len(files[str(dev)])} files, not {VIZ_FRAMES}")
+            psnr = []
+            for i, (pc, ph) in enumerate(zip(files[str(dev)], files["cpu"])):
+                with open(pc, "rb") as fc, open(ph, "rb") as fh:
+                    data_c, data_h = fc.read(), fh.read()
+                require(data_c == data_h, f"viz (b): {cmd} {os.path.basename(pc)}: the card's "
+                        "file differs from the CPU's")
+                depth = torch.from_numpy(np.load(os.path.join(data, "depth_maps", ids[i]))).to(dev)
+                if cmd == "visualize-pred":
+                    drawn = visualize_pred(depth, [np.asarray(h) for h in humans[i]])
+                else:
+                    seg = torch.from_numpy(np.load(os.path.join(data, "seg_maps", ids[i])))
+                    drawn = visualize_gt(depth, anno[ids[i]], seg=seg)
+                decoded = decode_jpeg(data_c, pc)
+                require(np.array_equal(decoded, decode_jpeg(encode_jpeg(drawn))),
+                        f"viz (b): {cmd} {os.path.basename(pc)} is not the drawn frame's JPEG")
+                mse = float(np.mean((decoded.astype(np.float64) - drawn) ** 2))
+                psnr.append(float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse))
+            require(min(psnr) > VIZ_PSNR_BAR, f"viz (b): {cmd}: a frame's JPEG is "
+                    f"{min(psnr):.2f} dB from the drawn frame (bar {VIZ_PSNR_BAR})")
+            say("viz", f"(b) {cmd} over {VIZ_FRAMES} frames of phase 6's zero set"
+                + (f" ({n_people} predicted people of its Open-Pose+ evaluate JSON)"
+                   if cmd == "visualize-pred" else " (seg maps of their people)")
+                + f": --device {dev} and --device cpu wrote the same {VIZ_FRAMES} files byte for "
+                f"byte, each the JPEG of the frame drawn here, PSNR {min(psnr):.2f}-"
+                f"{max(psnr):.2f} dB against it; no kernel launched; "
+                f"{seconds[cmd, str(dev)]:.2f} s on the card, {seconds[cmd, 'cpu']:.2f} s on the "
+                "CPU")
+
+    frames_with_people = [i for i, image_id in enumerate(anno) if anno[image_id]]
+    idx = np.asarray(frames_with_people[:VIZ_ROI_BATCH])
+    dss = {d: ROIDataset(os.path.join(data, "depth_maps"), os.path.join(data, "labels.json"),
+                         seed=VIZ_ROI_SEED, device=d) for d in (dev, "cpu")}
+    worst = compare_batches("viz (c)", dss[dev].get_batch(idx), dss["cpu"].get_batch(idx))
+    require(dss[dev].rng.bit_generator.state == dss["cpu"].rng.bit_generator.state,
+            "viz (c): the generators part")
+    say("viz", f"(c) a ROIDataset batch of {len(idx)} frames (one drawn person each, cropped and "
+        f"resized to 224²) made on the card = the CPU's: image, masks and z-maps bit for bit, "
+        f"other maps within {worst:.3g} (bar {TARGETS_BAR}); generators equal")
+    rate = VIZ_FRAMES / seconds["visualize-pred", str(dev)]
+    say("viz", f"(d) visualize-pred: {rate:.1f} images/s with the grey map on the card "
+        f"({VIZ_FRAMES / seconds['visualize-pred', 'cpu']:.1f} on the CPU), 512x480 frames, "
+        f"{phase_device_name()}")
+    say("viz", f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_device_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6016,6 +6041,7 @@ def main(argv=None) -> int:
         par = phase_parallel(np.random.default_rng([args.seed, 15]), dev, keep)
         for r in rows:                  # evaluate --spatial 1 of phase 15 (d)
             r["parallel_launches"] = par[r["name"]]
+        phase_viz(dev, keep, frames)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")

@@ -30,7 +30,32 @@ KDH3D-format dataset (`ops/encoders.py`, `data/datasets.py`, `losses/`,
 COCO results are scored by `data.preprocessing.rgb_infer` ->
 `decode.openpose_infer.paf_decode_2d` -> `data.coco.coco_eval_results` ->
 `data.coco.run_coco_eval`, and `generate-augset` freezes MP-3DHP test
-sets (`data/construction.py`).
+sets (`data/construction.py`). `visualize-gt` and `visualize-pred` draw the
+GT or predicted skeletons over the depth and write cv2.imwrite's JPEG
+bytes (`viz/`: cv2's rasterizer in `viz/raster.py` and `csrc/draw_u8.cpp`,
+the writer `data.image_io.imwrite_jpeg` in `csrc/jpeg_encode.cpp`).
+`interop/torch_import.py` loads the reference's PyTorch `.pth` checkpoints
+into the models (`import_rtpose_light3d`, `import_yolo_posenet`,
+`import_a2j`, `use_vgg`) and exports them back (`export_state_dict`).
+
+Layout:
+    core/      constants, camera geometry, configuration, device choice
+    csrc/      the CUDA kernels (*.cu) and the host C++ sources (*.cpp: the
+               JPEG reader and writer, the uint8 transforms, the rasterizer)
+    ops/       the kernels' wrappers and builds, GT encoders, resize, fold, int8
+    data/      datasets, augmentation, compositing, JPEG files, COCO, MPII
+    models/    the CNNs
+    losses/    training losses
+    decode/    post-processing (maps -> people), on the card and the host
+    eval/      PCK, mAP and COCO OKS metrics
+    train/     training steps and loop, checkpoints, schedules
+    parallel/  layouts over torch.distributed
+    interop/   Flax variables (from_jax) and reference .pth checkpoints
+               (torch_import)
+    viz/       the GT and prediction viewers and cv2's rasterizer
+    cli/       command-line entry points and the tables
+    tools/     measurement helpers
+    serving.py the serving pipelines
 """
 
 from popnet_tpu_torch.interop.from_jax import load_npz, state_dict_from_jax

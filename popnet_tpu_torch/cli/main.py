@@ -1,5 +1,5 @@
-"""The port's command line: the `train`, `evaluate`, `benchmark` and
-`generate-augset` subcommands.
+"""The port's command line: the `train`, `evaluate`, `benchmark`,
+`visualize-gt`, `visualize-pred` and `generate-augset` subcommands.
 
     python -m popnet_tpu_torch.cli.main train --model openpose --data-root DATA \\
         --bg-aug --val-labels labels_val.json --out-dir runs/op
@@ -9,6 +9,8 @@
         --pred runs/out/openpose_results.json
     python -m popnet_tpu_torch.cli.main generate-augset --kind mpaug \\
         --data-root DATA --out-dir frozen/mpaug --augment
+    python -m popnet_tpu_torch.cli.main visualize-pred --data-root DATA \\
+        --pred runs/out/openpose_results.json --out-dir runs/vis --limit 16
 
 `train` trains Open-Pose+, PoP-Net, Yolo-Pose+ or A2J (`--model openpose|
 popnet|yolo|a2j`) on a KDH3D-format dataset (DATA/depth_maps/*.npy and the
@@ -73,6 +75,16 @@ adds the freeze-time rotation, dolly and resize. The composite and the
 transforms run on `--device`, the card unless `--device cpu` is passed
 (the JAX command line composites on its host unless given its boolean
 `--device`); the card's sets equal the CPU's byte for byte.
+
+`visualize-gt` draws each frame of DATA's label file `--labels` (its
+depth map in grey, DATA/seg_maps/<id> in red where it exists, the GT
+skeletons) and `visualize-pred` the skeletons of a prediction JSON
+`--pred` (`human_pred_set_2d_aligned` where the JSON holds it, else
+`human_pred_set_2d`) over the depth, into `--out-dir/{i:06d}.jpg`, the
+first `--limit` frames (all with 0): the grey map and the overlay run on
+`--device`, the drawing on the host (`viz/`), and the files are the bytes
+`cv2.imwrite` writes (`data.image_io.imwrite_jpeg`), as the JAX command
+line's are.
 
 `evaluate --dataset coco|mpii` and the RGB models exit, as the JAX command
 line's do (its `_build_model` refuses `rtpose_vgg` and `popnet_rgb`):
@@ -645,6 +657,44 @@ def cmd_benchmark(args) -> dict:
     return evaluate_predictions(p2, p3, res.get("human_pred_set_part_conf", []), gt2d, gt3d)
 
 
+def cmd_visualize(args, gt: bool) -> list[str]:
+    """Draw the GT (`gt`) or the predictions of --pred over each frame's
+    depth into --out-dir/{i:06d}.jpg; returns the paths written."""
+    import numpy as np
+
+    from popnet_tpu_torch.core.device import resolve_device
+    from popnet_tpu_torch.data.image_io import imwrite_jpeg
+    from popnet_tpu_torch.data.labels import load_label_file
+    from popnet_tpu_torch.viz import visualize_gt, visualize_pred
+
+    device = resolve_device(args.device)
+    anno_dic, _ = load_label_file(os.path.join(args.data_root, args.labels))
+    os.makedirs(args.out_dir, exist_ok=True)
+    preds = None
+    if not gt:
+        with open(args.pred) as f:
+            preds = json.load(f)
+        key = ("human_pred_set_2d_aligned" if "human_pred_set_2d_aligned" in preds
+               else "human_pred_set_2d")
+    written = []
+    for i, (image_id, anns) in enumerate(anno_dic.items()):
+        if args.limit and i >= args.limit:
+            break
+        depth = torch.from_numpy(np.load(os.path.join(args.data_root, "depth_maps", image_id)))
+        depth = depth.to(device)
+        if gt:
+            seg_path = os.path.join(args.data_root, "seg_maps", image_id)
+            seg = torch.from_numpy(np.load(seg_path)) if os.path.exists(seg_path) else None
+            img = visualize_gt(depth, anns, seg=seg)
+        else:
+            img = visualize_pred(depth, [np.asarray(h) for h in preds[key][i]])
+        path = os.path.join(args.out_dir, f"{i:06d}.jpg")
+        imwrite_jpeg(path, img)
+        written.append(path)
+    print(f"wrote images to {args.out_dir}")
+    return written
+
+
 def cmd_generate_augset(args) -> dict:
     """Freeze DATA's bg-aug or mp-aug composite into a static test set in
     --out-dir; returns the labels written."""
@@ -790,6 +840,17 @@ def build_parser():
     b.add_argument("--pred", required=True)
     b.add_argument("--aligned", action="store_true")
     b.set_defaults(fn=cmd_benchmark)
+
+    vg = sub.add_parser("visualize-gt")
+    common(vg)
+    vg.add_argument("--limit", type=int, default=0)
+    vg.set_defaults(fn=lambda a: cmd_visualize(a, gt=True))
+
+    vp = sub.add_parser("visualize-pred")
+    common(vp)
+    vp.add_argument("--pred", required=True)
+    vp.add_argument("--limit", type=int, default=0)
+    vp.set_defaults(fn=lambda a: cmd_visualize(a, gt=False))
 
     g = sub.add_parser("generate-augset")
     common(g)

@@ -1,7 +1,7 @@
-"""The 15-joint ITOP body model (joint order, the 14 limbs and the flip's
-left/right swap).
+"""The 15-joint ITOP body model (joint order, the 14 limbs, the flip's
+left/right swap and the limbs' drawing colours).
 
-The port's own copy of `popnet_tpu/core/skeleton.py:12-82`: the limb order
+The port's own copy of `popnet_tpu/core/skeleton.py:12-104`: the limb order
 fixes the PAF channel order and the assembly order, so it must not drift.
 """
 
@@ -72,3 +72,11 @@ def _swap_indices() -> tuple[int, ...]:
 
 
 SWAP_INDICES: tuple[int, ...] = _swap_indices()
+
+# the limbs' BGR drawing colours (viz.draw), limb k in JOINT_COLORS[k % 19]
+JOINT_COLORS: tuple[tuple[int, int, int], ...] = (
+    (255, 0, 0), (255, 85, 0), (255, 170, 0), (255, 255, 0), (170, 255, 0),
+    (85, 255, 0), (0, 255, 0), (0, 255, 85), (0, 255, 170), (0, 255, 255),
+    (0, 170, 255), (0, 85, 255), (0, 0, 255), (85, 0, 255), (170, 0, 255),
+    (255, 0, 255), (255, 0, 170), (255, 0, 85), (85, 255, 85),
+)

@@ -8,7 +8,8 @@ inverse-affine bilinear warp on the device the frames lie on (torch).
   gives the same parameters bit for bit; `transform_labels` moves the joints
   and boxes by it.
 - `resize_inv_mat` is the inverse map of a plain resize, the only
-  augmentation the evaluation draws.
+  augmentation the evaluation draws; `params_from_box` the parameters of
+  a plain integer crop and resize (the ROI dataset's).
 - `warp_depth_batch` samples the frames through the inverse maps: one map for
   the batch (evaluation), or one per frame with depth scales and flips
   (training).
@@ -185,6 +186,22 @@ def transform_labels(params: AffineParams, joints2d, joints3d, bboxes, swap_indi
     bb[..., 0:4:2] = bb[..., 0:4:2] * params.bbox_scale[0] + params.bbox_offset[0]
     bb[..., 1:4:2] = bb[..., 1:4:2] * params.bbox_scale[1] + params.bbox_offset[1]
     return j2.astype(np.float32), j3.astype(np.float32), bb.astype(np.float32)
+
+
+def params_from_box(box, out_h: int = 224, out_w: int = 224, src_w: int = 480) -> AffineParams:
+    """AffineParams of a plain integer crop of `box` (x0, y0, x1, y1, each
+    truncated to an integer) resized to (out_h, out_w): no rotation,
+    render scale or flip."""
+    x0, y0, x1, y1 = (int(v) for v in box)
+    wr = float(out_w) / max(x1 - x0, 1)
+    hr = float(out_h) / max(y1 - y0, 1)
+    return AffineParams(
+        label_mat=np.array([[wr, 0, -x0 * wr], [0, hr, -y0 * hr]], dtype=np.float32),
+        bbox_scale=np.array([wr, hr], np.float32),
+        bbox_offset=np.array([-x0 * wr, -y0 * hr], np.float32),
+        inv_mat=np.array([[1 / wr, 0, 0.5 / wr - 0.5 + x0], [0, 1 / hr, 0.5 / hr - 0.5 + y0]],
+                         dtype=np.float32),
+        depth_scale=1.0, rot_deg=0.0, flip=False, src_w=src_w)
 
 
 def resize_inv_mat(h: int, w: int, out_h: int = 224, out_w: int = 224) -> np.ndarray:

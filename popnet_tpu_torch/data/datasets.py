@@ -29,6 +29,8 @@ The port's counterpart of `popnet_tpu/data/datasets.py`:
   - `KDH3DMPAugAdvDataset`: each person layer and its mask warped by its
     own augmentation, the background by its own, then the composite;
   - `data.streaming.StreamingDeviceMPAugDataset`: the bank in shards;
+  - `ROIDataset`: one drawn person a frame, cropped and resized to the
+    input (`augment_device.params_from_box`);
 - `MPRealDataset` (evaluation): one float32 copy, the warp of a plain
   resize, clip and normalize; no targets.
 
@@ -256,6 +258,10 @@ class _TrainDataset:
         return (params.inv_mat, np.float32(params.depth_scale), params.flip, j2, j3, bb,
                 pk.pose_weights, pk.valid)
 
+    def _frame_row(self, anns, h: int, w: int) -> tuple:
+        """A frame's label row: its augmentation draw, its labels moved."""
+        return self._label_row(self._params(h, w), anns)
+
     def _labels_to_device(self, rows) -> dict:
         return {k: torch.from_numpy(np.stack(v)).to(self.device)
                 for k, v in zip(LABEL_NAMES, zip(*rows))}
@@ -281,7 +287,7 @@ class _TrainDataset:
                 images[n] = t
             else:
                 images[n] = depth
-            rows.append(self._label_row(self._params(h, w), anns))
+            rows.append(self._frame_row(anns, h, w))
         return images, rows
 
     def to_device(self, host) -> dict:
@@ -582,6 +588,34 @@ class KDH3DMPAugAdvDataset(KDH3DMPAugDataset):
             "inv_mats": ident, "depth_scales": torch.ones(B, device=dev),
             "flips": torch.zeros(B, dtype=torch.bool, device=dev), "joints2d": t(j2),
             "joints3d": t(j3), "bboxes": t(bb), "pose_weights": t(pw), "valid": t(keep)})
+
+
+class ROIDataset(_TrainDataset):
+    """Single-person ROI crops: each frame draws one of its people from the
+    generator, crops the box of its joints grown by `joint2box_margin`
+    pixels (clipped to the frame, truncated to integers), resizes the crop
+    to the input and encodes that person's targets in the crop's frame
+    (`ad.params_from_box`); no other augmentation, and no prior unless
+    asked for (`with_prior` defaults to False)."""
+
+    def __init__(self, img_dir: str, ann_file: str, joint2box_margin: float = 20.0,
+                 device: str | torch.device = "cuda", **kw):
+        kw.setdefault("with_prior", False)
+        super().__init__(img_dir, ann_file, device=device, **kw)
+        self.joint2box_margin = joint2box_margin
+
+    def load_composited(self, index: int):
+        image_id = self.ids[index]
+        return self._load_npy(os.path.join(self.img_dir, image_id)), list(self.anno_dic[image_id])
+
+    def _frame_row(self, anns, h: int, w: int) -> tuple:
+        person = anns[int(self.rng.integers(len(anns)))]
+        j = np.asarray(person["2d_joints"])
+        m = self.joint2box_margin
+        box = [max(0, min(w, j[:, 0].min() - m)), max(0, min(h, j[:, 1].min() - m)),
+               max(0, min(w, j[:, 0].max() + m)), max(0, min(h, j[:, 1].max() + m))]
+        params = ad.params_from_box(box, self.ecfg.input_y, self.ecfg.input_x, src_w=w)
+        return self._label_row(params, [person])
 
 
 class MPRealDataset:

@@ -155,6 +155,44 @@ def popnet_loss(saved_for_loss, heat_gt, zmap_gt, fg_mask_z, alignmap_gt, fg_mas
     return total, logs
 
 
+def popnet_roi_loss(saved_for_loss, heat_gt, zmap_gt, fg_mask_z, alignmap_gt, fg_mask_align,
+                    obj_label, num_joints, pose_weights=None, num_stages: int = 2,
+                    prior_subnet_only: bool = False, pred_vis: bool = False):
+    """ROI (single-person crop) PoP-Net: the dense stages' terms as in
+    `popnet_loss` (left out of the total with `prior_subnet_only`), the
+    prior replaced by the MSE of a flat pose vector against `obj_label`,
+    times 3K (4K with `pred_vis`), each sample weighted by the mean of its
+    `pose_weights` where given.
+    saved_for_loss: [heat1, z1, align1, ..., (NCHW), pose (B, D)]."""
+    saved = [_nhwc(t) for t in saved_for_loss[:3 * num_stages]]
+    logs = {}
+    total = 0.0
+    weight_z = 0.1 + fg_mask_z * 0.9
+    b = weight_z.shape[0]
+    weight_ht = torch.cat([weight_z, torch.ones_like(weight_z[..., :1])], -1)
+    for j in range(num_stages):
+        heat, z, align = saved[3 * j], saved[3 * j + 1], saved[3 * j + 2]
+        l1 = weighted_mse(heat, heat_gt, weight_ht)
+        l2 = weighted_mse(z, zmap_gt, weight_z)
+        l3 = weighted_mse(align, alignmap_gt, fg_mask_align)
+        if not prior_subnet_only:
+            total = total + l1 + l2 + l3
+        logs[f"stage{j + 1}_heat"] = l1
+        logs[f"stage{j + 1}_z"] = l2
+        logs[f"stage{j + 1}_align"] = l3
+    pred = saved_for_loss[-1].reshape(b, -1)
+    obj = obj_label.reshape(b, -1)
+    factor = (4 if pred_vis else 3) * num_joints
+    if pose_weights is None:
+        loss_prior = _mse(pred, obj) * factor
+    else:
+        tw = torch.mean(pose_weights.reshape(b, -1), dim=1).reshape(b, 1)
+        loss_prior = weighted_mse(pred, obj, tw) * factor
+    total = total + loss_prior
+    logs["loss_prior"] = loss_prior
+    return total, logs
+
+
 def popnet_rgb_loss(saved_for_loss, heat_gt, alignmap_gt, fg_mask_align, prior_gt,
                     prior_mask_conf, prior_mask_coord, num_joints):
     """PopNetRGB: per stage the heat MSE (weighted 0.1 + 0.9 * the joint's

@@ -10,7 +10,7 @@ report for each. A source's `stamps` build (-DPOPNET_STAGE_CLOCKS) records
 per-block stage clocks (csrc/common.cuh); only measurements load it.
 
 The host sources (`HOST_SOURCES`, `csrc/<name>.cpp`: the JPEG reader and
-the uint8 image transforms) build the same way with the host C++ compiler
+writer, the uint8 image transforms and the line and circle rasterizer) build the same way with the host C++ compiler
 (`c++`, the one nvcc also drives), not nvcc, so they build wherever the
 package runs, the CPU too (`host_library`).
 """
@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "popnet_tpu_torch"
 SOURCES = ("find_peaks", "paf_score", "readout", "assemble", "peak_mask")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_SOURCES = ("jpeg_decode", "image_u8")
+HOST_SOURCES = ("jpeg_decode", "jpeg_encode", "image_u8", "draw_u8")
 # no contraction into fused multiply-adds but where the source writes std::fma
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-ffp-contract=off")
 
@@ -104,7 +104,8 @@ def _cxx() -> str:
         if cand and shutil.which(cand):
             return cand
     raise RuntimeError("no host C++ compiler (c++ or g++, or $CXX): the port's JPEG reader and "
-                       "uint8 image transforms (csrc/*.cpp) build with it at first use")
+                       "writer, uint8 image transforms and rasterizer (csrc/*.cpp) build with "
+                       "it at first use")
 
 
 def _host_target(name: str) -> Path:

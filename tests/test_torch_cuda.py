@@ -1869,3 +1869,39 @@ def test_tensor_spatial_and_pipeline_at_group_size_one(cuda, train_set):
     assert c["sp_gap"] == 0.0 and c["pp_gap"] <= 1e-5, c
     assert abs(c["pp_loss"][1] - c["pp_loss"][0]) <= 1e-5 * abs(c["pp_loss"][0]), c
     assert c["pp_state_gap"] <= 1e-5, c
+
+
+def test_roi_batch_on_the_card_equals_the_cpu(cuda, train_set):
+    """A ROIDataset batch of 8 frames made on the card against the CPU's
+    from the same seed: image, z-maps and masks bit for bit, the other maps
+    within 2e-6, the generators equal."""
+    import chip_smoke
+    from popnet_tpu_torch.data.datasets import ROIDataset
+
+    dss = {d: ROIDataset(os.path.join(train_set, "depth_maps"),
+                         os.path.join(train_set, "labels.json"), seed=3, device=d)
+           for d in (cuda, "cpu")}
+    idx = np.arange(8)
+    card, host = dss[cuda].get_batch(idx), dss["cpu"].get_batch(idx)
+    assert chip_smoke.compare_batches("roi", card, host) <= chip_smoke.TARGETS_BAR
+    assert dss[cuda].rng.bit_generator.state == dss["cpu"].rng.bit_generator.state
+
+
+def test_visualizers_draw_the_same_image_from_the_card(cuda):
+    """The grey map and the seg overlay made on the card equal the CPU's
+    bit for bit (IEEE float64 on both), and so do the drawn skeletons."""
+    from popnet_tpu_torch.viz import depth_to_gray, overlay_seg, visualize_gt, visualize_pred
+
+    rng = np.random.default_rng(17)
+    depth = torch.from_numpy(rng.uniform(-1, 8, (512, 480)))
+    seg = torch.from_numpy((rng.random((512, 480)) < 0.3).astype(np.uint8))
+    grey = depth_to_gray(depth.to(cuda))
+    assert grey.device.type == "cuda" and torch.equal(grey.cpu(), depth_to_gray(depth))
+    assert torch.equal(overlay_seg(grey, seg, color=(10, 200, 77), alpha=0.3).cpu(),
+                       overlay_seg(grey.cpu(), seg, color=(10, 200, 77), alpha=0.3))
+    humans = [rng.uniform(-20, 500, (15, 2)) for _ in range(3)]
+    anns = [{"2d_joints": h.tolist()} for h in humans]
+    vis = rng.uniform(0, 1, (3, 15))
+    assert np.array_equal(visualize_pred(depth.to(cuda), humans, vis),
+                          visualize_pred(depth, humans, vis))
+    assert np.array_equal(visualize_gt(depth.to(cuda), anns, seg), visualize_gt(depth, anns, seg))

@@ -137,6 +137,7 @@ def test_config_and_skeleton_copies_match_jax():
     assert dataclasses.asdict(camera.KDH3D_INTRINSICS) == dataclasses.asdict(jax_camera.KDH3D_INTRINSICS)
     assert skeleton.KEYPOINT_NAMES == jax_skeleton.KEYPOINT_NAMES
     assert skeleton.LIMBS == jax_skeleton.LIMBS and skeleton.NUM_LIMBS == 14
+    assert skeleton.JOINT_COLORS == jax_skeleton.JOINT_COLORS and len(skeleton.JOINT_COLORS) == 19
 
 
 ANCHORS = ((6.0, 3.0), (12.0, 6.0))

@@ -2,8 +2,10 @@
 cv2.imread, bit for bit, on files written here by cv2: qualities, chroma
 samplings, grey, optimized tables, restart intervals, sizes from 1x1 up and
 the eight EXIF orientations; and the files it refuses, each with a
-ValueError that names the file and the reason. cv2 is the reference here
-only: the package reads no file through it."""
+ValueError that names the file and the reason. The port's JPEG writer
+(`encode_jpeg`, `imwrite_jpeg`) against cv2.imencode and cv2.imwrite, byte
+for byte. cv2 is the reference here only: the package reads and writes no
+file through it."""
 
 import os
 import struct
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from popnet_tpu_torch.data.image_io import apply_exif_orientation, decode_jpeg, imread_bgr
+from popnet_tpu_torch.data.image_io import (apply_exif_orientation, decode_jpeg, encode_jpeg,
+                                            imread_bgr, imwrite_jpeg)
 
 QUALITIES = (50, 75, 95, 100)
 SAMPLINGS = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
@@ -177,19 +180,63 @@ def test_committed_fixtures_decode_to_their_recorded_hashes():
             imread_bgr(os.path.join(root, name))
 
 
-def test_chip_smoke_writer_is_read_alike_by_cv2_and_the_reader():
-    """chip_smoke.jpeg_baseline, the NumPy baseline writer of the chip run's
-    RGB sets: cv2 and the reader decode its files to the same frame, close
-    to the written one (PSNR over 25 dB at quality 90: measured 30 dB on
-    the noisiest frame here, 33 dB on painted 640x480 frames)."""
+def test_chip_smoke_writer_is_read_alike_by_cv2_and_the_reader(tmp_path):
+    """chip_smoke.write_rgb_sets, the writer of the chip run's RGB sets,
+    writes each painted frame as cv2.imencode does at RGB_QUALITY, byte for
+    byte (encode_jpeg), and cv2 and the reader decode its files to the same
+    frame, close to the painted one (PSNR over 25 dB at quality 90)."""
     import chip_smoke
 
-    rng = np.random.default_rng(5)
-    frames, _ = chip_smoke.rgb_frames(rng, 1, 120, 160)
-    for img in frames + [frame(rng, 37, 53), frame(rng, 1, 1)]:
-        data = chip_smoke.jpeg_baseline(img)
+    frames, _ = chip_smoke.rgb_frames(np.random.default_rng(5), 2)
+    chip_smoke.write_rgb_sets(np.random.default_rng(5), str(tmp_path), 1, 1)
+    for i, img in enumerate(frames):
+        with open(tmp_path / "images" / f"{i:06d}.jpg", "rb") as f:
+            data = f.read()
+        assert data == cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY,
+                                                  chip_smoke.RGB_QUALITY])[1].tobytes()
         ref = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
         got = decode_jpeg(data)
         np.testing.assert_array_equal(got, ref)
         mse = float(np.mean((got.astype(np.float64) - img) ** 2))
-        assert mse == 0 or 10 * np.log10(255.0 ** 2 / mse) > 25.0
+        assert 10 * np.log10(255.0 ** 2 / mse) > 25.0
+
+
+ENCODE_QUALITIES = (50, 90, 95, 100)
+ENCODE_SIZES = ((1, 1), (7, 9), (15, 17), (480, 512))
+
+
+@pytest.mark.parametrize("size", ENCODE_SIZES, ids=[f"{h}x{w}" for h, w in ENCODE_SIZES])
+def test_encoder_equals_cv2_imencode(tmp_path, size):
+    """encode_jpeg = cv2.imencode(".jpg") byte for byte on a seeded frame,
+    noise and a flat image at each quality of ENCODE_QUALITIES (95 also by
+    default, as cv2's); imwrite_jpeg's file = cv2.imwrite's; the reader
+    decodes every file as cv2.imdecode does."""
+    h, w = size
+    rng = np.random.default_rng(h * 31 + w)
+    images = (frame(rng, h, w), rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+              np.full((h, w, 3), rng.integers(0, 256, 3), np.uint8))
+    for img in images:
+        for q in ENCODE_QUALITIES:
+            ref = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, q])[1].tobytes()
+            got = encode_jpeg(img, q)
+            assert got == ref, (q, len(got), len(ref))
+            np.testing.assert_array_equal(
+                decode_jpeg(got), cv2.imdecode(np.frombuffer(ref, np.uint8), cv2.IMREAD_COLOR))
+        assert encode_jpeg(img) == cv2.imencode(".jpg", img)[1].tobytes()
+    cv2.imwrite(str(tmp_path / "ref.jpg"), images[0])
+    imwrite_jpeg(tmp_path / "got.jpg", images[0])
+    assert (tmp_path / "got.jpg").read_bytes() == (tmp_path / "ref.jpg").read_bytes()
+
+
+def test_encoder_refuses_what_it_does_not_write():
+    """Grey, one- and four-channel images, other dtypes and qualities
+    outside 1-100 raise, naming the shape or the value."""
+    img = np.zeros((4, 5, 3), np.uint8)
+    for bad in (np.zeros((4, 5), np.uint8), np.zeros((4, 5, 1), np.uint8),
+                np.zeros((4, 5, 4), np.uint8), np.zeros((4, 5, 3), np.float32),
+                np.zeros((0, 5, 3), np.uint8)):
+        with pytest.raises(ValueError, match=r"\(4, 5|\(0, 5"):
+            encode_jpeg(bad)
+    for q in (0, 101, -5, 95.5, True):
+        with pytest.raises(ValueError, match="quality"):
+            encode_jpeg(img, q)

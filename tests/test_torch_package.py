@@ -440,7 +440,7 @@ def test_rgb_training_defaults_to_cuda_and_never_runs_on_cpu_unasked(tmp_path):
 
     for cls in (CocoKeypointsDataset, MPIIKeypointsDataset):
         assert inspect.signature(cls).parameters["device"].default == "cuda"
-    assert set(_build.HOST_SOURCES) == {"jpeg_decode", "image_u8"}
+    assert set(_build.HOST_SOURCES) == {"jpeg_decode", "jpeg_encode", "image_u8", "draw_u8"}
     for name in _build.HOST_SOURCES:
         assert (_build.CSRC / f"{name}.cpp").exists()
         assert _build._host_target(name).parent == _build.BUILD_DIR
@@ -544,3 +544,27 @@ def test_parallel_entry_points_default_to_cuda_and_never_run_on_cpu_unasked(monk
     with distributed.single_rank_job("cpu"):
         assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
     assert not dist.is_initialized()
+
+
+def test_visualize_and_roi_default_to_cuda_and_never_run_on_cpu_unasked(tmp_path):
+    """visualize-gt, visualize-pred and ROIDataset default to the card;
+    without one they raise unless the CPU is asked for (--device cpu); the
+    viewers and the checkpoint import are in the package."""
+    from popnet_tpu_torch.cli.main import build_parser, main
+    from popnet_tpu_torch.data.datasets import ROIDataset
+
+    for cmd in (["visualize-gt"], ["visualize-pred", "--pred", str(tmp_path / "p.json")]):
+        assert build_parser().parse_args([*cmd, "--data-root", str(tmp_path)]).device == "cuda"
+    assert inspect.signature(ROIDataset).parameters["device"].default == "cuda"
+    assert set(_port_modules()) >= {"popnet_tpu_torch.viz", "popnet_tpu_torch.viz.draw",
+                                    "popnet_tpu_torch.viz.raster",
+                                    "popnet_tpu_torch.interop.torch_import"}
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    for cmd in (["visualize-gt"], ["visualize-pred", "--pred", str(tmp_path / "p.json")]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([*cmd, "--data-root", str(tmp_path)])
+        with pytest.raises(FileNotFoundError):   # asked for the CPU, it goes on to read the labels
+            main([*cmd, "--data-root", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ROIDataset(str(tmp_path), str(tmp_path / "x.json"))
