@@ -10,8 +10,9 @@ evaluation and table with the exact host decode (phase 11), COCO and
 MPII RGB training from JPEG files (phase 12), COCO evaluation at the
 evaluation canvas with MP-3DHP set construction (phase 13), and the
 four-method table and the readout ablation (phase 14), the parallel
-layouts over torch.distributed (phase 15), and the visualizers and the
-reference-checkpoint import (phase 16): the four
+layouts over torch.distributed (phase 15), the visualizers and the
+reference-checkpoint import (phase 16), and the synthetic-generalization
+run at a smoke budget (phase 17): the four
 depth paths at batch 256 of (512, 480) depth frames made from --seed with
 two or three person-like figures each, and COCO RGB at batch 64 of
 (480, 640, 3) BGR frames uniform in [0, 255):
@@ -93,8 +94,13 @@ Phases, one or more lines each:
    labelled sets of 256 frames written to a temporary directory (.npy depth
    and an MP-3DHP labels.json; zero and depth backgrounds), batch 64,
    float32 CNNs with the committed weights (A2J seeded): Open-Pose+ with the
-   host decode and with device_decode, PoP-Net, Yolo-Pose+ and Yolo->A2J,
-   launch counts reset just before and read just after; each driver run
+   host decode (its default native assembler, and once more with
+   use_native=False, the NumPy one: the two JSONs equal bit for bit, and
+   each route's assembly ms a batch) and with device_decode, PoP-Net,
+   Yolo-Pose+ and Yolo->A2J, launch counts reset just before and read just
+   after; a crowd frame (crowd_candidates, 32 people by the NumPy
+   assembler) on which the native one stops at max_people = 16, the NumPy
+   route's first 16; each driver run
    once more on the host with the same CNN outputs (plain versions): JSON
    equal bit for bit (A2J joints within the vote's 64-ulp bar) and metrics
    equal; the batched metrics on the card against NumPy's; each family's
@@ -233,7 +239,9 @@ Phases, one or more lines each:
     PopNetRGB, cli.main train --dataset coco|mpii) at full width, 368²,
     float32: (a) the JPEG reader on the committed fixtures
     (tests/fixtures/jpeg, written by cv2) against the sha256 of cv2.imread's
-    output recorded beside them, the progressive fixture refused; (b)
+    output recorded beside them, the progressive ones included (none is
+    refused), and the ms an image of a 320x240 progressive fixture beside
+    its baseline twin on the card's host; (b)
     64 training and 16 validation frames of 640x480 BGR with 1-3 painted
     people each (rgb_frames), written as baseline 4:2:0 JPEG at quality 90
     by data.image_io.encode_jpeg (cv2.imencode's bytes, held so by the CPU
@@ -338,6 +346,18 @@ Phases, one or more lines each:
     it, no kernel launched; (c) a ROIDataset batch of 8 made on the card
     against the CPU's; (d) visualize-pred's images/s, with the card's name
     and power limit.
+
+17. syngen: `python -m popnet_tpu_torch.cli.syngen` (the synthetic-
+    generalization run, cli/syngen.py) at a smoke budget (SYNGEN_SMOKE: 32
+    training scenes, 4 steps an epoch at batch 8, the table's 8 frozen
+    frames, 2 epochs) in two calls in this process, the first tracing
+    epoch 0 (SYNGEN_PROFILE=0), the second resuming: the launch counts reset
+    just before and read just after; the validation and frozen trees'
+    sha256 (TABLE_SMOKE_SHA256), two curve points with both readouts'
+    metrics in [0, 1], the device named with its power limit, K7 launched
+    by the scoring (a "syngen_launches" entry in each row of the kernels
+    line); the Trainer's torch.profiler trace of epoch 0 holding CUDA kernel
+    events, and `resume(best=True)` restoring ckpt_best's weights.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero. Run
@@ -2349,6 +2369,8 @@ def openpose_painted_maps(frame_anns, w_org: int = 480, h_org: int = 512, size: 
 
 # the families of the eval phase: (tag, model, frame set, run_evaluation options)
 EVAL_FAMILIES = (("openpose", "openpose", "zero", {"device_decode": False}),
+                 ("openpose_numpy", "openpose", "zero", {"device_decode": False,
+                                                         "use_native": False}),
                  ("openpose_device_decode", "openpose", "zero", {"device_decode": True}),
                  ("popnet", "popnet", "bg", {"readout": "universe"}),
                  ("yolo", "yolo", "bg", {}),
@@ -2356,6 +2378,53 @@ EVAL_FAMILIES = (("openpose", "openpose", "zero", {"device_decode": False}),
 EVAL_PATH = ("find_peaks", "paf_score", "assemble_ids", "window_readout", "point_readout",
              "peak_local_max")
 ORACLE_BARS = {"pck2d": 0.95, "pck3d": 0.9, "map2d": 0.9, "map3d": 0.85}
+
+
+CROWD_LIMB_SEED = 5          # the limb mask of crowd_candidates: two chains of 3+ joints, 32 people
+
+
+def crowd_candidates(M: int = 16, seed: int = 0):
+    """One frame of assembly candidates with more people than max_people:
+    M valid peaks a joint, and on each limb that a mask drawn from
+    CROWD_LIMB_SEED keeps, one candidate pair a peak, on the diagonal (peak
+    i to peak i). Every chain of three or more joints gives M people, so the
+    NumPy assembler returns 32 and the native one stops at 16. Returns
+    (peaks (1, K, M, 3), valid (1, K, M), scores (1, L, M, M), ok (1, L, M,
+    M)) as NumPy."""
+    from popnet_tpu_torch.core.skeleton import LIMBS, NUM_JOINTS
+
+    L = len(LIMBS)
+    keep = np.random.default_rng(CROWD_LIMB_SEED).random(L) < 0.6
+    rng = np.random.default_rng(seed)
+    peaks = np.stack([rng.uniform(0, 224, (1, NUM_JOINTS, M)), rng.uniform(0, 224, (1, NUM_JOINTS, M)),
+                      rng.uniform(0.3, 1.0, (1, NUM_JOINTS, M))], -1).astype(np.float32)
+    valid = np.ones((1, NUM_JOINTS, M), bool)
+    scores = np.zeros((1, L, M, M), np.float32)
+    ok = np.zeros((1, L, M, M), bool)
+    diag = np.arange(M)
+    for limb in np.flatnonzero(keep):
+        ok[0, limb, diag, diag] = True
+        scores[0, limb, diag, diag] = rng.uniform(0.3, 1.0, M)
+    return peaks, valid, scores, ok
+
+
+def crowd_check(max_people: int = 16) -> tuple[int, int]:
+    """The native assembler on crowd_candidates stops at max_people rows,
+    and they are the NumPy assembler's first max_people people. Returns
+    (the NumPy route's people, the native route's)."""
+    from popnet_tpu_torch.core.skeleton import LIMBS, NUM_JOINTS
+    from popnet_tpu_torch.decode.assemble import assemble_batch
+    from popnet_tpu_torch.native import assemble_batch_native, human_lists
+
+    cand = crowd_candidates()
+    full = assemble_batch(*cand)[0]
+    joints, counts = assemble_batch_native(*cand, LIMBS, max_people=max_people)
+    native = human_lists(joints, counts, NUM_JOINTS)[0]
+    require(len(full[0]) > max_people and int(counts[0]) == max_people,
+            f"crowd: NumPy {len(full[0])} people, native {int(counts[0])}")
+    require(all(a[:max_people] == b for a, b in zip(full, native)),
+            "crowd: the native rows are not the NumPy route's first ones")
+    return len(full[0]), int(counts[0])
 
 
 def eval_sets(rng, dev, n: int, root: str) -> dict:
@@ -2408,6 +2477,37 @@ class Recorder:
             return _to_cpu(out)
 
         return infer
+
+
+class assembly_clock:
+    """Within the block, each call of the evaluation driver's two host
+    assemblers (`cli.evaluate`'s `assemble_batch_native` and
+    `assemble_batch`) is timed on the host clock: {"native": {"ms": ms a
+    batch, "calls": n}, "numpy": ...}."""
+
+    def __init__(self, ev):
+        self.ev, self.stats = ev, {}
+
+    def __enter__(self) -> dict:
+        self.saved = {}
+        for key, name in (("native", "assemble_batch_native"), ("numpy", "assemble_batch")):
+            fn = self.saved[name] = getattr(self.ev, name)
+            stat = self.stats[key] = {"ms": 0.0, "calls": 0, "total": 0.0}
+
+            def timed(*a, fn=fn, stat=stat, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                stat["total"] += time.perf_counter() - t0
+                stat["calls"] += 1
+                stat["ms"] = stat["total"] * 1e3 / stat["calls"]
+                return out
+
+            setattr(self.ev, name, timed)
+        return self.stats
+
+    def __exit__(self, *exc) -> None:
+        for name, fn in self.saved.items():
+            setattr(self.ev, name, fn)
 
 
 def eval_family(tag: str, model: str, opts: dict, paths, dev, batch: int, weights: dict,
@@ -2624,11 +2724,13 @@ def phase_eval(rng, dev, n: int = 256, batch: int = 64, keep: str | None = None)
                 people[name] = sum(len(v) for k, v in json.load(f).items() if k != "intrinsics")
         say("eval", f"wrote two labelled sets of {n} frames (.npy and labels.json; GT people: "
             f"{people}) in {time.perf_counter() - t0:.1f} s")
+        n_full, n_native = crowd_check()    # also builds the native assembler, untimed
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        runs = {tag: eval_family(tag, model, opts, sets[s], dev, batch, weights)
-                for tag, model, s, opts in EVAL_FAMILIES}
+        with assembly_clock(ev) as asm:
+            runs = {tag: eval_family(tag, model, opts, sets[s], dev, batch, weights)
+                    for tag, model, s, opts in EVAL_FAMILIES}
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         fused = kernels.readouts.launches
@@ -2668,7 +2770,16 @@ def phase_eval(rng, dev, n: int = 256, batch: int = 64, keep: str | None = None)
                 say("eval", f"{tag} ablation 3D-PCK channels: "
                     + json.dumps(ev.evaluate_ablation_channels(card)))
 
-        say("eval", f"the five families, card and host runs, in {time.perf_counter() - t0:.1f} s")
+        native, numpy_ = runs["openpose"][0], runs["openpose_numpy"][0]
+        require(native == numpy_, "Open-Pose+'s host route: the native assembler's JSON differs "
+                "from the NumPy assembler's")
+        say("eval", "Open-Pose+ host route, assembly ms a batch (host clock, card and host runs "
+            "together): " + ", ".join(f"{k} {v['ms']:.3f} over {v['calls']} batches"
+                                      for k, v in asm.items())
+            + f"; the JSON of the native route (the default) = the NumPy route's bit for bit; "
+            f"a crowd frame (crowd_candidates): NumPy {n_full} people, native {n_native} = "
+            f"max_people, the NumPy route's first {n_native}")
+        say("eval", f"the six runs, card and host, in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         for dd in (False, True):
             m, abl = painted_oracle(sets["zero"], dev, batch, dd)
@@ -4542,6 +4653,7 @@ RGB_STEP_BATCH = 4
 RGB_SEED = 0                # the seeded RTPoseVGG and PopNetRGB of the step check
 RGB_QUALITY = 90            # the RGB sets' IJG JPEG quality (encode_jpeg)
 RGB_TIMED = 16              # frames of each host-stage timing
+JPEG_TIMED = 200            # decodes of each timed JPEG fixture (320x240, progressive and baseline)
 COCO_AUG_FLAGS = ["--rotate-aug", "30", "--scale-jitter", "0.6,1.0", "--blur-aug", "1.5"]
 COCO_AUG = {"rotate_max_deg": 30.0, "scale_jitter": (0.6, 1.0), "blur_max_sigma": 1.5}
 RGB_FAMILIES = {"coco": "rtpose_vgg", "mpii": "popnet_rgb"}
@@ -4715,27 +4827,32 @@ def rgb_one_step(family: str, batch: dict, dev, dtype):
     return float(logs["loss"]), before, after, zero
 
 
-def check_jpeg_fixtures() -> tuple[int, int]:
+def check_jpeg_fixtures() -> tuple[int, dict]:
     """(a): each committed fixture decoded by the port's reader to the sha256
     cv2.imread's output had (tests/fixtures/jpeg/hashes.json), the
-    progressive ones refused. Returns (decoded, refused)."""
+    progressive ones included: none is refused. Returns (decoded, ms an
+    image of the timed pair on the host: the 320x240 progressive fixture and
+    its baseline twin, after a warm decode of each)."""
     import hashlib
 
-    from popnet_tpu_torch.data.image_io import imread_bgr
+    from popnet_tpu_torch.data.image_io import decode_jpeg, imread_bgr
 
     with open(os.path.join(FIXTURES, "hashes.json")) as f:
         recorded = json.load(f)
+    require(not recorded["refused"], f"(a) fixtures recorded as refused: {recorded['refused']}")
     for name, digest in recorded["decoded"].items():
         got = hashlib.sha256(imread_bgr(os.path.join(FIXTURES, name)).tobytes()).hexdigest()
         require(got == digest, f"(a) the reader's {name} differs from cv2.imread's")
-    for name in recorded["refused"]:
-        try:
-            imread_bgr(os.path.join(FIXTURES, name))
-        except ValueError as e:
-            require("progressive" in str(e) and name in str(e), f"(a) {name}: {e}")
-        else:
-            raise AssertionError(f"(a) the reader decoded {name}")
-    return len(recorded["decoded"]), len(recorded["refused"])
+    ms = {}
+    for name in recorded["timed"]:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        decode_jpeg(data)
+        t0 = time.perf_counter()
+        for _ in range(JPEG_TIMED):
+            decode_jpeg(data)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / JPEG_TIMED
+    return len(recorded["decoded"]), ms
 
 
 def host_stage_ms(root: str, n: int = RGB_TIMED) -> dict:
@@ -4787,11 +4904,14 @@ def phase_rgb(rng, dev) -> dict:
     t_phase = time.perf_counter()
     host_threads = min(HOST_WORKERS, os.cpu_count() or 1)
     torch.cuda.empty_cache()                 # the earlier phases' cached blocks
-    n_ok, n_refused = check_jpeg_fixtures()
+    n_ok, jpeg_ms = check_jpeg_fixtures()
     say("rgb", f"(a) the JPEG reader (csrc/jpeg_decode.cpp, built with the host C++ compiler) on "
-        f"the {n_ok + n_refused} committed fixtures: {n_ok} decode to cv2.imread's recorded "
-        f"sha256 (4:4:4, 4:2:2, 4:2:0 with restart markers, 4:4:0, 4:1:1 with optimized tables, "
-        f"grey, 1x1, an EXIF orientation 6), {n_refused} progressive refused by name")
+        f"the {n_ok} committed fixtures: all decode to cv2.imread's recorded sha256 (baseline "
+        f"4:4:4, 4:2:2, 4:2:0 with restart markers, 4:4:0, 4:1:1 with optimized tables, grey, "
+        f"1x1, an EXIF orientation 6; progressive 4:2:0, 4:2:0 with restart markers, 4:4:4, "
+        f"4:2:2, grey, 1x1, 37x53, 320x240), none refused; ms an image on the host, one "
+        f"thread, {JPEG_TIMED} decodes: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in jpeg_ms.items()))
     launches = {k.__name__: 0 for k in kernels.KERNELS}
     with tempfile.TemporaryDirectory() as root:
         write_ms = write_rgb_sets(rng, root)
@@ -5922,6 +6042,106 @@ def phase_viz(dev, keep: str, frames) -> dict:
     return launches
 
 
+# -- phase 17: the synthetic-generalization run at a smoke budget -----------------------------
+
+# 32 training scenes (4 steps an epoch at batch 8), the table's 8 frozen frames (so its trees
+# hash to TABLE_SMOKE_SHA256), 2 epochs in two calls, the first traced
+SYNGEN_SMOKE = {"SYNGEN_TRAIN": "32", "SYNGEN_VAL": "8", "SYNGEN_EPOCHS": "2",
+                "SYNGEN_CHUNK": "1", "SYNGEN_CHUNKS": "1", "SYNGEN_BATCH": "8",
+                "SYNGEN_WARMUP": "1", "SYNGEN_VAL_EVERY": "1"}
+
+
+def trace_kernel_events(path: str) -> int:
+    """The device kernel events of a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def phase_syngen(dev) -> dict:
+    """Phase 17: `python -m popnet_tpu_torch.cli.syngen`'s main at
+    SYNGEN_SMOKE, twice in this process, the first with SYNGEN_PROFILE=0,
+    the second resuming from the first's checkpoint; the launch counts
+    reset just before the first call and read just after the second.
+    Checks: the validation and frozen trees' sha256 (TABLE_SMOKE_SHA256),
+    one and two curve points after the calls, both readouts' metrics in
+    [0, 1] at each, the device named with its power limit, K7 launched by
+    the scoring; the Trainer's trace of epoch 0 holding CUDA kernel events;
+    `Trainer.resume(best=True)` restoring ckpt_best's weights. Returns the
+    kernels' launches."""
+    import torch
+
+    from popnet_tpu_torch.cli import syngen
+    from popnet_tpu_torch.models import PopNet
+    from popnet_tpu_torch.ops import kernels
+    from popnet_tpu_torch.train import checkpoint, steps
+    from popnet_tpu_torch.train.loop import Trainer
+    from popnet_tpu_torch.train.schedule import WarmupCosine
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_syngen_")
+    keys = (*SYNGEN_SMOKE, "SYNGEN_DIR", "SYNGEN_OUT", "SYNGEN_PROFILE")
+    saved = {k: os.environ.get(k) for k in keys}
+    try:
+        os.environ.update(SYNGEN_SMOKE, SYNGEN_DIR=work, SYNGEN_PROFILE="0",
+                          SYNGEN_OUT=os.path.join(work, "syngen.json"))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = syngen.main()
+        walls = [time.perf_counter() - t0]
+        os.environ.pop("SYNGEN_PROFILE")
+        out = syngen.main()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0 - walls[0])
+        launches = kernels.launch_counts()
+        digest = tree_sha256(os.path.join(work, "val"), os.path.join(work, "val_frozen"))
+        require(digest == TABLE_SMOKE_SHA256,
+                f"syngen's validation and frozen trees hash to {digest}, not {TABLE_SMOKE_SHA256}")
+        require(len(first["curve"]) == 1 and not first["done"] and len(out["curve"]) == 2
+                and out["done"], f"syngen's curve after each call: {first['curve']}, {out}")
+        for p in out["curve"]:
+            require(all(0.0 <= v <= 1.0 for r in syngen.READOUTS for v in p[r].values()),
+                    f"syngen's point {p}: a metric outside [0, 1]")
+        require(out["gated"] == out["curve"][-1]["gated"] and out["steps_per_epoch"] == 4,
+                f"syngen's JSON {out}")
+        desc = out["device"]
+        require(desc["platform"] == "gpu" and "W" in desc.get("nvidia_smi", ""),
+                f"syngen's device {desc}")
+        require(launches["peak_local_max"] >= 1, f"syngen's scoring launched {launches}")
+        run = os.path.join(work, "run")
+        trace = os.path.join(run, "trace", "epoch0.json")
+        n_events = trace_kernel_events(trace)
+        require(n_events > 0, f"the profile of epoch 0 ({trace}) holds no CUDA kernel event")
+        sched = WarmupCosine(float(out["lr"]), total_epochs=int(SYNGEN_SMOKE["SYNGEN_EPOCHS"]),
+                             warmup_epochs=int(SYNGEN_SMOKE["SYNGEN_WARMUP"]))
+        best = Trainer(PopNet(), steps.make_popnet_train_step(), steps.make_popnet_eval_loss(),
+                       optimizer="adam", scheduler=sched, out_dir=run,
+                       device=dev).resume(best=True)
+        payload, meta, step = checkpoint.restore_checkpoint(os.path.join(run, "ckpt_best"))
+        got = best.state.model.state_dict()
+        require(all(torch.equal(got[k].cpu(), v) for k, v in payload["model"].items())
+                and best.epoch == meta["epoch"] + 1,
+                "resume(best=True) does not restore ckpt_best's weights and epoch")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    say("syngen", f"cli.syngen at {SYNGEN_SMOKE} in two calls (a resume): wall {walls[0]:.1f} s "
+        f"(the sets built in it, epoch 0 traced) and {walls[1]:.1f} s; curve "
+        + json.dumps([{k: p[k] for k in ("epoch", "step", "gated", "universe")}
+                      for p in out["curve"]])
+        + f"; the validation and frozen trees' sha256 as pinned; device {desc}; launches "
+        f"{launches}")
+    say("syngen", f"Trainer: epoch 0's torch.profiler trace holds {n_events} CUDA kernel events; "
+        f"resume(best=True) restores ckpt_best (epoch {meta['epoch']}) bit for bit")
+    say("syngen", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_device_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6042,6 +6262,9 @@ def main(argv=None) -> int:
         for r in rows:                  # evaluate --spatial 1 of phase 15 (d)
             r["parallel_launches"] = par[r["name"]]
         phase_viz(dev, keep, frames)
+        syn = phase_syngen(dev)
+        for r in rows:                  # the syngen scoring of phase 17
+            r["syngen_launches"] = syn[r["name"]]
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     require(sorted(r["name"] for r in rows) == sorted(KERNEL_META), "a kernel has no row")

@@ -34,6 +34,9 @@ sets (`data/construction.py`). `visualize-gt` and `visualize-pred` draw the
 GT or predicted skeletons over the depth and write cv2.imwrite's JPEG
 bytes (`viz/`: cv2's rasterizer in `viz/raster.py` and `csrc/draw_u8.cpp`,
 the writer `data.image_io.imwrite_jpeg` in `csrc/jpeg_encode.cpp`).
+`python -m popnet_tpu_torch.cli.syngen` trains PoP-Net from scratch on
+synthetic scenes and scores a frozen set of another seed after every chunk
+(the JAX package's `scripts/syngen.py`).
 `interop/torch_import.py` loads the reference's PyTorch `.pth` checkpoints
 into the models (`import_rtpose_light3d`, `import_yolo_posenet`,
 `import_a2j`, `use_vgg`) and exports them back (`export_state_dict`).
@@ -41,7 +44,10 @@ into the models (`import_rtpose_light3d`, `import_yolo_posenet`,
 Layout:
     core/      constants, camera geometry, configuration, device choice
     csrc/      the CUDA kernels (*.cu) and the host C++ sources (*.cpp: the
-               JPEG reader and writer, the uint8 transforms, the rasterizer)
+               JPEG reader and writer, the uint8 transforms, the rasterizer,
+               the native assembler)
+    native/    the native host assembler (evaluate's default Open-Pose+
+               assembly, at most max_people a frame)
     ops/       the kernels' wrappers and builds, GT encoders, resize, fold, int8
     data/      datasets, augmentation, compositing, JPEG files, COCO, MPII
     models/    the CNNs
@@ -53,7 +59,8 @@ Layout:
     interop/   Flax variables (from_jax) and reference .pth checkpoints
                (torch_import)
     viz/       the GT and prediction viewers and cv2's rasterizer
-    cli/       command-line entry points and the tables
+    cli/       command-line entry points, the tables and the
+               synthetic-generalization run (cli/syngen.py)
     tools/     measurement helpers
     serving.py the serving pipelines
 """

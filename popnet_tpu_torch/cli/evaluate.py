@@ -3,8 +3,11 @@
 The port's counterpart of the JAX package's `popnet_tpu/cli/evaluate.py`:
 
 - run_openpose_eval: dense maps -> peaks (K1) and PAF pair scores (K3) on
-  the device, greedy assembly on the host (`decode/assemble.py`), the
-  heat-weighted z readout and back-projection on the host; or, with
+  the device, greedy assembly on the host (the native assembler,
+  `native/`, at most `max_people` people a frame as in the JAX package's
+  default route; or, with `use_native=False`, the NumPy assembler
+  `decode/assemble.py`, which keeps every person), the heat-weighted z
+  readout and back-projection on the host; or, with
   `device_decode=True`, the whole decode on the device (`openpose_decode`:
   K1, K3, K6 and the fused readouts); or, with `fast=False`, the exact
   decode on the host in float64 (`decode/paf_np.py`: scipy's maximum
@@ -35,7 +38,7 @@ import torch
 
 from popnet_tpu_torch.core.camera import CameraIntrinsics, back_project_np
 from popnet_tpu_torch.core.config import DecodeConfig, DepthStats, EncoderConfig
-from popnet_tpu_torch.core.skeleton import KEYPOINT_NAMES
+from popnet_tpu_torch.core.skeleton import KEYPOINT_NAMES, LIMBS
 from popnet_tpu_torch.decode import paf_np, prior as prior_decode, readout
 from popnet_tpu_torch.decode.assemble import assemble_batch
 from popnet_tpu_torch.decode.device import find_peaks_batched, score_limb_pairs_batched
@@ -43,6 +46,7 @@ from popnet_tpu_torch.decode.human_list import paf_to_human_list
 from popnet_tpu_torch.decode.openpose_infer import openpose_decode
 from popnet_tpu_torch.decode.popnet_infer import popnet_decode
 from popnet_tpu_torch.eval import map as eval_map, pck as eval_pck
+from popnet_tpu_torch.native import assemble_batch_native, human_lists
 
 
 def _host(t) -> np.ndarray:
@@ -69,6 +73,7 @@ def run_openpose_eval(
     ecfg: EncoderConfig = EncoderConfig(),
     dcfg: DecodeConfig = DecodeConfig(),
     fast: bool = True,
+    use_native: bool = True,
     device_decode: bool = False,
 ):
     """Open-Pose+ inference over an eval dataset -> benchmark eval_data dict.
@@ -77,7 +82,10 @@ def run_openpose_eval(
     NORMALIZED units (the raw model output).
 
     The default host path finds peaks and scores PAF pairs on the device
-    and assembles, reads z and back-projects on the host in float64;
+    and assembles, reads z and back-projects on the host in float64; it
+    assembles with the native assembler (at most `dcfg.max_people` people
+    a frame, the JAX package's default), or with the NumPy one, which has
+    no cap, where `use_native=False`;
     `device_decode=True` runs the whole decode on the device
     (decode/openpose_infer.py); `fast=False` (without `device_decode`)
     decodes each frame's maps on the host in float64, the JAX package's
@@ -133,10 +141,15 @@ def run_openpose_eval(
                 paf, peaks, valid, num_intermed_pts=dcfg.num_intermed_pts,
                 thresh_paf=dcfg.thresh_paf, factor=dcfg.downsample,
             )
-            assembled = assemble_batch(
-                peaks.cpu().numpy(), valid.cpu().numpy(), scores.cpu().numpy(),
-                ok.cpu().numpy(), min_parts=dcfg.min_parts, min_score=dcfg.min_score,
-            )
+            host = [t.cpu().numpy() for t in (peaks, valid, scores, ok)]
+            if use_native:
+                joints, counts = assemble_batch_native(
+                    *host, LIMBS, max_people=dcfg.max_people, min_parts=dcfg.min_parts,
+                    min_score=dcfg.min_score)
+                assembled = human_lists(joints, counts, ecfg.num_joints)
+            else:
+                assembled = assemble_batch(*host, min_parts=dcfg.min_parts,
+                                           min_score=dcfg.min_score)
         else:
             paf_h = _host(paf)
             assembled = []

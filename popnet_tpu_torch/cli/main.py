@@ -222,16 +222,18 @@ def make_infers(model: str, weights: str | None = None, yolo_weights: str | None
 def run_evaluation(model: str, infer, dataset, batch_size: int = 32,
                    ecfg: EncoderConfig = EncoderConfig(), decfg: DecodeConfig = DecodeConfig(),
                    device_decode: bool = False, readout: str = "universe",
-                   gt_boxes: bool = False, infer_yolo=None) -> dict:
+                   gt_boxes: bool = False, infer_yolo=None, use_native: bool = True) -> dict:
     """`model`'s driver over `dataset` with `make_infers`'s functions, in
-    inference mode with cuDNN's TF32 off -> the prediction JSON dict."""
+    inference mode with cuDNN's TF32 off -> the prediction JSON dict
+    (Open-Pose+'s host route assembles with the native assembler unless
+    `use_native` is False)."""
     from popnet_tpu_torch.cli import evaluate as ev
     from popnet_tpu_torch.cli.yolo_a2j import run_yolo_a2j_eval
 
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         if model == "openpose":
             return ev.run_openpose_eval(infer, dataset, batch_size, ecfg, decfg,
-                                        device_decode=device_decode)
+                                        use_native=use_native, device_decode=device_decode)
         if model == "popnet":
             return ev.run_popnet_eval(infer, dataset, batch_size, ecfg, decfg, readout=readout)
         if model == "yolo":

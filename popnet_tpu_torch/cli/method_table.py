@@ -23,11 +23,13 @@ crop.
 Recipes, those of the JAX package's `scripts/method_table.py`: the dense
 rows Adam at TABLE_LR with a warmup-cosine schedule, A2J with its depth
 head at the dataset's depth prior and Adam 3.5e-4 with L2 1e-4 on the same
-schedule; every row scored at batch 16. The JAX script may cite PoP-Net's
-row from its syngen run instead of training it; the port has no syngen run
-to cite, and the JAX package's committed PoP-Net row was itself trained by
-the table, so here all four rows train (`cli/tables.py` holds the
-resumable JSON and the chunked training).
+schedule; every row scored at batch 16 (`cli/tables.py` holds the
+resumable JSON and the chunked training). By default all four rows train,
+as the JAX package's committed table did. With `popnet` left out of
+TABLE_METHODS, PoP-Net's row is cited, where it can be, from the port's
+syngen run (examples/results/syngen_torch.json, `cli/syngen.py`: the same
+data, seeds and recipe): its last curve point within the table's budget,
+under the universe readout, as the JAX script cites its syngen_r3.json.
 
     python -m popnet_tpu_torch.cli.method_table
 
@@ -46,6 +48,7 @@ table_weights_<row>.npz in float16 under Flax names, which both packages'
 
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 import time
@@ -58,6 +61,7 @@ from popnet_tpu_torch.data.synthetic import build
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DEFAULT_OUT = os.path.join(REPO, "examples", "results", "method_table_torch.json")
+SYNGEN = os.path.join(REPO, "examples", "results", "syngen_torch.json")
 METHODS = ("yolo", "openpose", "popnet", "yolo_a2j")
 SCORE_BATCH = 16
 
@@ -127,6 +131,29 @@ def frozen_dataset(frozen: str, device: torch.device):
                          device=device)
 
 
+def cite_syngen(table: Table, methods: list, budget_steps: int, path: str | None = None) -> None:
+    """With `popnet` not among `methods` and no PoP-Net row trained by the
+    table, PoP-Net's row cites the syngen run at `path` (SYNGEN by default):
+    its last curve point within `budget_steps`, under the universe readout
+    (the JAX script's citation of syngen_r3.json). Nothing where the file or
+    such a point is missing."""
+    path = SYNGEN if path is None else path
+    if "popnet" in methods or table.methods.get("popnet", {}).get("trained_here") \
+            or not os.path.exists(path):
+        return
+    with open(path) as f:
+        syn = json.load(f)
+    within = [p for p in syn["curve"] if p["step"] <= budget_steps]
+    if not within:
+        return
+    p = within[-1]
+    table.methods["popnet"] = {
+        "source": f"{os.path.basename(path)} curve @ step {p['step']} (same data, seeds, recipe)",
+        "steps": p["step"], "final": p["universe"], "readout": "universe",
+        "full_budget_final": syn["universe"], "full_budget_steps": syn["curve"][-1]["step"]}
+    table.save()
+
+
 def main() -> dict:
     from popnet_tpu_torch.cli import evaluate as ev
     from popnet_tpu_torch.cli.yolo_a2j import run_yolo_a2j_eval
@@ -189,6 +216,7 @@ def main() -> dict:
         "steps_per_epoch": n_train // batch, "lr": lr, "schedule": f"warmup({warmup})+cosine",
         "train_seed": 0, "val_seed": 777}, device, "table")
     t_session = time.time()
+    cite_syngen(table, methods, epochs * (n_train // batch))
 
     def trainer_for(name, model, step, eval_loss, rate, total, **kw):
         run_dir = os.path.join(work, f"run_{name}")

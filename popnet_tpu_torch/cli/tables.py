@@ -8,7 +8,8 @@ equal, and skips the rows marked `done`. Each chunk appends a point to its
 row's `curve` (epoch, step, train loss, the wall seconds since this call
 took the row up, the metrics) and publishes the metrics as `latest`; the last
 chunk moves them to `final` and sets `done`, so a reader of `final` never
-sees a half-trained score.
+sees a half-trained score. The synthetic-generalization run (`cli/syngen.py`)
+keeps its one row in the JAX script's layout on the same machinery.
 """
 
 from __future__ import annotations
@@ -73,13 +74,17 @@ class Table:
 
     def train_chunked(self, name: str, trainer, train_ds, val_ds, total_epochs: int, chunk: int,
                       batch: int, score_fn, steps_per_epoch: int, latest: bool = True,
-                      max_chunks: int | None = None) -> dict:
+                      max_chunks: int | None = None, val_every: int | None = None,
+                      spread: bool = False) -> dict:
         """Train row `name` to `total_epochs` in chunks of `chunk` epochs,
         scoring it with `score_fn(trainer)` (in inference mode) after each
         and saving the JSON, with cuDNN's TF32 off throughout; at most
         `max_chunks` chunks in this call (a later call resumes the row from
         the trainer's checkpoint). With `latest=False` (the ITOP table's
-        way) every chunk writes `final`. Returns the row."""
+        way) every chunk writes `final`. `val_every` thins the validation
+        (default: twice a chunk). With `spread` (syngen's layout) a curve
+        point takes the score's keys itself, beside the epoch's `val_loss`,
+        in place of `metrics`. Returns the row."""
         rec = self.methods.setdefault(name, {"curve": []})
         if rec.get("done"):
             self.say(f"{name}: already done")
@@ -93,12 +98,17 @@ class Table:
                 chunks += 1
                 n = min(chunk, total_epochs - trainer.epoch)
                 trainer.fit(train_ds, val_ds, epochs=n, batch_size=batch, checkpoint_every=n,
-                            val_every=max(1, n // 2))
+                            val_every=val_every or max(1, n // 2))
                 with torch.inference_mode():
                     m = score_fn(trainer)
+                last = trainer.history[-1]
                 point = {"epoch": trainer.epoch, "step": trainer.epoch * steps_per_epoch,
-                         "train_loss": trainer.history[-1]["train_loss"],
-                         "wall_s": round(time.time() - t0, 1), "metrics": m}
+                         "train_loss": last["train_loss"]}
+                if spread:
+                    point.update(val_loss=last["val_loss"], wall_s=round(time.time() - t0, 1),
+                                 **m)
+                else:
+                    point.update(wall_s=round(time.time() - t0, 1), metrics=m)
                 rec["curve"].append(point)
                 rec["latest" if latest else "final"] = m
                 rec["steps"] = point["step"]

@@ -1,17 +1,31 @@
-// Baseline and extended-sequential JPEG decoding on the host, rounding as
-// libjpeg-turbo's default decompression does (the ISLOW integer IDCT, fancy
-// "triangle" upsampling, the fixed-point YCbCr -> BGR tables), so a frame
-// equals what cv2.imread gives for it bit for bit.
+// Baseline, extended-sequential and progressive JPEG decoding on the host,
+// rounding as libjpeg-turbo's default decompression does (the ISLOW integer
+// IDCT, fancy "triangle" upsampling, the fixed-point YCbCr -> BGR tables),
+// so a frame equals what cv2.imread gives for it bit for bit.
+//
+// A progressive frame (SOF2) is decoded as libjpeg's jdphuff.c does: every
+// scan adds to a whole-image coefficient buffer (DC first and refinement
+// scans, interleaved or not; AC first scans with spectral selection and
+// end-of-band runs; AC refinement scans with their correction bits and
+// zero-run history), then the buffer goes through the sequential path's
+// IDCT, upsampling and colour conversion. A non-interleaved scan covers the
+// component's own blocks, an interleaved one the padded MCUs. Huffman
+// tables may change between scans; a component's quantization table is
+// latched at its first scan (libjpeg's latch_quant_tables), sequential
+// frames included. Where the scans leave one of coefficients 1-9 of a
+// component short of full precision, libjpeg-turbo smooths the blocks
+// (decompress_smooth_data); such a file is refused.
 //
 // C interface (ctypes, popnet_tpu_torch/data/image_io.py):
 //   popnet_jpeg_info(data, n, &height, &width, &orientation, err, errlen)
 //   popnet_jpeg_decode(data, n, out, err, errlen)   out: height * width * 3 BGR
 // Both return 0, or -1 with a reason in `err`. `orientation` is the EXIF
 // orientation tag of the first APP1 "Exif" segment (1 where there is none);
-// the caller applies it. Refused: progressive, lossless, hierarchical and
-// arithmetic-coded frames, sample precisions other than 8 bits, 2 or 4+
-// components, and three-component frames that are not YCbCr (an Adobe
-// APP14 transform 0, or component ids 'R', 'G', 'B' without JFIF).
+// the caller applies it. Refused: incomplete progressive frames (above),
+// lossless, hierarchical and arithmetic-coded frames, sample precisions
+// other than 8 bits, 2 or 4+ components, and three-component frames that
+// are not YCbCr (an Adobe APP14 transform 0, or component ids 'R', 'G',
+// 'B' without JFIF).
 
 #include <algorithm>
 #include <cstdint>
@@ -50,7 +64,15 @@ struct Component {
     int dw = 0, dh = 0;            // downsampled width and height
     std::vector<int16_t> coef;     // bw * bh blocks of 64, natural order
     int dc_pred = 0;
+    bool latched = false;          // the quantization table, copied at the first scan
+    uint16_t quant[64] = {};
+    int coef_bits[64];             // progressive: the last scan's Al a coefficient, -1 none
+    Component() { std::fill(coef_bits, coef_bits + 64, -1); }
 };
+
+// zigzag index -> natural index; a corrupt run that steps past 63 lands on
+// 63, as on the guard entries of libjpeg's jpeg_natural_order
+constexpr int kNatural(int k) { return k < 64 ? kZigzag[k] : 63; }
 
 class Decoder {
   public:
@@ -73,6 +95,8 @@ class Decoder {
     bool saw_jfif_ = false, saw_adobe_ = false;
     int adobe_transform_ = 0;
     bool frame_seen_ = false, any_scan_ = false, exif_seen_ = false;
+    bool progressive_ = false;
+    int eobrun_ = 0;               // progressive AC scans: blocks left in an end-of-band run
 
     // the entropy-coded segment's bit reader
     uint64_t bits_ = 0;
@@ -99,6 +123,11 @@ class Decoder {
     int get_bits(int k);
     int decode_huff(const Huffman& h);
     void decode_block(Component& c, int16_t* blk);
+    void dc_first(Component& c, int16_t* blk, int al);
+    void dc_refine(int16_t* blk, int al);
+    void ac_first(Component& c, int16_t* blk, int ss, int se, int al);
+    void ac_refine(Component& c, int16_t* blk, int ss, int se, int al);
+    void check_complete() const;
     void restart();
     void idct_plane(const Component& c, std::vector<uint8_t>& plane) const;
 };
@@ -281,7 +310,9 @@ void Decoder::header() {
                 read_sof(len);
                 break;
             case 0xC2:
-                throw Error{"progressive JPEG (SOF2) is not read"};
+                progressive_ = true;
+                read_sof(len);
+                break;
             case 0xC3:
                 throw Error{"lossless JPEG (SOF3) is not read"};
             case 0xC5:
@@ -405,6 +436,112 @@ void Decoder::decode_block(Component& c, int16_t* blk) {
     }
 }
 
+// jdphuff.c decode_mcu_DC_first: the DC difference, scaled by 2^Al
+void Decoder::dc_first(Component& c, int16_t* blk, int al) {
+    int s = decode_huff(dc_[c.dc_table]);
+    if (s > 16) throw Error{"corrupt DC coefficient"};
+    int diff = s ? extend(get_bits(s), s) : 0;
+    c.dc_pred += diff;
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_pred) << al);
+}
+
+// jdphuff.c decode_mcu_DC_refine: one more bit of the DC coefficient
+void Decoder::dc_refine(int16_t* blk, int al) {
+    if (get_bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+}
+
+// jdphuff.c decode_mcu_AC_first: the band Ss..Se, scaled by 2^Al, or one
+// block of an end-of-band run
+void Decoder::ac_first(Component& c, int16_t* blk, int ss, int se, int al) {
+    if (eobrun_ > 0) {
+        --eobrun_;
+        return;
+    }
+    const Huffman& ac = ac_[c.ac_table];
+    for (int k = ss; k <= se; ++k) {
+        int rs = decode_huff(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+            k += r;
+            int v = extend(get_bits(s), s);
+            blk[kNatural(k)] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+        } else if (r == 15) {
+            k += 15;
+        } else {
+            eobrun_ = 1 << r;
+            if (r) eobrun_ += get_bits(r);
+            --eobrun_;
+            break;
+        }
+    }
+}
+
+// jdphuff.c decode_mcu_AC_refine: newly nonzero coefficients of +-2^Al and
+// a correction bit for every coefficient already nonzero that the band's
+// zero runs and end-of-band run pass over
+void Decoder::ac_refine(Component& c, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -p1;
+    auto correct = [&](int16_t* coef) {
+        if (get_bits(1) && (*coef & p1) == 0)
+            *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun_ == 0) {
+        const Huffman& ac = ac_[c.ac_table];
+        for (; k <= se; ++k) {
+            int rs = decode_huff(ac);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                s = get_bits(1) ? p1 : m1;
+            } else if (r != 15) {
+                eobrun_ = 1 << r;
+                if (r) eobrun_ += get_bits(r);
+                break;
+            }
+            // pass over the nonzero coefficients (correcting them) and r zero ones
+            do {
+                int16_t* coef = &blk[kNatural(k)];
+                if (*coef != 0) {
+                    correct(coef);
+                } else if (--r < 0) {
+                    break;
+                }
+                ++k;
+            } while (k <= se);
+            if (s) blk[kNatural(k)] = static_cast<int16_t>(s);
+        }
+    }
+    if (eobrun_ > 0) {
+        for (; k <= se; ++k) {
+            int16_t* coef = &blk[kNatural(k)];
+            if (*coef != 0) correct(coef);
+        }
+        --eobrun_;
+    }
+}
+
+// jdcoefct.c smoothing_ok at the end of the input: libjpeg-turbo smooths
+// the blocks (decompress_smooth_data) where a component's DC is known and
+// one of its coefficients 1-9 is short of full precision; the port refuses
+void Decoder::check_complete() const {
+    if (!progressive_) return;
+    for (size_t ci = 0; ci < comps_.size(); ++ci) {
+        const Component& c = comps_[ci];
+        if (!c.latched) return;
+        for (int k = 0; k <= 9; ++k)
+            if (c.quant[kZigzag[k]] == 0) return;
+        if (c.coef_bits[0] < 0) return;
+        for (int k = 1; k <= 9; ++k)
+            if (c.coef_bits[k] != 0)
+                throw Error{"incomplete progressive JPEG: its scans leave coefficient " +
+                            std::to_string(k) + " of component " + std::to_string(ci) +
+                            (c.coef_bits[k] < 0 ? " unsent"
+                                                : " short by " + std::to_string(c.coef_bits[k]) +
+                                                      " bits") +
+                            ", and libjpeg's block smoothing of such frames is not read"};
+    }
+}
+
 void Decoder::restart() {
     // discard the buffered bits, then read the RSTn marker
     bits_ = 0;
@@ -414,6 +551,7 @@ void Decoder::restart() {
     while (pos_ + 1 < n_ && d_[pos_ + 1] == 0xFF) ++pos_;
     if (pos_ + 1 < n_ && d_[pos_ + 1] >= 0xD0 && d_[pos_ + 1] <= 0xD7) pos_ += 2;
     for (auto& c : comps_) c.dc_pred = 0;
+    eobrun_ = 0;
 }
 
 void Decoder::read_scan(int len) {
@@ -428,18 +566,49 @@ void Decoder::read_scan(int len) {
         if (!found) throw Error{"scan names an unknown component"};
         found->dc_table = tables >> 4;
         found->ac_table = tables & 15;
-        if (found->dc_table > 3 || found->ac_table > 3 || !dc_[found->dc_table].defined ||
-            !ac_[found->ac_table].defined)
-            throw Error{"scan uses an undefined Huffman table"};
-        if (!quant_defined_[found->tq]) throw Error{"undefined quantization table"};
+        if (found->dc_table > 3 || found->ac_table > 3) throw Error{"bad Huffman table id"};
         sc.push_back(found);
     }
     int ss = byte(), se = byte(), ahl = byte();
-    if (ss != 0 || se != 63 || ahl != 0) throw Error{"progressive scan parameters"};
+    int ah = ahl >> 4, al = ahl & 15;
+    // the tables this scan decodes with (jdhuff.c, jdphuff.c start_pass)
+    bool need_dc, need_ac;
+    if (!progressive_) {
+        if (ss != 0 || se != 63 || ahl != 0)
+            throw Error{"progressive scan parameters in a sequential frame"};
+        need_dc = need_ac = true;
+    } else {
+        bool dc_band = ss == 0;
+        bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
+        if (ah != 0 && al != ah - 1) bad = true;
+        if (al > 13) bad = true;
+        if (bad) throw Error{"bad progressive scan parameters"};
+        need_dc = dc_band && ah == 0;
+        need_ac = !dc_band;
+        for (auto* c : sc)
+            for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+    }
+    for (auto* c : sc) {
+        if ((need_dc && !dc_[c->dc_table].defined) || (need_ac && !ac_[c->ac_table].defined))
+            throw Error{"scan uses an undefined Huffman table"};
+        if (!c->latched) {
+            if (!quant_defined_[c->tq]) throw Error{"undefined quantization table"};
+            std::memcpy(c->quant, quant_[c->tq], sizeof(c->quant));
+            c->latched = true;
+        }
+    }
     for (auto* c : sc) c->dc_pred = 0;
+    eobrun_ = 0;
     bits_ = 0;
     nbits_ = 0;
     hit_marker_ = false;
+    auto block = [&](Component& c, int16_t* blk) {
+        if (!progressive_) decode_block(c, blk);
+        else if (ss == 0 && ah == 0) dc_first(c, blk, al);
+        else if (ss == 0) dc_refine(blk, al);
+        else if (ah == 0) ac_first(c, blk, ss, se, al);
+        else ac_refine(c, blk, ss, se, al);
+    };
 
     int todo = restart_interval_;
     auto mcu_start = [&]() {
@@ -457,7 +626,7 @@ void Decoder::read_scan(int len) {
         for (int by = 0; by < c.height_in_blocks; ++by)
             for (int bx = 0; bx < c.width_in_blocks; ++bx) {
                 mcu_start();
-                decode_block(c, &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64]);
+                block(c, &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64]);
             }
     } else {
         for (int my = 0; my < mcus_y_; ++my)
@@ -469,7 +638,7 @@ void Decoder::read_scan(int len) {
                         for (int h = 0; h < c.h; ++h) {
                             size_t bx = static_cast<size_t>(mx) * c.h + h;
                             size_t by = static_cast<size_t>(my) * c.v + v;
-                            decode_block(c, &c.coef[(by * c.bw + bx) * 64]);
+                            block(c, &c.coef[(by * c.bw + bx) * 64]);
                         }
                 }
             }
@@ -617,7 +786,7 @@ void Decoder::idct_plane(const Component& c, std::vector<uint8_t>& plane) const 
     // the blocks libjpeg reconstructs: those inside the component's own width and height
     for (int by = 0; by < c.height_in_blocks; ++by)
         for (int bx = 0; bx < c.width_in_blocks; ++bx)
-            idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], quant_[c.tq],
+            idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.quant,
                        &plane[static_cast<size_t>(by) * 8 * stride + bx * 8],
                        static_cast<int>(stride));
 }
@@ -744,6 +913,7 @@ void Decoder::decode(uint8_t* out) {
         if (pos_ > n_) throw Error{"truncated file"};
     }
     if (!any_scan_) throw Error{"no scan"};
+    check_complete();
     std::vector<std::vector<uint8_t>> full;
     for (auto& c : comps_) {
         std::vector<uint8_t> plane;

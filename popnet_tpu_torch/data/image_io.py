@@ -1,19 +1,23 @@
 """Image files read as cv2.imread reads them, without cv2 or PIL.
 
-`imread_bgr(path)` decodes a baseline or extended-sequential JPEG (SOF0,
-SOF1: 8-bit, Huffman-coded, one component or three YCbCr ones, any
-sampling of integral factors, restart intervals, optimized tables) into
-an (H, W, 3) uint8 BGR array equal to `cv2.imread(path)` (IMREAD_COLOR)
-bit for bit, with the EXIF orientation of the file applied as cv2 applies
-it. The decoding is `csrc/jpeg_decode.cpp`, host C++ rebuilding what
-libjpeg-turbo does by default (the ISLOW integer IDCT, fancy upsampling,
-the fixed-point YCbCr -> BGR tables), built with the host C++ compiler at
-first use (`ops._build.host_library`). It refuses, with a `ValueError`
-that names the file and the reason, progressive, lossless, hierarchical
-and arithmetic-coded JPEG, sample precisions other than 8 bits, CMYK and
-other 4-component files, RGB-coded files (an Adobe APP14 transform 0),
-and anything that is not a JPEG. There is no other route: no fallback to
-another decoder.
+`imread_bgr(path)` decodes a baseline, extended-sequential or progressive
+JPEG (SOF0, SOF1, SOF2: 8-bit, Huffman-coded, one component or three
+YCbCr ones, any sampling of integral factors, restart intervals, optimized
+tables; progressive files with spectral selection and successive
+approximation, Huffman tables between scans) into an (H, W, 3) uint8 BGR
+array equal to `cv2.imread(path)` (IMREAD_COLOR) bit for bit, with the
+EXIF orientation of the file applied as cv2 applies it. The decoding is
+`csrc/jpeg_decode.cpp`, host C++ rebuilding what libjpeg-turbo does by
+default (the ISLOW integer IDCT, fancy upsampling, the fixed-point YCbCr
+-> BGR tables, jdphuff.c's progressive scans), built with the host C++
+compiler at first use (`ops._build.host_library`). It refuses, with a
+`ValueError` that names the file and the reason, an incomplete progressive
+file (one whose scans leave any of coefficients 1-9 of a component short
+of full precision, which libjpeg-turbo smooths: its block smoothing is not
+rebuilt), lossless, hierarchical and arithmetic-coded JPEG, sample
+precisions other than 8 bits, CMYK and other 4-component files, RGB-coded
+files (an Adobe APP14 transform 0), and anything that is not a JPEG. There
+is no other route: no fallback to another decoder.
 
 `encode_jpeg(bgr, quality)` writes the baseline JFIF file that
 `cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, quality])` writes,

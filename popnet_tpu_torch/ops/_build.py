@@ -10,7 +10,8 @@ report for each. A source's `stamps` build (-DPOPNET_STAGE_CLOCKS) records
 per-block stage clocks (csrc/common.cuh); only measurements load it.
 
 The host sources (`HOST_SOURCES`, `csrc/<name>.cpp`: the JPEG reader and
-writer, the uint8 image transforms and the line and circle rasterizer) build the same way with the host C++ compiler
+writer, the uint8 image transforms, the line and circle rasterizer and the
+native person assembler) build the same way with the host C++ compiler
 (`c++`, the one nvcc also drives), not nvcc, so they build wherever the
 package runs, the CPU too (`host_library`).
 """
@@ -30,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "popnet_tpu_torch"
 SOURCES = ("find_peaks", "paf_score", "readout", "assemble", "peak_mask")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_SOURCES = ("jpeg_decode", "jpeg_encode", "image_u8", "draw_u8")
+HOST_SOURCES = ("jpeg_decode", "jpeg_encode", "image_u8", "draw_u8", "assembler")
 # no contraction into fused multiply-adds but where the source writes std::fma
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-ffp-contract=off")
 
@@ -100,12 +101,18 @@ def library(name: str, stamps: bool = False) -> ctypes.CDLL:
 
 
 def _cxx() -> str:
-    for cand in (os.environ.get("CXX"), shutil.which("c++"), shutil.which("g++")):
-        if cand and shutil.which(cand):
+    named = os.environ.get("CXX")
+    if named:
+        if shutil.which(named):
+            return named
+        raise RuntimeError(f"the host C++ compiler $CXX={named} is not found: the port's host "
+                           "sources (csrc/*.cpp) build with it at first use")
+    for cand in (shutil.which("c++"), shutil.which("g++")):
+        if cand:
             return cand
     raise RuntimeError("no host C++ compiler (c++ or g++, or $CXX): the port's JPEG reader and "
-                       "writer, uint8 image transforms and rasterizer (csrc/*.cpp) build with "
-                       "it at first use")
+                       "writer, uint8 image transforms, rasterizer and native assembler "
+                       "(csrc/*.cpp) build with it at first use")
 
 
 def _host_target(name: str) -> Path:

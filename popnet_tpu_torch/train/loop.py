@@ -1,9 +1,14 @@
 """Epoch-driven trainer on one device (the JAX package's
 `popnet_tpu/train/loop.py`): per epoch, train, validate, step the
 learning-rate controller on the validation loss, append to
-`<out_dir>/history.jsonl`, keep the best-validation checkpoint in
+`<out_dir>/history.jsonl` (and, where `tensorboard` imports, the
+scalars `train_loss`, `val_loss` and `lr` to a SummaryWriter in
+`<out_dir>/tb`), keep the best-validation checkpoint in
 `<out_dir>/ckpt_best` (1 kept) and the periodic one in `<out_dir>/ckpt`
-(3 kept); `resume` continues from the latest.
+(3 kept); `resume` continues from the latest, `resume(best=True)` from the
+best. With `profile_epoch`, that epoch's training runs under
+torch.profiler (the CPU, and CUDA on a card) and its Chrome trace goes to
+`<out_dir>/trace/`.
 
 A checkpoint holds the model, the optimizer (momentum buffers included),
 the controller's attributes whole and the state of every generator of the
@@ -81,13 +86,14 @@ class Trainer:
                  momentum: float = 0.9, weight_decay: float = 0.0, mesh=None,
                  out_dir: str = "runs/default", print_freq: int = 20, seed: int = 0,
                  optimizer: str = "sgd", scheduler=None, layout: str = "dp",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", profile_epoch: int | None = None):
         if mesh is None and layout != "dp":
             raise ValueError(f"layout {layout!r} needs a mesh (parallel.mesh.Mesh)")
         self.device = resolve_device(device)
         self.out_dir = out_dir
         os.makedirs(out_dir, exist_ok=True)
         self.print_freq = print_freq
+        self.profile_epoch = profile_epoch
         model = model.init_seeded(seed).to(self.device)
         self.layout = None if mesh is None else make_layout(layout, mesh)
         if self.layout is not None:
@@ -105,6 +111,7 @@ class Trainer:
         self.epoch = 0
         self.history = []
         self._data_rng_state = None     # a resumed run's training generators
+        self.writer = None              # made at the first epoch's end (`_scalars`)
 
     @property
     def writes(self) -> bool:
@@ -169,7 +176,10 @@ class Trainer:
         for k in range(epochs):
             last = k == epochs - 1
             t0 = time.perf_counter()
-            train_loss = self.train_epoch(train_ds, batch_size)
+            if self.profile_epoch is not None and self.epoch == self.profile_epoch:
+                train_loss = self._profiled_epoch(train_ds, batch_size)
+            else:
+                train_loss = self.train_epoch(train_ds, batch_size)
             train_seconds = time.perf_counter() - t0
 
             do_val = val_ds is not None and (last or (self.epoch + 1) % val_every == 0)
@@ -184,6 +194,7 @@ class Trainer:
             if self.writes:
                 with open(os.path.join(self.out_dir, "history.jsonl"), "a") as f:
                     f.write(json.dumps(rec) + "\n")
+                self._scalars(rec)
 
             meta = {"val_loss": val_loss, "epoch": self.epoch, "lr": new_lr,
                     "scheduler_best": self.scheduler.best,
@@ -196,6 +207,40 @@ class Trainer:
                 self._save("ckpt", train_ds, meta)
             self.epoch += 1
         return self.history
+
+    def _scalars(self, rec: dict) -> None:
+        """The epoch's train_loss, val_loss and lr to TensorBoard, where it
+        imports (as the JAX package's `try` does; its import is slow, so it
+        is made when the first epoch ends, not with the Trainer)."""
+        if self.writer is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self.writer = SummaryWriter(os.path.join(self.out_dir, "tb"))
+            except Exception:
+                self.writer = False
+        if self.writer:
+            for key in ("train_loss", "val_loss", "lr"):
+                self.writer.add_scalar(key, rec[key], rec["epoch"])
+            self.writer.flush()
+
+    def _profiled_epoch(self, train_ds, batch_size: int) -> float:
+        """`train_epoch` under torch.profiler; the writing rank puts its
+        Chrome trace in `<out_dir>/trace/epoch<N>.json`."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            loss = self.train_epoch(train_ds, batch_size)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        if self.writes:
+            trace_dir = os.path.join(self.out_dir, "trace")
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, f"epoch{self.epoch}.json"))
+        return loss
 
     def _save(self, directory: str, train_ds, meta: dict, keep: int = 3) -> None:
         payload = self._payload(train_ds)       # every rank: a sharded layout gathers
@@ -217,11 +262,13 @@ class Trainer:
         self.layout.attach(self.state.model)
         self.state.layout = self.layout
 
-    def resume(self):
-        """Continue from the latest checkpoint: the model, the optimizer, the
+    def resume(self, best: bool = False):
+        """Continue from the latest checkpoint (`ckpt`), or with `best` from
+        the best-validation one (`ckpt_best`): the model, the optimizer, the
         controller, the epoch, the best loss and the training dataset's
         generators (applied when `fit` starts)."""
-        payload, meta, step = ckpt.restore_checkpoint(os.path.join(self.out_dir, "ckpt"))
+        directory = "ckpt_best" if best else "ckpt"
+        payload, meta, step = ckpt.restore_checkpoint(os.path.join(self.out_dir, directory))
         self.state.load_state_dict(payload)
         vars(self.scheduler).update(payload["scheduler"])
         self._data_rng_state = payload["data_rng"]

@@ -1474,10 +1474,15 @@ def test_train_and_evaluate_itop_on_the_card(cuda, itop_root, tmp_path, model):
 def test_jpeg_fixtures_decode_to_cv2s_hashes(cuda):
     """The committed JPEG fixtures read by the port's reader on the card's
     host: each to the sha256 of cv2.imread's output recorded beside it, the
-    progressive one refused (the card's machine has no cv2)."""
+    progressive ones included (the card's machine has no cv2); the timed
+    pair's ms are positive."""
     import chip_smoke
 
-    assert chip_smoke.check_jpeg_fixtures() == (8, 1)
+    with open(os.path.join(chip_smoke.FIXTURES, "hashes.json")) as f:
+        recorded = json.load(f)
+    n, ms = chip_smoke.check_jpeg_fixtures()
+    assert n == len(recorded["decoded"]) >= 17
+    assert sorted(ms) == sorted(recorded["timed"]) and all(v > 0 for v in ms.values())
 
 
 @pytest.fixture(scope="module")

@@ -376,9 +376,14 @@ def results(jds, pds, oracle):
     out = {}
     for dd in (False, True):
         out[f"openpose_dd{int(dd)}"] = (
-            pev.run_openpose_eval(feeder(oracle, op, PORT_IN), pds, BATCH, device_decode=dd),
+            pev.run_openpose_eval(feeder(oracle, op, PORT_IN), pds, BATCH, use_native=False,
+                                  device_decode=dd),
             jev.run_openpose_eval(feeder(oracle, op, JAX_IN), jds, BATCH, ecfg=JAX_ECFG,
                                   use_native=False, device_decode=dd))
+    # each package's defaults: the host route on the native assembler
+    out["openpose_native"] = (
+        pev.run_openpose_eval(feeder(oracle, op, PORT_IN), pds, BATCH),
+        jev.run_openpose_eval(feeder(oracle, op, JAX_IN), jds, BATCH, ecfg=JAX_ECFG))
     out["yolo"] = (pev.run_yolo_eval(feeder(oracle, ("prior_map",), PORT_IN), pds, BATCH),
                    jev.run_yolo_eval(feeder(oracle, ("prior_map",), JAX_IN), jds, BATCH,
                                      ecfg=JAX_ECFG))
@@ -405,6 +410,51 @@ def test_openpose_host_path_json_matches_jax(results):
         assert_json(got, ref, key, atol=1e-6)
     for key in GT_KEYS:
         assert got[key] == ref[key]
+
+
+def test_openpose_default_route_json_matches_jax_default(results):
+    """Each package's defaults (the host route on the native assembler):
+    the 2D joints and visibility equal, conf within 1e-5, the 3D channels
+    within 1e-6 m; on these frames (at most 16 people) the native JSON
+    equals the port's NumPy route's."""
+    got, ref = results["openpose_native"]
+    assert set(got) == set(ref)
+    assert_json(got, ref, "human_pred_set_2d")
+    assert_json(got, ref, "human_pred_set_visibility")
+    assert_json(got, ref, "human_pred_set_part_conf", atol=1e-5)
+    for key in ("human_pred_set_3d", "human_pred_set_3d_read_raw_depth",
+                "human_pred_set_3d_perfect_2d", "human_pred_set_3d_perfect_2d_read_raw_depth"):
+        assert_json(got, ref, key, atol=1e-6)
+    assert got == results["openpose_dd0"][0]
+
+
+def test_openpose_default_route_caps_a_crowd_at_max_people_as_jax(jds, pds, oracle,
+                                                                    monkeypatch):
+    """Peaks and pair scores replaced, in both drivers, by the crowd frame's
+    candidates (chip_smoke.crowd_candidates, 32 people by the NumPy
+    assembler) on every frame: with the defaults both packages return
+    max_people = 16 people a frame, the port's rows equal JAX's (conf
+    within 1e-5, 3D within 1e-6 m); with use_native=False both return 32."""
+    peaks, valid, scores, ok = chip_smoke.crowd_candidates()
+
+    def tiled(a, n, to):
+        return to(np.repeat(a, n, axis=0))
+
+    for mod, to in ((pev, torch.from_numpy), (jev, jnp.asarray)):
+        monkeypatch.setattr(mod, "find_peaks_batched", lambda heat, to=to, **kw: (
+            tiled(peaks, heat.shape[0], to), tiled(valid, heat.shape[0], to)))
+        monkeypatch.setattr(mod, "score_limb_pairs_batched", lambda paf, p, v, to=to, **kw: (
+            tiled(scores, paf.shape[0], to), tiled(ok, paf.shape[0], to)))
+    op = ("pafs", "heatmaps", "zmaps")
+    for native, people in ((True, 16), (False, 32)):
+        got = pev.run_openpose_eval(feeder(oracle, op, PORT_IN), pds, BATCH, use_native=native)
+        ref = jev.run_openpose_eval(feeder(oracle, op, JAX_IN), jds, BATCH, ecfg=JAX_ECFG,
+                                    use_native=native)
+        assert [len(h) for h in got["human_pred_set_2d"]] == [people] * len(pds)
+        assert_json(got, ref, "human_pred_set_2d")
+        assert_json(got, ref, "human_pred_set_visibility")
+        assert_json(got, ref, "human_pred_set_part_conf", atol=1e-5)
+        assert_json(got, ref, "human_pred_set_3d", atol=1e-6)
 
 
 def test_openpose_device_decode_json_matches_jax(results):
@@ -440,6 +490,7 @@ def test_popnet_json_matches_jax(results, readout):
 
 
 BARS = {"openpose_dd0": (0.95, 0.9, 0.9, 0.85), "openpose_dd1": (0.95, 0.9, 0.9, 0.85),
+        "openpose_native": (0.95, 0.9, 0.9, 0.85),
         "yolo": (0.99, 0.99, 0.99, 0.99), "popnet_gated": (0.95, 0.9, 0.0, 0.0),
         "popnet_universe": (0.95, 0.9, 0.0, 0.0)}
 

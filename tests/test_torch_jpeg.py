@@ -1,8 +1,9 @@
 """The port's JPEG reader (popnet_tpu_torch.data.image_io) against
 cv2.imread, bit for bit, on files written here by cv2: qualities, chroma
 samplings, grey, optimized tables, restart intervals, sizes from 1x1 up and
-the eight EXIF orientations; and the files it refuses, each with a
-ValueError that names the file and the reason. The port's JPEG writer
+the eight EXIF orientations, baseline and progressive; and the files it
+refuses (incomplete progressive files among them), each with a ValueError
+that names the file and the reason. The port's JPEG writer
 (`encode_jpeg`, `imwrite_jpeg`) against cv2.imencode and cv2.imwrite, byte
 for byte. cv2 is the reference here only: the package reads and writes no
 file through it."""
@@ -115,14 +116,23 @@ def refused(tmp_path, name: str, data: bytes) -> str:
     return msg
 
 
+def cut_after_scans(data: bytes, n: int) -> bytes:
+    """`data` cut before its (n+1)-th scan, with EOI appended: a file that
+    ends after its first n scans."""
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    return data[:sos[n]] + b"\xff\xd9"
+
+
 def test_reader_refuses_what_it_does_not_read(tmp_path):
-    """Progressive, arithmetic-coded, lossless, hierarchical, 12-bit,
+    """Incomplete progressive (a file cut after its first two scans, with
+    EOI appended), arithmetic-coded, lossless, hierarchical, 12-bit,
     4-component, RGB-coded (Adobe transform 0, no JFIF) files and files
     that are no JPEG each raise a ValueError naming the file and the
     reason; a missing file raises FileNotFoundError."""
     img = frame(np.random.default_rng(0), 17, 33)
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    assert "progressive" in refused(tmp_path, "p.jpg", prog.tobytes())
+    prog = cut_after_scans(prog.tobytes(), 2)
+    assert "incomplete progressive" in refused(tmp_path, "p.jpg", prog)
     base = encode(img, 90, "420", "plain")
     sof = base.index(b"\xff\xc0")
     for marker, what in ((b"\xff\xc9", "arithmetic"), (b"\xff\xca", "arithmetic"),
@@ -147,8 +157,67 @@ def test_reader_refuses_what_it_does_not_read(tmp_path):
     assert "truncated" in refused(tmp_path, "cut.jpg", base[:sof + 6])
     with pytest.raises(FileNotFoundError):
         imread_bgr(str(tmp_path / "missing.jpg"))
-    with pytest.raises(ValueError, match="<bytes>: progressive"):
-        decode_jpeg(prog.tobytes())
+    with pytest.raises(ValueError, match="<bytes>: incomplete progressive"):
+        decode_jpeg(prog)
+
+
+def progressive(img: np.ndarray, quality: int, sampling: str, restart: int = 0,
+                optimize: bool = False) -> bytes:
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    if restart:
+        params += [cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    if optimize:
+        params += [cv2.IMWRITE_JPEG_OPTIMIZE, 1]
+    if SAMPLINGS[sampling] is None:
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    else:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLINGS[sampling]]
+    ok, enc = cv2.imencode(".jpg", img, params)
+    assert ok and b"\xff\xc2" in enc.tobytes()
+    return enc.tobytes()
+
+
+PROGRESSIVE_SIZES = ((1, 1), (7, 9), (37, 53), (61, 45), (240, 320))
+
+
+@pytest.mark.parametrize("size", PROGRESSIVE_SIZES, ids=[f"{h}x{w}" for h, w in PROGRESSIVE_SIZES])
+@pytest.mark.parametrize("sampling", list(SAMPLINGS))
+def test_reader_equals_cv2_imread_on_progressive_files(tmp_path, size, sampling):
+    """Progressive files (libjpeg's default scan script: spectral selection,
+    successive approximation, DC and AC refinement, a Huffman table a scan)
+    at this size and sampling, over a quality sweep, each without and with
+    a restart interval of 3 MCUs and once with optimized tables."""
+    h, w = size
+    img = frame(np.random.default_rng([h, w, len(sampling), 20]), h, w)
+    for q in (30, 50, 75, 90, 95, 100):
+        for restart in (0, 3):
+            check_file(str(tmp_path / f"{q}_{restart}.jpg"), progressive(img, q, sampling, restart))
+    check_file(str(tmp_path / "opt.jpg"), progressive(img, 85, sampling, 0, optimize=True))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_reader_applies_the_exif_orientation_to_progressive_files(tmp_path, orientation):
+    """A progressive file with an Exif orientation turns as cv2 turns it."""
+    data = progressive(frame(np.random.default_rng([orientation, 20]), 17, 33), 80, "420")
+    check_file(str(tmp_path / f"o{orientation}.jpg"),
+               data[:2] + exif_segment(orientation) + data[2:])
+
+
+@pytest.mark.parametrize("sampling", ["420", "444", "grey"])
+def test_reader_refuses_progressive_files_cut_short_and_reads_them_whole(tmp_path, sampling):
+    """A progressive file cut after each of its first scans (EOI appended)
+    leaves coefficients 1-9 short of full precision, which libjpeg-turbo
+    smooths: the reader refuses each by name, naming the reason, while
+    cv2 still reads them; the whole file decodes as cv2 decodes it."""
+    data = progressive(frame(np.random.default_rng(7), 37, 53), 75, sampling)
+    n_scans = data.count(b"\xff\xda")
+    assert n_scans >= 6
+    for n in range(1, n_scans):
+        cut = cut_after_scans(data, n)
+        assert cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_COLOR) is not None
+        msg = refused(tmp_path, f"cut{n}.jpg", cut)
+        assert "incomplete progressive" in msg and "block smoothing" in msg, msg
+    check_file(str(tmp_path / "whole.jpg"), data)
 
 
 def test_reader_keeps_a_transform_1_adobe_file_as_ycbcr(tmp_path):
@@ -163,21 +232,32 @@ def test_reader_keeps_a_transform_1_adobe_file_as_ycbcr(tmp_path):
 def test_committed_fixtures_decode_to_their_recorded_hashes():
     """The JPEG fixtures the chip run decodes (tests/fixtures/jpeg, written by
     cv2.imwrite): cv2.imread's output hashes as recorded beside them, the
-    reader's the same, the progressive one refused by the reader."""
+    reader's the same, the progressive ones (progressive.jpg among them)
+    included: none is refused. The timed pair is a progressive 320x240 file
+    and its baseline twin, of the same frame."""
     import hashlib
     import json
+
+    from tests import jpeg_fixtures
 
     root = os.path.join(os.path.dirname(__file__), "fixtures", "jpeg")
     with open(os.path.join(root, "hashes.json")) as f:
         recorded = json.load(f)
-    assert len(recorded["decoded"]) >= 6 and recorded["refused"]
+    progressive = [jpeg_fixtures.PROGRESSIVE, *(f[0] for f in jpeg_fixtures.PROGRESSIVE_FIXTURES),
+                   jpeg_fixtures.TIMED[0]]
+    assert len(recorded["decoded"]) >= 17 and recorded["refused"] == []
+    assert set(progressive) <= set(recorded["decoded"])
+    assert recorded["timed"] == list(jpeg_fixtures.TIMED)
     for name, digest in recorded["decoded"].items():
         path = os.path.join(root, name)
+        with open(path, "rb") as f:
+            sof = f.read().find(b"\xff\xc2") >= 0
+        assert sof == (name in progressive), name
+        assert os.path.getsize(path) < 8192, name
         assert hashlib.sha256(cv2.imread(path).tobytes()).hexdigest() == digest, name
         assert hashlib.sha256(imread_bgr(path).tobytes()).hexdigest() == digest, name
-    for name in recorded["refused"]:
-        with pytest.raises(ValueError, match="progressive"):
-            imread_bgr(os.path.join(root, name))
+    a, b = (cv2.imread(os.path.join(root, n)) for n in recorded["timed"])
+    assert a.shape == b.shape == (240, 320, 3)
 
 
 def test_chip_smoke_writer_is_read_alike_by_cv2_and_the_reader(tmp_path):

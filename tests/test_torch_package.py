@@ -87,7 +87,7 @@ def test_port_imports_with_jax_and_reference_blocked():
                   "data.preprocessing", "core.camera", "data.synthetic", "cli.tables",
                   "cli.method_table", "cli.ablation_table", "parallel.distributed",
                   "parallel.mesh", "parallel.tensor", "parallel.spatial", "parallel.pipeline",
-                  "parallel.checks"):
+                  "parallel.checks", "native", "cli.syngen"):
             assert "popnet_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
@@ -440,7 +440,8 @@ def test_rgb_training_defaults_to_cuda_and_never_runs_on_cpu_unasked(tmp_path):
 
     for cls in (CocoKeypointsDataset, MPIIKeypointsDataset):
         assert inspect.signature(cls).parameters["device"].default == "cuda"
-    assert set(_build.HOST_SOURCES) == {"jpeg_decode", "jpeg_encode", "image_u8", "draw_u8"}
+    assert set(_build.HOST_SOURCES) == {"jpeg_decode", "jpeg_encode", "image_u8", "draw_u8",
+                                        "assembler"}
     for name in _build.HOST_SOURCES:
         assert (_build.CSRC / f"{name}.cpp").exists()
         assert _build._host_target(name).parent == _build.BUILD_DIR

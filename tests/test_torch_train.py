@@ -530,6 +530,86 @@ def test_resume_continues_bit_for_bit_like_an_uninterrupted_fit(data_paths, tmp_
     assert [json.loads(x)["epoch"] for x in lines] == [0, 1]
 
 
+class StubWriter:
+    """A SummaryWriter that records its log directory and its scalars."""
+    made = []
+
+    def __init__(self, log_dir):
+        self.log_dir, self.scalars, self.flushes = log_dir, [], 0
+        StubWriter.made.append(self)
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, value, step))
+
+    def flush(self):
+        self.flushes += 1
+
+
+@pytest.fixture
+def stub_tensorboard(monkeypatch):
+    """torch.utils.tensorboard replaced by a module holding StubWriter."""
+    import types
+
+    StubWriter.made = []
+    monkeypatch.setitem(__import__("sys").modules, "torch.utils.tensorboard",
+                        types.SimpleNamespace(SummaryWriter=StubWriter))
+    return StubWriter.made
+
+
+def test_epoch_scalars_reach_the_summary_writer(data_paths, tmp_path, stub_tensorboard):
+    """Each epoch's train_loss, val_loss and lr go to one SummaryWriter in
+    <out_dir>/tb at the epoch's number, as the JAX Trainer writes them;
+    history.jsonl holds the same records."""
+    trainer = _trainer(tmp_path)
+    hist = trainer.fit(*_datasets(data_paths), epochs=2, batch_size=4)
+    assert len(stub_tensorboard) == 1
+    w = stub_tensorboard[0]
+    assert w.log_dir == os.path.join(str(tmp_path), "tb") and w.flushes == 2
+    assert w.scalars == [(k, r[k], r["epoch"]) for r in hist for k in
+                         ("train_loss", "val_loss", "lr")]
+    lines = open(tmp_path / "history.jsonl").read().splitlines()
+    assert [json.loads(x)["val_loss"] for x in lines] == [r["val_loss"] for r in hist]
+
+
+def test_profile_epoch_writes_a_chrome_trace_of_that_epoch(data_paths, tmp_path,
+                                                            stub_tensorboard):
+    """profile_epoch=1: epoch 1's training runs under torch.profiler and its
+    Chrome trace (<out_dir>/trace/epoch1.json) holds the step's operators;
+    no other epoch is traced."""
+    trainer = _trainer(tmp_path, profile_epoch=1)
+    trainer.fit(*_datasets(data_paths), epochs=2, batch_size=4)
+    assert os.listdir(tmp_path / "trace") == ["epoch1.json"]
+    with open(tmp_path / "trace" / "epoch1.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "cpu_op"}
+    assert any("conv" in n for n in names) and any("adam" in n or "sgd" in n or "add" in n
+                                                   for n in names), sorted(names)[:20]
+
+
+def test_resume_best_loads_ckpt_best(data_paths, tmp_path, stub_tensorboard):
+    """ckpt_best at epoch 0 and ckpt at epoch 1 (the best validation loss
+    set out of reach after the first epoch): resume(best=True) restores
+    ckpt_best's model, optimizer, controller, epoch and data generators,
+    resume() ckpt's; the two differ."""
+    trainer = _trainer(tmp_path)
+    train, val = _datasets(data_paths)
+    trainer.fit(train, val, epochs=1, batch_size=4)
+    trainer.best_val = -1.0
+    trainer.fit(train, val, epochs=1, batch_size=4)
+    best, meta, step = checkpoint.restore_checkpoint(str(tmp_path / "ckpt_best"))
+    last, _, last_step = checkpoint.restore_checkpoint(str(tmp_path / "ckpt"))
+    assert (step, last_step) == (0, 1)
+    for which, payload, epoch in ((True, best, 1), (False, last, 2)):
+        r = _trainer(tmp_path, seed=7).resume(best=which)
+        assert r.epoch == epoch
+        sd = r.state.state_dict()
+        for k, v in payload["model"].items():
+            assert torch.equal(sd["model"][k], v), (which, k)
+        assert vars(r.scheduler) == payload["scheduler"]
+        assert r._data_rng_state == payload["data_rng"]
+    assert not all(torch.equal(best["model"][k], last["model"][k]) for k in best["model"])
+
+
 def test_checkpoints_keep_the_last_steps_and_restore_the_model_alone(tmp_path):
     """save_checkpoint keeps the newest `keep` steps and replaces a step
     saved again; restore_params gives the model's tensors alone."""
